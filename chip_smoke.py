@@ -8,23 +8,34 @@ Phases (any failure raises and the script exits non-zero):
    sm_90a (one nvcc per source, in parallel), print ptxas's report and the
    card's name and power limit;
 2. kernels: hold each hand-written kernel against its plain PyTorch version
-   on the same inputs, in bf16, at the shapes the main path gives it and at
-   the token mixes it must handle; time kernel, plain version and the
-   PyTorch library call for the same attention, and compute the card's
-   bound for the work;
-3. main path: serve 8 requests greedily through build_engine + generate on
-   Llama-2-7B at full width (random weights from a seed, bf16), three times
-   (the same tokens each time; median rates reported), with the
-   kernels' launch counts zeroed just before and read just after; trace a
-   few decode steps with torch.profiler; then hold
-   the first decode step's logits, through the kernel and through the gather
-   path, to the dense model run in f32;
-4. print one JSON line describing every kernel, then the result line.
+   on the same inputs, in bf16, at the shapes the main paths give it and at
+   the token mixes and sequence lengths it must handle; time kernel, plain
+   version and the PyTorch library call for the same attention, and compute
+   the card's bound for the work;
+3. serving path: serve 8 requests greedily through build_engine + generate
+   on Llama-2-7B at full width (random weights from a seed, bf16), three
+   times (the same tokens each time; median rates reported), with the
+   paged kernels' launch count zeroed just before and read just after; trace
+   a few decode steps with torch.profiler; then hold the first decode step's
+   logits, through the kernel and through the gather path, to the dense
+   model run in f32;
+4. training path: train bench.py's headline program (the 530M Llama, full
+   width and depth, S=1024, micro-batch 8, GAS 8, AdamW, bf16 over f32
+   masters, ZeRO stage 3, remat "dots", flash attention) through
+   deepspeed_tpu_torch.initialize + train_batch, with the flash kernels'
+   launch counts zeroed just before the measured steps and read just after;
+   trace one train_batch with torch.profiler; check the loss falls on a
+   repeated batch; hold one step's loss, gradient norm and attention
+   projections' gradients, through the kernels and through plain attention
+   in bf16, to the same step in f32, and show that the check rejects the
+   kernel step with dq, or dk and dv, zeroed or with attention replaced;
+5. print one JSON line describing every kernel, then the result line.
 
 The script imports the port only (never jax or deepspeed_tpu), needs one
 GPU, and writes its full record to chiprun_out/chip_smoke.json.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -35,11 +46,13 @@ import time
 import numpy as np
 import torch
 
+import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine, generate
 from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import DSStateManagerConfig, MemoryConfig
-from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel, init_params
+from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, LlamaModel, init_params
 from deepspeed_tpu_torch.ops import builder
+from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention_update, paged_attention_update_plain
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -63,6 +76,56 @@ KERNEL_RTOL, KERNEL_ATOL = 2**-7, 2**-10
 # be at most 25% further from the reference than the gather path.
 LOGITS_L2_TOL = 0.10
 KERNEL_VS_GATHER_SLACK = 1.25
+
+# flash attention (B2-B4): (name, B, S, H, KVH, causal), head_dim 128
+FLASH_CASES = (
+    ("bench_train", 8, 1024, 16, 16, True),  # the training path's shape
+    ("bench_long", 1, 4096, 16, 16, True),  # bench.py's long-sequence leg
+    ("gqa_S300_causal", 2, 300, 32, 8, True),  # S not a multiple of the 64-row tile
+    ("gqa_S256_full", 2, 256, 32, 8, False),
+)
+FLASH_D = 128
+# Every element of out, dq, dk and dv is held to its plain value within
+# FLASH_TILE_ATOL times the larger of its row's rms (the D values of one
+# position and head) and its tile's (the 64 positions x D values of one head
+# that a kernel block owns), plus FLASH_RTOL times its own size. The
+# kernels round P and dS to bf16 before their tensor-core products, as
+# FlashAttention-2 does (a relative error of up to 2^-9 per term, about
+# 0.0011 rms), and each output once more (up to 2^-9 of itself); the plain
+# versions keep f32 throughout. The first error scales with the terms summed,
+# not with the element: an element near 0 is the cancellation of terms of
+# its neighbours' size, and a whole row can be one (dq of query 0 in causal
+# attention is ds = p (dO.v - delta) = 0 up to f32 noise). lse is f32 on
+# both sides, from the same bf16 scores summed in another order.
+FLASH_RTOL, FLASH_TILE_ATOL, FLASH_TILE = 2**-7, 2**-6, 64
+FLASH_LSE_ATOL = 2**-10
+# the check's control: each output with the positions of the last quarter of
+# the sequence off by 2^-4 (6%) must fail it. On an H100 the sound outputs of
+# the four cases use 0.56-0.75 of their allowance and the controls 5.5-6.2.
+FLASH_CONTROL_ERR = 2**-4
+
+# training: bench.py's headline program (bench.py:869-873, 883-889)
+TRAIN_S, TRAIN_MICRO, TRAIN_GAS, TRAIN_LR = 1024, 8, 8, 1e-4
+TRAIN_WARMUP, TRAIN_MEASURED, TRAIN_REPEAT = 2, 4, 3
+# one step (one micro-batch of 8 x 1024 tokens) of each bf16 path against
+# the same step in f32: the loss, the global gradient norm, and the gradient
+# of each attention projection (q_proj reads dq, k_proj dk, v_proj dv; all
+# layers, as ||g - g_f32|| / ||g_f32||). The loss of random weights sits near
+# ln(32000) whatever the attention does, and the global norm is mostly the
+# embedding's and lm_head's, so the projections' gradients are what see a
+# wrong attention gradient. Controls, which the checks must reject: the
+# kernel step with dq zeroed, with dk and dv zeroed, and with the attention
+# output replaced by v (each position attends to itself only). Readings on
+# an H100 (bf16 paths against f32; kernels, plain attention): loss 3.1e-5,
+# 2.0e-5; norm 3.1e-4, 2.1e-4; projections 0.028-0.032. Controls: identity
+# attention moves the loss by 7.9e-4 (dq or dkv zeroed leave it alone), dq
+# zeroed moves the norm by 5.9e-2 and dkv zeroed by 0.30, and each control
+# puts the projections it corrupts at 1.0 (the others at 0.11 or more). Each
+# limit lies between the sound readings and the nearest control's.
+LOSS_REL_TOL = 2e-4
+GRAD_NORM_REL_TOL = 5e-3
+ATTN_GRAD_L2_TOL = 0.06
+ATTN_PROJ = ("q_proj", "k_proj", "v_proj")
 
 
 def log(*args):
@@ -252,6 +315,162 @@ def check_paged_attention(dev) -> list:
     return results
 
 
+def _flash_bounds(B, S, H, KVH, D, causal):
+    """Per kernel: (bound ms, bound_by, bytes, flops) on an H100 SXM. Bytes:
+    each input read once, each output written once (bf16 tensors, f32 lse
+    and delta). Flops: 2 B H S^2 D per matrix product over the score matrix,
+    half of it when causal; the forward does 2 (QK^T, PV), the dK/dV kernel
+    4 (QK^T, dO V^T, P^T dO, dS^T Q), the dQ kernel 3 (QK^T, dO V^T, dS K).
+    "backward" is FlashAttention-2's minimum for both gradients together:
+    5 products, q, k, v, out, dO, lse in and dq, dk, dv out."""
+    e, f32 = 2, 4
+    qb, kvb, rows = B * S * H * D * e, B * S * KVH * D * e, B * H * S * f32
+    mm = 2 * B * H * S * S * D * (0.5 if causal else 1.0)
+    work = {"fwd": (qb + 2 * kvb + qb + rows, 2 * mm),
+            "dkv": (2 * qb + 2 * kvb + 2 * rows + 2 * kvb, 4 * mm),
+            "dq": (2 * qb + 2 * kvb + 2 * rows + qb, 3 * mm),
+            "backward": (3 * qb + 2 * kvb + rows + qb + 2 * kvb, 5 * mm)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+    return out
+
+
+def _max_err(name, got, want, tol):
+    """Max abs error of got against want; raises past ``tol`` (absolute)."""
+    if got.shape != want.shape or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} (want {tuple(want.shape)}) or non-finite values")
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{name}: max abs err {err} > {tol}")
+    return err
+
+
+def _tile_rms(x):
+    """``[B, S, H, 1]``: the rms of x [B, S, H, D] over the FLASH_TILE
+    positions (the last tile: those left) and D values around each element."""
+    B, S, H, D = x.shape
+    n = -(-S // FLASH_TILE)
+    sq = torch.zeros((B, n * FLASH_TILE, H), dtype=torch.float32, device=x.device)
+    sq[:, :S] = x.float().square().sum(dim=-1)
+    rows = torch.full((n, ), float(FLASH_TILE), device=x.device)
+    rows[-1] = S - (n - 1) * FLASH_TILE
+    ms = sq.reshape(B, n, FLASH_TILE, H).sum(dim=2) / (rows[None, :, None] * D)
+    return ms.sqrt().repeat_interleave(FLASH_TILE, dim=1)[:, :S, :, None]
+
+
+def _scale(x):
+    """The size of the terms summed into each element of x [B, S, H, D]: the
+    larger of its row's rms and its tile's (a row that is a cancellation has
+    a small rms of its own; a row at the edge of a tile can be larger than
+    the tile's rms)."""
+    return torch.maximum(x.float().square().mean(dim=-1, keepdim=True).sqrt(), _tile_rms(x))
+
+
+def _tile_tol_use(got, want):
+    """Largest share of its allowance that any element of ``got`` [B, S, H, D]
+    uses: |got - want| / (FLASH_TILE_ATOL _scale(want) + FLASH_RTOL |want|);
+    at most 1 passes."""
+    want = want.float()
+    allowed = FLASH_TILE_ATOL * _scale(want) + FLASH_RTOL * want.abs()
+    return ((got.float() - want).abs() / allowed.clamp(min=1e-30)).max().item()
+
+
+def _flash_output_check(name, got, want):
+    """Hold one kernel output to its plain value element by element, and show
+    that the check rejects the output with its last quarter of positions off
+    by FLASH_CONTROL_ERR. Returns the readings and what failed, if anything."""
+    if got.shape != want.shape or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} (want {tuple(want.shape)}) or non-finite values")
+    control = got.float().clone()
+    control[:, control.shape[1] * 3 // 4:] *= 1 + FLASH_CONTROL_ERR
+    r = dict(max_abs_err=(got.float() - want.float()).abs().max().item(), tol_use=_tile_tol_use(got, want),
+             control_tol_use=_tile_tol_use(control, want))
+    fails = []
+    if not r["tol_use"] <= 1.0:
+        fails.append(f"{name}: an element uses {r['tol_use']} of its allowance (rtol {FLASH_RTOL}, atol "
+                     f"{FLASH_TILE_ATOL} x row or tile rms)")
+    if not r["control_tol_use"] > 1.0:
+        fails.append(f"{name}: the check passes the control with {FLASH_CONTROL_ERR} errors")
+    return r, fails
+
+
+def check_flash_attention(dev) -> list:
+    """B2 (forward), B3 (dK/dV) and B4 (dQ) against their plain versions on
+    the same inputs, in bf16: out and lse; then dq, dk and dv for a fixed dO
+    over the kernel's out and lse. Times: each kernel, its plain version
+    (the plain backward computes all three gradients, so dK/dV and dQ share
+    its time), and scaled_dot_product_attention on the same work (the
+    forward alone; forward + backward minus forward for the backward)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    D = FLASH_D
+    results, failures = [], []
+    for name, B, S, H, KVH, causal in FLASH_CASES:
+        bf = dict(device=dev, dtype=torch.bfloat16)
+        q = torch.empty((B, S, H, D), **bf).normal_(generator=gen)
+        k = torch.empty((B, S, KVH, D), **bf).normal_(generator=gen)
+        v = torch.empty((B, S, KVH, D), **bf).normal_(generator=gen)
+        dout = torch.empty((B, S, H, D), **bf).normal_(generator=gen)
+        scale = D**-0.5
+        before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dkv.launches,
+                  fa.flash_attention_bwd_dq.launches)
+        out, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
+        delta = fa.attention_delta(dout, out)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal)
+        dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal)
+        torch.cuda.synchronize()
+        after = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dkv.launches,
+                 fa.flash_attention_bwd_dq.launches)
+        if after != tuple(n + 1 for n in before):
+            raise RuntimeError(f"{name}: the wrappers did not launch their kernels once each")
+        want_out, want_lse = fa.flash_attention_fwd_plain(q, k, v, scale, causal)
+        want_dq, want_dk, want_dv = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, scale, causal)
+        errs = {"lse": _max_err(f"{name} lse", lse, want_lse, FLASH_LSE_ATOL)}
+        checks = {}
+        for what, got, want in (("out", out, want_out), ("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)):
+            checks[what], fails = _flash_output_check(f"{name} {what}", got, want)
+            failures += fails
+        errs.update({what: c["max_abs_err"] for what, c in checks.items()})
+        del want_out, want_lse, want_dq, want_dk, want_dv, dq, dk, dv
+
+        ms = {"fwd": _time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale, causal), flush),
+              "dkv": _time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal), flush),
+              "dq": _time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal), flush)}
+        ms["backward"] = ms["dkv"] + ms["dq"]
+        plain = {"fwd": _time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, scale, causal), flush, iters=5,
+                                 warmup=1)}
+        plain["dkv"] = plain["dq"] = plain["backward"] = _time_ms(
+            lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, scale, causal), flush, iters=5, warmup=1)
+        # the library call on the same work, [B, H, S, D] with the KV heads repeated
+        qs, ks, vs = (t.repeat_interleave(H // t.shape[2], dim=2).transpose(1, 2).contiguous() for t in (q, k, v))
+        gs = dout.transpose(1, 2).contiguous()
+        with torch.no_grad():
+            sdpa_fwd = _time_ms(lambda: sdpa(qs, ks, vs, is_causal=causal), flush)
+        qs, ks, vs = (t.requires_grad_() for t in (qs, ks, vs))
+        sdpa_both = _time_ms(lambda: torch.autograd.grad(sdpa(qs, ks, vs, is_causal=causal), (qs, ks, vs), gs),
+                             flush)
+        library = {"fwd": sdpa_fwd, "dkv": sdpa_both - sdpa_fwd, "dq": sdpa_both - sdpa_fwd,
+                   "backward": sdpa_both - sdpa_fwd}
+        del qs, ks, vs, gs
+        bounds = _flash_bounds(B, S, H, KVH, D, causal)
+        r = dict(case=name, B=B, S=S, H=H, KVH=KVH, D=D, causal=causal, max_abs_err=errs, checks=checks,
+                 **{kern: dict(ms=ms[kern], plain_ms=plain[kern], library_ms=library[kern], bound_ms=bounds[kern][0],
+                               bound_by=bounds[kern][1], bytes=bounds[kern][2], flops=bounds[kern][3],
+                               tflops_per_s=bounds[kern][3] / ms[kern] / 1e9)
+                    for kern in ("fwd", "dkv", "dq", "backward")})
+        log("[kernel] " + json.dumps(r))
+        results.append(r)
+        del q, k, v, dout, out, lse, delta
+    del flush
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return results
+
+
 # ----------------------------------------------------------------- phase 3 --
 def _engine(params, cfg, use_paged_kernel, dev):
     mgr = DSStateManagerConfig(max_context=MAX_CONTEXT, memory_config=MemoryConfig(size=KV_BYTES))
@@ -418,6 +637,209 @@ def run_main_path(dev) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 4 --
+def bench_llama(**kw) -> LlamaConfig:
+    """bench.py's headline model: the 530M Llama (``_llama_530m``) with
+    remat "dots" and flash attention."""
+    base = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5376, num_hidden_layers=8,
+                num_attention_heads=16, num_key_value_heads=16, max_position_embeddings=TRAIN_S, remat=True,
+                remat_policy="dots", use_flash_attention=True, dtype=torch.bfloat16)
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
+def _train_engine(cfg, micro, gas, bf16, dev):
+    """initialize() on the bench config: weights drawn on the card from seed
+    0, AdamW, ZeRO stage 3, bf16 over f32 masters (or f32 throughout)."""
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.float32)
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    config = {"train_micro_batch_size_per_gpu": micro, "gradient_accumulation_steps": gas,
+              "optimizer": {"type": "AdamW", "params": {"lr": TRAIN_LR}}, "zero_optimization": {"stage": 3},
+              "bf16": {"enabled": bf16}}
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params, config=config, device=dev)
+    return engine
+
+
+def _flash_launches():
+    return {"fwd": fa.flash_attention_fwd.launches, "dkv": fa.flash_attention_bwd_dkv.launches,
+            "dq": fa.flash_attention_bwd_dq.launches}
+
+
+def _profile_train_batch(engine, batch):
+    """One train_batch under torch.profiler: the card's busy share of the
+    host wall time and the device time of the top items."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in device)
+    flash_us = {kern: sum(e.self_device_time_total for e in device if f"flash_{kern}_kernel" in e.key)
+                for kern in ("fwd", "bwd_dkv", "bwd_dq")}
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:12]
+    return dict(wall_ms=1e3 * wall, device_ms=busy_us / 1e3,
+                device_busy_share=busy_us / 1e6 / wall if busy_us else "not measured",
+                flash_kernels_ms={k: v / 1e3 for k, v in flash_us.items()},
+                top_items=[dict(name=e.key[:100], calls=e.count, ms=e.self_device_time_total / 1e3) for e in top])
+
+
+def run_training_path(dev) -> dict:
+    cfg = bench_llama()
+    S, micro, gas, L = TRAIN_S, TRAIN_MICRO, TRAIN_GAS, cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    engine = _train_engine(cfg, micro, gas, True, dev)
+    n_params = sum(p.numel() for p in engine.params.values())
+    torch.cuda.synchronize()
+    log(f"[train] bench Llama: {n_params} parameters ({L} layers), engine ready in {time.perf_counter() - t0:.1f} s")
+    # bench.py's batches: np.random.default_rng(0), 8 global batches of
+    # [micro * gas, S] tokens, made up front and put on the card
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(8):
+        ids = rng.integers(0, cfg.vocab_size, size=(micro * gas, S + 1), dtype=np.int64)
+        batches.append(tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (ids[:, :-1], ids[:, 1:])))
+
+    for i in range(TRAIN_WARMUP):
+        engine.train_batch(batch=batches[i % len(batches)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the measured steps: kernel launch counts zeroed just before, read just after
+    fa.flash_attention_fwd.launches = fa.flash_attention_bwd_dkv.launches = fa.flash_attention_bwd_dq.launches = 0
+    times, losses = [], []
+    for i in range(TRAIN_MEASURED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(batch=batches[(TRAIN_WARMUP + i) % len(batches)])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = _flash_launches()
+    # per train_batch: each of gas micro-batches runs L attention forwards,
+    # L more in the remat recompute ("dots" saves only the projections), and
+    # L backwards of two launches
+    expected = {"fwd": TRAIN_MEASURED * gas * 2 * L, "dkv": TRAIN_MEASURED * gas * L,
+                "dq": TRAIN_MEASURED * gas * L}
+    if launches != expected:
+        raise AssertionError(f"flash kernel launches {launches} != predicted {expected}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    step_s = statistics.median(times)
+    tokens_per_s = micro * gas * S / step_s
+    # bench.py:216 (PaLM appendix): 6 (N - N_embed) + 12 L S hidden per token
+    flops_per_token = 6.0 * (n_params - cfg.vocab_size * cfg.hidden_size) + 12.0 * L * S * cfg.hidden_size
+    res = dict(layers=L, hidden=cfg.hidden_size, params=n_params, seq_len=S, micro_batch=micro, gas=gas,
+               step_ms=[1e3 * t for t in times], ms_per_train_batch=1e3 * step_s, tokens_per_s=tokens_per_s,
+               mfu=tokens_per_s * flops_per_token / BF16_FLOPS, flops_per_token=flops_per_token, losses=losses,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, flash_launches=launches,
+               expected_flash_launches=expected, grad_norm=engine.get_global_grad_norm())
+    log("[train] " + json.dumps(res))
+
+    res["profile"] = _profile_train_batch(engine, batches[0])
+    res["profile"]["device_share_of_measured_step"] = res["profile"]["device_ms"] / res["ms_per_train_batch"]
+    log("[train] profile: " + json.dumps(res["profile"]))
+
+    # the same global batch again and again: the loss must fall
+    res["repeated_batch_losses"] = rep = [float(engine.train_batch(batch=batches[1])) for _ in range(TRAIN_REPEAT)]
+    log(f"[train] repeated batch losses: {rep}")
+    if not rep[-1] < rep[0]:
+        raise AssertionError(f"the loss did not fall on a repeated batch: {rep}")
+    del engine
+    torch.cuda.empty_cache()
+
+    res["first_step"] = check_first_step(dev, tuple(x[:micro] for x in batches[0]))
+    return res
+
+
+def check_first_step(dev, one) -> dict:
+    """One step of one micro-batch: kernels and plain attention in bf16, and
+    plain attention in f32 (the kernels take bf16 and fp16 only); then the
+    controls, which the checks must reject."""
+    readings, grads = {}, {}
+    for name, flash, bf16, patch in (("kernel_bf16", True, True, None), ("plain_bf16", False, True, None),
+                                     ("plain_f32", False, False, None), *CONTROLS):
+        with _patched(*patch) if patch else contextlib.nullcontext():
+            readings[name], grads[name] = _first_step(bench_llama(use_flash_attention=flash), bf16, dev, one)
+    ref = grads.pop("plain_f32")
+    for name, g in grads.items():
+        readings[name]["attn_grad_l2_rel_err"] = {p: (g[p] - ref[p]).norm().item() / ref[p].norm().item()
+                                                  for p in ATTN_PROJ}
+        readings[name]["loss_rel_err"] = _rel(readings[name]["loss"], readings["plain_f32"]["loss"])
+        readings[name]["grad_norm_rel_err"] = _rel(readings[name]["grad_norm"], readings["plain_f32"]["grad_norm"])
+        readings[name]["fails"] = _first_step_failures(readings[name])
+    del grads, ref
+    readings["kernel_bf16_vs_plain_bf16"] = {
+        "loss_rel_err": _rel(readings["kernel_bf16"]["loss"], readings["plain_bf16"]["loss"]),
+        "grad_norm_rel_err": _rel(readings["kernel_bf16"]["grad_norm"], readings["plain_bf16"]["grad_norm"])}
+    log("[train] first step: " + json.dumps(readings))
+    for name in ("kernel_bf16", "plain_bf16"):
+        if readings[name]["fails"]:
+            raise AssertionError(f"{name} against f32 fails {readings[name]['fails']}: {readings[name]}")
+    for name, *_ in CONTROLS:
+        if not readings[name]["fails"]:
+            raise AssertionError(f"the first-step checks pass the control {name}: {readings[name]}")
+    return readings
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def _first_step(cfg, bf16, dev, batch):
+    """One optimizer step of one micro-batch through the micro-step API: the
+    loss, the global gradient norm, and each attention projection's weight
+    gradient over all layers (f32, flattened)."""
+    engine = _train_engine(cfg, TRAIN_MICRO, 1, bf16, dev)
+    loss = engine.forward(batch).item()
+    engine.backward()
+    grads = {p: torch.cat([engine.acc_grads[f"layers.{i}.self_attn.{p}.weight"].float().flatten()
+                           for i in range(cfg.num_hidden_layers)]) for p in ATTN_PROJ}
+    engine.step()
+    reading = dict(loss=loss, grad_norm=engine.get_global_grad_norm())
+    del engine
+    torch.cuda.empty_cache()
+    return reading, grads
+
+
+def _first_step_failures(r):
+    """The first-step checks that reading ``r`` (against f32) fails."""
+    fails = [p for p in ATTN_PROJ if not r["attn_grad_l2_rel_err"][p] <= ATTN_GRAD_L2_TOL]
+    if not r["loss_rel_err"] <= LOSS_REL_TOL:
+        fails.append("loss")
+    if not r["grad_norm_rel_err"] <= GRAD_NORM_REL_TOL:
+        fails.append("grad_norm")
+    return fails
+
+
+@contextlib.contextmanager
+def _patched(name, fn):
+    """Replace one wrapper of ops/flash_attention.py for a control."""
+    old = getattr(fa, name)
+    setattr(fa, name, fn)
+    try:
+        yield
+    finally:
+        setattr(fa, name, old)
+
+
+def _identity_fwd(q, k, v, scale, causal):
+    _, lse = fa.flash_attention_fwd_plain(q, k, v, scale, causal)
+    return v.repeat_interleave(q.shape[2] // v.shape[2], dim=2).contiguous(), lse
+
+
+# (name, flash, bf16, (wrapper, replacement)): the kernel step with one fault
+CONTROLS = (
+    ("control_dq_zeroed", True, True, ("flash_attention_bwd_dq", lambda q, *a: torch.zeros_like(q))),
+    ("control_dkv_zeroed", True, True, ("flash_attention_bwd_dkv", lambda q, k, v, *a: (torch.zeros_like(k),
+                                                                                          torch.zeros_like(v)))),
+    ("control_attention_identity", True, True, ("flash_attention_fwd", _identity_fwd)),
+)
+
+
 # --------------------------------------------------------------------- main --
 def main() -> int:
     if not torch.cuda.is_available():
@@ -433,10 +855,12 @@ def main() -> int:
     record = {"card": card, "device": torch.cuda.get_device_name(0)}
     record["build"] = build_kernels()
     record["paged_attention"] = check_paged_attention(dev)
+    record["flash_attention"] = check_flash_attention(dev)
     record["main_path"] = run_main_path(dev)
+    record["training_path"] = run_training_path(dev)
     record["seconds"] = time.perf_counter() - t_start
 
-    decode = record["paged_attention"][0]  # the main path's decode shape
+    decode = record["paged_attention"][0]  # the serving path's decode shape
     kernels = [dict(name="paged_attention_update", route="cuda",
                     source="deepspeed_tpu_torch/csrc/paged_attention.cu",
                     replaces="deepspeed_tpu/ops/pallas/paged_attention.py:37",
@@ -445,6 +869,18 @@ def main() -> int:
                     ms=decode["ms"], plain_ms=decode["plain_ms"], bound_ms=decode["bound_ms"],
                     bound_by=decode["bound_by"], library_ms=decode["library_ms"],
                     cases=record["paged_attention"])]
+    train = record["flash_attention"][0]  # the training path's shape
+    for kern, fn, line, outputs in (("fwd", "flash_attention_fwd", 43, ("out", "lse")),
+                                    ("dkv", "flash_attention_bwd_dkv", 253, ("dk", "dv")),
+                                    ("dq", "flash_attention_bwd_dq", 299, ("dq", ))):
+        kernels.append(dict(name=fn, route="cuda", source="deepspeed_tpu_torch/csrc/flash_attention.cu",
+                            replaces=f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
+                            launches=record["training_path"]["flash_launches"][kern],
+                            max_abs_err=max(r["max_abs_err"][o] for r in record["flash_attention"] for o in outputs),
+                            ms=train[kern]["ms"], plain_ms=train[kern]["plain_ms"],
+                            bound_ms=train[kern]["bound_ms"], bound_by=train[kern]["bound_by"],
+                            library_ms=train[kern]["library_ms"],
+                            cases=[dict(case=r["case"], **r[kern]) for r in record["flash_attention"]]))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -9,6 +9,9 @@ weights (see ``models/llama.py``):
 - ``embed_tokens/embedding`` ``[V, hidden]`` is ``nn.Embedding.weight`` as is;
 - ``LlamaForCausalLM`` nests everything under ``"model"`` (``lm_head``
   included), while other trees put it at the root: both are accepted.
+
+``to_flax_params`` is the inverse: a ``state_dict`` back to the
+``LlamaForCausalLM`` tree ``{"model": ...}`` of f32 numpy arrays.
 """
 
 from collections.abc import Mapping
@@ -59,3 +62,36 @@ def from_flax_params(tree, cfg) -> dict:
         if tuple(out[name].shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(out[name].shape)} != {tuple(shape)}")
     return out
+
+
+def to_flax_params(state_dict, cfg) -> dict:
+    """``{"model": {...}}`` nested dicts of f32 numpy arrays, as the JAX
+    ``LlamaForCausalLM`` holds its params (the inverse of
+    :func:`from_flax_params`)."""
+    want = param_shapes(cfg)
+    if set(state_dict) != set(want):
+        raise ValueError(f"state_dict does not fit {type(cfg).__name__}: missing "
+                         f"{sorted(set(want) - set(state_dict))}, unexpected {sorted(set(state_dict) - set(want))}")
+    root = {}
+    for name, value in state_dict.items():
+        arr = value.detach().float().cpu().numpy()
+        parts = name.split(".")
+        *head, leaf = parts
+        path = []
+        i = 0
+        while i < len(head):
+            if head[i] == "layers":
+                path.append(f"layers_{head[i + 1]}")
+                i += 2
+            else:
+                path.append(head[i])
+                i += 1
+        if leaf == "weight" and path[-1] == "embed_tokens":
+            leaf = "embedding"
+        elif leaf == "weight" and not path[-1].endswith("norm"):
+            arr, leaf = arr.T, "kernel"
+        node = root
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"model": root}

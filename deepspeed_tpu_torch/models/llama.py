@@ -1,13 +1,15 @@
-"""Llama-family causal LM, forward only.
+"""Llama-family causal LM.
 
 Port of ``deepspeed_tpu/models/llama.py``: RMSNorm, RoPE on split halves,
 GQA, SwiGLU, optional q/k/v biases (qwen2), an output-projection bias
-(internlm) and a sliding attention window (mistral). Module and parameter
-names follow the flax tree, so ``state_dict`` keys read
+(internlm), a sliding attention window (mistral), flash attention
+(``use_flash_attention``, the hand-written kernels of
+``ops/flash_attention.py``), per-block rematerialization (``remat``,
+``remat_policy``) and the training loss module :class:`LlamaForCausalLM`.
+Module and parameter names follow the flax tree, so ``state_dict`` keys read
 ``layers.{i}.self_attn.q_proj.weight`` where flax has
 ``layers_{i}/self_attn/q_proj/kernel``; ``models/convert.py`` maps one onto
-the other. Training (loss, remat, flash attention, sequence parallelism)
-belongs to a later slice of the port.
+the other. Sequence parallelism belongs to a later slice of the port.
 """
 
 from dataclasses import dataclass
@@ -16,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import remat
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 
@@ -30,7 +34,13 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    # "nothing": recompute the whole block in the backward; "dots": save the
+    # projections' outputs and recompute the rest (attention included)
+    remat_policy: str = "nothing"
+    use_flash_attention: bool = False
     # llama-family deltas: qwen2 adds q/k/v biases; internlm biases the output
     # projection too; mistral masks beyond a sliding attention window
     attention_bias: bool = False
@@ -45,7 +55,8 @@ class LlamaConfig:
     @staticmethod
     def tiny(**kw):
         base = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
-                    num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128)
+                    num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128,
+                    remat=False)
         base.update(kw)
         return LlamaConfig(**base)
 
@@ -107,6 +118,10 @@ def causal_attention(q, k, v, scale, window: int = 0):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def flash_causal_attention(q, k, v, scale):
+    return flash_attention(q, k, v, scale=scale, causal=True)
+
+
 class LlamaAttention(nn.Module):
 
     def __init__(self, cfg: LlamaConfig):
@@ -126,7 +141,11 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).reshape(*x.shape[:-1], KVH, D)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
-        out = causal_attention(q, k, v, scale=1.0 / (D**0.5), window=cfg.sliding_window)
+        if cfg.use_flash_attention:
+            assert cfg.sliding_window == 0, "flash path has no sliding-window mask yet"
+            out = flash_causal_attention(q, k, v, scale=1.0 / (D**0.5))
+        else:
+            out = causal_attention(q, k, v, scale=1.0 / (D**0.5), window=cfg.sliding_window)
         return self.o_proj(out.reshape(*x.shape[:-1], H * D))
 
 
@@ -172,9 +191,32 @@ class LlamaModel(nn.Module):
         x = self.embed_tokens(input_ids)
         cos, sin = rotary_embedding(input_ids.shape[1], cfg.head_dim, cfg.rope_theta,
                                     device=input_ids.device)
+        # activation recomputation keeps only block boundaries (and, under
+        # "dots", the projections' outputs); nothing to save without autograd
+        recompute = cfg.remat and torch.is_grad_enabled()
         for block in self.layers:
-            x = block(x, cos, sin)
+            x = remat(block, x, cos, sin, policy=cfg.remat_policy) if recompute else block(x, cos, sin)
         return self.lm_head(self.norm(x))
+
+
+class LlamaForCausalLM(LlamaModel):
+    """Loss module: ``batch = (input_ids, labels)``; -100 labels are masked.
+    Same parameters (and ``state_dict`` keys) as :class:`LlamaModel`; the
+    flax tree nests them under ``"model"``."""
+
+    def forward(self, batch):
+        input_ids, labels = batch
+        return cross_entropy_loss(super().forward(input_ids), labels)
+
+
+def cross_entropy_loss(logits, labels, ignore_index=-100):
+    """Mean negative log-likelihood over the labels that are not
+    ``ignore_index``, in f32; 0 when every label is ignored."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    return -(ll * valid).sum() / valid.sum().clamp(min=1)
 
 
 def param_shapes(cfg: LlamaConfig) -> dict:

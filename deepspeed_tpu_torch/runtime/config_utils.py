@@ -31,6 +31,9 @@ class DeepSpeedConfigModel:
         for f in dataclasses.fields(self):
             value = getattr(self, f.name)
             typ = hints.get(f.name)
+            if typing.get_origin(typ) is typing.Union:  # Optional[X]: build X unless None
+                args = [a for a in typing.get_args(typ) if a is not type(None)]
+                typ = args[0] if len(args) == 1 and value is not None else None
             if isinstance(typ, type):
                 if dataclasses.is_dataclass(typ) and isinstance(value, dict):
                     value = typ.from_dict(value)

@@ -67,3 +67,97 @@ def test_paged_attention_wrapper_rejects_what_the_kernel_cannot_take(cuda_device
     with pytest.raises(ValueError, match="contiguous"):
         paged_attention_update(q.transpose(0, 1).contiguous().transpose(0, 1), k_new, v_new, cache, li, table,
                                seq, pos, valid)
+
+
+def _flash_inputs(B, S, H, KVH, D, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+    return f(B, S, H, D), f(B, S, KVH, D), f(B, S, KVH, D), f(B, S, H, D)
+
+
+def _tile_rms(x, tile=64):
+    """[B, S, H, 1]: the rms of x over the ``tile`` positions and D values
+    around each element (a kernel block's tile of one head)."""
+    B, S, H, D = x.shape
+    n = -(-S // tile)
+    sq = torch.zeros((B, n * tile, H), device=x.device)
+    sq[:, :S] = x.float().square().sum(dim=-1)
+    rows = torch.full((n, ), float(tile), device=x.device)
+    rows[-1] = S - (n - 1) * tile
+    ms = sq.reshape(B, n, tile, H).sum(dim=2) / (rows[None, :, None] * D)
+    return ms.sqrt().repeat_interleave(tile, dim=1)[:, :S, :, None]
+
+
+def _scale(x):
+    """The size of the terms summed into each element of x [B, S, H, D]: the
+    larger of its row's rms and its tile's (a row that is a cancellation has
+    a small rms of its own; a row at the edge of a tile can be larger than
+    the tile's rms)."""
+    return torch.maximum(x.float().square().mean(dim=-1, keepdim=True).sqrt(), _tile_rms(x))
+
+
+def _tol_use(got, want):
+    """Largest share of its allowance any element uses (at most 1 passes):
+    P and dS are rounded to the 16-bit type before their products, an error
+    that scales with the terms summed (an element near 0, or a whole row, can
+    be their cancellation), so with the tile; every output is rounded once
+    more, an error that scales with the element."""
+    want = want.float()
+    allowed = 2**-6 * _scale(want) + 2**-7 * want.abs()
+    return ((got.float() - want).abs() / allowed.clamp(min=1e-30)).max().item()
+
+
+def _assert_near(got, want, name):
+    assert _tol_use(got, want) <= 1.0, f"{name}: max abs err {(got.float() - want.float()).abs().max().item()}"
+    # the check rejects the output with its last quarter of positions 6% off
+    control = got.float().clone()
+    control[:, control.shape[1] * 3 // 4:] *= 1 + 2**-4
+    assert _tol_use(control, want) > 1.0, f"{name}: the check passes a 6% error"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,S,H,KVH,D,causal", [(2, 200, 4, 2, 64, True), (1, 128, 2, 2, 128, False),
+                                                (1, 300, 8, 2, 128, True)],
+                         ids=["gqa_S200_D64_causal", "mha_S128_D128_full", "gqa_S300_D128_causal"])
+def test_flash_attention_kernels_match_plain(cuda_device, dtype, B, S, H, KVH, D, causal):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    q, k, v, g = _flash_inputs(B, S, H, KVH, D, dtype, cuda_device)
+    scale = D**-0.5
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dkv.launches, fa.flash_attention_bwd_dq.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, g, scale, causal)
+    want_out, want_lse = fa.flash_attention_fwd_plain(q, k, v, scale, causal)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, scale, causal)
+    torch.cuda.synchronize()
+    after = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dkv.launches, fa.flash_attention_bwd_dq.launches)
+    assert after == tuple(n + 1 for n in before)
+    assert out.dtype == dtype and dk.shape == k.shape and lse.shape == (B, H, S)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)  # f32 on both sides
+    for name, got, exp in (("out", out, want_out), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+        _assert_near(got, exp, name)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_runs_the_kernels(cuda_device):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    q, k, v, g = _flash_inputs(2, 130, 4, 4, 128, torch.bfloat16, cuda_device, seed=1)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = fa.flash_attention_bwd_dq.launches
+    (fa.flash_attention(q, k, v, 0.1, True) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_dq.launches == before + 1
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    q, k, v, _ = _flash_inputs(1, 64, 2, 2, 128, torch.bfloat16, cuda_device)
+    with pytest.raises(TypeError, match="share"):
+        fa.flash_attention_fwd(q.float(), k.float(), v.float(), 1.0, True)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(q[..., :96].contiguous(), k[..., :96].contiguous(), v[..., :96].contiguous(), 1.0,
+                               True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, 1.0, True)

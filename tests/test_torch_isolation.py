@@ -34,18 +34,24 @@ def test_port_and_chip_smoke_import_no_jax_flax_pydantic_or_reference():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "deepspeed_tpu_torch.ops.paged_attention" in result["imported"]
     assert "deepspeed_tpu_torch.inference.v2.engine_factory" in result["imported"]
+    assert "deepspeed_tpu_torch.ops.flash_attention" in result["imported"]
+    assert "deepspeed_tpu_torch.runtime.engine" in result["imported"]
     assert result["banned"] == []
 
 
 def test_entry_points_refuse_the_cpu_without_being_asked(monkeypatch):
+    import deepspeed_tpu_torch
     from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
-    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_params
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
     from deepspeed_tpu_torch.utils.device import resolve_device
 
     cfg = LlamaConfig.tiny(dtype=torch.float32)
     params = init_params(cfg, device="cpu")
+    train_cfg = {"train_batch_size": 2, "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
+    train = lambda **kw: deepspeed_tpu_torch.initialize(model=LlamaForCausalLM(cfg), config=train_cfg, **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for call in (lambda: resolve_device(None), lambda: init_params(cfg), lambda: build_engine(params, cfg)):
+    for call in (lambda: resolve_device(None), lambda: init_params(cfg), lambda: build_engine(params, cfg), train):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert build_engine(params, cfg, device="cpu").device.type == "cpu"
+    assert train(device="cpu")[0].device.type == "cpu"
