@@ -12,14 +12,23 @@ Phases (any failure raises and the script exits non-zero):
    the token mixes and sequence lengths it must handle; time kernel, plain
    version and the PyTorch library call for the same attention, and compute
    the card's bound for the work;
-3. serving path: serve 8 requests greedily through build_engine + generate
+3. block-sparse attention: hold B5 against its plain version at bench.py's
+   sparse-attention leg (S=8192, BigBird at two densities) and three small
+   cases, each with a control that must fail; run the slice's path, one
+   bf16 forward + backward through SparseSelfAttention at each layout, with
+   B5's launch count zeroed just before and read just after, and hold it to
+   the same step in f32 while two faulty controls fail; trace one step with
+   torch.profiler; time B5 (in its launch order and in index order), its
+   plain version, scaled_dot_product_attention
+   with the layout as a mask, the dense flash kernel and the whole step;
+4. serving path: serve 8 requests greedily through build_engine + generate
    on Llama-2-7B at full width (random weights from a seed, bf16), three
    times (the same tokens each time; median rates reported), with the
    paged kernels' launch count zeroed just before and read just after; trace
    a few decode steps with torch.profiler; then hold the first decode step's
    logits, through the kernel and through the gather path, to the dense
    model run in f32;
-4. training path: train bench.py's headline program (the 530M Llama, full
+5. training path: train bench.py's headline program (the 530M Llama, full
    width and depth, S=1024, micro-batch 8, GAS 8, AdamW, bf16 over f32
    masters, ZeRO stage 3, remat "dots", flash attention) through
    deepspeed_tpu_torch.initialize + train_batch, with the flash kernels'
@@ -29,7 +38,7 @@ Phases (any failure raises and the script exits non-zero):
    projections' gradients, through the kernels and through plain attention
    in bf16, to the same step in f32, and show that the check rejects the
    kernel step with dq, or dk and dv, zeroed or with attention replaced;
-5. print one JSON line describing every kernel, then the result line.
+6. print one JSON line describing every kernel, then the result line.
 
 The script imports the port only (never jax or deepspeed_tpu), needs one
 GPU, and writes its full record to chiprun_out/chip_smoke.json.
@@ -51,9 +60,12 @@ from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConf
 from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine, generate
 from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import DSStateManagerConfig, MemoryConfig
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, LlamaModel, init_params
+from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops import builder
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention_update, paged_attention_update_plain
+from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig, FixedSparsityConfig, SparseSelfAttention,
+                                                      layout_to_dense_mask)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -103,6 +115,33 @@ FLASH_LSE_ATOL = 2**-10
 # the sequence off by 2^-4 (6%) must fail it. On an H100 the sound outputs of
 # the four cases use 0.56-0.75 of their allowance and the controls 5.5-6.2.
 FLASH_CONTROL_ERR = 2**-4
+
+# block-sparse attention (B5): bench.py's sparse-attention leg
+# (bench.py:576-631): B=1, H=16, S=8192, D=128, layout block 64, bf16,
+# BigBird with one global block at two densities, (num_random_blocks,
+# num_sliding_window_blocks) = (1, 3) and (4, 9)
+BSA_B, BSA_H, BSA_S, BSA_D, BSA_LB = 1, 16, 8192, 128, 64
+BSA_BENCH = (("bigbird_low", 1, 3), ("bigbird_high", 4, 9))
+# kernel checks besides (name, B, H, S, D, layout block, layout): the cell
+# mask inside a tile (layout block 16, causal windows), an S that is not a
+# multiple of the 64-row tile, rows and a head that attend nothing
+BSA_EXTRA = (("fixed_uni_lb16", 1, 16, 1024, 64, 16, "fixed"),
+             ("bigbird_lb16_S1040", 1, 8, 1040, 128, 16, "bigbird"),
+             ("empty_rows_lb16", 2, 4, 256, 64, 16, "empty_rows"))
+# B5's output is held to its plain version by the flash kernels' element
+# rule (_tile_tol_use), and the kernel run with one attended layout cell
+# cleared in its lists (not in the plain version's) must fail that rule.
+# One bf16 forward + backward through SparseSelfAttention at each bench
+# layout, loss mean(out.float()^2) as in bench.py, is held to the same
+# computation in f32 through autograd of the plain forward: the loss (as a
+# relative error) and dq, dk, dv (as ||g - g_f32|| / ||g_f32||). Controls,
+# which the check must reject: the layout with one attended cell cleared in
+# every head (forward and backward), and dk and dv zeroed. A CPU emulation
+# of the kernel's rounding (P and out in bf16) put the sound readings near
+# 1e-5 (loss) and 0.002 (gradients), and the cleared cell at 8e-4 to 1.3e-3
+# (loss) and 0.014 to 0.05 (gradients); each limit lies between.
+BSA_LOSS_REL_TOL = 1e-4
+BSA_GRAD_L2_TOL = 0.008
 
 # training: bench.py's headline program (bench.py:869-873, 883-889)
 TRAIN_S, TRAIN_MICRO, TRAIN_GAS, TRAIN_LR = 1024, 8, 8, 1e-4
@@ -472,6 +511,269 @@ def check_flash_attention(dev) -> list:
 
 
 # ----------------------------------------------------------------- phase 3 --
+def bsa_layout(kind, H, S, lb, num_random_blocks=1, num_sliding_window_blocks=3):
+    """A layout [H, S // lb, S // lb] of B5's checks (here and in
+    tests/test_torch_cuda_kernels.py): "bigbird" with one global block;
+    "fixed", causal windows with a global pattern per head; "empty_rows"
+    (H >= 3), head 0 the diagonal only, head 1 the first three columns but
+    for row 2, which attends nothing, head 2 the last column, and the heads
+    after it nothing at all."""
+    if kind == "bigbird":
+        return BigBirdSparsityConfig(num_heads=H, block=lb, num_random_blocks=num_random_blocks,
+                                     num_sliding_window_blocks=num_sliding_window_blocks,
+                                     num_global_blocks=1).make_layout(S)
+    if kind == "fixed":
+        return FixedSparsityConfig(num_heads=H, block=lb, attention="unidirectional", different_layout_per_head=True,
+                                   num_different_global_patterns=2).make_layout(S)
+    if kind != "empty_rows":
+        raise ValueError(f"unknown layout kind {kind!r}")
+    nb = S // lb
+    layout = np.zeros((H, nb, nb), bool)
+    layout[0] = np.eye(nb, dtype=bool)
+    layout[1, :, :3] = True
+    layout[1, 2] = False
+    layout[2, :, -1] = True
+    return layout
+
+
+def _drop_cell(layout, every_head=False):
+    """The layout with one attended cell cleared: the last cell of the middle
+    row that attends two or more, in the first head that has one (or in every
+    head)."""
+    lay = np.array(layout, bool)
+    for h in range(lay.shape[0]):
+        rows = np.nonzero(lay[h].sum(-1) >= 2)[0]
+        if len(rows):
+            r = int(rows[len(rows) // 2])
+            c = int(np.nonzero(lay[h, r])[0][-1])
+            lay[slice(None) if every_head else h, r, c] = False
+            return lay, dict(head="every" if every_head else h, row=r, col=c)
+    raise ValueError("no layout row attends two cells")
+
+
+def _bsa_bound(B, H, S, D, layout, lb):
+    """Least time on an H100 SXM for B5: q, k and v read once and out written
+    once (bf16), plus what of the kernel's lists it must read: each live list
+    entry (int32) and, once each, the layout cells (uint8) of the tile pairs
+    that are partial; QK^T and PV over the attended (query, key) pairs, 4 D
+    flops each."""
+    layout = np.asarray(layout, bool)
+    steps, counts, _ = bsa.build_tile_lists(layout, S, lb)
+    start = np.arange(counts.shape[1]) * bsa.KERNEL_TILE
+    lo, hi = start // lb, (np.minimum(start + bsa.KERNEL_TILE, S) - 1) // lb + 1  # the cells each tile covers
+    read = np.zeros_like(layout)
+    live = np.arange(steps.shape[2]) < counts[..., None]
+    for h, qt, st in zip(*np.nonzero(live & (steps & 1 == 1))):
+        kt = steps[h, qt, st] >> 1
+        read[h, lo[qt]:hi[qt], lo[kt]:hi[kt]] = True
+    nbytes = 4 * B * H * S * D * 2 + int(counts.sum()) * 4 + int(read.sum())
+    flops = 4 * B * D * int(layout.sum()) * lb * lb
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+class _IndexOrderPlan(bsa.BlockSparsePlan):
+    """The plan with B5's items launched in index order (h * nt + qt), not
+    longest list first: times what the sorted order gains."""
+
+    def tiles(self, device):
+        t = super().tiles(device)
+        if "index_order" not in t:
+            t["index_order"] = torch.arange(t["order"].numel(), dtype=torch.int32, device=t["order"].device)
+        return dict(t, order=t["index_order"])
+
+
+def _bsa_output_check(name, got, want, control, layout, lb):
+    """B5's output against its plain version by the flash kernels' element
+    rule (over [B, S, H, D]); the control must fail it; rows whose layout
+    row attends nothing must be exactly zero."""
+    if got.shape != want.shape or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} (want {tuple(want.shape)}) or non-finite values")
+    empty = torch.from_numpy(np.repeat(~np.asarray(layout, bool).any(-1), lb, axis=1)).to(got.device)  # [H, S]
+    r = dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
+             tol_use=_tile_tol_use(got.transpose(1, 2), want.transpose(1, 2)),
+             control_tol_use=_tile_tol_use(control.transpose(1, 2), want.transpose(1, 2)),
+             empty_rows=int(empty.sum()), empty_rows_nonzero=int(got[:, empty].ne(0).sum()))
+    fails = []
+    if not r["tol_use"] <= 1.0:
+        fails.append(f"{name}: an element uses {r['tol_use']} of its allowance")
+    if not r["control_tol_use"] > 1.0:
+        fails.append(f"{name}: the check passes the kernel with a layout cell cleared")
+    if r["empty_rows_nonzero"]:
+        fails.append(f"{name}: {r['empty_rows_nonzero']} outputs of rows that attend nothing are not zero")
+    return r, fails
+
+
+def _bsa_step(attn, q, k, v):
+    """bench.py's step: the loss mean(out.float()^2) and its gradients with
+    respect to q, k and v."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    loss = (attn(*leaves).float()**2).mean()
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def _profile_sparse_step(attn, q, k, v):
+    """One forward + backward step under torch.profiler: the card's busy
+    share of the host wall time, B5's device time and the top items."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _bsa_step(attn, q, k, v)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in device)
+    b5_us = sum(e.self_device_time_total for e in device if "block_sparse_fwd_kernel" in e.key)
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
+    return dict(wall_ms=1e3 * wall, device_ms=busy_us / 1e3,
+                device_busy_share=busy_us / 1e6 / wall if busy_us else "not measured", b5_ms=b5_us / 1e3,
+                top_items=[dict(name=e.key[:100], calls=e.count, ms=e.self_device_time_total / 1e3) for e in top])
+
+
+def _bsa_readings(loss, grads, ref_loss, ref_grads):
+    r = dict(loss_rel_err=_rel(float(loss), ref_loss),
+             **{f"d{n}_l2_rel_err": ((g.float() - rg).norm() / rg.norm()).item()
+                for n, g, rg in zip("qkv", grads, ref_grads)})
+    r["fails"] = [key for key, val in r.items()
+                  if not val <= (BSA_LOSS_REL_TOL if key == "loss_rel_err" else BSA_GRAD_L2_TOL)]
+    return r
+
+
+def _sparse_attention_path(dev, inputs) -> dict:
+    """The slice's path: one bf16 forward + backward through
+    SparseSelfAttention at each bench layout, B5's launch count zeroed just
+    before and read just after; then each held to f32, with its controls."""
+    attns = {name: SparseSelfAttention(BigBirdSparsityConfig(num_heads=BSA_H, block=BSA_LB, num_random_blocks=nr,
+                                                              num_sliding_window_blocks=nw, num_global_blocks=1))
+             for name, nr, nw in BSA_BENCH}
+    bsa.block_sparse_attention_fwd.launches = 0
+    steps = {name: _bsa_step(attns[name], *inputs[name]) for name in attns}
+    torch.cuda.synchronize()
+    launches = bsa.block_sparse_attention_fwd.launches
+    if launches != len(attns):
+        raise AssertionError(f"{launches} B5 launches for {len(attns)} forward calls")
+    res = dict(launches=launches, forward_calls=len(attns), layouts={})
+    failures = []
+    for name, attn in attns.items():
+        q, k, v = inputs[name]
+        layout = attn.get_layout(BSA_S)
+        ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        ref_loss = (bsa.block_sparse_attention_fwd_plain(*ref, layout, BSA_LB, BSA_D**-0.5)**2).mean()
+        ref_loss.backward()
+        ref_loss, ref_grads = ref_loss.item(), [t.grad for t in ref]
+        del ref
+        loss, grads = steps[name]
+        loss = loss.item()
+        if not np.isfinite(loss) or any(not torch.isfinite(g.float()).all() for g in grads):
+            raise AssertionError(f"{name}: non-finite loss or gradients")
+        readings = {"kernel_bf16": _bsa_readings(loss, grads, ref_loss, ref_grads)}
+        bad, cell = _drop_cell(layout, every_head=True)
+        readings["control_cell_cleared"] = _bsa_readings(
+            *_bsa_step(lambda *t: bsa.block_sparse_attention(*t, bad, BSA_LB), q, k, v), ref_loss, ref_grads)
+        readings["control_cell_cleared"]["cell"] = cell
+        bsa_bwd = bsa.block_sparse_attention_bwd
+        zero_dkv = lambda q_, k_, v_, *a: (bsa_bwd(q_, k_, v_, *a)[0], torch.zeros_like(k_), torch.zeros_like(v_))
+        with _patched("block_sparse_attention_bwd", zero_dkv, bsa):
+            readings["control_dkv_zeroed"] = _bsa_readings(*_bsa_step(attn, q, k, v), ref_loss, ref_grads)
+        res["layouts"][name] = dict(loss=loss, loss_f32=ref_loss, **readings)
+        del grads, ref_grads
+        steps[name] = None
+        torch.cuda.empty_cache()
+        if readings["kernel_bf16"]["fails"]:
+            failures.append(f"{name}: the bf16 step against f32 fails {readings['kernel_bf16']}")
+        for control in ("control_cell_cleared", "control_dkv_zeroed"):
+            if not readings[control]["fails"]:
+                failures.append(f"{name}: the check passes {control}: {readings[control]}")
+    log("[sparse] main path: " + json.dumps(res))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
+def check_block_sparse_attention(dev) -> dict:
+    """B5 against its plain version on the same inputs, in bf16, at bench.py's
+    two BigBird layouts and three small cases, each with its control; then
+    the slice's path (forward + backward through SparseSelfAttention) held to
+    f32; then, at the bench layouts, the times of the kernel (its items
+    launched longest list first, then in index order, then longest first
+    again), its plain version, scaled_dot_product_attention with the layout as a dense mask, B2
+    (dense, not causal) on the same q, k, v, and a forward + backward step."""
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = [(name, BSA_B, BSA_H, BSA_S, BSA_D, BSA_LB, "bigbird", nr, nw) for name, nr, nw in BSA_BENCH]
+    cases += [(*c, 1, 3) for c in BSA_EXTRA]
+    results, failures, bench_inputs = [], [], {}
+    bench_names = {name for name, *_ in BSA_BENCH}
+    for name, B, H, S, D, lb, kind, nr, nw in cases:
+        layout = bsa_layout(kind, H, S, lb, nr, nw)
+        q, k, v = (torch.empty((B, H, S, D), device=dev, dtype=torch.bfloat16).normal_(generator=gen)
+                   for _ in range(3))
+        scale = D**-0.5
+        plan = bsa.get_plan(layout, S, lb)
+        before = bsa.block_sparse_attention_fwd.launches
+        got = bsa.block_sparse_attention_fwd(q, k, v, plan, scale)
+        torch.cuda.synchronize()
+        if bsa.block_sparse_attention_fwd.launches != before + 1:
+            raise RuntimeError(f"{name}: the wrapper did not launch its kernel once")
+        want = bsa.block_sparse_attention_fwd_plain(q, k, v, layout, lb, scale)
+        bad, cell = _drop_cell(layout)
+        control = bsa.block_sparse_attention_fwd(q, k, v, bsa.get_plan(bad, S, lb), scale)
+        check, fails = _bsa_output_check(name, got, want, control, layout, lb)
+        failures += fails
+        tiles = plan.tiles(dev)
+        bound_ms, bound_by, nbytes, flops = _bsa_bound(B, H, S, D, layout, lb)
+        r = dict(case=name, B=B, H=H, S=S, D=D, layout_block=lb, layout=kind, density=float(layout.mean()),
+                 tile_steps=int(tiles["counts"].sum()), longest_list=int(tiles["counts"].max()),
+                 control_cell=cell, **check, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+        del got, want, control
+        if name in bench_names:
+            bench_inputs[name] = (q, k, v)
+            r["layout_args"] = dict(num_random_blocks=nr, num_sliding_window_blocks=nw, num_global_blocks=1)
+        log("[sparse] " + json.dumps(r))
+        results.append(r)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    path = _sparse_attention_path(dev, bench_inputs)
+
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    for r in results[:len(BSA_BENCH)]:
+        q, k, v = bench_inputs[r["case"]]
+        attn = SparseSelfAttention(BigBirdSparsityConfig(num_heads=BSA_H, block=BSA_LB, **r["layout_args"]))
+        layout = attn.get_layout(BSA_S)
+        plan, scale = bsa.get_plan(layout, BSA_S, BSA_LB), BSA_D**-0.5
+        r["ms"] = _time_ms(lambda: bsa.block_sparse_attention_fwd(q, k, v, plan, scale), flush)
+        index_plan = _IndexOrderPlan(layout, BSA_S, BSA_LB, plan.block_q, plan.block_k)
+        r["ms_index_order"] = _time_ms(lambda: bsa.block_sparse_attention_fwd(q, k, v, index_plan, scale), flush)
+        r["ms_sorted_again"] = _time_ms(lambda: bsa.block_sparse_attention_fwd(q, k, v, plan, scale), flush)
+        r["plain_ms"] = _time_ms(lambda: bsa.block_sparse_attention_fwd_plain(q, k, v, layout, BSA_LB, scale), flush,
+                                 iters=5, warmup=1)
+        mask = layout_to_dense_mask(layout, BSA_LB).to(dev)[None]  # [1, H, S, S]
+        with torch.no_grad():
+            r["library_ms"] = _time_ms(lambda: sdpa(q, k, v, attn_mask=mask), flush)
+        del mask
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        r["b2_dense_ms"] = _time_ms(lambda: fa.flash_attention_fwd(qs, ks, vs, scale, False), flush)
+        del qs, ks, vs
+        r["fwd_bwd_ms"] = _time_ms(lambda: _bsa_step(attn, q, k, v), flush, iters=10, warmup=2)
+        r["profile"] = _profile_sparse_step(attn, q, k, v)
+        log("[sparse] profile: " + json.dumps(r["profile"]))
+        r["tflops_per_s"] = r["flops"] / r["ms"] / 1e9
+        log("[sparse] times: " + json.dumps({key: r[key] for key in ("case", "density", "ms", "ms_index_order",
+                                                                      "ms_sorted_again", "bound_ms", "plain_ms",
+                                                                      "library_ms", "b2_dense_ms", "fwd_bwd_ms")}))
+    del flush, bench_inputs
+    torch.cuda.empty_cache()
+    lo, hi = results[0], results[1]
+    scaling = dict(density_ratio=hi["density"] / lo["density"], kernel_time_ratio=hi["ms"] / lo["ms"],
+                   fwd_bwd_time_ratio=hi["fwd_bwd_ms"] / lo["fwd_bwd_ms"])
+    log("[sparse] scaling with density: " + json.dumps(scaling))
+    return dict(cases=results, path=path, scaling=scaling, seconds=time.perf_counter() - t_start)
+
+
+# ----------------------------------------------------------------- phase 4 --
 def _engine(params, cfg, use_paged_kernel, dev):
     mgr = DSStateManagerConfig(max_context=MAX_CONTEXT, memory_config=MemoryConfig(size=KV_BYTES))
     return build_engine(params, cfg, RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=BLOCK,
@@ -637,7 +939,7 @@ def run_main_path(dev) -> dict:
     return res
 
 
-# ----------------------------------------------------------------- phase 4 --
+# ----------------------------------------------------------------- phase 5 --
 def bench_llama(**kw) -> LlamaConfig:
     """bench.py's headline model: the 530M Llama (``_llama_530m``) with
     remat "dots" and flash attention."""
@@ -816,14 +1118,15 @@ def _first_step_failures(r):
 
 
 @contextlib.contextmanager
-def _patched(name, fn):
-    """Replace one wrapper of ops/flash_attention.py for a control."""
-    old = getattr(fa, name)
-    setattr(fa, name, fn)
+def _patched(name, fn, module=fa):
+    """Replace one function of an ops module (ops/flash_attention.py unless
+    another is given) for a control."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
     try:
         yield
     finally:
-        setattr(fa, name, old)
+        setattr(module, name, old)
 
 
 def _identity_fwd(q, k, v, scale, causal):
@@ -856,6 +1159,7 @@ def main() -> int:
     record["build"] = build_kernels()
     record["paged_attention"] = check_paged_attention(dev)
     record["flash_attention"] = check_flash_attention(dev)
+    record["block_sparse_attention"] = check_block_sparse_attention(dev)
     record["main_path"] = run_main_path(dev)
     record["training_path"] = run_training_path(dev)
     record["seconds"] = time.perf_counter() - t_start
@@ -881,6 +1185,15 @@ def main() -> int:
                             bound_ms=train[kern]["bound_ms"], bound_by=train[kern]["bound_by"],
                             library_ms=train[kern]["library_ms"],
                             cases=[dict(case=r["case"], **r[kern]) for r in record["flash_attention"]]))
+    sparse = record["block_sparse_attention"]
+    low = sparse["cases"][0]  # bench.py's low-density layout
+    kernels.append(dict(name="block_sparse_attention_fwd", route="cuda",
+                        source="deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
+                        replaces="deepspeed_tpu/ops/pallas/block_sparse_attention.py:83",
+                        launches=sparse["path"]["launches"],
+                        max_abs_err=max(r["max_abs_err"] for r in sparse["cases"]), ms=low["ms"],
+                        plain_ms=low["plain_ms"], bound_ms=low["bound_ms"], bound_by=low["bound_by"],
+                        library_ms=low["library_ms"], cases=sparse["cases"]))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

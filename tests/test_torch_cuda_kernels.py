@@ -161,3 +161,79 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_cannot_take(cuda_device
                                True)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, 1.0, True)
+
+
+def _sparse_layout(kind, H, S, lb):
+    from chip_smoke import bsa_layout  # one builder for the card's checks here and in the smoke run
+    return bsa_layout(kind, H, S, lb)
+
+
+def _sparse_inputs(B, H, S, D, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(B, H, S, D)).astype(np.float32)).to(dev, dtype) for _ in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("kind,B,H,S,lb,D", [("fixed", 2, 4, 256, 16, 64), ("bigbird", 1, 4, 512, 64, 128),
+                                             ("bigbird", 1, 2, 1040, 16, 128), ("empty_rows", 2, 4, 80, 16, 64),
+                                             ("bigbird", 1, 2, 384, 128, 64)],
+                         ids=["fixed_lb16_D64", "bigbird_lb64_D128", "bigbird_lb16_S1040", "empty_rows_S80",
+                              "bigbird_lb128_D64"])
+def test_block_sparse_kernel_matches_plain(cuda_device, dtype, kind, B, H, S, lb, D):
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    q, k, v = _sparse_inputs(B, H, S, D, dtype, cuda_device)
+    layout = _sparse_layout(kind, H, S, lb)
+    plan = bsa.get_plan(layout, S, lb)
+    before = bsa.block_sparse_attention_fwd.launches
+    got = bsa.block_sparse_attention_fwd(q, k, v, plan, D**-0.5)
+    want = bsa.block_sparse_attention_fwd_plain(q, k, v, layout, lb, D**-0.5)
+    torch.cuda.synchronize()
+    assert bsa.block_sparse_attention_fwd.launches == before + 1 and got.dtype == dtype
+    _assert_near(got.transpose(1, 2), want.transpose(1, 2), "out")  # [B, S, H, D] for the tile rule
+    empty = torch.from_numpy(np.repeat(~layout.any(-1), lb, axis=1)).to(cuda_device)  # [H, S] rows attending nothing
+    assert not got[:, empty].any()  # exactly zero
+
+
+@pytest.mark.cuda
+def test_sparse_self_attention_runs_the_kernel_forward_and_backward(cuda_device):
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig, SparseSelfAttention
+    q, k, v = (t.requires_grad_() for t in _sparse_inputs(1, 4, 512, 128, torch.bfloat16, cuda_device, seed=1))
+    attn = SparseSelfAttention(BigBirdSparsityConfig(num_heads=4, block=64, num_random_blocks=2))
+    before = bsa.block_sparse_attention_fwd.launches
+    (attn(q, k, v).float()**2).mean().backward()
+    torch.cuda.synchronize()
+    assert bsa.block_sparse_attention_fwd.launches == before + 1
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    out = bsa.block_sparse_attention_fwd_plain(*ref, attn.get_layout(512), 64, 128**-0.5)
+    (out**2).mean().backward()
+    for got, want in zip((q.grad, k.grad, v.grad), ref):
+        assert ((got.float() - want.grad).norm() / want.grad.norm()).item() < 0.02
+
+
+@pytest.mark.cuda
+def test_block_sparse_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    q, k, v = _sparse_inputs(1, 2, 128, 128, torch.bfloat16, cuda_device)
+    layout = _sparse_layout("bigbird", 2, 128, 16)
+    plan = bsa.get_plan(layout, 128, 16)
+    before = bsa.block_sparse_attention_fwd.launches
+    with pytest.raises(TypeError, match="share"):
+        bsa.block_sparse_attention_fwd(q.float(), k.float(), v.float(), plan, 0.1)
+    with pytest.raises(TypeError, match="share"):
+        bsa.block_sparse_attention(q.float(), k.float(), v.float(), layout, 16)
+    with pytest.raises(ValueError, match="head_dim"):
+        bsa.block_sparse_attention_fwd(*(t[..., :96].contiguous() for t in (q, k, v)), plan, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        bsa.block_sparse_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, plan, 0.1)
+
+    class NoSteps(bsa.BlockSparsePlan):  # lists the C function refuses: max_steps 0
+        def tiles(self, device):
+            t = dict(super().tiles(device))
+            t["steps"] = t["steps"][:, :, :0]
+            return t
+
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bsa.block_sparse_attention_fwd(q, k, v, NoSteps(layout, 128, 16, plan.block_q, plan.block_k), 0.1)
+    assert bsa.block_sparse_attention_fwd.launches == before

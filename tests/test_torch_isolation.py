@@ -36,6 +36,9 @@ def test_port_and_chip_smoke_import_no_jax_flax_pydantic_or_reference():
     assert "deepspeed_tpu_torch.inference.v2.engine_factory" in result["imported"]
     assert "deepspeed_tpu_torch.ops.flash_attention" in result["imported"]
     assert "deepspeed_tpu_torch.runtime.engine" in result["imported"]
+    assert "deepspeed_tpu_torch.ops.block_sparse_attention" in result["imported"]
+    assert "deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention" in result["imported"]
+    assert "deepspeed_tpu_torch.ops.sparse_attention.sparsity_config" in result["imported"]
     assert result["banned"] == []
 
 
