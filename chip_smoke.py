@@ -10,8 +10,9 @@ Phases (any failure raises and the script exits non-zero):
 2. kernels: hold each hand-written kernel against its plain PyTorch version
    on the same inputs, in bf16, at the shapes the main paths give it and at
    the token mixes and sequence lengths it must handle; time kernel, plain
-   version and the PyTorch library call for the same attention, and compute
-   the card's bound for the work;
+   version and the PyTorch library call for the same attention (and, for the
+   flash kernels, the host time of a wrapper call), and compute the card's
+   bound for the work;
 3. block-sparse attention: hold B5 against its plain version at bench.py's
    sparse-attention leg (S=8192, BigBird at two densities) and three small
    cases, each with a control that must fail; run the slice's path, one
@@ -89,14 +90,16 @@ KERNEL_RTOL, KERNEL_ATOL = 2**-7, 2**-10
 LOGITS_L2_TOL = 0.10
 KERNEL_VS_GATHER_SLACK = 1.25
 
-# flash attention (B2-B4): (name, B, S, H, KVH, causal), head_dim 128
+# flash attention (B2-B4): (name, B, S, H, KVH, causal, head_dim)
 FLASH_CASES = (
-    ("bench_train", 8, 1024, 16, 16, True),  # the training path's shape
-    ("bench_long", 1, 4096, 16, 16, True),  # bench.py's long-sequence leg
-    ("gqa_S300_causal", 2, 300, 32, 8, True),  # S not a multiple of the 64-row tile
-    ("gqa_S256_full", 2, 256, 32, 8, False),
+    ("bench_train", 8, 1024, 16, 16, True, 128),  # the training path's shape
+    ("bench_long", 1, 4096, 16, 16, True, 128),  # bench.py's long-sequence leg
+    ("gqa_S300_causal", 2, 300, 32, 8, True, 128),  # S not a multiple of the 64- or 128-row tiles
+    ("gqa_S256_full", 2, 256, 32, 8, False, 128),
+    ("gqa_S1000_D64_causal", 4, 1000, 16, 4, True, 64),  # the 64-wide head, ragged last tile
 )
-FLASH_D = 128
+# the kernels' designs, named in the kernels line
+FLASH_DESIGN = {"fwd": "wgmma+tma", "dkv": "wgmma+tma", "dq": "wmma"}
 # Every element of out, dq, dk and dv is held to its plain value within
 # FLASH_TILE_ATOL times the larger of its row's rms (the D values of one
 # position and head) and its tile's (the 64 positions x D values of one head
@@ -113,7 +116,7 @@ FLASH_RTOL, FLASH_TILE_ATOL, FLASH_TILE = 2**-7, 2**-6, 64
 FLASH_LSE_ATOL = 2**-10
 # the check's control: each output with the positions of the last quarter of
 # the sequence off by 2^-4 (6%) must fail it. On an H100 the sound outputs of
-# the four cases use 0.56-0.75 of their allowance and the controls 5.5-6.2.
+# the five cases use 0.56-0.75 of their allowance and the controls 5.5-6.2.
 FLASH_CONTROL_ERR = 2**-4
 
 # block-sparse attention (B5): bench.py's sparse-attention leg
@@ -376,6 +379,19 @@ def _flash_bounds(B, S, H, KVH, D, causal):
     return out
 
 
+def _host_us(fn, n=50):
+    """Mean host time of one call of ``fn`` in microseconds: a wrapper's
+    checks, allocations, tensor maps and launch, with the card left to run
+    the enqueued kernels behind it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def _max_err(name, got, want, tol):
     """Max abs error of got against want; raises past ``tol`` (absolute)."""
     if got.shape != want.shape or not torch.isfinite(got.float()).all():
@@ -445,9 +461,8 @@ def check_flash_attention(dev) -> list:
     gen = torch.Generator(device=dev).manual_seed(2)
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    D = FLASH_D
     results, failures = [], []
-    for name, B, S, H, KVH, causal in FLASH_CASES:
+    for name, B, S, H, KVH, causal, D in FLASH_CASES:
         bf = dict(device=dev, dtype=torch.bfloat16)
         q = torch.empty((B, S, H, D), **bf).normal_(generator=gen)
         k = torch.empty((B, S, KVH, D), **bf).normal_(generator=gen)
@@ -479,6 +494,10 @@ def check_flash_attention(dev) -> list:
               "dkv": _time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal), flush),
               "dq": _time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal), flush)}
         ms["backward"] = ms["dkv"] + ms["dq"]
+        host_us = {"fwd": _host_us(lambda: fa.flash_attention_fwd(q, k, v, scale, causal)),
+                   "dkv": _host_us(lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal)),
+                   "dq": _host_us(lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal))}
+        host_us["backward"] = host_us["dkv"] + host_us["dq"]
         plain = {"fwd": _time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, scale, causal), flush, iters=5,
                                  warmup=1)}
         plain["dkv"] = plain["dq"] = plain["backward"] = _time_ms(
@@ -498,7 +517,7 @@ def check_flash_attention(dev) -> list:
         r = dict(case=name, B=B, S=S, H=H, KVH=KVH, D=D, causal=causal, max_abs_err=errs, checks=checks,
                  **{kern: dict(ms=ms[kern], plain_ms=plain[kern], library_ms=library[kern], bound_ms=bounds[kern][0],
                                bound_by=bounds[kern][1], bytes=bounds[kern][2], flops=bounds[kern][3],
-                               tflops_per_s=bounds[kern][3] / ms[kern] / 1e9)
+                               tflops_per_s=bounds[kern][3] / ms[kern] / 1e9, host_us=host_us[kern])
                     for kern in ("fwd", "dkv", "dq", "backward")})
         log("[kernel] " + json.dumps(r))
         results.append(r)
@@ -1044,6 +1063,8 @@ def run_training_path(dev) -> dict:
     res["profile"] = _profile_train_batch(engine, batches[0])
     res["profile"]["device_share_of_measured_step"] = res["profile"]["device_ms"] / res["ms_per_train_batch"]
     log("[train] profile: " + json.dumps(res["profile"]))
+    if not all(ms > 0 for ms in res["profile"]["flash_kernels_ms"].values()):
+        raise AssertionError(f"the profile finds no time for a flash kernel by name: {res['profile']['flash_kernels_ms']}")
 
     # the same global batch again and again: the loss must fall
     res["repeated_batch_losses"] = rep = [float(engine.train_batch(batch=batches[1])) for _ in range(TRAIN_REPEAT)]
@@ -1165,7 +1186,7 @@ def main() -> int:
     record["seconds"] = time.perf_counter() - t_start
 
     decode = record["paged_attention"][0]  # the serving path's decode shape
-    kernels = [dict(name="paged_attention_update", route="cuda",
+    kernels = [dict(name="paged_attention_update", route="cuda", design="cuda cores",
                     source="deepspeed_tpu_torch/csrc/paged_attention.cu",
                     replaces="deepspeed_tpu/ops/pallas/paged_attention.py:37",
                     launches=record["main_path"]["paged_attention_launches"],
@@ -1177,7 +1198,8 @@ def main() -> int:
     for kern, fn, line, outputs in (("fwd", "flash_attention_fwd", 43, ("out", "lse")),
                                     ("dkv", "flash_attention_bwd_dkv", 253, ("dk", "dv")),
                                     ("dq", "flash_attention_bwd_dq", 299, ("dq", ))):
-        kernels.append(dict(name=fn, route="cuda", source="deepspeed_tpu_torch/csrc/flash_attention.cu",
+        kernels.append(dict(name=fn, route="cuda", design=FLASH_DESIGN[kern],
+                            source="deepspeed_tpu_torch/csrc/flash_attention.cu",
                             replaces=f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
                             launches=record["training_path"]["flash_launches"][kern],
                             max_abs_err=max(r["max_abs_err"][o] for r in record["flash_attention"] for o in outputs),
@@ -1187,7 +1209,7 @@ def main() -> int:
                             cases=[dict(case=r["case"], **r[kern]) for r in record["flash_attention"]]))
     sparse = record["block_sparse_attention"]
     low = sparse["cases"][0]  # bench.py's low-density layout
-    kernels.append(dict(name="block_sparse_attention_fwd", route="cuda",
+    kernels.append(dict(name="block_sparse_attention_fwd", route="cuda", design="wmma",
                         source="deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
                         replaces="deepspeed_tpu/ops/pallas/block_sparse_attention.py:83",
                         launches=sparse["path"]["launches"],

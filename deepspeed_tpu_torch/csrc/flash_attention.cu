@@ -1,4 +1,4 @@
-// Flash attention (FlashAttention-2 schedule), forward and backward, for Hopper (sm_90a).
+// Flash attention, forward and backward, for Hopper (sm_90a).
 //
 // Replaces the three Pallas kernels of deepspeed_tpu/ops/pallas/flash_attention.py:
 //   dstt_flash_fwd      <- _fwd_kernel      (B2): out and the per-row log-sum-exp
@@ -9,38 +9,58 @@
 // the backward recomputes p = exp(s - lse) (0 where masked),
 // ds = p * (dO . v - delta) * scale, dV += p^T dO, dK += ds^T q, dQ += ds k,
 // with delta = rowsum(dO * out) computed by the caller (as the JAX package
-// computes it in XLA, outside its kernels).
+// computes it in XLA, outside its kernels). P and dS are rounded to the
+// input type before their products, as FlashAttention-2 does; every sum is
+// in f32.
 //
 // Layout: q, out, dout, dq are [B, S, H, D]; k, v, dk, dv are [B, S, KVH, D]
 // (all contiguous); lse and delta are f32 [B, H, S]. GQA is read in place:
 // query head h reads KV head h / (H / KVH), and the dK/dV kernel sums the
 // H / KVH query heads of its KV head in f32, so no repeated K/V is made.
-// S may be any length: rows and columns past S are loaded as zeros, masked
-// out of the softmax and never written.
+// S may be any length: rows past S load as zeros, are masked out of the
+// softmax where they would count, and are never written.
 //
-// Design. The Pallas grid walks the KV blocks of one q block in order and
-// carries its accumulators in VMEM scratch; here one thread block owns a
-// 64-row tile (q rows for the forward and dQ, key rows for dK/dV) and walks
-// the other side's 64-row tiles in a loop. Products run on the tensor cores
-// through nvcuda::wmma (16x16x16 bf16/fp16 fragments, f32 accumulators):
-// S = Q K^T, O += P V and, backward, dP = dO V^T, dV += P^T dO,
-// dK += dS^T Q and dQ += dS K. P and dS are rounded to the input type before
-// their products, as FlashAttention-2 does; every sum is in f32. The
-// forward's output accumulator lives in shared memory, because each KV tile
-// rescales it by exp(m_old - m_new) row by row and a fragment's element to
-// row mapping is opaque; the backward keeps its accumulators in fragments.
-// Causal: a q tile visits KV tiles 0..its own index (tiles are square), and
-// the dK/dV kernel starts at its own tile; the diagonal tile is masked.
+// Bound on an H100 SXM at the training shape (B = 8, S = 1024, H = 16,
+// D = 128, causal, bf16): the forward does 2 * 2 * B * H * S^2 * D / 2 =
+// 34.4 GFLOP against 134.7 MB (q, k, v, out once, f32 lse), about 255 flops
+// per byte, under the card's ridge of about 295 (989 TFLOP/s over 3.35 TB/s):
+// memory bounds it at 0.040 ms, the tensor cores' 0.035 ms close behind. The
+// dK/dV kernel does twice the forward's products (68.7 GFLOP against 202 MB),
+// so the tensor cores bound it, at 0.069 ms; so do they the dQ kernel's 51.5
+// GFLOP, at 0.052 ms.
 //
-// Bound on an H100 SXM: at the training shape (B = 8, S = 1024, H = 16,
-// D = 128) a causal forward does 2 * 2 * B * H * S^2 * D / 2 = 34.4 GFLOP
-// against 4 * B * S * H * D * 2 bytes plus the f32 lse, 134.7 MB: about 255
-// flops per byte, under the card's ridge of about 295 (989 TFLOP/s over
-// 3.35 TB/s). So memory bounds it, at 0.040 ms, with the tensor cores' 0.035 ms
-// close behind. This first version stages each tile with plain 16-byte loads and a barrier
-// (no cp.async/TMA pipeline, no wgmma, no warp specialisation), so it stays
-// far from that bound. Launch and build: ops/flash_attention.py, ops/builder.py.
+// Design of B2 and B3 (FlashAttention-3's shape). A block has three
+// warpgroups: one producer and two consumers. The producer's first thread
+// copies tiles into shared memory by TMA (cp.async.bulk.tensor, one 64-column
+// box per 128-byte-swizzled panel; rows past S arrive as zeros) into a ring
+// of kStages stages, each signalled by an mbarrier; the consumers release a
+// stage through a second mbarrier. setmaxnreg hands the producer's registers
+// to the consumers. Each consumer warpgroup owns 64 rows and runs wgmma:
+//  - B2: a block owns a 128-row q tile of one (b, h), longest causal rows
+//    first, and walks 128-row K/V tiles (causal: up to the diagonal).
+//    S = Q K^T is an SS wgmma (both K-major in shared memory); the softmax
+//    runs on the accumulator registers (each thread holds parts of two rows;
+//    two shuffles reduce a row), O stays in registers and is rescaled there,
+//    and O += P V is an RS wgmma: P from registers as the A operand, V from
+//    shared memory as an MN-major B operand. Only the diagonal and the ragged
+//    last tile pay for the mask.
+//  - B3: a block owns a 128-row K/V tile of one (b, KV head g), resident in
+//    shared memory, and streams the 64-row Q and dO tiles (and their lse and
+//    delta rows) of each of g's query heads (causal: from its diagonal on).
+//    S^T = K Q^T and dP^T = V dO^T are SS wgmmas; P^T and dS^T are computed
+//    in their accumulator registers (rows are keys) and feed dV += P^T dO and
+//    dK += dS^T Q as RS wgmmas with dO and Q MN-major. dK and dV stay in f32
+//    registers over all of g's query heads: no atomics, and the GQA head sum
+//    is deterministic.
+// B4 (dQ) keeps the first design until it gets B3's machinery: 64-row tiles
+// staged by plain 16-byte loads and barriers, nvcuda::wmma 16x16x16
+// fragments (mma.sync), S, dP and dS round-tripped through shared memory.
+// The tensor maps are encoded on the host for every call (a few
+// microseconds), through cuTensorMapEncodeTiled found with
+// cudaGetDriverEntryPoint, so the library needs no -lcuda.
+// Launch and build: ops/flash_attention.py, ops/builder.py.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -49,18 +69,518 @@
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr float kNegInf = -1e30f;
-constexpr int kTile = 64;        // rows of every tile, q and kv
-constexpr int kLdS = kTile + 4;  // f32 score tiles
-constexpr int kLdP = kTile + 8;  // 16-bit probability tiles
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
     return __float2bfloat16_rn(x);
 }
+
+// ----------------------------------------------------- Hopper primitives --
+constexpr int kPanel = 64;             // elements in one 128-byte swizzled row of a TMA box
+constexpr int kStages = 2;             // ring stages of the streamed tiles
+constexpr int kWsThreads = 384;        // producer warpgroup + two consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr int kBarBytes = 64;
+constexpr int kSmemLimit = 232448;     // dynamic shared memory one block may take on an H100
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done = 0;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+// one box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost first
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+        "[%2];" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// wgmma shared-memory descriptors for a 128-byte-swizzled panel written by
+// TMA: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO). K-major: K
+// runs along the row (a k16 step moves the start 32 bytes; LBO unused).
+// MN-major: N runs along the row, the next 64 columns are the next panel,
+// `panel_bytes` on (LBO); K runs down the rows (a k16 step moves 2048 bytes).
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+           (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr, uint32_t panel_bytes) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(panel_bytes >> 4) << 16) |
+           (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+
+// keep reads of an accumulator after the wgmma.wait that completes it
+template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define DSTT_F8(d, i) \
+    "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
+        "+f"(d[i + 7])
+#define DSTT_D32(d) DSTT_F8(d, 0), DSTT_F8(d, 8), DSTT_F8(d, 16), DSTT_F8(d, 24)
+#define DSTT_D64(d) DSTT_D32(d), DSTT_F8(d, 32), DSTT_F8(d, 40), DSTT_F8(d, 48), DSTT_F8(d, 56)
+#define DSTT_R32_BODY \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, " \
+    "%23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define DSTT_R32 "{" DSTT_R32_BODY "}"
+#define DSTT_R64                                                                                                  \
+    "{" DSTT_R32_BODY                                                                                             \
+    ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, " \
+    "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// m64nNk16 products with f32 accumulators, N = 64 (32 registers a thread)
+// or 128 (64): wgmma_ss reads A and B from shared memory, both K-major, and
+// overwrites the accumulator when `acc` is 0; wgmma_rs takes A from
+// registers and B MN-major, and accumulates. The last argument picks the
+// 16-bit type.
+#define DSTT_DEFINE_WGMMA(CT, TY)                                                                                  \
+    __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc, const CT*) {         \
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                  \
+                     "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " DSTT_R32                          \
+                     ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                                             \
+                     : DSTT_D32(d)                                                                                 \
+                     : "l"(a), "l"(b), "r"(acc));                                                                  \
+    }                                                                                                              \
+    __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int acc, const CT*) {         \
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                  \
+                     "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " DSTT_R64                         \
+                     ", %64, %65, p, 1, 1, 0, 0;\n}\n"                                                             \
+                     : DSTT_D64(d)                                                                                 \
+                     : "l"(a), "l"(b), "r"(acc));                                                                  \
+    }                                                                                                              \
+    __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, const CT*) {      \
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                  \
+                     "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " DSTT_R32                          \
+                     ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                               \
+                     : DSTT_D32(d)                                                                                 \
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                                \
+    }                                                                                                              \
+    __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b, const CT*) {      \
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                                  \
+                     "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " DSTT_R64                         \
+                     ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                               \
+                     : DSTT_D64(d)                                                                                 \
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                                \
+    }
+
+DSTT_DEFINE_WGMMA(__nv_bfloat16, "bf16")
+DSTT_DEFINE_WGMMA(__half, "f16")
+
+// two f32 values as one register of the 16-bit type, `lo` in the low half
+__device__ __forceinline__ uint32_t pack2(float lo, float hi, const __nv_bfloat16*) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack2(float lo, float hi, const __half*) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// The accumulator of an m64nN wgmma: warp w of the warpgroup holds rows
+// 16 w + lane / 4 (values with (i / 2) % 2 == 0) and that row + 8 (the
+// others); value i sits in column 8 (i / 4) + 2 (lane % 4) + i % 2. So
+// registers 2j and 2j + 1 packed into one 16-bit pair are exactly the A
+// operand register j of an RS wgmma over the same columns as its K.
+
+// ------------------------------------------------------------- forward B2 --
+constexpr int kFwdRows = 128;  // q rows of a block; rows of each K/V tile
+
+template <int D> struct FwdLayout {
+    static constexpr int kBox = kFwdRows * kPanel * 2;   // one 64-column panel of a 128-row tile
+    static constexpr int kTile = kFwdRows * D * 2;       // a whole tile (Q, K or V)
+    static constexpr int kQ = 0, kK = kTile, kV = kK + kStages * kTile, kBar = kV + kStages * kTile;
+    static constexpr int kBytes = kBar + kBarBytes + 1024;  // barriers, 1024-byte alignment slack
+    static_assert(kBytes <= kSmemLimit, "B2's tiles do not fit a block's shared memory");
+};
+
+// One KV tile of the online softmax on the S accumulator (64 values: 2 rows
+// x 128 columns of this thread), in the log2 domain: s * scale * log2(e).
+// Rescales O, updates m and the thread's partial l, and leaves P packed as
+// the A operand of O += P V.
+template <bool kMask, typename T, int NO>
+__device__ __forceinline__ void online_softmax(float (&s)[64], float (&o)[NO], float (&m)[2], float (&l)[2],
+                                               uint32_t (&p)[32], int qpos0, int kpos0, int S, int causal,
+                                               float scale_log2) {
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+        float x = s[i] * scale_log2;
+        if (kMask) {
+            const int kpos = kpos0 + (i >> 2) * 8 + (i & 1), qpos = qpos0 + ((i >> 1) & 1) * 8;
+            if (kpos >= S || (causal && kpos > qpos)) x = kNegInf;
+        }
+        s[i] = x;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2_approx(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+        s[i] = exp2_approx(s[i] - m[(i >> 1) & 1]);
+        l[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) p[j] = pack2(s[2 * j], s[2 * j + 1], static_cast<const T*>(nullptr));
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out, float* __restrict__ lse, int S,
+                     int H, int KVH, float scale_log2, int causal) {
+    using L = FwdLayout<D>;
+    constexpr int kPanels = D / kPanel;
+    const int n_tiles = (S + kFwdRows - 1) / kFwdRows;
+    const int qt = n_tiles - 1 - blockIdx.x;  // longest causal rows first
+    const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+    const int g = h / (H / KVH);
+    const int q0 = qt * kFwdRows;
+    const int n_kv = causal ? qt + 1 : n_tiles;
+
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // 128-byte swizzle wants 1024-byte alignment
+    const uint32_t bar_q = base + L::kBar, bar_full = bar_q + 8, bar_empty = bar_full + 8 * kStages;
+    if (threadIdx.x == 0) {
+        mbar_init(bar_q, 1);
+        for (int s = 0; s < kStages; ++s) {
+            mbar_init(bar_full + 8 * s, 1);
+            mbar_init(bar_empty + 8 * s, kConsumerWarps);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    if (threadIdx.x < 128) {  // producer warpgroup: its first thread issues every copy
+        setmaxnreg_dec<24>();
+        if (threadIdx.x == 0) {
+            mbar_expect_tx(bar_q, L::kTile);
+#pragma unroll
+            for (int p = 0; p < kPanels; ++p) tma_load(base + L::kQ + p * L::kBox, &tm_q, bar_q, p * kPanel, h, q0, b);
+            for (int it = 0; it < n_kv; ++it) {
+                const int st = it % kStages;
+                mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1);
+                mbar_expect_tx(bar_full + 8 * st, 2 * L::kTile);
+#pragma unroll
+                for (int p = 0; p < kPanels; ++p) {
+                    tma_load(base + L::kK + st * L::kTile + p * L::kBox, &tm_k, bar_full + 8 * st, p * kPanel, g,
+                             it * kFwdRows, b);
+                    tma_load(base + L::kV + st * L::kTile + p * L::kBox, &tm_v, bar_full + 8 * st, p * kPanel, g,
+                             it * kFwdRows, b);
+                }
+            }
+        }
+    } else {  // two consumer warpgroups, 64 q rows each
+        setmaxnreg_inc<240>();
+        const T* tag = nullptr;
+        const int w = threadIdx.x / 128 - 1, t = threadIdx.x & 127, lane = t & 31;
+        const int row = w * 64 + (t >> 5) * 16 + (lane >> 2);  // this thread's first row; the second is row + 8
+        const int col = 2 * (lane & 3);
+        float o[D / 2], s[kFwdRows / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < kFwdRows / 2; ++i) s[i] = 0.f;
+        float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+        const uint32_t q_base = base + L::kQ + w * 64 * 128;
+        mbar_wait(bar_q, 0);
+        for (int it = 0; it < n_kv; ++it) {
+            const int st = it % kStages, k0 = it * kFwdRows;
+            mbar_wait(bar_full + 8 * st, (it / kStages) & 1);
+            const uint32_t k_base = base + L::kK + st * L::kTile, v_base = base + L::kV + st * L::kTile;
+            wgmma_fence();
+#pragma unroll
+            for (int ks = 0; ks < D / 16; ++ks) {
+                const uint32_t off = (ks / 4) * L::kBox + (ks % 4) * 32;
+                wgmma_ss(s, desc_kmajor(q_base + off), desc_kmajor(k_base + off), ks > 0, tag);
+            }
+            wgmma_commit();
+            wgmma_wait0();
+            fence_regs(s);
+            uint32_t p[kFwdRows / 4];
+            const bool edge = it == n_kv - 1 && (causal || S - k0 < kFwdRows);
+            if (edge) {
+                online_softmax<true, T>(s, o, m, l, p, q0 + row, k0 + col, S, causal, scale_log2);
+            } else {
+                online_softmax<false, T>(s, o, m, l, p, q0 + row, k0 + col, S, causal, scale_log2);
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kFwdRows / 16; ++kk) {
+                const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+                wgmma_rs(o, a, desc_mnmajor(v_base + kk * 16 * 128, L::kBox), tag);
+            }
+            wgmma_commit();
+            wgmma_wait0();
+            fence_regs(o);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+        }
+
+        const int64_t q_stride = (int64_t)H * D;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+            const int qpos = q0 + row + 8 * r;
+            if (qpos >= S) continue;
+            const float lf = fmaxf(l[r], 1e-30f), inv = 1.f / lf;
+            T* dst = out + ((int64_t)b * S + qpos) * q_stride + (int64_t)h * D + col;
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j) {
+                *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv, tag);
+            }
+            if ((lane & 3) == 0) lse[(int64_t)bh * S + qpos] = m[r] * kLn2 + logf(lf);
+        }
+    }
+}
+
+// ---------------------------------------------------------- dK / dV B3 --
+constexpr int kDkvRows = 128;  // key rows of a block
+constexpr int kDkvQRows = 64;  // rows of each streamed Q / dO tile
+
+template <int D> struct DkvLayout {
+    static constexpr int kKvBox = kDkvRows * kPanel * 2;  // one panel of the K or V tile
+    static constexpr int kQBox = kDkvQRows * kPanel * 2;  // one panel of a Q or dO tile
+    static constexpr int kKv = kDkvRows * D * 2, kQT = kDkvQRows * D * 2;
+    // a stage: Q tile, dO tile, then lse and delta (64 f32 each), padded to 1024 bytes
+    static constexpr int kStage = 2 * kQT + 1024;
+    static constexpr int kK = 0, kV = kKv, kStage0 = 2 * kKv, kBar = kStage0 + kStages * kStage;
+    static constexpr int kBytes = kBar + kBarBytes + 1024;
+    static_assert(kBytes <= kSmemLimit, "B3's tiles do not fit a block's shared memory");
+};
+
+// P^T and dS^T of one (64 keys x 64 q) tile on the accumulators of S^T (s)
+// and dP^T (dp): columns are q positions, whose lse (times log2 e) and delta
+// the stage holds. Leaves both packed as A operands, rows = keys.
+template <bool kMask, typename T>
+__device__ __forceinline__ void probabilities_t(const float (&s)[32], const float (&dp)[32], const float* lse_s,
+                                                const float* delta_s, uint32_t (&pf)[16], uint32_t (&dsf)[16],
+                                                int kpos0, int q0, int col, int S, int causal, float scale,
+                                                float scale_log2) {
+    float p[32], ds[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+        const int c = (i >> 2) * 8 + col + (i & 1);
+        float x = exp2_approx(fmaf(s[i], scale_log2, -lse_s[c]));
+        if (kMask) {
+            const int qpos = q0 + c, kpos = kpos0 + ((i >> 1) & 1) * 8;
+            if (qpos >= S || (causal && kpos > qpos)) x = 0.f;
+        }
+        p[i] = x;
+        ds[i] = x * (dp[i] - delta_s[c]) * scale;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        pf[j] = pack2(p[2 * j], p[2 * j + 1], static_cast<const T*>(nullptr));
+        dsf[j] = pack2(ds[2 * j], ds[2 * j + 1], static_cast<const T*>(nullptr));
+    }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv, int S, int H, int KVH, float scale, float scale_log2, int causal) {
+    using L = DkvLayout<D>;
+    constexpr int kPanels = D / kPanel;
+    const int kt = blockIdx.x;  // causal: the longest walk (tile 0) first
+    const int bg = blockIdx.y, b = bg / KVH, g = bg - b * KVH;
+    const int rep = H / KVH;
+    const int k0 = kt * kDkvRows;
+    const int n_q = (S + kDkvQRows - 1) / kDkvQRows;
+    const int qt0 = causal ? k0 / kDkvQRows : 0;
+    const int per_head = n_q - qt0, n_it = rep * per_head;
+
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+    const uint32_t bar_kv = base + L::kBar, bar_full = bar_kv + 8, bar_empty = bar_full + 8 * kStages;
+    if (threadIdx.x == 0) {
+        mbar_init(bar_kv, 1);
+        for (int s = 0; s < kStages; ++s) {
+            mbar_init(bar_full + 8 * s, 32);  // the producer warp's lanes
+            mbar_init(bar_empty + 8 * s, kConsumerWarps);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    if (threadIdx.x < 128) {  // producer warpgroup: its first warp loads
+        setmaxnreg_dec<24>();
+        const int lane = threadIdx.x;
+        if (threadIdx.x < 32) {
+            if (lane == 0) {
+                mbar_expect_tx(bar_kv, 2 * L::kKv);
+#pragma unroll
+                for (int p = 0; p < kPanels; ++p) {
+                    tma_load(base + L::kK + p * L::kKvBox, &tm_k, bar_kv, p * kPanel, g, k0, b);
+                    tma_load(base + L::kV + p * L::kKvBox, &tm_v, bar_kv, p * kPanel, g, k0, b);
+                }
+            }
+            for (int it = 0; it < n_it; ++it) {
+                const int hh = it / per_head, q0 = (qt0 + it - hh * per_head) * kDkvQRows;
+                const int h = g * rep + hh, st = it % kStages;
+                const uint32_t stage = base + L::kStage0 + st * L::kStage;
+                float* lse_s = reinterpret_cast<float*>(smem + L::kStage0 + st * L::kStage + 2 * L::kQT);
+                float* delta_s = lse_s + kDkvQRows;
+                mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1);
+                const int64_t row0 = ((int64_t)b * H + h) * S + q0;
+                for (int i = lane; i < kDkvQRows; i += 32) {
+                    const bool ok = q0 + i < S;
+                    lse_s[i] = ok ? lse[row0 + i] * kLog2e : 0.f;
+                    delta_s[i] = ok ? delta[row0 + i] : 0.f;
+                }
+                if (lane == 0) {
+                    mbar_expect_tx(bar_full + 8 * st, 2 * L::kQT);
+#pragma unroll
+                    for (int p = 0; p < kPanels; ++p) {
+                        tma_load(stage + p * L::kQBox, &tm_q, bar_full + 8 * st, p * kPanel, h, q0, b);
+                        tma_load(stage + L::kQT + p * L::kQBox, &tm_do, bar_full + 8 * st, p * kPanel, h, q0, b);
+                    }
+                } else {
+                    mbar_arrive(bar_full + 8 * st);
+                }
+            }
+        }
+    } else {  // two consumer warpgroups, 64 keys each
+        setmaxnreg_inc<240>();
+        const T* tag = nullptr;
+        const int w = threadIdx.x / 128 - 1, t = threadIdx.x & 127, lane = t & 31;
+        const int krow = w * 64 + (t >> 5) * 16 + (lane >> 2);  // this thread's first key row; the second + 8
+        const int col = 2 * (lane & 3);
+        const int kw0 = k0 + w * 64;  // this warpgroup's first key
+        float dk_acc[D / 2], dv_acc[D / 2], s[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+        const uint32_t k_base = base + L::kK + w * 64 * 128, v_base = base + L::kV + w * 64 * 128;
+        mbar_wait(bar_kv, 0);
+        for (int it = 0; it < n_it; ++it) {
+            const int hh = it / per_head, q0 = (qt0 + it - hh * per_head) * kDkvQRows;
+            const int st = it % kStages;
+            mbar_wait(bar_full + 8 * st, (it / kStages) & 1);
+            if (!causal || q0 + kDkvQRows - 1 >= kw0) {  // else every key of this half is after every query
+                const uint32_t q_s = base + L::kStage0 + st * L::kStage, do_s = q_s + L::kQT;
+                const float* lse_s = reinterpret_cast<const float*>(smem + L::kStage0 + st * L::kStage + 2 * L::kQT);
+                wgmma_fence();
+#pragma unroll
+                for (int ks = 0; ks < D / 16; ++ks) {
+                    const uint32_t kv_off = (ks / 4) * L::kKvBox + (ks % 4) * 32;
+                    const uint32_t q_off = (ks / 4) * L::kQBox + (ks % 4) * 32;
+                    wgmma_ss(s, desc_kmajor(k_base + kv_off), desc_kmajor(q_s + q_off), ks > 0, tag);
+                    wgmma_ss(dp, desc_kmajor(v_base + kv_off), desc_kmajor(do_s + q_off), ks > 0, tag);
+                }
+                wgmma_commit();
+                wgmma_wait0();
+                fence_regs(s);
+                fence_regs(dp);
+                uint32_t pf[16], dsf[16];
+                const bool edge = (causal && q0 < kw0 + 64) || q0 + kDkvQRows > S;
+                if (edge) {
+                    probabilities_t<true, T>(s, dp, lse_s, lse_s + kDkvQRows, pf, dsf, k0 + krow, q0, col, S, causal,
+                                             scale, scale_log2);
+                } else {
+                    probabilities_t<false, T>(s, dp, lse_s, lse_s + kDkvQRows, pf, dsf, k0 + krow, q0, col, S,
+                                              causal, scale, scale_log2);
+                }
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < kDkvQRows / 16; ++kk) {
+                    const uint32_t a_p[4] = {pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3]};
+                    const uint32_t a_ds[4] = {dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2], dsf[4 * kk + 3]};
+                    wgmma_rs(dv_acc, a_p, desc_mnmajor(do_s + kk * 16 * 128, L::kQBox), tag);
+                    wgmma_rs(dk_acc, a_ds, desc_mnmajor(q_s + kk * 16 * 128, L::kQBox), tag);
+                }
+                wgmma_commit();
+                wgmma_wait0();
+                fence_regs(dv_acc);
+                fence_regs(dk_acc);
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+        }
+
+        const int64_t kv_stride = (int64_t)KVH * D;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int kpos = k0 + krow + 8 * r;
+            if (kpos >= S) continue;
+            const int64_t off = ((int64_t)b * S + kpos) * kv_stride + (int64_t)g * D + col;
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j) {
+                *reinterpret_cast<uint32_t*>(dk + off + 8 * j) = pack2(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1], tag);
+                *reinterpret_cast<uint32_t*>(dv + off + 8 * j) = pack2(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1], tag);
+            }
+        }
+    }
+}
+
+// ---------------------------------------------- dQ B4 (first design, wmma) --
+using namespace nvcuda;
+
+constexpr int kTile = 64;        // rows of every tile, q and kv
+constexpr int kLdS = kTile + 4;  // f32 score tiles
+constexpr int kLdP = kTile + 8;  // 16-bit probability tiles
+constexpr int kBwdThreads = 256;  // 8 warps
 
 // Copy `rows` rows of D elements (row stride `stride` elements in global
 // memory) into a [kTile, D + 8] shared tile, with zeros past `rows`. 16-byte
@@ -81,157 +601,16 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride, 
 template <typename T>
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>;
 template <typename T>
-using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major>;
-template <typename T>
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major>;
 template <typename T>
 using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// ------------------------------------------------------------------ forward --
-constexpr int kFwdThreads = 128;  // 4 warps, 16 q rows each
-
-template <int D>
-constexpr size_t fwd_smem_bytes(size_t elem) {
-    return 3 * (size_t)kTile * (D + 8) * elem          // Q, K, V tiles
-           + (size_t)kTile * kLdS * 4                   // scores
-           + (size_t)kTile * kLdP * elem                // probabilities
-           + (size_t)kTile * (D + 4) * 4                // output accumulator
-           + 2 * (size_t)kTile * 4;                     // m, l
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ out,
-    float* __restrict__ lse, int S, int H, int KVH, float scale, int causal) {
-    constexpr int kLd = D + 8, kLdO = D + 4;
-    const int n_tiles = (S + kTile - 1) / kTile;
-    const int qt = n_tiles - 1 - blockIdx.x;  // longest causal rows first
-    const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-    const int g = h / (H / KVH);
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int q0 = qt * kTile;
-
-    extern __shared__ __align__(128) unsigned char smem[];
-    T* q_s = reinterpret_cast<T*>(smem);
-    T* k_s = q_s + kTile * kLd;
-    T* v_s = k_s + kTile * kLd;
-    float* s_s = reinterpret_cast<float*>(v_s + kTile * kLd);
-    T* p_s = reinterpret_cast<T*>(s_s + kTile * kLdS);
-    float* o_s = reinterpret_cast<float*>(p_s + kTile * kLdP);
-    float* m_s = o_s + kTile * kLdO;
-    float* l_s = m_s + kTile;
-
-    const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)KVH * D;
-    load_tile<T, D>(q_s, q + ((int64_t)b * S + q0) * q_stride + (int64_t)h * D, q_stride, S - q0, tid,
-                    kFwdThreads);
-    for (int i = tid; i < kTile * kLdO; i += kFwdThreads) o_s[i] = 0.f;
-    if (tid < kTile) {
-        m_s[tid] = kNegInf;
-        l_s[tid] = 0.f;
-    }
-    __syncthreads();
-
-    const int row0 = warp * 16;  // this warp's rows of the tile
-    FragA<T> qa[D / 16];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wmma::load_matrix_sync(qa[kk], q_s + row0 * kLd + kk * 16, kLd);
-
-    const int last = causal ? qt : n_tiles - 1;
-    for (int kt = 0; kt <= last; ++kt) {
-        const int k0 = kt * kTile;
-        __syncthreads();  // the previous K/V tiles are consumed
-        const int64_t kv_off = ((int64_t)b * S + k0) * kv_stride + (int64_t)g * D;
-        load_tile<T, D>(k_s, k + kv_off, kv_stride, S - k0, tid, kFwdThreads);
-        load_tile<T, D>(v_s, v + kv_off, kv_stride, S - k0, tid, kFwdThreads);
-        __syncthreads();
-
-        // S = Q K^T for this warp's 16 rows
-#pragma unroll
-        for (int n = 0; n < kTile / 16; ++n) {
-            FragC acc;
-            wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
-                FragBt<T> kb;
-                wmma::load_matrix_sync(kb, k_s + n * 16 * kLd + kk * 16, kLd);
-                wmma::mma_sync(acc, qa[kk], kb, acc);
-            }
-            wmma::store_matrix_sync(s_s + row0 * kLdS + n * 16, acc, kLdS, wmma::mem_row_major);
-        }
-        __syncwarp();
-
-        // online softmax: lanes 2r and 2r + 1 share row r of the warp's 16,
-        // each taking the columns of its parity, so the 16 rows run at once
-        {
-            const int row = row0 + (lane >> 1), par = lane & 1, qpos = q0 + row;
-            float sv[kTile / 2];
-            float mx = kNegInf;
-#pragma unroll
-            for (int j = 0; j < kTile / 2; ++j) {
-                const int c = 2 * j + par, kpos = k0 + c;
-                const bool ok = kpos < S && (!causal || kpos <= qpos);
-                sv[j] = ok ? s_s[row * kLdS + c] * scale : kNegInf;
-                mx = fmaxf(mx, sv[j]);
-            }
-            const float m_old = m_s[row];
-            const float m_new = fmaxf(m_old, fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1)));
-            float sum = 0.f;
-#pragma unroll
-            for (int j = 0; j < kTile / 2; ++j) {
-                const float p = __expf(sv[j] - m_new);
-                p_s[row * kLdP + 2 * j + par] = from_f32<T>(p);
-                sum += p;
-            }
-            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-            const float alpha = __expf(m_old - m_new);
-            for (int d = par; d < D; d += 2) o_s[row * kLdO + d] *= alpha;
-            __syncwarp();  // both lanes of the pair have read m_s[row]
-            if (par == 0) {
-                l_s[row] = l_s[row] * alpha + sum;
-                m_s[row] = m_new;
-            }
-        }
-        __syncwarp();
-
-        // O += P V for this warp's rows
-#pragma unroll
-        for (int n = 0; n < D / 16; ++n) {
-            FragC acc;
-            float* o_ptr = o_s + row0 * kLdO + n * 16;
-            wmma::load_matrix_sync(acc, o_ptr, kLdO, wmma::mem_row_major);
-#pragma unroll
-            for (int kk = 0; kk < kTile / 16; ++kk) {
-                FragA<T> pa;
-                FragB<T> vb;
-                wmma::load_matrix_sync(pa, p_s + row0 * kLdP + kk * 16, kLdP);
-                wmma::load_matrix_sync(vb, v_s + kk * 16 * kLd + n * 16, kLd);
-                wmma::mma_sync(acc, pa, vb, acc);
-            }
-            wmma::store_matrix_sync(o_ptr, acc, kLdO, wmma::mem_row_major);
-        }
-        __syncwarp();
-    }
-
-    for (int r = 0; r < 16; ++r) {
-        const int row = row0 + r, qpos = q0 + row;
-        if (qpos >= S) break;
-        const float l = fmaxf(l_s[row], 1e-30f);
-        const float inv = 1.f / l;
-        T* o_g = out + ((int64_t)b * S + qpos) * q_stride + (int64_t)h * D;
-        for (int d = lane; d < D; d += 32) o_g[d] = from_f32<T>(o_s[row * kLdO + d] * inv);
-        if (lane == 0) lse[(int64_t)bh * S + qpos] = m_s[row] + logf(l);
-    }
-}
-
-// ----------------------------------------------------------------- backward --
-constexpr int kBwdThreads = 256;  // 8 warps
-
 template <int D>
 constexpr size_t bwd_smem_bytes(size_t elem) {
     return 4 * (size_t)kTile * (D + 8) * elem  // Q, dO, K, V tiles
-           + 2 * (size_t)kTile * kLdS * 4       // S (then P), dP
-           + 2 * (size_t)kTile * kLdP * elem    // P, dS in T
+           + 2 * (size_t)kTile * kLdS * 4       // S, dP
+           + (size_t)kTile * kLdP * elem        // dS in T
            + 2 * (size_t)kTile * 4;             // lse, delta
 }
 
@@ -242,7 +621,6 @@ struct BwdSmem {
     void* v;
     float* s;
     float* dp;
-    void* p;
     void* ds;
     float* lse;
     float* delta;
@@ -259,8 +637,7 @@ __device__ __forceinline__ BwdSmem bwd_smem(unsigned char* smem) {
     m.v = base + 3 * kTile * kLd;
     m.s = reinterpret_cast<float*>(base + 4 * kTile * kLd);
     m.dp = m.s + kTile * kLdS;
-    m.p = m.dp + kTile * kLdS;
-    m.ds = reinterpret_cast<T*>(m.p) + kTile * kLdP;
+    m.ds = m.dp + kTile * kLdS;
     m.lse = reinterpret_cast<float*>(reinterpret_cast<T*>(m.ds) + kTile * kLdP);
     m.delta = m.lse + kTile;
     return m;
@@ -298,21 +675,18 @@ __device__ __forceinline__ void scores_and_dp(const BwdSmem& m, int warp) {
     }
 }
 
-// p = exp(s * scale - lse) (0 where masked), ds = p (dp - delta) scale, both
-// rounded to T. Rows are q positions q0.., columns key positions k0...
+// ds = exp(s * scale - lse) (dp - delta) scale (0 where masked), rounded to
+// T. Rows are q positions q0.., columns key positions k0...
 template <typename T>
-__device__ __forceinline__ void probabilities(const BwdSmem& m, int q0, int k0, int S, float scale,
-                                              int causal, bool want_p, int tid) {
-    T* p_s = static_cast<T*>(m.p);
+__device__ __forceinline__ void probabilities(const BwdSmem& m, int q0, int k0, int S, float scale, int causal,
+                                              int tid) {
     T* ds_s = static_cast<T*>(m.ds);
     for (int i = tid; i < kTile * kTile; i += kBwdThreads) {
         const int r = i / kTile, c = i - r * kTile;
         const int qpos = q0 + r, kpos = k0 + c;
         const bool ok = qpos < S && kpos < S && (!causal || kpos <= qpos);
         const float p = ok ? __expf(m.s[r * kLdS + c] * scale - m.lse[r]) : 0.f;
-        const float ds = p * (m.dp[r * kLdS + c] - m.delta[r]) * scale;
-        if (want_p) p_s[r * kLdP + c] = from_f32<T>(p);
-        ds_s[r * kLdP + c] = from_f32<T>(ds);
+        ds_s[r * kLdP + c] = from_f32<T>(p * (m.dp[r * kLdS + c] - m.delta[r]) * scale);
     }
 }
 
@@ -328,90 +702,6 @@ __device__ __forceinline__ void store_fragment(const FragC& acc, float* scratch,
         if (r < rows_left) dst[r * stride + c] = from_f32<T>(scratch[e]);
     }
     __syncwarp();
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int S, int H, int KVH, float scale, int causal) {
-    constexpr int kLd = D + 8;
-    constexpr int kCols = D / 32;  // 16-wide column blocks per warp (half of D)
-    const int n_tiles = (S + kTile - 1) / kTile;
-    const int kt = blockIdx.x;
-    const int bg = blockIdx.y, b = bg / KVH, g = bg - b * KVH;
-    const int rep = H / KVH;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int k0 = kt * kTile;
-
-    extern __shared__ __align__(128) unsigned char smem[];
-    const BwdSmem m = bwd_smem<T, D>(smem);
-    const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)KVH * D;
-    const int64_t kv_off = ((int64_t)b * S + k0) * kv_stride + (int64_t)g * D;
-    load_tile<T, D>(static_cast<T*>(m.k), k + kv_off, kv_stride, S - k0, tid, kBwdThreads);
-    load_tile<T, D>(static_cast<T*>(m.v), v + kv_off, kv_stride, S - k0, tid, kBwdThreads);
-
-    const int kr = warp & 3, ch = warp >> 2;  // key row block, half of D
-    FragC dk_acc[kCols], dv_acc[kCols];
-#pragma unroll
-    for (int n = 0; n < kCols; ++n) {
-        wmma::fill_fragment(dk_acc[n], 0.f);
-        wmma::fill_fragment(dv_acc[n], 0.f);
-    }
-
-    for (int hh = 0; hh < rep; ++hh) {
-        const int h = g * rep + hh;
-        const int64_t row_off = ((int64_t)b * H + h) * S;
-        for (int qt = causal ? kt : 0; qt < n_tiles; ++qt) {
-            const int q0 = qt * kTile;
-            __syncthreads();  // the previous q tile is consumed
-            const int64_t q_off = ((int64_t)b * S + q0) * q_stride + (int64_t)h * D;
-            load_tile<T, D>(static_cast<T*>(m.q), q + q_off, q_stride, S - q0, tid, kBwdThreads);
-            load_tile<T, D>(static_cast<T*>(m.dout), dout + q_off, q_stride, S - q0, tid, kBwdThreads);
-            if (tid < kTile) {
-                const bool ok = q0 + tid < S;
-                m.lse[tid] = ok ? lse[row_off + q0 + tid] : 0.f;
-                m.delta[tid] = ok ? delta[row_off + q0 + tid] : 0.f;
-            }
-            __syncthreads();
-            scores_and_dp<T, D>(m, warp);
-            __syncthreads();
-            probabilities<T>(m, q0, k0, S, scale, causal, true, tid);
-            __syncthreads();
-
-            // dV += P^T dO, dK += dS^T Q: rows are this warp's 16 keys
-            const T* p_s = static_cast<const T*>(m.p);
-            const T* ds_s = static_cast<const T*>(m.ds);
-            const T* q_s = static_cast<const T*>(m.q);
-            const T* do_s = static_cast<const T*>(m.dout);
-#pragma unroll
-            for (int kk = 0; kk < kTile / 16; ++kk) {
-                FragAt<T> pt, dst;
-                wmma::load_matrix_sync(pt, p_s + kk * 16 * kLdP + kr * 16, kLdP);
-                wmma::load_matrix_sync(dst, ds_s + kk * 16 * kLdP + kr * 16, kLdP);
-#pragma unroll
-                for (int n = 0; n < kCols; ++n) {
-                    const int col = (ch * kCols + n) * 16;
-                    FragB<T> bf;
-                    wmma::load_matrix_sync(bf, do_s + kk * 16 * kLd + col, kLd);
-                    wmma::mma_sync(dv_acc[n], pt, bf, dv_acc[n]);
-                    wmma::load_matrix_sync(bf, q_s + kk * 16 * kLd + col, kLd);
-                    wmma::mma_sync(dk_acc[n], dst, bf, dk_acc[n]);
-                }
-            }
-        }
-    }
-
-    __syncthreads();  // the score tiles become per-warp store scratch
-    float* scratch = m.s + warp * 256;
-    const int key0 = k0 + kr * 16;
-    const int64_t out_off = ((int64_t)b * S + key0) * kv_stride + (int64_t)g * D;
-#pragma unroll
-    for (int n = 0; n < kCols; ++n) {
-        const int col = (ch * kCols + n) * 16;
-        store_fragment<T>(dk_acc[n], scratch, dk + out_off + col, kv_stride, S - key0, lane);
-        store_fragment<T>(dv_acc[n], scratch, dv + out_off + col, kv_stride, S - key0, lane);
-    }
 }
 
 template <typename T, int D>
@@ -455,7 +745,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(
         __syncthreads();
         scores_and_dp<T, D>(m, warp);
         __syncthreads();
-        probabilities<T>(m, q0, k0, S, scale, causal, false, tid);
+        probabilities<T>(m, q0, k0, S, scale, causal, tid);
         __syncthreads();
 
         // dQ += dS K: rows are this warp's 16 q rows
@@ -485,6 +775,48 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(
 }
 
 // ------------------------------------------------------------------ launch --
+constexpr int kBadDtype = -1, kBadHeadDim = -2, kNoTensorMap = -3, kBadTensorMap = -4;
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static const EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err =
+            cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        return (err == cudaSuccess && found == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
+                                                                            : nullptr;
+    }();
+    return fn;
+}
+
+template <typename T> constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+template <> constexpr CUtensorMapDataType kMapType<__half> = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+
+// A [B, S, heads, D] tensor as the 4-D map (D, heads, S, B), read in boxes
+// of 64 columns x `rows` positions of one head with the 128-byte swizzle;
+// positions past S read as zeros.
+template <typename T>
+int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, int rows) {
+    const EncodeTiled fn = encode_tiled();
+    if (!fn) return kNoTensorMap;
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2, (cuuint64_t)S * heads * D * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, (cuuint32_t)rows, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    const CUresult r = fn(map, kMapType<T>, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : kBadTensorMap;
+}
+
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t smem) {
     if (smem <= 48 * 1024) return 0;
@@ -492,29 +824,33 @@ int set_smem(Kernel kernel, size_t smem) {
 }
 
 template <typename T, int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S, int H,
-               int KVH, float scale, int causal, cudaStream_t stream) {
-    const size_t smem = fwd_smem_bytes<D>(sizeof(T));
-    int err = set_smem(flash_fwd_kernel<T, D>, smem);
+int launch_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S, int H, int KVH,
+               float scale, int causal, cudaStream_t stream) {
+    CUtensorMap mq, mk, mv;
+    int err = make_map<T>(&mq, q, B, S, H, D, kFwdRows);
+    if (!err) err = make_map<T>(&mk, k, B, S, KVH, D, kFwdRows);
+    if (!err) err = make_map<T>(&mv, v, B, S, KVH, D, kFwdRows);
+    if (!err) err = set_smem(flash_fwd_kernel<T, D>, FwdLayout<D>::kBytes);
     if (err) return err;
-    dim3 grid((S + kTile - 1) / kTile, B * H);
-    flash_fwd_kernel<T, D><<<grid, kFwdThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), lse,
-        S, H, KVH, scale, causal);
+    dim3 grid((S + kFwdRows - 1) / kFwdRows, B * H);
+    flash_fwd_kernel<T, D><<<grid, kWsThreads, FwdLayout<D>::kBytes, stream>>>(
+        mq, mk, mv, static_cast<T*>(out), lse, S, H, KVH, scale * kLog2e, causal);
     return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* delta, void* dk, void* dv, int B, int S, int H, int KVH, float scale, int causal,
-               cudaStream_t stream) {
-    const size_t smem = bwd_smem_bytes<D>(sizeof(T));
-    int err = set_smem(flash_bwd_dkv_kernel<T, D>, smem);
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
+               void* dk, void* dv, int B, int S, int H, int KVH, float scale, int causal, cudaStream_t stream) {
+    CUtensorMap mq, mk, mv, mdo;
+    int err = make_map<T>(&mq, q, B, S, H, D, kDkvQRows);
+    if (!err) err = make_map<T>(&mdo, dout, B, S, H, D, kDkvQRows);
+    if (!err) err = make_map<T>(&mk, k, B, S, KVH, D, kDkvRows);
+    if (!err) err = make_map<T>(&mv, v, B, S, KVH, D, kDkvRows);
+    if (!err) err = set_smem(flash_bwd_dkv_kernel<T, D>, DkvLayout<D>::kBytes);
     if (err) return err;
-    dim3 grid((S + kTile - 1) / kTile, B * KVH);
-    flash_bwd_dkv_kernel<T, D><<<grid, kBwdThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H, KVH, scale,
+    dim3 grid((S + kDkvRows - 1) / kDkvRows, B * KVH);
+    flash_bwd_dkv_kernel<T, D><<<grid, kWsThreads, DkvLayout<D>::kBytes, stream>>>(
+        mq, mk, mv, mdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H, KVH, scale, scale * kLog2e,
         causal);
     return (int)cudaGetLastError();
 }
@@ -533,13 +869,12 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
     return (int)cudaGetLastError();
 }
 
-constexpr int kBadDtype = -1, kBadHeadDim = -2;
-
 }  // namespace
 
 // dtype codes: 1 float16, 2 bfloat16; head_dim 64 or 128. Each function
 // returns cudaGetLastError() after its launch (0 on success), -1 for an
-// unsupported dtype or -2 for an unsupported head_dim.
+// unsupported dtype, -2 for an unsupported head_dim, -3 if the driver has no
+// cuTensorMapEncodeTiled, -4 if it refuses a tensor map.
 #define DSTT_DISPATCH(FN, ...)                                                     \
     switch (dtype * 1000 + D) {                                                    \
         case 1064: return FN<__half, 64>(__VA_ARGS__);                             \
@@ -573,6 +908,8 @@ int dstt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* d
 const char* dstt_flash_error_string(int code) {
     if (code == kBadDtype) return "unsupported dtype";
     if (code == kBadHeadDim) return "unsupported head_dim";
+    if (code == kNoTensorMap) return "the CUDA driver has no cuTensorMapEncodeTiled";
+    if (code == kBadTensorMap) return "cuTensorMapEncodeTiled refused the tensor";
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -10,7 +10,8 @@ kernels) and then runs the dK/dV and dQ kernels over the saved lse.
 - On CUDA tensors the three wrappers launch the hand-written kernels of
   ``csrc/flash_attention.cu`` (replacing the Pallas kernels ``_fwd_kernel``,
   ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``) on the current stream, or
-  raise; there is no fallback.
+  raise; there is no fallback. The forward and dK/dV kernels copy tiles by
+  TMA and multiply with wgmma; the dQ kernel keeps its first, wmma design.
 - On CPU tensors :func:`flash_attention_fwd` and :func:`flash_attention_bwd`,
   which the autograd Function calls, run the plain versions
   :func:`flash_attention_fwd_plain` (the blockwise online softmax of
@@ -151,7 +152,7 @@ def _cuda_args(what, q, k, v, *rest, lse=None, delta=None):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernels load 16-byte vectors)")
+            raise ValueError(f"{name} must be 16-byte aligned (TMA and the kernels' 16-byte loads need it)")
         if t.device != q.device:
             raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
     for name, t in (("lse", lse), ("delta", delta)):

@@ -36,6 +36,11 @@ CASES = [
     (1, 300, 4, 1, 16, True),
     (1, 128, 2, 2, 128, False),
     (1, 96, 4, 2, 128, True),
+    # one past the kernels' 128-row tiles, and one short of two
+    (1, 129, 4, 2, 16, True),
+    (1, 129, 4, 1, 64, False),
+    (1, 255, 4, 1, 16, False),
+    (1, 255, 4, 2, 64, True),
 ]
 
 
