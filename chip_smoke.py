@@ -9,7 +9,8 @@ Phases (any failure raises and the script exits non-zero):
    card's name and power limit;
 2. kernels: hold each hand-written kernel against its plain PyTorch version
    on the same inputs, in bf16, at the shapes the main paths give it and at
-   the token mixes and sequence lengths it must handle; time kernel, plain
+   the token mixes and sequence lengths it must handle (and run the paged
+   kernel twice on the same inputs: the same bits); time kernel, plain
    version and the PyTorch library call for the same attention (and, for the
    flash kernels, the host time of a wrapper call), and compute the card's
    bound for the work;
@@ -99,7 +100,8 @@ FLASH_CASES = (
     ("gqa_S1000_D64_causal", 4, 1000, 16, 4, True, 64),  # the 64-wide head, ragged last tile
 )
 # the kernels' designs, named in the kernels line
-FLASH_DESIGN = {"fwd": "wgmma+tma", "dkv": "wgmma+tma", "dq": "wmma"}
+FLASH_DESIGN = {"fwd": "wgmma+tma", "dkv": "wgmma+tma", "dq": "wgmma+tma"}
+PAGED_DESIGN = "split context, cp.async.bulk"
 # Every element of out, dq, dk and dv is held to its plain value within
 # FLASH_TILE_ATOL times the larger of its row's rms (the D values of one
 # position and head) and its tile's (the 64 positions x D values of one head
@@ -320,6 +322,9 @@ def check_paged_attention(dev) -> list:
         # padding rows
         _paged_case("llama2_7b_mix", 32, 32, BLOCK, long_mix, gen, cpu_gen),
         _paged_case("gqa_mix", 32, 8, 16, long_mix, gen, cpu_gen),
+        # decode near the end of the 4096-position context: a bound of about
+        # 0.16 ms of bytes, so the kernel's share of the bandwidth reads
+        _paged_case("llama2_7b_decode_long", 32, 32, BLOCK, [[3960 + 5 * i] for i in range(8)], gen, cpu_gen),
     ]
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     results = []
@@ -335,6 +340,11 @@ def check_paged_attention(dev) -> list:
             raise RuntimeError("the wrapper did not launch its two kernels")
         if not torch.equal(c_kernel, c_plain):
             raise AssertionError(f"{c['name']}: cache after the kernel differs from the plain version's")
+        # the splits merge in a fixed order: the same inputs give the same bits
+        again, _ = paged_attention_update(*args(c_plain.clone()))
+        if not torch.equal(again, got):
+            raise AssertionError(f"{c['name']}: a second run on the same inputs gives other bits")
+        del again
         err = (got.float() - want.float()).abs()
         bad = err > KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
         if bad.any() or not torch.isfinite(got.float()).all():
@@ -854,11 +864,13 @@ def _profile_decode(engine, prompts, first_tokens):
     device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in device)
     paged_us = sum(e.self_device_time_total for e in device if "paged_" in e.key)
+    attention_us = sum(e.self_device_time_total for e in device if "paged_attention_kernel" in e.key)
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
     return dict(steps=PROFILE_STEPS, wall_ms_per_step=1e3 * wall / PROFILE_STEPS,
                 device_ms_per_step=busy_us / 1e3 / PROFILE_STEPS,
                 device_busy_share=busy_us / 1e6 / wall if busy_us else "not measured",
                 paged_kernels_ms_per_step=paged_us / 1e3 / PROFILE_STEPS,
+                paged_attention_kernel_ms_per_step=attention_us / 1e3 / PROFILE_STEPS,
                 top_kernels=[dict(name=e.key[:80], calls_per_step=e.count / PROFILE_STEPS,
                                   ms_per_step=e.self_device_time_total / 1e3 / PROFILE_STEPS) for e in top])
 
@@ -920,6 +932,8 @@ def run_main_path(dev) -> dict:
     # over the unprofiled step time is the busy share of the measured runs
     prof["device_share_of_measured_step"] = prof["device_ms_per_step"] / res["ms_per_decode_step"]
     log("[main] decode profile: " + json.dumps(res["decode_profile"]))
+    if not prof["paged_attention_kernel_ms_per_step"] > 0:
+        raise AssertionError("the decode profile finds no time for paged_attention_kernel by name")
 
     # first decode step: kernel path, gather path, dense f32 model
     paged = _first_decode_logits(engine, prompts, first)
@@ -1186,7 +1200,7 @@ def main() -> int:
     record["seconds"] = time.perf_counter() - t_start
 
     decode = record["paged_attention"][0]  # the serving path's decode shape
-    kernels = [dict(name="paged_attention_update", route="cuda", design="cuda cores",
+    kernels = [dict(name="paged_attention_update", route="cuda", design=PAGED_DESIGN,
                     source="deepspeed_tpu_torch/csrc/paged_attention.cu",
                     replaces="deepspeed_tpu/ops/pallas/paged_attention.py:37",
                     launches=record["main_path"]["paged_attention_launches"],

@@ -29,7 +29,7 @@
 // so the tensor cores bound it, at 0.069 ms; so do they the dQ kernel's 51.5
 // GFLOP, at 0.052 ms.
 //
-// Design of B2 and B3 (FlashAttention-3's shape). A block has three
+// Design (FlashAttention-3's shape), shared by B2, B3 and B4. A block has three
 // warpgroups: one producer and two consumers. The producer's first thread
 // copies tiles into shared memory by TMA (cp.async.bulk.tensor, one 64-column
 // box per 128-byte-swizzled panel; rows past S arrive as zeros) into a ring
@@ -52,9 +52,15 @@
 //    dK += dS^T Q as RS wgmmas with dO and Q MN-major. dK and dV stay in f32
 //    registers over all of g's query heads: no atomics, and the GQA head sum
 //    is deterministic.
-// B4 (dQ) keeps the first design until it gets B3's machinery: 64-row tiles
-// staged by plain 16-byte loads and barriers, nvcuda::wmma 16x16x16
-// fragments (mma.sync), S, dP and dS round-tripped through shared memory.
+//  - B4: a block owns a 128-row q tile of one (b, h), longest causal rows
+//    first, with its Q and dO tiles resident (one TMA load each, on their
+//    own mbarrier), and streams the 64-row K and V tiles of KV head h / rep
+//    (causal: up to the diagonal). S = Q K^T and dP = dO V^T are SS wgmmas;
+//    each thread holds the lse and delta of its two rows in registers; P and
+//    dS are computed on the accumulators (the mask only on the diagonal and
+//    the ragged last tile), and dQ += dS K is an RS wgmma with dS packed
+//    from registers and K as an MN-major B operand. dQ stays in f32
+//    registers and is written once; GQA is read in place, with no atomics.
 // The tensor maps are encoded on the host for every call (a few
 // microseconds), through cuTensorMapEncodeTiled found with
 // cudaGetDriverEntryPoint, so the library needs no -lcuda.
@@ -64,7 +70,6 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -72,12 +77,6 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16_rn(x);
-}
 
 // ----------------------------------------------------- Hopper primitives --
 constexpr int kPanel = 64;             // elements in one 128-byte swizzled row of a TMA box
@@ -574,203 +573,164 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     }
 }
 
-// ---------------------------------------------- dQ B4 (first design, wmma) --
-using namespace nvcuda;
+// ------------------------------------------------------------------- dQ B4 --
+constexpr int kDqRows = 128;   // q rows of a block
+constexpr int kDqKvRows = 64;  // rows of each streamed K / V tile
 
-constexpr int kTile = 64;        // rows of every tile, q and kv
-constexpr int kLdS = kTile + 4;  // f32 score tiles
-constexpr int kLdP = kTile + 8;  // 16-bit probability tiles
-constexpr int kBwdThreads = 256;  // 8 warps
-
-// Copy `rows` rows of D elements (row stride `stride` elements in global
-// memory) into a [kTile, D + 8] shared tile, with zeros past `rows`. 16-byte
-// vectors: D * sizeof(T) is a multiple of 16 and the tensors are 16-byte aligned.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride, int rows, int tid,
-                                          int nthreads) {
-    constexpr int kVec = D * (int)sizeof(T) / 16;
-    constexpr int kLd = D + 8;
-    for (int i = tid; i < kTile * kVec; i += nthreads) {
-        const int r = i / kVec, c = i - r * kVec;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r < rows) val = reinterpret_cast<const uint4*>(src + r * stride)[c];
-        reinterpret_cast<uint4*>(dst + r * kLd)[c] = val;
-    }
-}
-
-template <typename T>
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>;
-template <typename T>
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major>;
-template <typename T>
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-template <int D>
-constexpr size_t bwd_smem_bytes(size_t elem) {
-    return 4 * (size_t)kTile * (D + 8) * elem  // Q, dO, K, V tiles
-           + 2 * (size_t)kTile * kLdS * 4       // S, dP
-           + (size_t)kTile * kLdP * elem        // dS in T
-           + 2 * (size_t)kTile * 4;             // lse, delta
-}
-
-struct BwdSmem {
-    void* q;
-    void* dout;
-    void* k;
-    void* v;
-    float* s;
-    float* dp;
-    void* ds;
-    float* lse;
-    float* delta;
+template <int D> struct DqLayout {
+    static constexpr int kQBox = kDqRows * kPanel * 2;     // one panel of the Q or dO tile
+    static constexpr int kKvBox = kDqKvRows * kPanel * 2;  // one panel of a K or V tile
+    static constexpr int kQT = kDqRows * D * 2, kKvT = kDqKvRows * D * 2;
+    static constexpr int kStage = 2 * kKvT;  // a stage: K tile, then V tile
+    static constexpr int kQ = 0, kDo = kQT, kStage0 = 2 * kQT, kBar = kStage0 + kStages * kStage;
+    static constexpr int kBytes = kBar + kBarBytes + 1024;
+    static_assert(kBytes <= kSmemLimit, "B4's tiles do not fit a block's shared memory");
 };
 
-template <typename T, int D>
-__device__ __forceinline__ BwdSmem bwd_smem(unsigned char* smem) {
-    constexpr int kLd = D + 8;
-    BwdSmem m;
-    T* base = reinterpret_cast<T*>(smem);
-    m.q = base;
-    m.dout = base + kTile * kLd;
-    m.k = base + 2 * kTile * kLd;
-    m.v = base + 3 * kTile * kLd;
-    m.s = reinterpret_cast<float*>(base + 4 * kTile * kLd);
-    m.dp = m.s + kTile * kLdS;
-    m.ds = m.dp + kTile * kLdS;
-    m.lse = reinterpret_cast<float*>(reinterpret_cast<T*>(m.ds) + kTile * kLdP);
-    m.delta = m.lse + kTile;
-    return m;
-}
-
-// S = Q K^T and dP = dO V^T over the 64 x 64 tile: warp w computes the two
-// 16 x 16 blocks at row block w / 2, column blocks 2 (w % 2) and 2 (w % 2) + 1.
-template <typename T, int D>
-__device__ __forceinline__ void scores_and_dp(const BwdSmem& m, int warp) {
-    constexpr int kLd = D + 8;
-    const T* q_s = static_cast<const T*>(m.q);
-    const T* do_s = static_cast<const T*>(m.dout);
-    const T* k_s = static_cast<const T*>(m.k);
-    const T* v_s = static_cast<const T*>(m.v);
-    const int rb = warp >> 1;
+// dS of one (64 q x 64 keys) tile on the accumulators of S (s) and dP (dp):
+// rows are this thread's two q rows, whose lse (times log2 e) and delta it
+// holds in registers. Leaves dS packed as the A operand of dQ += dS K.
+template <bool kMask, typename T>
+__device__ __forceinline__ void dq_scores(const float (&s)[32], const float (&dp)[32], const float (&lse2)[2],
+                                          const float (&delta)[2], uint32_t (&dsf)[16], int qpos0, int kpos0, int S,
+                                          int causal, float scale, float scale_log2) {
+    float ds[32];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-        const int cb = 2 * (warp & 1) + j;
-        FragC s_acc, dp_acc;
-        wmma::fill_fragment(s_acc, 0.f);
-        wmma::fill_fragment(dp_acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-            FragA<T> a;
-            FragBt<T> bt;
-            wmma::load_matrix_sync(a, q_s + rb * 16 * kLd + kk * 16, kLd);
-            wmma::load_matrix_sync(bt, k_s + cb * 16 * kLd + kk * 16, kLd);
-            wmma::mma_sync(s_acc, a, bt, s_acc);
-            wmma::load_matrix_sync(a, do_s + rb * 16 * kLd + kk * 16, kLd);
-            wmma::load_matrix_sync(bt, v_s + cb * 16 * kLd + kk * 16, kLd);
-            wmma::mma_sync(dp_acc, a, bt, dp_acc);
+    for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = exp2_approx(fmaf(s[i], scale_log2, -lse2[r]));
+        if (kMask) {
+            const int kpos = kpos0 + (i >> 2) * 8 + (i & 1), qpos = qpos0 + 8 * r;
+            if (kpos >= S || (causal && kpos > qpos)) p = 0.f;
         }
-        wmma::store_matrix_sync(m.s + rb * 16 * kLdS + cb * 16, s_acc, kLdS, wmma::mem_row_major);
-        wmma::store_matrix_sync(m.dp + rb * 16 * kLdS + cb * 16, dp_acc, kLdS, wmma::mem_row_major);
+        ds[i] = p * (dp[i] - delta[r]) * scale;
     }
-}
-
-// ds = exp(s * scale - lse) (dp - delta) scale (0 where masked), rounded to
-// T. Rows are q positions q0.., columns key positions k0...
-template <typename T>
-__device__ __forceinline__ void probabilities(const BwdSmem& m, int q0, int k0, int S, float scale, int causal,
-                                              int tid) {
-    T* ds_s = static_cast<T*>(m.ds);
-    for (int i = tid; i < kTile * kTile; i += kBwdThreads) {
-        const int r = i / kTile, c = i - r * kTile;
-        const int qpos = q0 + r, kpos = k0 + c;
-        const bool ok = qpos < S && kpos < S && (!causal || kpos <= qpos);
-        const float p = ok ? __expf(m.s[r * kLdS + c] * scale - m.lse[r]) : 0.f;
-        ds_s[r * kLdP + c] = from_f32<T>(p * (m.dp[r * kLdS + c] - m.delta[r]) * scale);
-    }
-}
-
-// Write a warp's 16 x 16 f32 fragment as T rows row0.. (those < S) of a
-// [B, S, heads, D] tensor, through a per-warp 16 x 16 f32 scratch.
-template <typename T>
-__device__ __forceinline__ void store_fragment(const FragC& acc, float* scratch, T* dst, int64_t stride,
-                                               int rows_left, int lane) {
-    wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-        const int r = e >> 4, c = e & 15;
-        if (r < rows_left) dst[r * stride + c] = from_f32<T>(scratch[e]);
-    }
-    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 16; ++j) dsf[j] = pack2(ds[2 * j], ds[2 * j + 1], static_cast<const T*>(nullptr));
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq, int S, int H,
-    int KVH, float scale, int causal) {
-    constexpr int kLd = D + 8;
-    constexpr int kCols = D / 32;
-    const int n_tiles = (S + kTile - 1) / kTile;
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                        const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq, int S,
+                        int H, int KVH, float scale, float scale_log2, int causal) {
+    using L = DqLayout<D>;
+    constexpr int kPanels = D / kPanel;
+    const int n_tiles = (S + kDqRows - 1) / kDqRows;
     const int qt = n_tiles - 1 - blockIdx.x;  // longest causal rows first
     const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
     const int g = h / (H / KVH);
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int q0 = qt * kTile;
+    const int q0 = qt * kDqRows;
+    const int n_kv_all = (S + kDqKvRows - 1) / kDqKvRows;
+    const int n_kv = causal ? min((q0 + kDqRows) / kDqKvRows, n_kv_all) : n_kv_all;
 
-    extern __shared__ __align__(128) unsigned char smem[];
-    const BwdSmem m = bwd_smem<T, D>(smem);
-    const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)KVH * D;
-    const int64_t q_off = ((int64_t)b * S + q0) * q_stride + (int64_t)h * D;
-    load_tile<T, D>(static_cast<T*>(m.q), q + q_off, q_stride, S - q0, tid, kBwdThreads);
-    load_tile<T, D>(static_cast<T*>(m.dout), dout + q_off, q_stride, S - q0, tid, kBwdThreads);
-    if (tid < kTile) {
-        const bool ok = q0 + tid < S;
-        m.lse[tid] = ok ? lse[(int64_t)bh * S + q0 + tid] : 0.f;
-        m.delta[tid] = ok ? delta[(int64_t)bh * S + q0 + tid] : 0.f;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t bar_q = base + L::kBar, bar_full = bar_q + 8, bar_empty = bar_full + 8 * kStages;
+    if (threadIdx.x == 0) {
+        mbar_init(bar_q, 1);
+        for (int s = 0; s < kStages; ++s) {
+            mbar_init(bar_full + 8 * s, 1);
+            mbar_init(bar_empty + 8 * s, kConsumerWarps);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
+    __syncthreads();
 
-    const int qr = warp & 3, ch = warp >> 2;  // q row block, half of D
-    FragC dq_acc[kCols];
+    if (threadIdx.x < 128) {  // producer warpgroup: its first thread issues every copy
+        setmaxnreg_dec<24>();
+        if (threadIdx.x == 0) {
+            mbar_expect_tx(bar_q, 2 * L::kQT);
 #pragma unroll
-    for (int n = 0; n < kCols; ++n) wmma::fill_fragment(dq_acc[n], 0.f);
-
-    const int last = causal ? qt : n_tiles - 1;
-    for (int kt = 0; kt <= last; ++kt) {
-        const int k0 = kt * kTile;
-        __syncthreads();  // the previous K/V tiles are consumed
-        const int64_t kv_off = ((int64_t)b * S + k0) * kv_stride + (int64_t)g * D;
-        load_tile<T, D>(static_cast<T*>(m.k), k + kv_off, kv_stride, S - k0, tid, kBwdThreads);
-        load_tile<T, D>(static_cast<T*>(m.v), v + kv_off, kv_stride, S - k0, tid, kBwdThreads);
-        __syncthreads();
-        scores_and_dp<T, D>(m, warp);
-        __syncthreads();
-        probabilities<T>(m, q0, k0, S, scale, causal, tid);
-        __syncthreads();
-
-        // dQ += dS K: rows are this warp's 16 q rows
-        const T* ds_s = static_cast<const T*>(m.ds);
-        const T* k_s = static_cast<const T*>(m.k);
+            for (int p = 0; p < kPanels; ++p) {
+                tma_load(base + L::kQ + p * L::kQBox, &tm_q, bar_q, p * kPanel, h, q0, b);
+                tma_load(base + L::kDo + p * L::kQBox, &tm_do, bar_q, p * kPanel, h, q0, b);
+            }
+            for (int it = 0; it < n_kv; ++it) {
+                const int st = it % kStages;
+                const uint32_t stage = base + L::kStage0 + st * L::kStage;
+                mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1);
+                mbar_expect_tx(bar_full + 8 * st, L::kStage);
 #pragma unroll
-        for (int kk = 0; kk < kTile / 16; ++kk) {
-            FragA<T> dsa;
-            wmma::load_matrix_sync(dsa, ds_s + qr * 16 * kLdP + kk * 16, kLdP);
-#pragma unroll
-            for (int n = 0; n < kCols; ++n) {
-                FragB<T> kb;
-                wmma::load_matrix_sync(kb, k_s + kk * 16 * kLd + (ch * kCols + n) * 16, kLd);
-                wmma::mma_sync(dq_acc[n], dsa, kb, dq_acc[n]);
+                for (int p = 0; p < kPanels; ++p) {
+                    tma_load(stage + p * L::kKvBox, &tm_k, bar_full + 8 * st, p * kPanel, g, it * kDqKvRows, b);
+                    tma_load(stage + L::kKvT + p * L::kKvBox, &tm_v, bar_full + 8 * st, p * kPanel, g,
+                             it * kDqKvRows, b);
+                }
             }
         }
-    }
-
-    __syncthreads();
-    float* scratch = m.s + warp * 256;
-    const int row0 = q0 + qr * 16;
-    const int64_t out_off = ((int64_t)b * S + row0) * q_stride + (int64_t)h * D;
+    } else {  // two consumer warpgroups, 64 q rows each
+        setmaxnreg_inc<240>();
+        const T* tag = nullptr;
+        const int w = threadIdx.x / 128 - 1, t = threadIdx.x & 127, lane = t & 31;
+        const int row = w * 64 + (t >> 5) * 16 + (lane >> 2);  // this thread's first q row; the second is row + 8
+        const int col = 2 * (lane & 3);
+        const int qw0 = q0 + w * 64;  // this warpgroup's first q row
+        float lse2[2], dlt[2];
 #pragma unroll
-    for (int n = 0; n < kCols; ++n) {
-        store_fragment<T>(dq_acc[n], scratch, dq + out_off + (ch * kCols + n) * 16, q_stride, S - row0, lane);
+        for (int r = 0; r < 2; ++r) {
+            const int qpos = q0 + row + 8 * r;
+            const bool ok = qpos < S;
+            lse2[r] = ok ? lse[(int64_t)bh * S + qpos] * kLog2e : 0.f;
+            dlt[r] = ok ? delta[(int64_t)bh * S + qpos] : 0.f;
+        }
+        float dq_acc[D / 2], s[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+        const uint32_t q_base = base + L::kQ + w * 64 * 128, do_base = base + L::kDo + w * 64 * 128;
+        mbar_wait(bar_q, 0);
+        for (int it = 0; it < n_kv; ++it) {
+            const int st = it % kStages, k0 = it * kDqKvRows;
+            mbar_wait(bar_full + 8 * st, (it / kStages) & 1);
+            if (!causal || k0 <= qw0 + 63) {  // else every key of the tile is after every query of this half
+                const uint32_t k_base = base + L::kStage0 + st * L::kStage, v_base = k_base + L::kKvT;
+                wgmma_fence();
+#pragma unroll
+                for (int ks = 0; ks < D / 16; ++ks) {
+                    const uint32_t q_off = (ks / 4) * L::kQBox + (ks % 4) * 32;
+                    const uint32_t kv_off = (ks / 4) * L::kKvBox + (ks % 4) * 32;
+                    wgmma_ss(s, desc_kmajor(q_base + q_off), desc_kmajor(k_base + kv_off), ks > 0, tag);
+                    wgmma_ss(dp, desc_kmajor(do_base + q_off), desc_kmajor(v_base + kv_off), ks > 0, tag);
+                }
+                wgmma_commit();
+                wgmma_wait0();
+                fence_regs(s);
+                fence_regs(dp);
+                uint32_t dsf[16];
+                const bool edge = (causal && k0 + kDqKvRows - 1 > qw0) || k0 + kDqKvRows > S;
+                if (edge) {
+                    dq_scores<true, T>(s, dp, lse2, dlt, dsf, q0 + row, k0 + col, S, causal, scale, scale_log2);
+                } else {
+                    dq_scores<false, T>(s, dp, lse2, dlt, dsf, q0 + row, k0 + col, S, causal, scale, scale_log2);
+                }
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < kDqKvRows / 16; ++kk) {
+                    const uint32_t a[4] = {dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2], dsf[4 * kk + 3]};
+                    wgmma_rs(dq_acc, a, desc_mnmajor(k_base + kk * 16 * 128, L::kKvBox), tag);
+                }
+                wgmma_commit();
+                wgmma_wait0();
+                fence_regs(dq_acc);
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+        }
+
+        const int64_t q_stride = (int64_t)H * D;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int qpos = q0 + row + 8 * r;
+            if (qpos >= S) continue;
+            T* dst = dq + ((int64_t)b * S + qpos) * q_stride + (int64_t)h * D + col;
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j) {
+                *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack2(dq_acc[4 * j + 2 * r], dq_acc[4 * j + 2 * r + 1], tag);
+            }
+        }
     }
 }
 
@@ -856,16 +816,18 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 }
 
 template <typename T, int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-              const float* delta, void* dq, int B, int S, int H, int KVH, float scale, int causal,
-              cudaStream_t stream) {
-    const size_t smem = bwd_smem_bytes<D>(sizeof(T));
-    int err = set_smem(flash_bwd_dq_kernel<T, D>, smem);
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
+              void* dq, int B, int S, int H, int KVH, float scale, int causal, cudaStream_t stream) {
+    CUtensorMap mq, mk, mv, mdo;
+    int err = make_map<T>(&mq, q, B, S, H, D, kDqRows);
+    if (!err) err = make_map<T>(&mdo, dout, B, S, H, D, kDqRows);
+    if (!err) err = make_map<T>(&mk, k, B, S, KVH, D, kDqKvRows);
+    if (!err) err = make_map<T>(&mv, v, B, S, KVH, D, kDqKvRows);
+    if (!err) err = set_smem(flash_bwd_dq_kernel<T, D>, DqLayout<D>::kBytes);
     if (err) return err;
-    dim3 grid((S + kTile - 1) / kTile, B * H);
-    flash_bwd_dq_kernel<T, D><<<grid, kBwdThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), S, H, KVH, scale, causal);
+    dim3 grid((S + kDqRows - 1) / kDqRows, B * H);
+    flash_bwd_dq_kernel<T, D><<<grid, kWsThreads, DqLayout<D>::kBytes, stream>>>(
+        mq, mk, mv, mdo, lse, delta, static_cast<T*>(dq), S, H, KVH, scale, scale * kLog2e, causal);
     return (int)cudaGetLastError();
 }
 

@@ -32,10 +32,10 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops import builder
+from deepspeed_tpu_torch.ops.flash_attention import HEAD_DIMS, kernel_head_dim, pad_head_dim
 
 NEG_INF = -1e30
 KERNEL_TILE = 64  # rows of the kernel's q and KV tiles (csrc/block_sparse_attention.cu kTile)
-HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float16: 1, torch.bfloat16: 2}
 _PLAN_CACHE = {}
 _PLAN_CACHE_SIZE = 64  # bounded: layouts are few and static in practice
@@ -323,13 +323,14 @@ def block_sparse_attention_fwd(q, k, v, plan, scale):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"block_sparse_attention_fwd: q, k and v must share one of {list(_DTYPE_CODE)}; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"block_sparse_attention_fwd: head_dim {D} not in {HEAD_DIMS}")
+    kernel_head_dim(D)  # raises past the widest kernel
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel loads 16-byte vectors)")
+    if D not in HEAD_DIMS:  # zero-padded to the kernel's width (ops/flash_attention.py)
+        return block_sparse_attention_fwd(*pad_head_dim(q, k, v), plan, scale)[..., :D].contiguous()
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out

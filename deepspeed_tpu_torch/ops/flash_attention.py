@@ -10,8 +10,10 @@ kernels) and then runs the dK/dV and dQ kernels over the saved lse.
 - On CUDA tensors the three wrappers launch the hand-written kernels of
   ``csrc/flash_attention.cu`` (replacing the Pallas kernels ``_fwd_kernel``,
   ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``) on the current stream, or
-  raise; there is no fallback. The forward and dK/dV kernels copy tiles by
-  TMA and multiply with wgmma; the dQ kernel keeps its first, wmma design.
+  raise; there is no fallback. All three copy tiles by TMA and multiply
+  with wgmma. They are built for head_dim 64 and 128; a smaller head_dim
+  runs zero-padded to the next of the two (:func:`pad_head_dim`), which
+  changes no product and no softmax, and its outputs are sliced back.
 - On CPU tensors :func:`flash_attention_fwd` and :func:`flash_attention_bwd`,
   which the autograd Function calls, run the plain versions
   :func:`flash_attention_fwd_plain` (the blockwise online softmax of
@@ -34,6 +36,26 @@ NEG_INF = -1e30
 PLAIN_BLOCK = 256  # KV positions per step of the plain versions
 _DTYPE_CODE = {torch.float16: 1, torch.bfloat16: 2}
 HEAD_DIMS = (64, 128)
+
+
+def kernel_head_dim(D: int) -> int:
+    """The width the kernels run head_dim ``D`` at: the smallest of
+    ``HEAD_DIMS`` that holds it. Raises past the largest."""
+    for width in HEAD_DIMS:
+        if D <= width:
+            return width
+    raise ValueError(f"head_dim {D} over {HEAD_DIMS[-1]}: the kernels are built for head_dim {HEAD_DIMS}")
+
+
+def pad_head_dim(*tensors):
+    """The tensors with their last (head) dim zero-padded to
+    :func:`kernel_head_dim`: a zero column of q and k adds nothing to a
+    score, of v or dO nothing to an output, and the padded columns of every
+    output are zero. The caller slices outputs back with ``[..., :D]`` and
+    keeps its own ``scale``."""
+    D = tensors[0].shape[-1]
+    width = kernel_head_dim(D)
+    return tuple(torch.nn.functional.pad(t, (0, width - D)) for t in tensors)
 
 
 def _check(q, k, v):
@@ -146,8 +168,7 @@ def _cuda_args(what, q, k, v, *rest, lse=None, delta=None):
     if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in (k, v, *rest)):
         raise TypeError(f"{what}: q, k, v{' and dout' if rest else ''} must share one of "
                         f"{list(_DTYPE_CODE)}; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {D} not in {HEAD_DIMS}")
+    kernel_head_dim(D)  # raises past the widest kernel
     for name, t in (("q", q), ("k", k), ("v", v), *((("dout", t) for t in rest))):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -172,6 +193,9 @@ def flash_attention_fwd(q, k, v, scale, causal):
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, scale, causal)
     B, S, H, KVH, D = _cuda_args("flash_attention_fwd", q, k, v)
+    if D not in HEAD_DIMS:
+        out, lse = flash_attention_fwd(*pad_head_dim(q, k, v), scale, causal)
+        return out[..., :D].contiguous(), lse
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if S == 0 or B == 0:
@@ -190,6 +214,9 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal):
     """dK/dV kernel (B3), CUDA tensors only: ``(dk, dv)`` in k's dtype,
     summed over the query heads that share each KV head."""
     B, S, H, KVH, D = _cuda_args("flash_attention_bwd_dkv", q, k, v, dout, lse=lse, delta=delta)
+    if D not in HEAD_DIMS:
+        dk, dv = flash_attention_bwd_dkv(*pad_head_dim(q, k, v, dout), lse, delta, scale, causal)
+        return dk[..., :D].contiguous(), dv[..., :D].contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if S == 0 or B == 0:
         return dk, dv
@@ -206,6 +233,8 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal):
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal):
     """dQ kernel (B4), CUDA tensors only: dq in q's dtype."""
     B, S, H, KVH, D = _cuda_args("flash_attention_bwd_dq", q, k, v, dout, lse=lse, delta=delta)
+    if D not in HEAD_DIMS:
+        return flash_attention_bwd_dq(*pad_head_dim(q, k, v, dout), lse, delta, scale, causal)[..., :D].contiguous()
     dq = torch.empty_like(q)
     if S == 0 or B == 0:
         return dq

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from deepspeed_tpu_torch.ops.paged_attention import paged_attention_update, paged_attention_update_plain
+from deepspeed_tpu_torch.ops.paged_attention import (SPLIT_POSITIONS, kernel_geometry, paged_attention_geometry,
+                                                     paged_attention_update, paged_attention_update_plain)
 
 
 @pytest.fixture
@@ -55,6 +56,61 @@ def test_paged_attention_kernel_matches_plain(cuda_device, dtype, H, KVH, bs):
     # both round an f32 result to dtype: at most about one ulp apart
     tol = {torch.bfloat16: 2**-7, torch.float16: 2**-10, torch.float32: 1e-5}[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _context_case(H, KVH, bs, D, dtype, dev, lasts, seed=0):
+    """One decode token per sequence, at each position of ``lasts``; tables
+    of distinct random blocks up to it, then -1; two padding rows."""
+    rng = np.random.default_rng(seed)
+    MB = max(lasts) // bs + 2
+    need = [p // bs + 1 for p in lasts]
+    NB = sum(need) + 2
+    perm = rng.permutation(NB)
+    table = np.full((len(lasts), MB), -1, np.int32)
+    at = 0
+    for s, n in enumerate(need):
+        table[s, :n] = perm[at:at + n]
+        at += n
+    seq = np.array(list(range(len(lasts))) + [len(lasts)] * 2, np.int32)
+    pos = np.array(list(lasts) + [0, 0], np.int32)
+    valid = np.array([1] * len(lasts) + [0, 0], np.int32)
+    T = seq.size
+    f = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+    i = lambda a: torch.from_numpy(a).to(dev)
+    return (f(T, H, D), f(T, KVH, D), f(T, KVH, D), f(2, 2, NB, KVH, bs, D), 1, i(table), i(seq), i(pos), i(valid))
+
+
+# contexts of one position, one split exactly, one position past it, two
+# splits exactly, and 4000 positions (16 splits)
+SPLIT_CONTEXTS = (0, SPLIT_POSITIONS - 1, SPLIT_POSITIONS, 2 * SPLIT_POSITIONS - 1, 3999)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("D", [64, 96])
+@pytest.mark.parametrize("H,KVH,bs", [(4, 4, 16), (8, 2, 64)], ids=["mha_bs16", "gqa_bs64"])
+def test_paged_attention_split_contexts_match_plain_and_repeat(cuda_device, dtype, D, H, KVH, bs):
+    q, k_new, v_new, cache, li, table, seq, pos, valid = _context_case(H, KVH, bs, D, dtype, cuda_device,
+                                                                       SPLIT_CONTEXTS)
+    c_kernel, c_again, c_plain = cache.clone(), cache.clone(), cache.clone()
+    before = paged_attention_update.launches
+    got, _ = paged_attention_update(q, k_new, v_new, c_kernel, li, table, seq, pos, valid)
+    again, _ = paged_attention_update(q, k_new, v_new, c_again, li, table, seq, pos, valid)
+    want, _ = paged_attention_update_plain(q, k_new, v_new, c_plain, li, table, seq, pos, valid)
+    torch.cuda.synchronize()
+    assert paged_attention_update.launches == before + 4
+    assert torch.equal(c_kernel, c_plain) and torch.equal(c_again, c_plain)
+    assert torch.equal(got, again)  # the splits merge in a fixed order: bit for bit the same
+    assert not got[valid == 0].any()
+    tol = {torch.bfloat16: 2**-7, torch.float16: 2**-10, torch.float32: 1e-5}[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_paged_attention_geometry_mirrors_the_kernel(cuda_device):
+    for D, rep, itemsize in ((128, 1, 2), (128, 4, 2), (64, 1, 2), (96, 8, 2), (128, 8, 4), (256, 2, 2),
+                             (1024, 1, 2), (8, 3, 2)):
+        assert kernel_geometry(D, rep, itemsize) == paged_attention_geometry(D, rep, itemsize), (D, rep, itemsize)
 
 
 @pytest.mark.cuda
@@ -117,10 +173,11 @@ def _assert_near(got, want, name):
 
 FLASH_CASES = [(2, 200, 4, 2, 64, True), (1, 128, 2, 2, 128, False), (1, 300, 8, 2, 128, True)]
 FLASH_IDS = ["gqa_S200_D64_causal", "mha_S128_D128_full", "gqa_S300_D128_causal"]
-# the edges of the forward's 128-row q and K/V tiles and the dK/dV kernel's
-# 128-row key and 64-row q tiles: one position, one short of a tile, one
-# tile, one past it; MHA and GQA with 4 query heads per KV head
-for _S in (1, 127, 128, 129):
+# the edges of the 128-row and 64-row tiles of the three kernels (forward:
+# q and K/V 128; dK/dV: keys 128, q 64; dQ: q 128, K/V 64): one position,
+# one short of a tile, one tile, one past it; MHA and GQA with 4 query
+# heads per KV head
+for _S in (1, 63, 64, 65, 127, 128, 129):
     for _D in (64, 128):
         for _rep in (1, 4):
             for _causal in (True, False):
@@ -175,11 +232,38 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_cannot_take(cuda_device
     q, k, v, _ = _flash_inputs(1, 64, 2, 2, 128, torch.bfloat16, cuda_device)
     with pytest.raises(TypeError, match="share"):
         fa.flash_attention_fwd(q.float(), k.float(), v.float(), 1.0, True)
+    # head_dim 96 runs, zero-padded to the 128-wide kernel
+    q96, k96, v96 = (t[..., :96].contiguous() for t in (q, k, v))
+    out, lse = fa.flash_attention_fwd(q96, k96, v96, 96**-0.5, True)
+    want_out, want_lse = fa.flash_attention_fwd_plain(q96, k96, v96, 96**-0.5, True)
+    assert out.shape == q96.shape and out.is_contiguous()
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    _assert_near(out, want_out, "out")
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention_fwd(q[..., :96].contiguous(), k[..., :96].contiguous(), v[..., :96].contiguous(), 1.0,
-                               True)
+        fa.flash_attention_fwd(*(torch.cat([t, t[..., :32]], dim=-1) for t in (q, k, v)), 1.0, True)  # 160
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, 1.0, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [96, 80, 32])
+def test_flash_attention_padded_head_dim_matches_plain(cuda_device, D):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    q, k, v, g = _flash_inputs(2, 200, 8, 2, D, torch.bfloat16, cuda_device, seed=D)
+    scale = D**-0.5
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dkv.launches, fa.flash_attention_bwd_dq.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, scale, True)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, scale, True)
+    want_out, want_lse = fa.flash_attention_fwd_plain(q, k, v, scale, True)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, scale, True)
+    torch.cuda.synchronize()
+    after = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dkv.launches, fa.flash_attention_bwd_dq.launches)
+    assert after == tuple(n + 1 for n in before)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    for name, x, exp in (("out", out, want_out), ("dq", got[0], want[0]), ("dk", got[1], want[1]),
+                         ("dv", got[2], want[2])):
+        assert x.shape == exp.shape and x.is_contiguous()
+        _assert_near(x, exp, name)
 
 
 def _sparse_layout(kind, H, S, lb):
@@ -243,7 +327,15 @@ def test_block_sparse_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     with pytest.raises(TypeError, match="share"):
         bsa.block_sparse_attention(q.float(), k.float(), v.float(), layout, 16)
     with pytest.raises(ValueError, match="head_dim"):
-        bsa.block_sparse_attention_fwd(*(t[..., :96].contiguous() for t in (q, k, v)), plan, 0.1)
+        bsa.block_sparse_attention_fwd(*(torch.cat([t, t[..., :32]], dim=-1) for t in (q, k, v)), plan, 0.1)  # 160
+    # head_dim 96 runs, zero-padded to the 128-wide kernel
+    q96, k96, v96 = (t[..., :96].contiguous() for t in (q, k, v))
+    got = bsa.block_sparse_attention_fwd(q96, k96, v96, plan, 96**-0.5)
+    want = bsa.block_sparse_attention_fwd_plain(q96, k96, v96, layout, 16, 96**-0.5)
+    assert got.shape == q96.shape and got.is_contiguous()
+    _assert_near(got.transpose(1, 2), want.transpose(1, 2), "out")
+    assert bsa.block_sparse_attention_fwd.launches == before + 1
+    before += 1
     with pytest.raises(ValueError, match="contiguous"):
         bsa.block_sparse_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, plan, 0.1)
 

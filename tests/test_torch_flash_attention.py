@@ -96,3 +96,39 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
         tfa.flash_attention_bwd_dq(q, k, v, g, lse, delta, 0.3, True)
     assert counts == (tfa.flash_attention_fwd.launches, tfa.flash_attention_bwd_dkv.launches,
                       tfa.flash_attention_bwd_dq.launches)
+
+
+@pytest.mark.parametrize("D", [96, 80])
+def test_padded_head_dim_matches_pallas(D):
+    # the CUDA wrappers run a head_dim under 128 zero-padded to the kernels'
+    # width: here the same padding goes around the plain versions, and the
+    # sliced results are held to the Pallas kernels at the unpadded D
+    B, S, H, KVH, causal = 1, 130, 4, 2, True
+    q, k, v, g = _inputs(B, S, H, KVH, D, seed=D)
+    scale = 1.0 / np.sqrt(D)  # the caller's, not the padded width's
+
+    def jloss(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v, scale, causal) * g)
+
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    jout = jfa.flash_attention(jq, jk, jv, scale, causal)
+    rep = lambda x: jnp.repeat(x, H // KVH, axis=2)  # the lse call takes one KV head per query head
+    _, jlse = jfa._flash_fwd_pallas(jq, rep(jk), rep(jv), scale, causal, save_lse=True)
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+
+    qp, kp, vp, gp = tfa.pad_head_dim(*(torch.from_numpy(x) for x in (q, k, v, g)))
+    assert qp.shape[-1] == tfa.kernel_head_dim(D) == 128 and not qp[..., D:].any()
+    out, lse = tfa.flash_attention_fwd_plain(qp, kp, vp, scale, causal)
+    grads = tfa.flash_attention_bwd_plain(qp, kp, vp, out, lse, gp, scale, causal)
+    for x in (out, *grads):
+        assert not x[..., D:].any()  # the padded columns of every output are zero
+    np.testing.assert_allclose(out[..., :D].numpy(), np.asarray(jout), **TOL)
+    np.testing.assert_allclose(lse.numpy().reshape(B * H, S), np.asarray(jlse)[..., 0], **TOL)
+    for got, want in zip(grads, jgrads):
+        np.testing.assert_allclose(got[..., :D].numpy(), np.asarray(want), **TOL)
+
+
+def test_kernel_head_dim():
+    assert [tfa.kernel_head_dim(D) for D in (1, 16, 64, 65, 80, 96, 128)] == [64, 64, 64, 128, 128, 128, 128]
+    with pytest.raises(ValueError, match="head_dim 160"):
+        tfa.kernel_head_dim(160)

@@ -3,14 +3,16 @@
 # change, change, parent, so that the card's drift between runs shows as a
 # difference within one tree rather than between the trees.
 #
-#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash]
+#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|kernels]
 #
 # Each run's output goes to chiprun_out/smoke_<i>_<tree>.log and its full
 # record to chiprun_out/smoke_<i>_<tree>.json, under the directory the script
 # is started from; the script prints each run's exit code and last line. With
 # "flash", each run builds the kernels and runs only the flash-attention
 # kernel phase (check_flash_attention), printing its errors and kernel times
-# per case. The exit code is the last failing run's, else 0.
+# per case; with "paged", only the paged-attention kernel phase
+# (check_paged_attention); with "kernels", both. The exit code is the last
+# failing run's, else 0.
 set -u
 parent=$(cd "$1" && pwd)
 change=$(cd "$2" && pwd)
@@ -18,12 +20,18 @@ mode=${3:-all}
 out=$(pwd)/chiprun_out
 mkdir -p "$out"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-flash_only='
-import json, torch, chip_smoke as c
+phase='
+import json, sys, torch, chip_smoke as c
 c.builder.build()
-r = c.check_flash_attention(torch.device("cuda"))
-print(json.dumps([dict(case=x["case"], err=x["max_abs_err"], **{k: x[k]["ms"] for k in ("fwd", "dkv", "dq")})
-                  for x in r]))
+dev = torch.device("cuda")
+if sys.argv[1] in ("paged", "kernels"):
+    r = c.check_paged_attention(dev)
+    print(json.dumps([{k: x[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
+                      for x in r]))
+if sys.argv[1] in ("flash", "kernels"):
+    r = c.check_flash_attention(dev)
+    print(json.dumps([dict(case=x["case"], err=x["max_abs_err"], **{k: x[k]["ms"] for k in ("fwd", "dkv", "dq")})
+                      for x in r]))
 '
 status=0
 i=0
@@ -32,8 +40,8 @@ for tree in parent change change parent; do
     dir=$parent
     [ "$tree" = change ] && dir=$change
     log=$out/smoke_${i}_${tree}.log
-    if [ "$mode" = flash ]; then
-        (cd "$dir" && python3 -c "$flash_only") >"$log" 2>&1
+    if [ "$mode" != all ]; then
+        (cd "$dir" && python3 -c "$phase" "$mode") >"$log" 2>&1
     else
         (cd "$dir" && python3 chip_smoke.py) >"$log" 2>&1
     fi
