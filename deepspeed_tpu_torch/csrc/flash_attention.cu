@@ -63,171 +63,25 @@
 //    registers and is written once; GQA is read in place, with no atomics.
 // The tensor maps are encoded on the host for every call (a few
 // microseconds), through cuTensorMapEncodeTiled found with
-// cudaGetDriverEntryPoint, so the library needs no -lcuda.
+// cudaGetDriverEntryPoint, so the library needs no -lcuda. The primitives
+// (mbarriers, TMA, setmaxnreg, wgmma, tensor maps) are hopper.cuh's.
 // Launch and build: ops/flash_attention.py, ops/builder.py.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
+using namespace dstt;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// ----------------------------------------------------- Hopper primitives --
-constexpr int kPanel = 64;             // elements in one 128-byte swizzled row of a TMA box
+// ------------------------------------------------------ block geometry --
 constexpr int kStages = 2;             // ring stages of the streamed tiles
 constexpr int kWsThreads = 384;        // producer warpgroup + two consumer warpgroups
 constexpr int kConsumerWarps = 8;
 constexpr int kBarBytes = 64;
-constexpr int kSmemLimit = 232448;     // dynamic shared memory one block may take on an H100
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done = 0;
-    do {
-        asm volatile(
-            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(bar), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-// one box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost first
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
-        "[%2];" ::"r"(dst),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-        : "memory");
-}
-
-template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
-}
-template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
-}
-
-// wgmma shared-memory descriptors for a 128-byte-swizzled panel written by
-// TMA: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO). K-major: K
-// runs along the row (a k16 step moves the start 32 bytes; LBO unused).
-// MN-major: N runs along the row, the next 64 columns are the next panel,
-// `panel_bytes` on (LBO); K runs down the rows (a k16 step moves 2048 bytes).
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
-    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-           (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr, uint32_t panel_bytes) {
-    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(panel_bytes >> 4) << 16) |
-           (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
-
-// keep reads of an accumulator after the wgmma.wait that completes it
-template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define DSTT_F8(d, i) \
-    "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
-        "+f"(d[i + 7])
-#define DSTT_D32(d) DSTT_F8(d, 0), DSTT_F8(d, 8), DSTT_F8(d, 16), DSTT_F8(d, 24)
-#define DSTT_D64(d) DSTT_D32(d), DSTT_F8(d, 32), DSTT_F8(d, 40), DSTT_F8(d, 48), DSTT_F8(d, 56)
-#define DSTT_R32_BODY \
-    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, " \
-    "%23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define DSTT_R32 "{" DSTT_R32_BODY "}"
-#define DSTT_R64                                                                                                  \
-    "{" DSTT_R32_BODY                                                                                             \
-    ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, " \
-    "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-
-// m64nNk16 products with f32 accumulators, N = 64 (32 registers a thread)
-// or 128 (64): wgmma_ss reads A and B from shared memory, both K-major, and
-// overwrites the accumulator when `acc` is 0; wgmma_rs takes A from
-// registers and B MN-major, and accumulates. The last argument picks the
-// 16-bit type.
-#define DSTT_DEFINE_WGMMA(CT, TY)                                                                                  \
-    __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc, const CT*) {         \
-        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                  \
-                     "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " DSTT_R32                          \
-                     ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                                             \
-                     : DSTT_D32(d)                                                                                 \
-                     : "l"(a), "l"(b), "r"(acc));                                                                  \
-    }                                                                                                              \
-    __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int acc, const CT*) {         \
-        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                  \
-                     "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " DSTT_R64                         \
-                     ", %64, %65, p, 1, 1, 0, 0;\n}\n"                                                             \
-                     : DSTT_D64(d)                                                                                 \
-                     : "l"(a), "l"(b), "r"(acc));                                                                  \
-    }                                                                                                              \
-    __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, const CT*) {      \
-        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                  \
-                     "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " DSTT_R32                          \
-                     ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                               \
-                     : DSTT_D32(d)                                                                                 \
-                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                                \
-    }                                                                                                              \
-    __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b, const CT*) {      \
-        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                                  \
-                     "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " DSTT_R64                         \
-                     ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                               \
-                     : DSTT_D64(d)                                                                                 \
-                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                                \
-    }
-
-DSTT_DEFINE_WGMMA(__nv_bfloat16, "bf16")
-DSTT_DEFINE_WGMMA(__half, "f16")
-
-// two f32 values as one register of the 16-bit type, `lo` in the low half
-__device__ __forceinline__ uint32_t pack2(float lo, float hi, const __nv_bfloat16*) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi, const __half*) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-}
-
-// The accumulator of an m64nN wgmma: warp w of the warpgroup holds rows
-// 16 w + lane / 4 (values with (i / 2) % 2 == 0) and that row + 8 (the
-// others); value i sits in column 8 (i / 4) + 2 (lane % 4) + i % 2. So
-// registers 2j and 2j + 1 packed into one 16-bit pair are exactly the A
-// operand register j of an RS wgmma over the same columns as its K.
 
 // ------------------------------------------------------------- forward B2 --
 constexpr int kFwdRows = 128;  // q rows of a block; rows of each K/V tile
@@ -735,61 +589,22 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 }
 
 // ------------------------------------------------------------------ launch --
-constexpr int kBadDtype = -1, kBadHeadDim = -2, kNoTensorMap = -3, kBadTensorMap = -4;
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-    static const EncodeTiled fn = [] {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-        const cudaError_t err =
-            cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-        return (err == cudaSuccess && found == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
-                                                                            : nullptr;
-    }();
-    return fn;
-}
-
-template <typename T> constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-template <> constexpr CUtensorMapDataType kMapType<__half> = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+constexpr int kBadDtype = -1, kBadHeadDim = -2;  // and hopper.cuh's kNoTensorMap, kBadTensorMap
 
 // A [B, S, heads, D] tensor as the 4-D map (D, heads, S, B), read in boxes
-// of 64 columns x `rows` positions of one head with the 128-byte swizzle;
-// positions past S read as zeros.
+// of 64 columns x `rows` positions of one head; positions past S read as zeros.
 template <typename T>
-int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, int rows) {
-    const EncodeTiled fn = encode_tiled();
-    if (!fn) return kNoTensorMap;
-    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2, (cuuint64_t)S * heads * D * 2};
-    const cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, (cuuint32_t)rows, 1};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    const CUresult r = fn(map, kMapType<T>, 4, const_cast<void*>(ptr), dims, strides, box, unit,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? 0 : kBadTensorMap;
-}
-
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t smem) {
-    if (smem <= 48 * 1024) return 0;
-    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int make_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, int rows) {
+    return make_map<T>(map, ptr, {D, heads, S, B}, 2, rows);
 }
 
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S, int H, int KVH,
                float scale, int causal, cudaStream_t stream) {
     CUtensorMap mq, mk, mv;
-    int err = make_map<T>(&mq, q, B, S, H, D, kFwdRows);
-    if (!err) err = make_map<T>(&mk, k, B, S, KVH, D, kFwdRows);
-    if (!err) err = make_map<T>(&mv, v, B, S, KVH, D, kFwdRows);
+    int err = make_bshd_map<T>(&mq, q, B, S, H, D, kFwdRows);
+    if (!err) err = make_bshd_map<T>(&mk, k, B, S, KVH, D, kFwdRows);
+    if (!err) err = make_bshd_map<T>(&mv, v, B, S, KVH, D, kFwdRows);
     if (!err) err = set_smem(flash_fwd_kernel<T, D>, FwdLayout<D>::kBytes);
     if (err) return err;
     dim3 grid((S + kFwdRows - 1) / kFwdRows, B * H);
@@ -802,10 +617,10 @@ template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
                void* dk, void* dv, int B, int S, int H, int KVH, float scale, int causal, cudaStream_t stream) {
     CUtensorMap mq, mk, mv, mdo;
-    int err = make_map<T>(&mq, q, B, S, H, D, kDkvQRows);
-    if (!err) err = make_map<T>(&mdo, dout, B, S, H, D, kDkvQRows);
-    if (!err) err = make_map<T>(&mk, k, B, S, KVH, D, kDkvRows);
-    if (!err) err = make_map<T>(&mv, v, B, S, KVH, D, kDkvRows);
+    int err = make_bshd_map<T>(&mq, q, B, S, H, D, kDkvQRows);
+    if (!err) err = make_bshd_map<T>(&mdo, dout, B, S, H, D, kDkvQRows);
+    if (!err) err = make_bshd_map<T>(&mk, k, B, S, KVH, D, kDkvRows);
+    if (!err) err = make_bshd_map<T>(&mv, v, B, S, KVH, D, kDkvRows);
     if (!err) err = set_smem(flash_bwd_dkv_kernel<T, D>, DkvLayout<D>::kBytes);
     if (err) return err;
     dim3 grid((S + kDkvRows - 1) / kDkvRows, B * KVH);
@@ -819,10 +634,10 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
               void* dq, int B, int S, int H, int KVH, float scale, int causal, cudaStream_t stream) {
     CUtensorMap mq, mk, mv, mdo;
-    int err = make_map<T>(&mq, q, B, S, H, D, kDqRows);
-    if (!err) err = make_map<T>(&mdo, dout, B, S, H, D, kDqRows);
-    if (!err) err = make_map<T>(&mk, k, B, S, KVH, D, kDqKvRows);
-    if (!err) err = make_map<T>(&mv, v, B, S, KVH, D, kDqKvRows);
+    int err = make_bshd_map<T>(&mq, q, B, S, H, D, kDqRows);
+    if (!err) err = make_bshd_map<T>(&mdo, dout, B, S, H, D, kDqRows);
+    if (!err) err = make_bshd_map<T>(&mk, k, B, S, KVH, D, kDqKvRows);
+    if (!err) err = make_bshd_map<T>(&mv, v, B, S, KVH, D, kDqKvRows);
     if (!err) err = set_smem(flash_bwd_dq_kernel<T, D>, DqLayout<D>::kBytes);
     if (err) return err;
     dim3 grid((S + kDqRows - 1) / kDqRows, B * H);

@@ -59,12 +59,11 @@
 //    of H / KVH, capped by registers), so an MHA model pays for one head.
 // Launch and build: ops/paged_attention.py and ops/builder.py.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"  // mbarriers, exp2_approx, kSmemLimit
 
 namespace {
+
+using namespace dstt;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -77,7 +76,6 @@ constexpr int kMaxBatch = 4;        // positions a lane group takes from one sta
 constexpr int kHeaderBytes = 128;   // mbarriers and the last-block flag
 constexpr int kMaxRowChunks = 128;  // 16-byte chunks of a K/V row the kernel takes (2048 bytes)
 constexpr int kGridSplits = 8;      // blocks per (token, head group), each taking every 8th split
-constexpr int kSmemLimit = 232448;  // dynamic shared memory one block may take on an H100
 constexpr int kBadDtype = -1, kBadHeadDim = -2;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -123,40 +121,6 @@ __device__ __forceinline__ void unpack(const uint4& v, float (&f)[E]) {
     } else {
         unpack16(v, f, static_cast<const T*>(nullptr));
     }
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done = 0;
-    do {
-        asm volatile(
-            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(bar), "r"(parity)
-            : "memory");
-    } while (!done);
 }
 
 // `bytes` contiguous bytes from global memory into shared memory, counted on `bar`

@@ -14,7 +14,11 @@ that each head attends; time and memory follow the attended cells, not S^2.
   stream, or raises; there is no fallback. On CPU tensors it runs the plain
   version :func:`block_sparse_attention_fwd_plain`. The kernel walks lists of
   its own 64-row tiles (:func:`build_tile_lists`), not the JAX package's
-  blocks, whose sizes and 32-cell bitfield are limits of the TPU.
+  blocks, whose sizes and 32-cell bitfield are limits of the TPU, cut into
+  work items (:func:`build_work_items`): a list longer than the plan's
+  ``split_steps`` runs as several chunks whose partial softmaxes the last
+  chunk merges. :func:`block_sparse_attention_fwd_split` is that algorithm
+  in torch ops.
 - The backward :func:`block_sparse_attention_bwd` is ``_sparse_bwd_manual``
   in torch ops over the JAX geometry's lists, on the CPU and on the card
   alike: the JAX package computes it in XLA, not in a kernel.
@@ -36,6 +40,15 @@ from deepspeed_tpu_torch.ops.flash_attention import HEAD_DIMS, kernel_head_dim, 
 
 NEG_INF = -1e30
 KERNEL_TILE = 64  # rows of the kernel's q and KV tiles (csrc/block_sparse_attention.cu kTile)
+# a (head, q tile) list longer than this is cut into chunks, at the least
+# (BlockSparsePlan.split_steps); bench.py's BigBird layouts then split only
+# their global rows, 128 steps into 4 chunks. On an H100, chunks of 32 or 64
+# ran fastest at bench.py's low density (no cut: 36% slower, 8: 13%), and
+# every length from 32 up within 1% at the high one (PERF.md gives the sweep)
+SPLIT_STEPS = 32
+# a work item: head, q tile, first step, steps, split, splits, split row
+# (-1 unless splits > 1), first workspace slot of the row's chunks (-1 too)
+ITEM_FIELDS = ("head", "q_tile", "step0", "steps", "split", "splits", "row", "slot0")
 _DTYPE_CODE = {torch.float16: 1, torch.bfloat16: 2}
 _PLAN_CACHE = {}
 _PLAN_CACHE_SIZE = 64  # bounded: layouts are few and static in practice
@@ -99,14 +112,11 @@ def build_tile_lists(layout, seq_len: int, layout_block: int, tile: int = KERNEL
     """The kernel's lists: for each (head, q tile of ``tile`` rows), the KV
     tiles that hold an attended cell, in increasing order.
 
-    Returns (steps [H, nt, max_steps] int32, counts [H, nt] int32, order
-    [H * nt] int32). A step is ``kv_tile * 2 + partial``; ``partial`` is 1
-    when some layout cell the tile pair covers is off, so the kernel reads the
-    cell mask inside it from the layout. Entries past a row's count are
-    unused. ``order`` lists the items ``h * nt + qt`` by decreasing count
-    (ties in item order): the kernel starts the longest lists first. Any
-    ``seq_len`` works: the last tile may be ragged, and cells need not align
-    with tiles.
+    Returns (steps [H, nt, max_steps] int32, counts [H, nt] int32). A step
+    is ``kv_tile * 2 + partial``; ``partial`` is 1 when some layout cell the
+    tile pair covers is off, so the kernel reads the cell mask inside it from
+    the layout. Entries past a row's count are unused. Any ``seq_len`` works:
+    the last tile may be ragged, and cells need not align with tiles.
     """
     layout = np.asarray(layout, bool)
     H, nb = layout.shape[0], seq_len // layout_block
@@ -126,21 +136,70 @@ def build_tile_lists(layout, seq_len: int, layout_block: int, tile: int = KERNEL
     max_steps = max(1, int(counts.max()))
     ids = np.argsort(~attended, axis=-1, kind="stable")[..., :max_steps]
     steps = (ids * 2 + np.take_along_axis(partial, ids, -1)).astype(np.int32)
-    order = np.argsort(-counts.reshape(-1), kind="stable").astype(np.int32)
-    return steps, counts, order
+    return steps, counts
+
+
+def choose_split_steps(counts):
+    """The plan's chunk length: SPLIT_STEPS, or the median length of the
+    lists that have a step where that is longer, so that only lists longer
+    than most are cut (a dense layout's lists are all long and none needs
+    cutting to balance the card)."""
+    live = np.asarray(counts)[np.asarray(counts) > 0]
+    return max(SPLIT_STEPS, int(np.ceil(np.median(live)))) if live.size else SPLIT_STEPS
+
+
+def build_work_items(counts, split_steps: int):
+    """The kernel's work items over the lists of :func:`build_tile_lists`.
+
+    Each (head, q tile) list of n steps becomes ``k = max(1, ceil(n /
+    split_steps))`` items, contiguous chunks of near-equal length (the first
+    ``n % k`` one step longer), in split order; a list with no step is one
+    item of 0 steps, which writes its zero rows. A list cut into k > 1
+    chunks is a split row: it gets the next row index (its counter) and k
+    workspace slots, one per chunk, from the next free one. Items are sorted
+    by decreasing steps, ties in (head, q tile, split) order: the kernel
+    launches the longest first.
+
+    Returns (items [n_items, len(ITEM_FIELDS)] int32, n_rows, n_slots).
+    """
+    counts = np.asarray(counts)
+    if split_steps < 1:
+        raise ValueError(f"split_steps must be at least 1, got {split_steps}")
+    H, nt = counts.shape
+    items, n_rows, n_slots = [], 0, 0
+    for h in range(H):
+        for qt in range(nt):
+            n = int(counts[h, qt])
+            k = max(1, -(-n // split_steps))
+            row, slot0 = (n_rows, n_slots) if k > 1 else (-1, -1)
+            if k > 1:
+                n_rows, n_slots = n_rows + 1, n_slots + k
+            step0 = 0
+            for c in range(k):
+                size = n // k + (c < n % k)
+                items.append((h, qt, step0, size, c, k, row, slot0))
+                step0 += size
+    items = np.asarray(items, np.int32).reshape(-1, len(ITEM_FIELDS))
+    items = items[np.argsort(-items[:, 3], kind="stable")]
+    return items, n_rows, n_slots
 
 
 class BlockSparsePlan:
     """One layout's lists at one sequence length and geometry, built on the
     host, with their copies on each device, made at first use:
     :meth:`blocks` for the plain forward and the backward (the JAX package's
-    ``block_q`` x ``block_k`` blocks), :meth:`tiles` for the kernel."""
+    ``block_q`` x ``block_k`` blocks), :meth:`tiles` for the kernel. The
+    kernel's tile lists and work items (cut at ``split_steps``, by default
+    :func:`choose_split_steps` of the lists) are built here, on the host."""
 
-    def __init__(self, layout, seq_len: int, layout_block: int, block_q: int, block_k: int):
+    def __init__(self, layout, seq_len: int, layout_block: int, block_q: int, block_k: int, split_steps=None):
         self.layout = np.asarray(layout, bool)
         self.seq_len, self.layout_block = seq_len, layout_block
         self.block_q, self.block_k = block_q, block_k
         self.idx, self.counts = build_block_lists(self.layout, seq_len, layout_block, block_q, block_k)
+        self.steps, self.tile_counts = build_tile_lists(self.layout, seq_len, layout_block)
+        self.split_steps = choose_split_steps(self.tile_counts) if split_steps is None else int(split_steps)
+        self.items, self.n_rows, self.n_slots = build_work_items(self.tile_counts, self.split_steps)
         self._blocks, self._tiles = {}, {}
 
     @property
@@ -171,12 +230,12 @@ class BlockSparsePlan:
 
     def tiles(self, device):
         """The kernel's lists on ``device``: int32 ``steps`` [H, nt,
-        max_steps], ``counts`` [H, nt], ``order`` [H * nt] and the layout as
-        uint8 ``cells`` [H, nb, nb] (see :func:`build_tile_lists`)."""
+        max_steps] (:func:`build_tile_lists`), ``items`` [n_items, 8]
+        (:func:`build_work_items`) and the layout as uint8 ``cells`` [H, nb,
+        nb]."""
         device = torch.device(device)
         if device not in self._tiles:
-            steps, counts, order = build_tile_lists(self.layout, self.seq_len, self.layout_block)
-            host = dict(steps=steps, counts=counts, order=order, cells=self.layout.astype(np.uint8))
+            host = dict(steps=self.steps, items=self.items, cells=self.layout.astype(np.uint8))
             self._tiles[device] = {name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
                                    for name, a in host.items()}
         return self._tiles[device]
@@ -259,6 +318,58 @@ def block_sparse_attention_fwd_plain(q, k, v, layout, layout_block, scale):
     return _fwd_plain(q, k, v, get_plan(layout, q.shape[2], layout_block), scale)
 
 
+def block_sparse_attention_fwd_split(q, k, v, layout, layout_block, scale, split_steps=None):
+    """B5's algorithm in torch ops, f32: the kernel's work items (the plan's,
+    or cut at ``split_steps``) walked in launch order, each chunk's 64-row
+    tile through its K/V tiles with an online softmax (the cell mask on
+    partial steps and past S, the guarded exp), a whole list writing its
+    rows, a chunk of a split row keeping f32 (m, l, acc); then each split
+    row's chunks merged in split order (a row dead in every chunk writes
+    zeros). Returns ``out`` [B, H, S, D] in q's dtype."""
+    S = q.shape[2]
+    plan = get_plan(layout, S, layout_block)
+    if split_steps is not None and split_steps != plan.split_steps:
+        plan = BlockSparsePlan(plan.layout, S, layout_block, plan.block_q, plan.block_k, split_steps)
+    _check(q, k, v, plan)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    lay = torch.from_numpy(plan.layout).to(q.device)
+    out = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+    chunks = {}  # (head, q tile) of a split row -> {split: (m, l, acc)}
+    for h, qt, step0, n, split, n_split, _, _ in plan.items.tolist():
+        rows = torch.arange(qt * KERNEL_TILE, min(S, (qt + 1) * KERNEL_TILE), device=q.device)
+        m = torch.full((q.shape[0], len(rows)), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((q.shape[0], len(rows), q.shape[3]), device=q.device)
+        for entry in plan.steps[h, qt, step0:step0 + n].tolist():
+            cols = torch.arange((entry >> 1) * KERNEL_TILE, min(S, ((entry >> 1) + 1) * KERNEL_TILE), device=q.device)
+            s = torch.einsum("bqd,bkd->bqk", qf[:, h, rows], kf[:, h, cols]) * scale
+            if entry & 1:
+                s = s.masked_fill(~lay[h][rows // layout_block][:, cols // layout_block], NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            live = m_new > NEG_INF / 2
+            p = torch.where(live[..., None], torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.where(live, torch.exp(m - m_new), 1.0)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bqk,bkd->bqd", p, vf[:, h, cols])
+            m = m_new
+        if n_split == 1:
+            out[:, h, rows] = _finish(m, l, acc)
+        else:
+            chunks.setdefault((h, qt), {})[split] = (m, l, acc)
+    for (h, qt), parts in chunks.items():
+        m, l, acc = (torch.stack([parts[c][i] for c in range(len(parts))]) for i in range(3))
+        m_top = m.amax(0)
+        w = torch.where(m_top > NEG_INF / 2, torch.exp(m - m_top), 0.0)  # the guarded exp across chunks
+        rows = slice(qt * KERNEL_TILE, min(S, (qt + 1) * KERNEL_TILE))
+        out[:, h, rows] = _finish(m_top, (l * w).sum(0), (acc * w[..., None]).sum(0))
+    return out.to(q.dtype)
+
+
+def _finish(m, l, acc):
+    """acc / l, l floored at 1e-30, and zeros for rows with nothing attended."""
+    return torch.where((m > NEG_INF / 2)[..., None], acc / l.clamp(min=1e-30)[..., None], 0.0)
+
+
 def block_sparse_attention_bwd(q, k, v, out, dout, plan, scale):
     """``(dq, dk, dv)`` of the block-sparse attention, in torch ops over the
     plan's JAX blocks (the JAX package's ``_sparse_bwd_manual``): per q-block,
@@ -303,8 +414,9 @@ def _lib():
     lib = builder.load("block_sparse_attention")
     if not getattr(lib, "_dstt_typed", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        # q, k, v, out, steps, counts, order, cells; dtype, B, H, S, D, lb, nt, max_steps; scale; stream
-        lib.dstt_block_sparse_fwd.argtypes = [vp] * 8 + [i32] * 8 + [ctypes.c_float, vp]
+        # q, k, v, out, steps, items, cells, part, counters; dtype, B, H, S, D, lb, nt, max_steps, n_items,
+        # n_rows, n_slots; scale; stream
+        lib.dstt_block_sparse_fwd.argtypes = [vp] * 9 + [i32] * 11 + [ctypes.c_float, vp]
         lib.dstt_block_sparse_fwd.restype = i32
         lib.dstt_block_sparse_error_string.argtypes = [i32]
         lib.dstt_block_sparse_error_string.restype = ctypes.c_char_p
@@ -312,9 +424,26 @@ def _lib():
     return lib
 
 
+_WORKSPACES = {}  # (device, stream) -> (counters int32, partials f32), grown as needed
+
+
+def _workspace(device, stream, n_counters, n_part):
+    """Per-stream split-row counters (zero between launches: the last chunk
+    of each row resets its own) and f32 partials. Launches on one stream run
+    in order, so they share one workspace."""
+    counters, partials = _WORKSPACES.get((device, stream), (None, None))
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 1), dtype=torch.int32, device=device)
+    if partials is None or partials.numel() < n_part:
+        partials = torch.empty(max(n_part, 1), dtype=torch.float32, device=device)
+    _WORKSPACES[(device, stream)] = (counters, partials)
+    return counters, partials
+
+
 def block_sparse_attention_fwd(q, k, v, plan, scale):
     """B5: ``out`` [B, H, S, D] in q's dtype. CUDA tensors launch the kernel
-    over ``plan.tiles``; CPU tensors run the plain version."""
+    over ``plan.tiles``, one launch a call; CPU tensors run the plain
+    version."""
     B, H, S, D = _check(q, k, v, plan)
     if q.device.type == "cpu":
         return _fwd_plain(q, k, v, plan, scale)
@@ -328,7 +457,7 @@ def block_sparse_attention_fwd(q, k, v, plan, scale):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel loads 16-byte vectors)")
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel loads it by TMA)")
     if D not in HEAD_DIMS:  # zero-padded to the kernel's width (ops/flash_attention.py)
         return block_sparse_attention_fwd(*pad_head_dim(q, k, v), plan, scale)[..., :D].contiguous()
     out = torch.empty_like(q)
@@ -336,13 +465,15 @@ def block_sparse_attention_fwd(q, k, v, plan, scale):
         return out
     t = plan.tiles(q.device)
     lib = _lib()
+    part_floats = (D // 2 + 4) * 128  # a chunk's partial (csrc/block_sparse_attention.cu Layout::kPartFloats)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters, partials = _workspace(q.device, stream, B * plan.n_rows, B * plan.n_slots * part_floats)
         rc = lib.dstt_block_sparse_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                       t["steps"].data_ptr(), t["counts"].data_ptr(), t["order"].data_ptr(),
-                                       t["cells"].data_ptr(), _DTYPE_CODE[q.dtype], B, H, S, D,
-                                       plan.layout_block, t["counts"].shape[1], t["steps"].shape[2],
-                                       float(scale), stream)
+                                       t["steps"].data_ptr(), t["items"].data_ptr(), t["cells"].data_ptr(),
+                                       partials.data_ptr(), counters.data_ptr(), _DTYPE_CODE[q.dtype], B, H, S, D,
+                                       plan.layout_block, t["steps"].shape[1], t["steps"].shape[2],
+                                       t["items"].shape[0], plan.n_rows, plan.n_slots, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"block-sparse attention launch failed: "
                            f"{lib.dstt_block_sparse_error_string(rc).decode()} (code {rc})")

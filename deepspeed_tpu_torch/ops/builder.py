@@ -3,8 +3,9 @@
 Each ``deepspeed_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``deepspeed_tpu_torch/_build/``
 (listed in ``.gitignore``), then loaded with ``ctypes``. The library's file
-name carries a hash of its source and flags, so an edited source rebuilds and
-an unchanged one is reused. :func:`build` starts one ``nvcc`` per source, all
+name carries a hash of its source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header rebuilds and an unchanged one is
+reused. :func:`build` starts one ``nvcc`` per source, all
 at once, and waits for all of them; ptxas's register and shared-memory report
 for each library is kept in a ``.log`` beside it.
 
@@ -46,8 +47,12 @@ def sources():
 
 
 def library_path(name: str) -> Path:
+    """The library's path: its name carries a hash of the source, of every
+    shared header (``csrc/*.cuh``, which any source may include) and of the
+    flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.name.encode() + p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

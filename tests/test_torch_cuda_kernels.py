@@ -280,22 +280,33 @@ def _sparse_inputs(B, H, S, D, dtype, dev, seed=0):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("kind,B,H,S,lb,D", [("fixed", 2, 4, 256, 16, 64), ("bigbird", 1, 4, 512, 64, 128),
                                              ("bigbird", 1, 2, 1040, 16, 128), ("empty_rows", 2, 4, 80, 16, 64),
-                                             ("bigbird", 1, 2, 384, 128, 64)],
+                                             ("bigbird", 1, 2, 384, 128, 64), ("bigbird", 1, 16, 4096, 64, 128),
+                                             ("bigbird", 2, 4, 2064, 16, 64)],
                          ids=["fixed_lb16_D64", "bigbird_lb64_D128", "bigbird_lb16_S1040", "empty_rows_S80",
-                              "bigbird_lb128_D64"])
+                              "bigbird_lb128_D64", "bigbird_bench_S4096_split", "bigbird_lb16_S2064_split"])
 def test_block_sparse_kernel_matches_plain(cuda_device, dtype, kind, B, H, S, lb, D):
+    """Against the plain version; the last two cases split their global rows
+    (64 steps into 2 chunks; 33 into 2, with partial steps and a ragged S).
+    Every case: a second run gives the same bits, and every split-row counter
+    is back at zero after the launch."""
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     q, k, v = _sparse_inputs(B, H, S, D, dtype, cuda_device)
     layout = _sparse_layout(kind, H, S, lb)
     plan = bsa.get_plan(layout, S, lb)
+    if S >= 2048:
+        assert plan.n_rows > 0  # the global rows are split
     before = bsa.block_sparse_attention_fwd.launches
     got = bsa.block_sparse_attention_fwd(q, k, v, plan, D**-0.5)
     want = bsa.block_sparse_attention_fwd_plain(q, k, v, layout, lb, D**-0.5)
     torch.cuda.synchronize()
     assert bsa.block_sparse_attention_fwd.launches == before + 1 and got.dtype == dtype
+    assert all(not counters.any() for counters, _ in bsa._WORKSPACES.values())
     _assert_near(got.transpose(1, 2), want.transpose(1, 2), "out")  # [B, S, H, D] for the tile rule
     empty = torch.from_numpy(np.repeat(~layout.any(-1), lb, axis=1)).to(cuda_device)  # [H, S] rows attending nothing
     assert not got[:, empty].any()  # exactly zero
+    again = bsa.block_sparse_attention_fwd(q, k, v, plan, D**-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)  # the chunks merge in a fixed order
 
 
 @pytest.mark.cuda

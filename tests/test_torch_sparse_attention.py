@@ -294,18 +294,22 @@ TILE_CASES = {
 }
 
 
+def _random_layout(S, lb, heads, density, seed):
+    rng = np.random.default_rng(seed)
+    layout = rng.random((heads, S // lb, S // lb)) < density
+    layout[0, 0] = True  # a global row
+    layout[1, -1] = False  # an empty row
+    return layout
+
+
 @pytest.mark.parametrize("name", list(TILE_CASES))
 def test_tile_lists_match_the_token_mask(name):
     S, lb = TILE_CASES[name]
-    rng = np.random.default_rng(S)
-    layout = rng.random((2, S // lb, S // lb)) < 0.25
-    layout[0, 0] = True  # a global row
-    layout[1, -1] = False  # an empty row
-    steps, counts, order = tbsa.build_tile_lists(layout, S, lb)
+    layout = _random_layout(S, lb, 2, 0.25, S)
+    steps, counts = tbsa.build_tile_lists(layout, S, lb)
     tok = _token_mask(layout, lb)
     nt = -(-S // TILE)
-    assert sorted(order.tolist()) == list(range(2 * nt))
-    assert np.all(np.diff(counts.reshape(-1)[order]) <= 0)  # longest lists first
+    assert counts.shape == (2, nt) and steps.shape[:2] == (2, nt)
     for h in range(2):
         for qt in range(nt):
             want_ids, want_partial = [], []
@@ -320,24 +324,81 @@ def test_tile_lists_match_the_token_mask(name):
             assert (steps[h, qt, :n] & 1).tolist() == want_partial
 
 
-def _walk_tile_lists(q, k, v, layout, lb, scale):
-    """The CUDA kernel's algorithm over build_tile_lists, in f64 numpy: each
-    item of ``order`` walks its steps with an online softmax, masking cells
-    only on partial steps, with the guarded exp, the 1e-30 floor and zero
-    rows. Rows it never writes stay NaN."""
+@pytest.mark.parametrize("split_steps", [1, 3, 16])
+@pytest.mark.parametrize("name", list(TILE_CASES))
+def test_work_items_cover_every_live_step_once(name, split_steps):
+    S, lb = TILE_CASES[name]
+    layout = _random_layout(S, lb, 3, 0.25, S + split_steps)
+    layout[2] = False  # a head that attends nothing
+    _, counts = tbsa.build_tile_lists(layout, S, lb)
+    items, n_rows, n_slots = tbsa.build_work_items(counts, split_steps)
+    assert items.dtype == np.int32 and items.shape[1] == len(tbsa.ITEM_FIELDS)
+    assert np.all(np.diff(items[:, 3]) <= 0)  # longest first
+    seen = np.zeros(counts.shape, np.int64)
+    rows, slots = set(), set()
+    for h, qt in np.ndindex(*counts.shape):
+        mine = items[(items[:, 0] == h) & (items[:, 1] == qt)]
+        mine = mine[np.argsort(mine[:, 4])]
+        n, k = int(counts[h, qt]), len(mine)
+        assert k == max(1, -(-n // split_steps))  # an empty list is one item of 0 steps
+        assert mine[:, 4].tolist() == list(range(k)) and set(mine[:, 5].tolist()) == {k}
+        # chunks are contiguous, at most split_steps long, and cover the list once
+        assert mine[0, 2] == 0 and np.all(mine[1:, 2] == mine[:-1, 2] + mine[:-1, 3])
+        assert mine[:, 3].sum() == n and mine[:, 3].max() <= split_steps
+        assert mine[:, 3].max() - mine[:, 3].min() <= 1
+        seen[h, qt] = mine[:, 3].sum()
+        if k > 1:
+            assert len(set(mine[:, 6].tolist())) == 1 and len(set(mine[:, 7].tolist())) == 1
+            rows.add(int(mine[0, 6]))
+            slots.update(range(mine[0, 7], mine[0, 7] + k))
+        else:
+            assert mine[0, 6] == -1 and mine[0, 7] == -1
+    np.testing.assert_array_equal(seen, counts)
+    assert rows == set(range(n_rows)) and slots == set(range(n_slots))  # rows and slots are dense, none shared
+    assert (counts == 0).any() and (n_rows > 0) == (counts.max() > split_steps)
+
+
+def test_bench_layouts_split_only_their_global_rows():
+    """bench.py's sparse leg: at both BigBird densities only the 16 global
+    rows are cut, into 4 chunks of 32 steps each (2,096 items), or into 8
+    of 16 (2,160) at the sweep's 16."""
+    for nr, nw in ((1, 3), (4, 9)):
+        layout = BigBirdSparsityConfig(num_heads=16, block=64, num_random_blocks=nr, num_sliding_window_blocks=nw,
+                                       num_global_blocks=1).make_layout(8192)
+        plan = tbsa.get_plan(layout, 8192, 64)
+        assert plan.split_steps == tbsa.SPLIT_STEPS == 32 and plan.tile_counts.max() == 128
+        for split_steps, n_items, chunks in ((32, 2096, 4), (16, 2160, 8)):
+            items, n_rows, n_slots = tbsa.build_work_items(plan.tile_counts, split_steps)
+            assert len(items) == n_items and (n_rows, n_slots) == (16, 16 * chunks)
+            split = items[items[:, 5] > 1]
+            assert set(split[:, 1].tolist()) == {0} and set(split[:, 3].tolist()) == {split_steps}
+            assert np.all(items[:len(split), 5] == chunks)  # launched first
+
+
+def _walk_work_items(q, k, v, layout, lb, scale, split_steps):
+    """The CUDA kernel's algorithm over build_tile_lists and
+    build_work_items, in f64 numpy: each item walks its chunk of steps with
+    an online softmax, masking cells only on partial steps, with the guarded
+    exp; a whole list writes its rows (the 1e-30 floor, zero rows), a chunk
+    of a split row keeps (m, l, acc) in its slot, and the chunks of each
+    split row merge in split order. Rows it never writes stay NaN."""
     Bq, Hq, S, _ = q.shape
-    steps, counts, order = tbsa.build_tile_lists(layout, S, lb)
-    nt = counts.shape[1]
+    steps, counts = tbsa.build_tile_lists(layout, S, lb)
+    items, _, n_slots = tbsa.build_work_items(counts, split_steps)
     neg = tbsa.NEG_INF
     out = np.full(q.shape, np.nan)
-    for item in order:
-        h, qt = divmod(int(item), nt)
+    slots = [None] * n_slots
+
+    def finish(m, l, acc):
+        return np.where((m > neg / 2)[..., None], acc / np.maximum(l, 1e-30)[..., None], 0.0)
+
+    for h, qt, step0, n, split, n_split, _, slot0 in items:
         rows = np.arange(qt * TILE, min(qt * TILE + TILE, S))
         m = np.full((Bq, len(rows)), neg)
         l = np.zeros((Bq, len(rows)))
         acc = np.zeros((Bq, len(rows), q.shape[-1]))
-        for st in range(counts[h, qt]):
-            kt, partial = steps[h, qt, st] >> 1, steps[h, qt, st] & 1
+        for entry in steps[h, qt, step0:step0 + n]:
+            kt, partial = entry >> 1, entry & 1
             cols = np.arange(kt * TILE, min(kt * TILE + TILE, S))
             s = np.einsum("bqd,bkd->bqk", q[:, h, rows], k[:, h, cols]) * scale
             if partial:
@@ -349,7 +410,16 @@ def _walk_tile_lists(q, k, v, layout, lb, scale):
             l = l * alpha + p.sum(-1)
             acc = acc * alpha[..., None] + np.einsum("bqk,bkd->bqd", p, v[:, h, cols])
             m = m_new
-        out[:, h, rows] = np.where((m > neg / 2)[..., None], acc / np.maximum(l, 1e-30)[..., None], 0.0)
+        if n_split == 1:
+            out[:, h, rows] = finish(m, l, acc)
+            continue
+        slots[slot0 + split] = (m, l, acc)
+        chunks = slots[slot0:slot0 + n_split]
+        if all(c is not None for c in chunks):  # the last chunk of the row merges
+            m_top = np.max([c[0] for c in chunks], axis=0)
+            w = [np.where(m_top > neg / 2, np.exp(c[0] - m_top), 0.0) for c in chunks]
+            out[:, h, rows] = finish(m_top, sum(c[1] * wc for c, wc in zip(chunks, w)),
+                                     sum(c[2] * wc[..., None] for c, wc in zip(chunks, w)))
     return out
 
 
@@ -362,9 +432,50 @@ def test_walking_the_tile_lists_gives_the_plain_output(name):
     layout[1, 1] = False
     layout[3] = False  # a head that attends nothing
     q, k, v = (rng.normal(size=(1, H, S, 16)) for _ in range(3))
-    got = _walk_tile_lists(q, k, v, layout, lb, 0.25)
     want = tbsa.block_sparse_attention_fwd_plain(*(torch.from_numpy(x) for x in (q, k, v)), layout, lb, 0.25)
-    np.testing.assert_allclose(got, want.numpy(), **FWD_TOL)  # the plain version computes in f32
+    for split_steps in (1, 2, tbsa.SPLIT_STEPS):  # every list split into single steps; pairs; none split
+        got = _walk_work_items(q, k, v, layout, lb, 0.25, split_steps)
+        np.testing.assert_allclose(got, want.numpy(), **FWD_TOL)  # the plain version computes in f32
+        assert not got[:, 3].any()
+
+
+def _split_layout(S, lb):
+    """Random cells with a global row in head 0; head 1's first q tile
+    attends exactly its first 8 K/V tiles (a list of 8) from its first cell
+    row, while its third cell row attends nothing (dead rows inside a split
+    row once lb < 64); head 3 attends nothing."""
+    layout = _random_layout(S, lb, H, 0.15, S + lb)
+    rows0 = -(-TILE // lb)  # cell rows that touch q tile 0
+    layout[1, :rows0] = False
+    layout[1, 0, :8 * TILE // lb] = True
+    layout[3] = False
+    return layout
+
+
+SPLIT_CASES = [(80, 16, 1), (1040, 16, 4), (1040, 16, 8), (1056, 48, 3), (1088, 64, 4)]
+
+
+@pytest.mark.parametrize("S,lb,split_steps", SPLIT_CASES, ids=[f"lb{lb}_S{S}_split{n}" for S, lb, n in SPLIT_CASES])
+def test_split_version_matches_plain_and_pallas(S, lb, split_steps):
+    """block_sparse_attention_fwd_split, the kernel's items and merge in
+    torch ops, against the plain version and the Pallas kernel (interpret
+    mode), on layouts whose global row is cut into chunks."""
+    layout = _split_layout(S, lb)
+    plan = tbsa.BlockSparsePlan(layout, S, lb, *tbsa.choose_blocks(S, lb), split_steps=split_steps)
+    counts = plan.tile_counts
+    assert plan.n_rows > 0 and counts[0, 0] > split_steps  # the global row is split
+    if S > 80:
+        assert counts[1, 0] == 8  # a list of 8: an exact multiple of 1, 2, 4 and 8
+    q, k, v = _qkv(S, seed=S + split_steps, D=16)
+    scale = 0.3
+    got = tbsa.block_sparse_attention_fwd_split(*(torch.from_numpy(x) for x in (q, k, v)), layout, lb, scale,
+                                                split_steps)
+    want = tbsa.block_sparse_attention_fwd_plain(*(torch.from_numpy(x) for x in (q, k, v)), layout, lb, scale)
+    jout = np.asarray(jbsa.block_sparse_attention(*(jnp.asarray(x) for x in (q, k, v)), layout, lb, scale))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **FWD_TOL)
+    np.testing.assert_allclose(got.numpy(), jout, **FWD_TOL)
+    dead = np.repeat(~layout.any(-1), lb, axis=1)  # [H, S] rows attending nothing
+    assert dead[1].any() and not got.numpy()[:, dead].any()  # exactly zero, inside a split row too
     assert not got[:, 3].any()
 
 

@@ -3,7 +3,7 @@
 # change, change, parent, so that the card's drift between runs shows as a
 # difference within one tree rather than between the trees.
 #
-#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|kernels]
+#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|MODE,MODE...]
 #
 # Each run's output goes to chiprun_out/smoke_<i>_<tree>.log and its full
 # record to chiprun_out/smoke_<i>_<tree>.json, under the directory the script
@@ -11,8 +11,11 @@
 # "flash", each run builds the kernels and runs only the flash-attention
 # kernel phase (check_flash_attention), printing its errors and kernel times
 # per case; with "paged", only the paged-attention kernel phase
-# (check_paged_attention); with "kernels", both. The exit code is the last
-# failing run's, else 0.
+# (check_paged_attention); with "sparse", only the block-sparse phase
+# (check_block_sparse_attention: B5's checks, the sparse step against f32,
+# and B5's times beside its bound, SDPA with the mask and dense B2); with
+# "kernels", paged and flash; modes joined by commas run each. The exit code
+# is the last failing run's, else 0.
 set -u
 parent=$(cd "$1" && pwd)
 change=$(cd "$2" && pwd)
@@ -24,14 +27,21 @@ phase='
 import json, sys, torch, chip_smoke as c
 c.builder.build()
 dev = torch.device("cuda")
-if sys.argv[1] in ("paged", "kernels"):
+modes = set(sys.argv[1].replace("kernels", "paged,flash").split(","))
+if "paged" in modes:
     r = c.check_paged_attention(dev)
     print(json.dumps([{k: x[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
                       for x in r]))
-if sys.argv[1] in ("flash", "kernels"):
+if "flash" in modes:
     r = c.check_flash_attention(dev)
     print(json.dumps([dict(case=x["case"], err=x["max_abs_err"], **{k: x[k]["ms"] for k in ("fwd", "dkv", "dq")})
                       for x in r]))
+if "sparse" in modes:
+    r = c.check_block_sparse_attention(dev)
+    keys = ("case", "density", "max_abs_err", "tol_use", "ms", "ms_index_order", "ms_sorted_again", "ms_split_steps",
+            "bound_ms", "plain_ms", "library_ms", "b2_dense_ms", "fwd_bwd_ms")
+    print(json.dumps([{k: x[k] for k in keys if k in x} for x in r["cases"]]))
+    print(json.dumps({"scaling": r["scaling"], "b5_profile_ms": [x["profile"]["b5_ms"] for x in r["cases"] if "profile" in x]}))
 '
 status=0
 i=0
