@@ -25,14 +25,26 @@ Phases (any failure raises and the script exits non-zero):
    its lists cut at several lengths), its plain version,
    scaled_dot_product_attention
    with the layout as a mask, the dense flash kernel and the whole step;
-4. serving path: serve 8 requests greedily through build_engine + generate
-   on Llama-2-7B at full width (random weights from a seed, bf16), three
-   times (the same tokens each time; median rates reported), with the
-   paged kernels' launch count zeroed just before and read just after; trace
-   a few decode steps with torch.profiler; then hold the first decode step's
-   logits, through the kernel and through the gather path, to the dense
-   model run in f32;
-5. training path: train bench.py's headline program (the 530M Llama, full
+4. main path: serve 8 requests greedily through build_engine + generate
+   (which drives the serving scheduler inline) on Llama-2-7B at full width
+   (random weights from a seed, bf16), three times (the same tokens each
+   time; median rates reported), with the paged kernels' launch count zeroed
+   just before and read just after; trace a few decode steps with
+   torch.profiler; then hold the first decode step's logits, through the
+   kernel and through the gather path, to the dense model run in f32;
+5. serving path: from the same weights, serve the same 8 prompts at once
+   over HTTP (ServingServer on 127.0.0.1, ServingScheduler on its own
+   thread, ticking once all are queued: six greedy JSON requests, one SSE
+   stream, one prompt sampled three times), with B1's launch count zeroed
+   just before and read just after, and B1 seen launching from the
+   scheduler's thread; time TTFT, ITL, e2e and served tokens/s, the same mix
+   submitted in-process, and the mix again under torch.profiler; then the
+   same prompts on a pool too small for them, the scheduler stepped by hand
+   (it offloads and restores), and one offload -> restore round trip; hold every served greedy token to the
+   dense f32 model (teacher-forced), the SSE stream to its final document,
+   the sampled runs to each other and the pool to its size after stop, each
+   check with a control it must reject;
+6. training path: train bench.py's headline program (the 530M Llama, full
    width and depth, S=1024, micro-batch 8, GAS 8, AdamW, bf16 over f32
    masters, ZeRO stage 3, remat "dots", flash attention) through
    deepspeed_tpu_torch.initialize + train_batch, with the flash kernels'
@@ -42,18 +54,20 @@ Phases (any failure raises and the script exits non-zero):
    projections' gradients, through the kernels and through plain attention
    in bf16, to the same step in f32, and show that the check rejects the
    kernel step with dq, or dk and dv, zeroed or with attention replaced;
-6. print one JSON line describing every kernel, then the result line.
+7. print one JSON line describing every kernel, then the result line.
 
 The script imports the port only (never jax or deepspeed_tpu), needs one
 GPU, and writes its full record to chiprun_out/chip_smoke.json.
 """
 
 import contextlib
+import gc
 import json
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -62,14 +76,17 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine, generate
+from deepspeed_tpu_torch.inference.v2.model_implementations import transformer_base
 from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import DSStateManagerConfig, MemoryConfig
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, LlamaModel, init_params
 from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops import builder
 from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops import paged_attention as pa
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention_update, paged_attention_update_plain
 from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig, FixedSparsityConfig, SparseSelfAttention,
                                                       layout_to_dense_mask)
+from deepspeed_tpu_torch.serving import ServingConfig, ServingScheduler, ServingServer
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -837,8 +854,10 @@ def _engine(params, cfg, use_paged_kernel, dev):
                         device=dev)
 
 
-def _timed(engine, name, record):
-    """Wrap an engine method with a host clock between two synchronizes."""
+def _timed(engine, name, record, work=None):
+    """Wrap an engine method with a host clock between two synchronizes; each
+    call appends its seconds to ``record`` (or ``(seconds, work(*args))``
+    when ``work`` is given)."""
     inner = getattr(engine, name)
 
     def call(*args, **kw):
@@ -846,10 +865,19 @@ def _timed(engine, name, record):
         t0 = time.perf_counter()
         out = inner(*args, **kw)
         torch.cuda.synchronize()
-        record.append(time.perf_counter() - t0)
+        secs = time.perf_counter() - t0
+        record.append(secs if work is None else (secs, work(*args)))
         return out
 
     setattr(engine, name, call)
+
+
+def _put_tokens(uids, tokens, *_):
+    return sum(len(t) for t in tokens)
+
+
+def _loop_steps(uids, tokens, n_steps, *_):
+    return len(uids), n_steps
 
 
 def _prefill(engine, prompts):
@@ -878,14 +906,15 @@ def _profile_decode(engine, prompts, first_tokens):
     """One greedy ``decode_loop`` of PROFILE_STEPS steps for all requests
     under torch.profiler: the card's busy share of the host wall time (sum of
     device records over the wall time) and the device time of the top
-    kernels. Informational: an empty device trace is reported, not fatal."""
+    kernels. Informational: an empty device trace is reported, not fatal.
+    Also returns the loop's tokens ``[n_seqs, PROFILE_STEPS]``."""
     _prefill(engine, prompts)
     uids = list(range(len(prompts)))
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.decode_loop(uids, [[t] for t in first_tokens], PROFILE_STEPS)  # ends in a device->host copy
+        loop_tokens = engine.decode_loop(uids, [[t] for t in first_tokens], PROFILE_STEPS)  # ends in a device->host copy
         wall = time.perf_counter() - t0
     engine.flush_all()
     device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -893,22 +922,44 @@ def _profile_decode(engine, prompts, first_tokens):
     paged_us = sum(e.self_device_time_total for e in device if "paged_" in e.key)
     attention_us = sum(e.self_device_time_total for e in device if "paged_attention_kernel" in e.key)
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
-    return dict(steps=PROFILE_STEPS, wall_ms_per_step=1e3 * wall / PROFILE_STEPS,
-                device_ms_per_step=busy_us / 1e3 / PROFILE_STEPS,
-                device_busy_share=busy_us / 1e6 / wall if busy_us else "not measured",
-                paged_kernels_ms_per_step=paged_us / 1e3 / PROFILE_STEPS,
-                paged_attention_kernel_ms_per_step=attention_us / 1e3 / PROFILE_STEPS,
-                top_kernels=[dict(name=e.key[:80], calls_per_step=e.count / PROFILE_STEPS,
-                                  ms_per_step=e.self_device_time_total / 1e3 / PROFILE_STEPS) for e in top])
+    return loop_tokens, dict(
+        steps=PROFILE_STEPS, wall_ms_per_step=1e3 * wall / PROFILE_STEPS,
+        device_ms_per_step=busy_us / 1e3 / PROFILE_STEPS,
+        device_busy_share=busy_us / 1e6 / wall if busy_us else "not measured",
+        paged_kernels_ms_per_step=paged_us / 1e3 / PROFILE_STEPS,
+        paged_attention_kernel_ms_per_step=attention_us / 1e3 / PROFILE_STEPS,
+        top_kernels=[dict(name=e.key[:80], calls_per_step=e.count / PROFILE_STEPS,
+                          ms_per_step=e.self_device_time_total / 1e3 / PROFILE_STEPS) for e in top])
 
 
-def run_main_path(dev) -> dict:
+def main_params(dev) -> dict:
+    """Llama-2-7B's bf16 weights, random from seed 0: the main path's and the
+    serving phase's."""
     cfg = LlamaConfig.llama2_7b()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     log(f"[main] Llama-2-7B: {sum(p.numel() for p in params.values())} random bf16 parameters "
         f"({cfg.num_hidden_layers} layers) in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def _dense_f32(params, cfg):
+    """The dense model in f32 with the same weights, upcast: the reference
+    both bf16 attention paths and the served tokens are held to."""
+    with torch.device("meta"):
+        model = LlamaModel(cfg)
+    model.load_state_dict({k: v.float() for k, v in params.items()}, assign=True)
+    return model
+
+
+def run_main_path(dev, params=None) -> dict:
+    """Serve PROMPT_LENS through generate (which drives the serving
+    scheduler inline) REPEATS times; ``params`` defaults to
+    :func:`main_params`."""
+    cfg = LlamaConfig.llama2_7b()
+    if params is None:
+        params = main_params(dev)
     engine = _engine(params, cfg, None, dev)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
@@ -917,9 +968,11 @@ def run_main_path(dev) -> dict:
     generate(engine, [prompts[0], prompts[2]], max_new_tokens=4, decode_chunk=4)
     torch.cuda.synchronize()
 
+    # generate drives the serving scheduler: the timers wrap the engine's
+    # attributes, so they see the scheduler's calls
     times = {"put": [], "decode_loop": []}
-    _timed(engine, "put", times["put"])
-    _timed(engine, "decode_loop", times["decode_loop"])
+    _timed(engine, "put", times["put"], _put_tokens)
+    _timed(engine, "decode_loop", times["decode_loop"], _loop_steps)
     runs = []
     paged_attention_update.launches = 0
     for _ in range(REPEATS):
@@ -928,8 +981,10 @@ def run_main_path(dev) -> dict:
         t0 = time.perf_counter()
         tokens = generate(engine, prompts, max_new_tokens=NEW_TOKENS, decode_chunk=NEW_TOKENS)
         torch.cuda.synchronize()
-        runs.append(dict(wall_s=time.perf_counter() - t0, prefill_s=sum(times["put"]),
-                         decode_s=sum(times["decode_loop"]), puts=len(times["put"]), tokens=tokens))
+        runs.append(dict(wall_s=time.perf_counter() - t0, prefill_s=sum(s for s, _ in times["put"]),
+                         decode_s=sum(s for s, _ in times["decode_loop"]), puts=len(times["put"]),
+                         put_tokens=[n for _, n in times["put"]],
+                         decode_loops=[list(w) for _, w in times["decode_loop"]], tokens=tokens))
     launches = paged_attention_update.launches
     if launches <= 0:
         raise AssertionError("the main path launched no paged-attention kernel")
@@ -938,13 +993,18 @@ def run_main_path(dev) -> dict:
         raise AssertionError(f"unexpected generate output: {[len(t) for t in tokens]}")
     if any(r.pop("tokens") != tokens for r in runs):
         raise AssertionError("greedy generate is not repeatable")
-    decode_steps = NEW_TOKENS - 1
+    # the scheduler's puts carry the prompt chunks (and the decode tokens of
+    # requests whose prefill ended while others' went on); once all are
+    # decoding, decode_loop runs the rest in chunks of NEW_TOKENS steps
     for r in runs:
+        steps = sum(n for _, n in r["decode_loops"])
         r.update(prefill_tokens_per_s=sum(PROMPT_LENS) / r["prefill_s"],
-                 decode_tokens_per_s=len(prompts) * decode_steps / r["decode_s"],
-                 ms_per_decode_step=1e3 * r["decode_s"] / decode_steps)
-    # per run: the decode steps and the 20-token prompt's prefill (bucket 32)
-    expected_launches = REPEATS * 2 * cfg.num_hidden_layers * (decode_steps + 1)
+                 decode_tokens_per_s=sum(s * n for s, n in r["decode_loops"]) / r["decode_s"],
+                 ms_per_decode_step=1e3 * r["decode_s"] / steps)
+    # B1 runs two launches per layer in each decode_loop step and in each put
+    # of at most 32 tokens (a decode-sized bucket)
+    expected_launches = 2 * cfg.num_hidden_layers * sum(
+        sum(n for _, n in r["decode_loops"]) + sum(1 for n in r["put_tokens"] if n <= 32) for r in runs)
     res = dict(layers=cfg.num_hidden_layers, requests=len(prompts), prompt_tokens=sum(PROMPT_LENS),
                new_tokens=NEW_TOKENS, runs=runs,
                **{k: statistics.median(r[k] for r in runs)
@@ -954,7 +1014,8 @@ def run_main_path(dev) -> dict:
     del engine.put, engine.decode_loop  # unwrap the timers
 
     first = [t[0] for t in tokens]
-    res["decode_profile"] = prof = _profile_decode(engine, prompts, first)
+    loop_tokens, prof = _profile_decode(engine, prompts, first)
+    res["decode_profile"] = prof
     # the profiler slows the host, not the card: the device time per step
     # over the unprofiled step time is the busy share of the measured runs
     prof["device_share_of_measured_step"] = prof["device_ms_per_step"] / res["ms_per_decode_step"]
@@ -966,8 +1027,10 @@ def run_main_path(dev) -> dict:
     paged = _first_decode_logits(engine, prompts, first)
     if not torch.isfinite(paged).all() or paged.shape != (len(prompts), cfg.vocab_size):
         raise AssertionError(f"bad logits {tuple(paged.shape)}")
-    second = [t[1] for t in tokens]
-    if paged.argmax(-1).tolist() != second:
+    # both through the kernel, in one batch of the 8 requests: the served
+    # second tokens may come from the gather branch (a put that also carried
+    # other requests' prompt chunks), so decode_loop's own is the one to match
+    if paged.argmax(-1).tolist() != [int(t) for t in loop_tokens[:, 0]]:
         raise AssertionError("put's first decode step disagrees with decode_loop's")
     del engine
     torch.cuda.empty_cache()
@@ -975,11 +1038,7 @@ def run_main_path(dev) -> dict:
     gathered = _first_decode_logits(gather_engine, prompts, first)
     del gather_engine
     torch.cuda.empty_cache()
-    # the dense model in f32 (same weights, upcast) is the reference both
-    # bf16 attention paths are held to
-    with torch.device("meta"):
-        model = LlamaModel(cfg)
-    model.load_state_dict({k: v.float() for k, v in params.items()}, assign=True)
+    model = _dense_f32(params, cfg)
     with torch.no_grad():
         ref = torch.stack([model(torch.tensor([p + [f]], device=dev))[0, -1] for p, f in zip(prompts, first)])
     del model
@@ -987,6 +1046,8 @@ def run_main_path(dev) -> dict:
     res["logits_l2_rel_err_kernel_vs_f32"] = _l2_rel(paged, ref)
     res["logits_l2_rel_err_gather_vs_f32"] = _l2_rel(gathered, ref)
     res["logits_l2_rel_err_kernel_vs_gather"] = _l2_rel(paged, gathered)
+    res["logits_max_abs_err_kernel_vs_f32"] = (paged - ref).abs().max().item()
+    res["logits_max_abs_err_gather_vs_f32"] = (gathered - ref).abs().max().item()
     res["argmax_agree_kernel_vs_f32"] = int((paged.argmax(-1) == ref.argmax(-1)).sum())
     res["argmax_agree_gather_vs_f32"] = int((gathered.argmax(-1) == ref.argmax(-1)).sum())
     log("[main] first decode step: " + json.dumps({k: v for k, v in res.items() if "err" in k or "agree" in k}))
@@ -1000,6 +1061,388 @@ def run_main_path(dev) -> dict:
 
 
 # ----------------------------------------------------------------- phase 5 --
+# serving: the 8 prompts of PROMPT_LENS at once over HTTP, each for
+# NEW_TOKENS tokens: six greedy JSON requests, one greedy SSE stream, and one
+# prompt sampled at SERVE_TEMPERATURE, sent twice with SERVE_SEED and once
+# with SERVE_SEED + 1 (the control that shows the seed decides the draw)
+SERVE_SSE, SERVE_SAMPLED = 7, 0  # indices into PROMPT_LENS: the 1536- and 20-token prompts
+SERVE_TEMPERATURE, SERVE_SEED = 0.8, 1234
+# every served greedy token, teacher-forced through the dense f32 model: its
+# logit lies within TF_SLACK x the bf16-vs-f32 logit error of the row's
+# maximum. Argmax of the bf16 row, the served token's f32 logit trails the f32
+# maximum by at most the two entries' errors, each at most the largest
+# element error the main path measures (first decode step, kernel and gather
+# paths against f32); TF_SLACK = 4 covers both entries with 2x margin for
+# positions 32 tokens later. Control: the served tokens shifted by one
+# position, which the check must reject.
+TF_SLACK = 4.0
+# KV pressure: a pool of this many 64-token blocks holds about half of the 8
+# requests' 75 blocks, so the scheduler must offload and restore. The
+# scheduler's choices depend on token counts alone: a tiny model on the CPU,
+# stepped the same way, evicts 9 times at 40 blocks (and 114 at 32: the
+# pool thrashes)
+PRESSURE_BLOCKS = 40
+PRESSURE_DECODE_CHUNK = 8
+
+
+def _percentile(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else None
+
+
+def _http_generate(url, body, sse, out, key):
+    """One client: POST /v1/generate; SSE events are read as they arrive,
+    with the client's arrival clock for each."""
+    import urllib.request
+    req = urllib.request.Request(url + "/v1/generate", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            if not sse:
+                out[key] = dict(status=resp.status, doc=json.loads(resp.read()))
+                return
+            events, arrivals = [], []
+            for line in resp:
+                if line.startswith(b"data: "):
+                    events.append(json.loads(line[len(b"data: "):]))
+                    arrivals.append(time.perf_counter())
+            out[key] = dict(status=resp.status, events=events, arrivals=arrivals)
+    except Exception as e:  # reported by the checks below
+        out[key] = dict(error=repr(e))
+
+
+def _serve_bodies(prompts):
+    """Request key -> (body, streamed) of the serving mix."""
+    bodies = {}
+    for i, p in enumerate(prompts):
+        if i == SERVE_SAMPLED:
+            for key, seed in (("sampled_a", SERVE_SEED), ("sampled_b", SERVE_SEED), ("sampled_c", SERVE_SEED + 1)):
+                bodies[key] = (dict(prompt=p, max_new_tokens=NEW_TOKENS, temperature=SERVE_TEMPERATURE, seed=seed),
+                               False)
+        else:
+            bodies[i] = (dict(prompt=p, max_new_tokens=NEW_TOKENS, stream=i == SERVE_SSE), i == SERVE_SSE)
+    return bodies
+
+
+def _direct_burst(sched, prompts, gate):
+    """The same mix submitted to the scheduler in-process (no HTTP, no
+    client threads); returns the burst's wall time."""
+    t0 = time.perf_counter()
+    reqs = [sched.submit(**{k: v for k, v in body.items() if k != "stream"})
+            for body, _ in _serve_bodies(prompts).values()]
+    gate(len(reqs))
+    for r in reqs:
+        r.result(timeout=600)
+    return time.perf_counter() - t0
+
+
+def _serve_burst(url, prompts, gate):
+    """All requests at once from client threads, the sampled ones queued
+    first; ``gate(n)`` waits until ``n`` are queued and, unless told to
+    hold, lets the scheduler tick. Returns the results and the burst's wall
+    time."""
+    bodies = _serve_bodies(prompts)
+    out = {}
+    threads = {key: threading.Thread(target=_http_generate, args=(url, body, sse, out, key), daemon=True)
+               for key, (body, sse) in bodies.items()}
+    sampled = [k for k in bodies if str(k).startswith("sampled")]
+    t0 = time.perf_counter()
+    for k in sampled:
+        threads[k].start()
+    gate(len(sampled), release=False)
+    for k, t in threads.items():
+        if k not in sampled:
+            t.start()
+    gate(len(bodies))
+    for t in threads.values():
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads.values()) or set(out) != set(bodies):
+        raise AssertionError("a serving client did not finish")
+    bad = {k: v for k, v in out.items() if v.get("status") != 200}
+    if bad:
+        raise AssertionError(f"serving requests failed: {bad}")
+    return out, wall
+
+
+def _served_tokens(out):
+    """Request key -> the tokens of its final document."""
+    return {k: (v["events"][-1]["tokens"] if "events" in v else v["doc"]["tokens"]) for k, v in out.items()}
+
+
+def _sse_consistent(token_events, final):
+    """The SSE check: the streamed token events, in index order, are the
+    request's final (non-streamed) token list."""
+    return ([e["index"] for e in token_events] == list(range(len(final)))
+            and [e["token"] for e in token_events] == final)
+
+
+def _teacher_forced(model, dev, sequences):
+    """Each (prompt, tokens) through the dense f32 model in one forward over
+    prompt + tokens[:-1]: per generated position, the gap between the row's
+    maximum logit and the served token's."""
+    gaps = []
+    with torch.no_grad():
+        for prompt, toks in sequences:
+            ids = torch.tensor([list(prompt) + list(toks[:-1])], device=dev)
+            rows = model(ids)[0, len(prompt) - 1:].float()
+            served = rows[torch.arange(len(toks), device=dev), torch.tensor(toks, device=dev)]
+            gaps.append((rows.max(-1).values - served).cpu())
+    return torch.cat(gaps)
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype in (torch.bfloat16, torch.float16) else t.view(torch.int32)
+
+
+def _offload_round_trip(engine, prompt, corrupt=False):
+    """Prefill ``prompt`` as a live sequence, offload it to the host tier and
+    restore it: True when its cache blocks come back bit for bit. With
+    ``corrupt`` (the control) one element of the host copy is changed first."""
+    sm = engine._state_manager
+    uid = 10**6
+    engine.put([uid], [prompt])
+    seq = sm.get_sequence(uid)
+    cache = sm.kv_cache.cache
+    before = cache[:, :, torch.from_numpy(seq.kv_blocks).to(cache.device)].clone()
+    engine.offload_sequence(uid)
+    if corrupt:
+        torch.cuda.synchronize()
+        data, _ = sm.kv_cache.tiered_store.read(sm._offloaded[uid])
+        flat = _bits(data).view(-1)
+        flat[flat.numel() // 2] ^= 1
+    engine._restore_offloaded([uid])
+    after = cache[:, :, torch.from_numpy(seq.kv_blocks).to(cache.device)]
+    same = bool(torch.equal(_bits(after), _bits(before)))
+    engine.flush(uid)
+    return same
+
+
+def _count_calls(obj, name, record):
+    inner = getattr(obj, name)
+
+    def call(*args, **kw):
+        record.append(args)
+        return inner(*args, **kw)
+
+    setattr(obj, name, call)
+
+
+def run_serving_path(dev, params, main) -> dict:
+    """Llama-2-7B served over HTTP through ServingScheduler + ServingServer on
+    the main path's pool, from the main path's weights; the same prompts
+    again under KV pressure, on a scheduler stepped by hand that must
+    offload and restore. Checks each served greedy token against the dense
+    f32 model, the SSE stream against its final document, the sampled runs
+    against each other, B1's launches, the pool after stop, evictions, and
+    one offload/restore round trip; each check with a control it rejects."""
+    t_start = time.perf_counter()
+    cfg = LlamaConfig.llama2_7b()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+    failures = []
+
+    # --- the measured burst: HTTP clients -> server threads -> scheduler
+    engine = _engine(params, cfg, None, dev)
+    capacity = engine.free_blocks
+    generate(engine, [prompts[0], prompts[2]], max_new_tokens=4)  # warm-up, not counted
+    times = {"put": [], "decode_loop": [], "tick": []}
+    _timed(engine, "put", times["put"], _put_tokens)
+    _timed(engine, "decode_loop", times["decode_loop"], _loop_steps)
+    sched = ServingScheduler(engine, ServingConfig(queue_capacity=64))
+    inner_step, inner_push = sched.step, sched._push_token
+    pushes = {}  # request handle -> scheduler clock of each token pushed
+    # a burst "at once" is one whose requests are all queued before the
+    # scheduler's first tick, the sampled ones first: bf16 logits depend on
+    # the batch a sequence rides in, so the two sampled runs of one seed
+    # agree only when they share every batch, which needs them admitted and
+    # prefilled in the same tick (arrival order alone can split them)
+    ticking = threading.Event()
+
+    def gate(n, release=True):
+        deadline = time.perf_counter() + 120
+        while sched.queue_depth < n:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{sched.queue_depth} of the burst's {n} requests arrived")
+            time.sleep(0.0005)
+        if release:
+            ticking.set()
+
+    def step():
+        if not ticking.is_set():
+            return False
+        t0 = time.perf_counter()
+        ran = inner_step()
+        if ran:
+            times["tick"].append(time.perf_counter() - t0)
+        return ran
+
+    def push(req, tok, record_itl=True):
+        pushes.setdefault(req.handle, (req, []))[1].append(time.monotonic())
+        return inner_push(req, tok, record_itl)
+
+    sched.step, sched._push_token = step, push
+    server = ServingServer(sched, host="127.0.0.1", port=0).start()
+    threads = []
+    spy_inner = transformer_base.paged_attention_update
+
+    def spy(*args, **kw):
+        threads.append(threading.current_thread().name)
+        return spy_inner(*args, **kw)
+
+    transformer_base.paged_attention_update = spy
+    try:
+        pa.paged_attention_update.launches = 0
+        out, wall = _serve_burst(server.url, prompts, gate)
+        ticking.clear()
+        launches = pa.paged_attention_update.launches
+        measured = {k: list(v) for k, v in times.items()}
+        burst_pushes = {k: (r, list(ts)) for k, (r, ts) in pushes.items()}
+        # the same mix again: submitted in-process (what HTTP costs), and
+        # over HTTP under torch.profiler (the card's busy time)
+        direct_wall = _direct_burst(sched, prompts, gate)
+        ticking.clear()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, profiled_wall = _serve_burst(server.url, prompts, gate)
+    finally:
+        transformer_base.paged_attention_update = spy_inner
+        ticking.set()  # stop() drains through the loop
+        server.stop()
+    torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    times = measured
+    served = _served_tokens(out)
+    n_served = sum(len(t) for t in served.values())
+    ttft = [ts[0] - req.arrival_s for req, ts in burst_pushes.values()]
+    itl = [b - a for _, ts in burst_pushes.values() for a, b in zip(ts, ts[1:])]
+    e2e = [v["doc"]["e2e_s"] for v in out.values() if "doc" in v]
+    counters = sched.stats()["counters"]
+    res = dict(requests=len(out), served_tokens=n_served, wall_s=wall, served_tokens_per_s=n_served / wall,
+               ttft_p50_s=_percentile(ttft, 50), ttft_p99_s=_percentile(ttft, 99),
+               itl_p50_s=_percentile(itl, 50), itl_p99_s=_percentile(itl, 99), e2e_p50_s=_percentile(e2e, 50),
+               decode_chunks=len(times["decode_loop"]), puts=len(times["put"]), ticks=len(times["tick"]),
+               tick_s=sum(times["tick"]), put_s=sum(s for s, _ in times["put"]),
+               decode_loop_s=sum(s for s, _ in times["decode_loop"]), b1_launches=launches,
+               b1_launch_threads=sorted(set(threads)), counters=counters,
+               generate_decode_tokens_per_s=main["decode_tokens_per_s"], direct_submit_wall_s=direct_wall,
+               profiled_wall_s=profiled_wall, device_busy_s=busy_us / 1e6 if busy_us else "not measured",
+               device_share_of_measured_burst=busy_us / 1e6 / wall if busy_us else "not measured")
+    res["scheduler_host_s"] = res["tick_s"] - res["put_s"] - res["decode_loop_s"]
+    decode_ticks = [s for s, n in times["put"] if n <= 32]
+    res["decode_put_ms_p50"] = 1e3 * _percentile(decode_ticks, 50) if decode_ticks else None
+    del engine.put, engine.decode_loop
+
+    # --- checks of the burst, each with its control
+    sse = out[SERVE_SSE]
+    token_events, final = sse["events"][:-1], sse["events"][-1]["tokens"]
+    if not (sse["events"][-1].get("done") and _sse_consistent(token_events, final)):
+        failures.append("the SSE token events differ from the request's final tokens")
+    if _sse_consistent(token_events[:-1] + [dict(token_events[-1], token=(final[-1] + 1) % cfg.vocab_size)],
+                       final):
+        failures.append("control: a changed SSE token passed the SSE check")
+    if served["sampled_a"] != served["sampled_b"]:
+        failures.append("the two sampled runs with one seed differ")
+    if served["sampled_a"] == served["sampled_c"]:
+        failures.append("control: the sampled run with another seed passed the equality check")
+    if not launches > 0:
+        failures.append("B1 was not launched during the serving burst")
+    if set(threads) != {"dstpu-serving-scheduler"}:
+        failures.append(f"B1 was launched from threads {sorted(set(threads))}, not the scheduler's")
+    counters_left = [int(c.abs().sum()) for c, _ in pa._WORKSPACES.values()]
+    if any(counters_left):
+        failures.append(f"B1's split counters are not zero after the burst: {counters_left}")
+    if engine.free_blocks != capacity:
+        failures.append(f"{capacity - engine.free_blocks} KV blocks still held after server.stop()")
+    engine.put([10**6], [prompts[0]])  # control: a sequence still holds its blocks
+    if engine.free_blocks == capacity:
+        failures.append("control: a held sequence passed the pool check")
+    engine.flush(10**6)
+    gather = _engine(params, cfg, False, dev)  # control: a path without B1 launches none
+    pa.paged_attention_update.launches = 0
+    generate(gather, [prompts[0]], max_new_tokens=2)
+    if pa.paged_attention_update.launches > 0:
+        failures.append("control: the gather-only engine launched B1")
+    del gather, engine, sched, server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- KV pressure: the same prompts on a pool of PRESSURE_BLOCKS blocks,
+    # the scheduler stepped by hand as generate steps it (so its choices do
+    # not depend on when the submits land)
+    mgr = DSStateManagerConfig(max_context=MAX_CONTEXT,
+                               memory_config=MemoryConfig(mode="allocate", size=PRESSURE_BLOCKS))
+    small = build_engine(params, cfg, RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=BLOCK),
+                         device=dev)
+    restores, loops = [], []
+    _count_calls(small._state_manager, "restore_sequence", restores)
+    _count_calls(small, "decode_loop", loops)
+    pressured = ServingScheduler(small, ServingConfig(decode_chunk=PRESSURE_DECODE_CHUNK), start=False)
+    pa.paged_attention_update.launches = 0
+    try:
+        t0 = time.perf_counter()
+        reqs = [pressured.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        while not all(r.finished for r in reqs):
+            pressured.step()
+        torch.cuda.synchronize()
+        pressure_wall = time.perf_counter() - t0
+        pressure_tokens = [r.result(timeout=1) for r in reqs]
+        pressure_counters = pressured.stats()["counters"]
+    finally:
+        pressured.stop(drain=False)
+    res["pressure"] = dict(blocks=PRESSURE_BLOCKS, wall_s=pressure_wall, evictions=pressure_counters["evictions"],
+                           restores=len(restores), decode_chunks=len(loops),
+                           b1_launches=pa.paged_attention_update.launches, counters=pressure_counters)
+    if not pressure_counters["evictions"] > 0:
+        failures.append("the small pool evicted nothing")
+    if not counters["evictions"] == 0:  # control: the main path's pool needs no eviction
+        failures.append("control: the full pool evicted too")
+    if small.free_blocks != PRESSURE_BLOCKS:
+        failures.append("KV blocks still held after the pressured run")
+    res["pressure"]["offload_round_trip_bit_exact"] = _offload_round_trip(small, prompts[3])
+    if not res["pressure"]["offload_round_trip_bit_exact"]:
+        failures.append("offload -> restore did not give back the cache bit for bit")
+    if _offload_round_trip(small, prompts[3], corrupt=True):
+        failures.append("control: a corrupted host copy passed the round-trip check")
+    del small, pressured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- every served greedy token against the dense f32 model
+    err = max(main["logits_max_abs_err_kernel_vs_f32"], main["logits_max_abs_err_gather_vs_f32"])
+    tol = TF_SLACK * err
+    greedy = [(prompts[k], served[k]) for k in range(len(prompts)) if k != SERVE_SAMPLED]
+    greedy += list(zip(prompts, pressure_tokens))
+    model = _dense_f32(params, cfg)
+    gaps = _teacher_forced(model, dev, greedy)
+    shifted = _teacher_forced(model, dev, [(p, t[1:] + t[:1]) for p, t in greedy])
+    del model
+    torch.cuda.empty_cache()
+    res["teacher_forced"] = dict(tolerance=tol, max_abs_err_main=err, tokens=int(gaps.numel()),
+                                 max_gap=gaps.max().item(), max_gap_over_tol=gaps.max().item() / tol,
+                                 control_tokens_outside=int((shifted > tol).sum()),
+                                 control_max_gap=shifted.max().item())
+    if not gaps.max().item() <= tol:
+        failures.append(f"a served token's f32 logit trails its row's maximum by {gaps.max().item()} > {tol}")
+    if not shifted.max().item() > tol:
+        failures.append("control: the shifted tokens passed the teacher-forced check")
+    res["seconds"] = time.perf_counter() - t_start
+    res["failures"] = failures
+    log("[serve] " + json.dumps({k: v for k, v in res.items() if k not in ("counters", )}))
+    log(f"[serve] TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms p99 {res['ttft_p99_s'] * 1e3:.1f} ms, "
+        f"ITL p50 {res['itl_p50_s'] * 1e3:.2f} ms p99 {res['itl_p99_s'] * 1e3:.2f} ms, "
+        f"e2e p50 {res['e2e_p50_s']:.3f} s, served {res['served_tokens_per_s']:.1f} tokens/s "
+        f"(generate's direct decode: {res['generate_decode_tokens_per_s']:.1f} tokens/s)")
+    log(f"[serve] decode chunks {res['decode_chunks']}, B1 launches {launches}; under pressure: "
+        f"{res['pressure']['evictions']} evictions, {res['pressure']['restores']} restores, "
+        f"{res['pressure']['decode_chunks']} decode chunks, {res['pressure']['b1_launches']} B1 launches")
+    log(card_line())
+    if failures:
+        raise AssertionError("serving phase: " + "; ".join(failures))
+    return res
+
+
+# ----------------------------------------------------------------- phase 6 --
 def bench_llama(**kw) -> LlamaConfig:
     """bench.py's headline model: the 530M Llama (``_llama_530m``) with
     remat "dots" and flash attention."""
@@ -1222,7 +1665,12 @@ def main() -> int:
     record["paged_attention"] = check_paged_attention(dev)
     record["flash_attention"] = check_flash_attention(dev)
     record["block_sparse_attention"] = check_block_sparse_attention(dev)
-    record["main_path"] = run_main_path(dev)
+    params = main_params(dev)
+    record["main_path"] = run_main_path(dev, params)
+    record["serving_path"] = run_serving_path(dev, params, record["main_path"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     record["training_path"] = run_training_path(dev)
     record["seconds"] = time.perf_counter() - t_start
 

@@ -3,9 +3,10 @@
 Port of ``deepspeed_tpu/inference/v2/config_v2.py`` as dataclasses with the
 same fields, defaults and aliases (``tp``, ``weight_quantization``, ``ep``,
 ``manager``; the aliases apply in :meth:`from_dict`). Tensor and expert
-parallelism, weight quantization, simulated gating, tracing and telemetry
-keep their fields so that configs carry across, but the port's engine
-refuses them until they are ported (see ``engine_v2.py``).
+parallelism, weight quantization, simulated gating and tracing keep their
+fields so that configs carry across, but the port's engine refuses them until
+they are ported (see ``engine_v2.py``). ``telemetry`` is the telemetry block
+of ``telemetry/config.py``.
 """
 
 from dataclasses import dataclass
@@ -13,6 +14,7 @@ from typing import Optional
 
 from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import DSStateManagerConfig
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel, config_field
+from deepspeed_tpu_torch.telemetry.config import TelemetryConfig
 
 
 @dataclass
@@ -32,12 +34,6 @@ class QuantizationConfig(DeepSpeedConfigModel):
     enabled: bool = False
     bits: int = 8
     min_size: int = 4096
-
-
-@dataclass
-class TelemetryConfig(DeepSpeedConfigModel):
-    """Only the switch: the telemetry stack is ROADMAP A4."""
-    enabled: bool = False
 
 
 @dataclass

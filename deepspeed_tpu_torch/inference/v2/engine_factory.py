@@ -1,19 +1,13 @@
 """Engine construction + generation driver.
 
 Port of ``build_engine`` and ``generate`` from
-``deepspeed_tpu/inference/v2/engine_factory.py``. In the JAX package
-``generate`` drives the serving scheduler (``serving/scheduler.py``), which
-is ROADMAP A4. Here it drives the engine directly: each prompt is prefilled
-by ``put`` in chunks of at most ``max_ragged_batch_size`` tokens, one
-request per ``put``, then all requests decode together through the greedy
-``decode_loop`` in chunks of ``decode_chunk`` steps. Greedy tokens are those
-of the JAX ``generate``: each is the argmax after the same token history.
+``deepspeed_tpu/inference/v2/engine_factory.py``. ``generate`` drives the
+serving scheduler (``serving/scheduler.py``), as the reference's does: Dynamic
+SplitFuse admission, decode-first batching and KV-pressure shrink/evict exist
+in that one place.
 """
 
 from typing import List, Optional, Sequence
-
-import numpy as np
-import torch
 
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
@@ -38,48 +32,63 @@ def generate(engine: InferenceEngineV2,
              max_new_tokens: int = 16,
              temperature: float = 0.0,
              eos_token_id: Optional[int] = None,
-             decode_chunk: int = 16) -> List[List[int]]:
-    """Greedy generation of up to ``max_new_tokens`` tokens per prompt; a
-    request stops after emitting ``eos_token_id``. Every request's KV must
-    fit the engine's pool at once (there is no eviction without the serving
-    scheduler). The requests' sequences are flushed before returning."""
-    if temperature > 0:
-        raise NotImplementedError("sampled generate needs the serving scheduler (ROADMAP.md A4)")
-    if max_new_tokens < 1 or decode_chunk < 1:
-        raise ValueError("max_new_tokens and decode_chunk must be >= 1")
-    prompts = [np.asarray(p, dtype=np.int64).reshape(-1) for p in prompts]
-    if any(p.size == 0 for p in prompts):
-        raise ValueError("every prompt needs at least one token")
-    sm = engine.config.state_manager
-    base = 1 + max(engine._state_manager.tracked_sequences, default=-1)
-    uids = [base + i for i in range(len(prompts))]
-    outputs = [[] for _ in prompts]
+             seed: int = 0,
+             decode_chunk: int = 1) -> List[List[int]]:
+    """Synchronous continuous-batching decode: a thin wrapper over the serving
+    scheduler. Greedy when ``temperature == 0``.
 
-    def push(i, tok) -> bool:
-        """Append a token; True while the request wants more."""
-        outputs[i].append(int(tok))
-        return not (tok == eos_token_id or len(outputs[i]) >= max_new_tokens)
+    ``decode_chunk`` > 1 runs decode-only batches in chunks of K steps through
+    the engine's ``decode_loop`` (one dispatch per chunk instead of one per
+    token); eos is checked between chunks, so a finished sequence
+    over-generates up to K-1 discarded tokens before its KV blocks recycle.
+    The chunked path is greedy-only: with ``temperature > 0`` each request
+    samples from its own host numpy stream (seeded ``seed + index``) through
+    the step-by-step path, so concurrent requests stay independently
+    reproducible; greedy output is identical either way.
+    """
+    from deepspeed_tpu_torch.serving.config import ServingConfig
+    from deepspeed_tpu_torch.serving.request import RequestState
+    from deepspeed_tpu_torch.serving.scheduler import ServingScheduler
 
+    if len(prompts) == 0:
+        return []
+    # an engine already serving keeps its scheduler (requests just join the
+    # live batch mix); otherwise a temporary one owns the engine for this
+    # call and is driven INLINE — no background thread, the caller's thread
+    # ticks the scheduler until every request finishes
+    scheduler = engine.serving_scheduler
+    own_scheduler = scheduler is None
+    if own_scheduler:
+        scheduler = ServingScheduler(
+            engine,
+            ServingConfig(queue_capacity=len(prompts), decode_chunk=decode_chunk,
+                          default_max_new_tokens=max_new_tokens),
+            start=False)
+    requests = []
     try:
-        live = []
-        for i, (uid, prompt) in enumerate(zip(uids, prompts)):
-            for start in range(0, prompt.size, sm.max_ragged_batch_size):
-                logits = engine.put([uid], [prompt[start:start + sm.max_ragged_batch_size]])
-            if push(i, torch.argmax(logits[0]).item()):
-                live.append(i)
-        group_size = min(sm.max_ragged_sequence_count, sm.max_ragged_batch_size)
-        while live:
-            steps = min(decode_chunk, min(max_new_tokens - len(outputs[i]) for i in live))
-            still = []
-            for g in range(0, len(live), group_size):
-                group = live[g:g + group_size]
-                toks = engine.decode_loop([uids[i] for i in group], [[outputs[i][-1]] for i in group], steps)
-                for i, row in zip(group, toks):
-                    if all(push(i, t) for t in row):
-                        still.append(i)
-            live = still
+        for i, p in enumerate(prompts):
+            requests.append(scheduler.submit(p, max_new_tokens=max_new_tokens,
+                                             temperature=temperature,
+                                             eos_token_id=eos_token_id, seed=seed + i))
+        if own_scheduler:
+            while not all(req.finished for req in requests):
+                scheduler.step()
+        outputs = []
+        for req in requests:
+            tokens = req.result()  # raises RuntimeError when the request FAILED
+            if req.state is not RequestState.DONE:
+                # reachable through a shared scheduler: its default deadline,
+                # or a concurrent stop()/engine.close(), can cut the request
+                raise RuntimeError(f"generate(): request finished {req.state.name} "
+                                   f"after {len(tokens)} of {max_new_tokens} tokens")
+            outputs.append(tokens)
+        return outputs
+    except BaseException:
+        # a failed submit (queue full on a shared scheduler) or a failed
+        # request must not orphan the rest: nobody will consume them
+        for req in requests:
+            req.cancel()
+        raise
     finally:
-        for uid in uids:
-            if engine._state_manager.get_sequence(uid) is not None:
-                engine.flush(uid)
-    return outputs
+        if own_scheduler:
+            scheduler.stop(drain=False)

@@ -1,7 +1,9 @@
 """Sequence tracking.
 
 Port of ``deepspeed_tpu/inference/v2/ragged/sequence_descriptor.py``
-(per-sequence KV block table, seen and in-flight token counts).
+(per-sequence KV block table, seen and in-flight token counts, and the tier
+of the KV ladder that holds the cache). ``rollback`` (speculative verify) is
+ROADMAP A5.
 """
 
 from typing import List
@@ -17,6 +19,11 @@ class DSSequenceDescriptor:
         self._in_flight_tokens = 0
         self._max_blocks = max_blocks_per_seq
         self._kv_blocks: List[int] = []
+        # which tier of the KV ladder holds this sequence's cache: "device"
+        # while the block table is live; the state manager flips it to the
+        # store's tier across an offload (ragged_manager.offload_sequence /
+        # restore_sequence)
+        self.kv_tier: str = "device"
 
     @property
     def seen_tokens(self) -> int:
@@ -43,6 +50,15 @@ class DSSequenceDescriptor:
         if len(self._kv_blocks) + len(new_blocks) > self._max_blocks:
             raise ValueError(f"Sequence {self.tracking_id} exceeds max blocks {self._max_blocks}")
         self._kv_blocks.extend(int(b) for b in new_blocks)
+
+    def replace_kv_blocks(self, new_blocks) -> None:
+        """Swap the whole block table for fresh ids (KV offload→restore hands
+        back different device blocks; token order is preserved)."""
+        new_blocks = np.atleast_1d(np.asarray(new_blocks)).tolist()
+        if len(new_blocks) != len(self._kv_blocks):
+            raise ValueError(f"restore returned {len(new_blocks)} blocks for a "
+                             f"{len(self._kv_blocks)}-block sequence")
+        self._kv_blocks = [int(b) for b in new_blocks]
 
     def pre_forward(self, num_tokens: int) -> None:
         """Mark tokens as in-flight before the forward."""

@@ -8,7 +8,10 @@ port keeps:
 - nested blocks may be given as dicts and are built into their dataclass;
 - enum fields accept their value (``"allocate"``) as well as the member;
 - fields declared with :func:`config_field` take an ``alias`` (used by
-  :meth:`DeepSpeedConfigModel.from_dict`) and ``gt``/``ge`` bounds;
+  :meth:`DeepSpeedConfigModel.from_dict`) and ``gt``/``ge``/``le`` bounds,
+  which a None value skips;
+- ``Literal`` fields accept only their listed values, and a list given for a
+  ``Tuple`` field is stored as a tuple;
 - ``from_dict`` drops ``"auto"`` values so the defaults apply.
 """
 
@@ -18,9 +21,9 @@ import typing
 from dataclasses import MISSING
 
 
-def config_field(default=MISSING, *, default_factory=MISSING, alias=None, gt=None, ge=None):
+def config_field(default=MISSING, *, default_factory=MISSING, alias=None, gt=None, ge=None, le=None):
     return dataclasses.field(default=default, default_factory=default_factory,
-                             metadata={"alias": alias, "gt": gt, "ge": ge})
+                             metadata={"alias": alias, "gt": gt, "ge": ge, "le": le})
 
 
 class DeepSpeedConfigModel:
@@ -40,11 +43,20 @@ class DeepSpeedConfigModel:
                 elif issubclass(typ, enum.Enum) and not isinstance(value, typ):
                     value = typ(value)
                 setattr(self, f.name, value)
-            gt, ge = f.metadata.get("gt"), f.metadata.get("ge")
+            elif typing.get_origin(typ) is typing.Literal and value not in typing.get_args(typ):
+                raise ValueError(f"{type(self).__name__}.{f.name}={value!r} must be one of "
+                                 f"{typing.get_args(typ)}")
+            elif typing.get_origin(typ) is tuple and isinstance(value, list):
+                setattr(self, f.name, tuple(value))
+            if value is None:
+                continue
+            gt, ge, le = f.metadata.get("gt"), f.metadata.get("ge"), f.metadata.get("le")
             if gt is not None and not value > gt:
                 raise ValueError(f"{type(self).__name__}.{f.name}={value!r} must be > {gt}")
             if ge is not None and not value >= ge:
                 raise ValueError(f"{type(self).__name__}.{f.name}={value!r} must be >= {ge}")
+            if le is not None and not value <= le:
+                raise ValueError(f"{type(self).__name__}.{f.name}={value!r} must be <= {le}")
 
     @classmethod
     def from_dict(cls, data: dict):

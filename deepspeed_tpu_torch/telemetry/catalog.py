@@ -1,0 +1,196 @@
+"""Metric-family catalog: the single source of truth for every metric the
+codebase can register on the unified registry.
+
+Two invariants, both unit-enforced by ``tests/unit/telemetry/test_metrics_docs.py``:
+
+1. every family here appears in a README metric table (and vice versa) — a
+   new metric cannot land undocumented;
+2. every string-literal ``counter("...")``/``gauge``/``histogram`` name in the
+   source tree appears here — a new metric cannot dodge the catalog either.
+
+Keep entries grouped by owning subsystem; the value is the one-line
+description the README table should carry (wording may differ — the test
+diffs *names*, not prose).
+"""
+
+METRIC_FAMILIES = {
+    # training engine (runtime/engine.py _write_telemetry)
+    "train_loss": "last boundary-step training loss",
+    "train_lr": "current learning rate",
+    "train_samples_per_sec": "boundary-to-boundary throughput",
+    "train_grad_norm": "global gradient norm at the last step",
+    "train_skipped_steps": "overflow-skipped optimizer steps",
+    "train_global_steps": "optimizer steps taken",
+    "train_samples_total": "samples consumed",
+    # training fault tolerance (runtime/checkpoint_engine/engine.py,
+    # runtime/engine.py, runtime/sentinel.py, runtime/faults.py,
+    # elasticity/train_supervisor.py)
+    "checkpoint_saves_total": "committed (manifest-sealed) checkpoint saves",
+    "checkpoint_verify_failures_total": "checkpoint tags that failed manifest verification (torn/corrupt)",
+    "checkpoint_load_fallbacks_total": "loads that skipped a bad tag and fell back to an older good one",
+    "checkpoint_pruned_total": "checkpoint tags deleted by keep-last-K retention",
+    "train_preemptions_total": "preemption notices converted into a final checkpoint + clean exit",
+    "train_anomalies_total": "loss anomalies (NaN/inf/spike) seen by the sentinel",
+    "train_rollbacks_total": "sentinel rollbacks to the last good checkpoint",
+    "train_restarts_total": "training process restarts by the supervisor after a crash",
+    "train_faults_injected_total": "faults injected by the training chaos harness",
+    # gang fault tolerance (elasticity/elastic_agent.py, comm/comm.py)
+    "train_gang_crashes_total": "rank crashes observed by the gang watchdog",
+    "train_gang_hangs_total": "wedged ranks detected via stale heartbeat",
+    "train_gang_teardowns_total": "whole-gang teardowns (SIGTERM-grace-SIGKILL)",
+    "train_gang_relaunches_total": "gang relaunches by the elastic agent",
+    "train_gang_shrinks_total": "crash-budget shrinks to a smaller world size",
+    "train_gang_world_size": "current gang world size (processes)",
+    "barrier_timeouts_total": "monitored_barrier deadline expiries (absent ranks named in the error)",
+    # comms layer (telemetry/__init__.record_comm_op)
+    "comm_op_latency_seconds": "per-collective wall latency",
+    "comm_op_bytes": "per-collective message size",
+    "comm_ops_total": "collectives executed",
+    # v2 inference engine (inference/v2/engine_v2.py)
+    "inference_batches_total": "ragged batches executed",
+    "inference_tokens_total": "tokens scheduled into batches",
+    "inference_in_flight_tokens": "tokens in the last ragged batch",
+    "inference_kv_free_blocks": "free KV-cache blocks",
+    "inference_tracked_sequences": "sequences tracked",
+    "inference_empty_runs_total": "EP lock-step forwards with zero tokens",
+    # serving layer (serving/metrics.py)
+    "serving_queue_depth": "requests waiting for admission",
+    "serving_in_flight_requests": "requests in PREFILL or DECODE",
+    "serving_ttft_seconds": "submission to first generated token",
+    "serving_inter_token_seconds": "gap between consecutive streamed tokens",
+    "serving_e2e_latency_seconds": "submission to terminal state",
+    "serving_admissions_total": "requests accepted into the queue",
+    "serving_rejections_total": "requests rejected by backpressure",
+    "serving_completions_total": "requests finished DONE",
+    "serving_timeouts_total": "requests that hit their deadline",
+    "serving_cancellations_total": "requests cancelled mid-flight",
+    "serving_failures_total": "requests that FAILED",
+    "serving_kv_evictions_total": "idle sequences offloaded under KV pressure",
+    # automatic prefix cache (serving/metrics.py over
+    # inference/v2/ragged/prefix_cache.py)
+    "serving_prefix_lookups_total": "admitted prompts looked up in the prefix trie",
+    "serving_prefix_hits_total": "admitted prompts served a cached prefix",
+    "serving_prefix_lookup_depth_blocks": "cached-prefix depth (KV blocks) applied per lookup",
+    "serving_prefix_tokens_saved_total": "prompt tokens served from cached KV instead of prefilled",
+    "serving_prefix_trie_blocks": "device KV blocks pinned by the prefix trie",
+    "serving_prefix_evictions_total": "prefix-trie leaves evicted (LRU) under KV pressure or the trie cap",
+    # speculative decoding (serving/metrics.py over inference/v2/spec/ and
+    # the scheduler's verify execute path)
+    "serving_spec_draft_tokens_total": "draft tokens proposed into speculative verify feeds",
+    "serving_spec_accepted_tokens_total": "draft tokens the target model's verify step accepted",
+    "serving_spec_verify_steps_total": "decode dispatches that carried at least one draft token",
+    "serving_spec_rollback_tokens_total": "rejected draft positions truncated from committed KV",
+    "serving_spec_accept_rate": "EWMA of the speculative acceptance rate across verify steps",
+    "serving_spec_tokens_per_step": "tokens emitted per speculative verify step (1 = nothing accepted)",
+    "serving_spec_tree_nodes_total": "token-tree nodes fed through verify_tree dispatches (root included)",
+    "serving_spec_tree_accept_depth": "accepted path depth per tree-verify step (0 = root only survived)",
+    "serving_spec_tree_compactions_total": "tree-verify steps whose accepted path needed a KV gather-compact",
+    "serving_spec_drafter_switches_total": "per-request drafter changes decided by the auto arbitration",
+    "serving_spec_drafter_learned_ewma": "EWMA of the learned drafter's accepted-depth rate across requests",
+    "serving_spec_drafter_lookup_ewma": "EWMA of the prompt-lookup drafter's accepted-depth rate across requests",
+    # tiered KV memory (serving/metrics.py over inference/v2/ragged/tiering.py
+    # and serving/kv_tiers.py)
+    "serving_kv_tier_demotions_total": "KV payloads demoted down the tier ladder (device pressure and host-to-disk writeback)",
+    "serving_kv_tier_disk_demotions_total": "host-tier payloads committed to disk spill files by the async writer",
+    "serving_kv_tier_promotions_total": "demoted payloads promoted back up the ladder on access",
+    "serving_kv_tier_device_blocks": "KV blocks resident on device",
+    "serving_kv_tier_host_blocks": "KV blocks resident in the host tier",
+    "serving_kv_tier_disk_blocks": "KV blocks resident in disk spill files",
+    # overload control (serving/metrics.py over serving/overload.py)
+    "serving_shed_admission_total": "requests rejected at admission: deadline provably unmeetable",
+    "serving_shed_queue_total": "queued requests shed under sustained overload pressure",
+    "serving_brownout_stage": "current brownout degradation stage (0 = normal service)",
+    "serving_brownout_transitions_total": "brownout stage changes (hysteresis-smoothed)",
+    "serving_brownout_clamped_total": "batch-class requests whose max_new_tokens was brownout-clamped",
+    "serving_brownout_rejections_total": "batch-class requests rejected outright at brownout stage 3",
+    # cost attribution plane (telemetry/ledger.py, serving/metrics.py,
+    # perf/observed.py)
+    "serving_cost_billed_tokens_total": "tokens billed by the cost ledger, by engine phase",
+    "serving_cost_device_seconds_total": "dispatch wall-seconds attributed to requests (amortized over batch occupants)",
+    "serving_cost_amnesty_seconds_total": "dispatch wall-seconds forgiven as compile amnesty (first sight of a (program, bucket))",
+    "serving_cost_kv_block_seconds_total": "KV block-seconds billed to requests, by residency tier",
+    "serving_cost_wire_bytes_total": "KV payload bytes billed to requests, by motion channel",
+    "serving_cost_saved_tokens_total": "tokens the request did NOT pay for (prefix-cache hits, accepted spec drafts)",
+    "serving_tenant_tokens_total": "tokens billed per tenant (top-K tenants; overflow under <other>)",
+    "serving_tenant_requests_total": "finished requests per tenant (top-K tenants; overflow under <other>)",
+    "serving_fair_share_sheds_total": "requests shed/429'd by the fair-share stage (tenant over measured share under pressure)",
+    "perf_observed_dispatch_seconds": "wall seconds around the engine's jitted dispatches, by program/bucket",
+    "perf_observed_ratio": "observed dispatch seconds over roofline-predicted step seconds",
+    "perf_drift_events_total": "sustained observed-vs-predicted dispatch-time drift episodes",
+    # compile watch (telemetry/compile_watch.py)
+    "compile_cache_misses_total": "XLA backend compiles (jit cache misses), by site",
+    "compile_seconds_total": "cumulative XLA compile wall seconds, by site",
+    "compile_cache_entries": "live jit cache entries created at each site",
+    "compile_bucket_switches_total": "ragged batches landing in a pad bucket not recently seen",
+    # flight recorder (telemetry/flight_recorder.py)
+    "flight_recorder_dumps_total": "flight-recorder dumps written, by trigger",
+    "serving_stalled_total": "watchdog detections of a stalled scheduler loop",
+    # fleet layer (fleet/metrics.py)
+    "fleet_replicas": "live (non-DOWN) replicas registered with the manager",
+    "fleet_queue_depth": "fleet-wide queued requests at the last probe sweep",
+    "fleet_kv_pressure": "mean replica KV-pool occupancy (1 - free/capacity)",
+    "fleet_requests_total": "client requests accepted by the router",
+    "fleet_dispatch_retries_total": "dispatch attempts that failed over to another replica",
+    "fleet_routing_failures_total": "requests that exhausted every candidate replica",
+    "fleet_handoffs_total": "prefill-to-decode KV-block handoffs completed",
+    "fleet_handoff_bytes": "KV-handoff payload size",
+    "fleet_scale_ups_total": "autoscaler replica additions",
+    "fleet_scale_downs_total": "autoscaler replica drains",
+    # perf gates (perf/gate.py _publish_telemetry)
+    "perf_gate_runs_total": "perf-gate program checks executed",
+    "perf_gate_violations_total": "perf-gate budget violations detected",
+    "perf_program_flops": "HLO cost-analysis FLOPs per flagship program",
+    "perf_program_bytes_accessed": "HLO cost-analysis bytes moved per flagship program",
+    "perf_program_peak_bytes": "live-buffer peak per flagship program",
+    "perf_program_collective_bytes": "collective payload bytes per flagship program",
+    "perf_program_f32_dots": "f32-operand dots on the program's (bf16) path",
+    "perf_predicted_step_seconds": "roofline step-time lower bound per program/chip",
+    "perf_predicted_mfu_bound": "roofline MFU upper bound per program/chip",
+    # fleet fault tolerance (fleet/breaker.py, fleet/supervisor.py,
+    # fleet/router.py, fleet/faults.py)
+    "fleet_breaker_opens_total": "circuit-breaker transitions into OPEN",
+    "fleet_breaker_closes_total": "circuit-breaker recoveries (HALF_OPEN trial succeeded)",
+    "fleet_breaker_open_replicas": "replicas currently behind an OPEN breaker",
+    "fleet_breaker_short_circuits_total": "dispatch candidates skipped on an open breaker",
+    "fleet_restarts_total": "supervised replica restarts after a crash or hang",
+    "fleet_restart_quarantines_total": "supervised replicas quarantined after crash-looping",
+    "fleet_degraded_requests_total": "requests served monolithically with a disaggregated pool dark",
+    "fleet_faults_injected_total": "faults injected by the chaos harness",
+    # overload control (fleet/global_queue.py, fleet/router.py hedging)
+    "fleet_global_queue_depth": "requests (and chaos phantoms) waiting in the router global queue",
+    "fleet_global_queue_wait_seconds": "queue wait from router admission to replica grant",
+    "fleet_global_queue_grants_total": "pull-dispatch grants (a replica slot freed and took work)",
+    "fleet_global_queue_expired_total": "entries shed at the queue: admission estimate or deadline/wait expiry",
+    "fleet_hedge_dispatches_total": "hedge legs dispatched after a first-token budget expiry",
+    "fleet_hedge_wins_total": "hedged requests where the hedge leg produced the stream",
+    "fleet_hedge_cancellations_total": "hedge losers cancelled first-writer-wins (KV freed)",
+    "fleet_hedge_slow_demotions_total": "dispatch picks where a slow replica (TTFT EWMA) was demoted",
+    "fleet_deadline_stream_cuts_total": "streams cut at the router because the deadline passed mid-decode",
+    "fleet_hedge_suppressed_total": "hedges suppressed by the storm brake (no evidence, bucket dry)",
+    # fleet data motion (fleet/router.py cache-aware routing, fleet/replica.py
+    # zero-copy transport, fleet/manager.py peer prefix fetch, work stealing)
+    "fleet_cache_route_hits_total": "dispatches placed by digest match (a replica advertised the request's prefix chain)",
+    "fleet_cache_route_misses_total": "cache-aware placements that fell back to rendezvous/least-loaded",
+    "fleet_peer_prefix_fetches_total": "cross-replica prefix-KV fetches that imported blocks into the local trie",
+    "fleet_peer_prefix_fetch_rejects_total": "peer prefix fetches rejected at import (CRC/geometry/digest mismatch) and recomputed cold",
+    "fleet_kv_transport_bytes_total": "KV payload bytes moved across replica dispatch interfaces, all transports",
+    "fleet_kv_transport_binary_bytes_total": "KV payload bytes moved as raw handoff frames (zero-copy wire transport)",
+    "fleet_kv_transport_base64_bytes_total": "KV payload bytes moved as base64 text (compatibility transport, encoded size)",
+    "fleet_steals_total": "requests moved off a hot replica by work stealing (re-granted or exported mid-decode)",
+    "fleet_steal_attempts_total": "steal probes sent to victim replicas (includes races the victim won)",
+    # fleet-parked sessions (fleet/park_store.py)
+    "fleet_park_sessions": "sessions currently parked in the router's park store",
+    "fleet_park_bytes": "bytes of parked KV frames held by the router's park store",
+    "fleet_parks_total": "finished-session KV frames banked in the router's park store",
+    "fleet_park_rehydrates_total": "returning turns dispatched as rehydrate legs (parked KV imported, only the new suffix prefilled)",
+    "fleet_park_rehydrate_misses_total": "known parked sessions that could not rehydrate (expired or diverged prompt)",
+    "fleet_park_corrupt_rejects_total": "park frames dropped after a loud CRC/framing reject (the turn ran cold)",
+    "fleet_park_evictions_total": "parked sessions dropped by the LRU byte/count budget or TTL",
+    # fleet observability plane (telemetry/spans.py, telemetry/collector.py,
+    # telemetry/slo.py, fleet/metrics.py)
+    "spans_dropped_total": "spans dropped from the ring buffer past max_spans",
+    "fleet_trace_collections_total": "trace-collector pull rounds across the fleet's span rings",
+    "fleet_trace_spans_collected_total": "spans merged into the fleet trace store (deduped, clock-corrected)",
+    "slo_breaches_total": "SLO breach episodes (fast and slow burn both over threshold)",
+    "slo_burn_rate": "error-budget burn rate per objective and window (fast/slow)",
+}

@@ -1,0 +1,266 @@
+"""Span recorder: wall-clock intervals → Chrome-trace JSON.
+
+The recorder is the single sink behind every existing timing call site:
+``SynchronizedWallClockTimer`` (fwd/bwd/step — wrapped via
+:class:`TracingTimers`), the comms ``timed_op`` wrapper (one span per
+collective) and the inference ``Tracer.record`` phases. Spans are complete
+``"ph": "X"`` events, so the export loads directly in ``chrome://tracing`` /
+Perfetto.
+
+Distributed tracing (Dapper-style): spans optionally carry
+``trace_id``/``span_id``/``parent_id``. The serving layer assigns one trace id
+per request at admission and parents every lifecycle span (queued → prefill
+chunks → decode iterations → request) under one root, so a request's full
+timeline exports as its own correctly-ordered Perfetto track (each trace id
+maps to a dedicated ``tid`` with a named thread). A thread-safe ambient
+context (:func:`trace_context`) lets nested call sites inherit the current
+trace without plumbing ids through every signature.
+
+Memory is bounded: a ring buffer drops the oldest spans past ``max_spans``.
+"""
+
+import itertools
+import json
+import os
+import threading
+import time
+import uuid
+from collections import deque
+from contextlib import contextmanager
+from contextvars import ContextVar
+from dataclasses import dataclass, field
+from typing import Optional
+
+
+def now_us():
+    """Monotonic microsecond timestamp shared by every span source (mixing
+    clocks would break trace-viewer ordering)."""
+    return int(time.perf_counter() * 1e6)
+
+
+# --------------------------------------------------------------- trace ids --
+_SPAN_IDS = itertools.count(1)
+
+# (trace_id, span_id) ambient context; ContextVar is thread-safe and survives
+# into tasks if an event loop ever hosts the serving layer
+_TRACE_CTX: ContextVar = ContextVar("dstpu_trace_ctx", default=None)
+
+
+def new_trace_id() -> str:
+    """A fresh 16-hex-char trace id (one per request, assigned at admission)."""
+    return uuid.uuid4().hex[:16]
+
+
+def new_span_id() -> int:
+    """Process-unique span id (``itertools.count`` is GIL-atomic)."""
+    return next(_SPAN_IDS)
+
+
+def current_trace():
+    """The ambient ``(trace_id, span_id)`` pair, or None outside a trace."""
+    return _TRACE_CTX.get()
+
+
+@contextmanager
+def trace_context(trace_id: str, span_id: Optional[int] = None):
+    """Make ``trace_id`` (and optionally a parent ``span_id``) ambient for the
+    calling thread: spans recorded inside inherit them automatically."""
+    token = _TRACE_CTX.set((trace_id, span_id))
+    try:
+        yield
+    finally:
+        _TRACE_CTX.reset(token)
+
+
+@dataclass
+class Span:
+    name: str
+    cat: str
+    ts_us: int
+    dur_us: int
+    args: Optional[dict] = field(default=None)
+    trace_id: Optional[str] = field(default=None)
+    span_id: Optional[int] = field(default=None)
+    parent_id: Optional[int] = field(default=None)
+
+    def to_dict(self):
+        d = {"name": self.name, "cat": self.cat, "ts_us": self.ts_us,
+             "dur_us": self.dur_us}
+        if self.args:
+            d["args"] = self.args
+        if self.trace_id is not None:
+            d["trace_id"] = self.trace_id
+            d["span_id"] = self.span_id
+            d["parent_id"] = self.parent_id
+        return d
+
+
+class SpanRecorder:
+
+    def __init__(self, max_spans=65536):
+        self._lock = threading.Lock()
+        self._spans = deque(maxlen=max_spans)
+        self.dropped = 0
+        # optional Counter (``spans_dropped_total``) attached by the
+        # telemetry session; a bare recorder stays registry-free
+        self.drop_counter = None
+
+    def __len__(self):
+        return len(self._spans)
+
+    def record(self, name, cat="default", ts_us=None, dur_us=0, args=None,
+               trace_id=None, span_id=None, parent_id=None):
+        if trace_id is None:
+            ctx = _TRACE_CTX.get()
+            if ctx is not None:
+                trace_id = ctx[0]
+                if parent_id is None:
+                    parent_id = ctx[1]
+        if trace_id is not None and span_id is None:
+            span_id = new_span_id()
+        span = Span(name, cat, now_us() if ts_us is None else int(ts_us),
+                    int(dur_us), args, trace_id, span_id, parent_id)
+        overflowed = False
+        with self._lock:
+            if len(self._spans) == self._spans.maxlen:
+                self.dropped += 1
+                overflowed = True
+            self._spans.append(span)
+        if overflowed and self.drop_counter is not None:
+            # outside the ring lock: the counter takes the registry lock
+            self.drop_counter.inc()
+        return span
+
+    @contextmanager
+    def span(self, name, cat="default", args=None, trace_id=None, parent_id=None):
+        """Timed span; inside a trace the block's children parent to it (the
+        span id is allocated up-front and made ambient for the duration)."""
+        t0 = now_us()
+        ctx = _TRACE_CTX.get()
+        if trace_id is None and ctx is not None:
+            trace_id = ctx[0]
+            if parent_id is None:
+                parent_id = ctx[1]
+        if trace_id is None:
+            try:
+                yield
+            finally:
+                self.record(name, cat, ts_us=t0, dur_us=now_us() - t0, args=args)
+            return
+        span_id = new_span_id()
+        token = _TRACE_CTX.set((trace_id, span_id))
+        try:
+            yield
+        finally:
+            _TRACE_CTX.reset(token)
+            self.record(name, cat, ts_us=t0, dur_us=now_us() - t0, args=args,
+                        trace_id=trace_id, span_id=span_id, parent_id=parent_id)
+
+    def clear(self):
+        with self._lock:
+            self._spans.clear()
+
+    def tail(self, n: int):
+        """The most recent ``n`` spans as plain dicts (flight-recorder dump)."""
+        with self._lock:
+            spans = list(self._spans)[-n:]
+        return [s.to_dict() for s in spans]
+
+    def export_since(self, since_us=0):
+        """Drain doc for the fleet trace collector (``/trace/export``): spans
+        at or after ``since_us`` plus this process's ``now_us()`` clock so the
+        puller can estimate the clock offset from its round-trip."""
+        with self._lock:
+            spans = [s.to_dict() for s in self._spans if s.ts_us >= since_us]
+            dropped = self.dropped
+        return {"now_us": now_us(), "pid": os.getpid(), "dropped": dropped,
+                "spans": spans}
+
+    # -------------------------------------------------------------- export --
+    def chrome_trace(self):
+        """Chrome-trace dict: complete ("X") events sorted by ts (viewers
+        require non-decreasing timestamps within a track). Traced spans get a
+        per-trace ``tid`` (one named Perfetto track per request); their
+        trace/span/parent ids ride in ``args`` so tooling can rebuild the
+        parent chain."""
+        pid = os.getpid()
+        with self._lock:
+            spans = sorted(self._spans, key=lambda s: s.ts_us)
+        events = []
+        trace_tids = {}  # trace_id -> tid (stable by first appearance in time)
+        for s in spans:
+            tid = 0
+            if s.trace_id is not None:
+                tid = trace_tids.setdefault(s.trace_id, len(trace_tids) + 1)
+            ev = {"name": s.name, "cat": s.cat, "ph": "X", "ts": s.ts_us,
+                  "dur": s.dur_us, "pid": pid, "tid": tid}
+            args = dict(s.args) if s.args else {}
+            if s.trace_id is not None:
+                args.update(trace_id=s.trace_id, span_id=s.span_id,
+                            parent_id=s.parent_id)
+            if args:
+                ev["args"] = args
+            events.append(ev)
+        meta = [{"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+                 "args": {"name": f"request {trace_id}"}}
+                for trace_id, tid in trace_tids.items()]
+        return {"traceEvents": meta + events, "displayTimeUnit": "ms",
+                "spansDropped": self.dropped}
+
+    def export_chrome_trace(self, path):
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(self.chrome_trace(), f)
+        return path
+
+
+class TracingTimers:
+    """Timers-protocol wrapper: delegates to an inner
+    :class:`SynchronizedWallClockTimer` and additionally records one span per
+    start/stop pair, so the engine's existing fwd/bwd/step timer call sites
+    feed the trace unchanged."""
+
+    class _TracingTimer:
+
+        def __init__(self, inner, name, recorder):
+            self._inner = inner
+            self._name = name
+            self._recorder = recorder
+            self._t0 = None
+
+        def start(self):
+            self._inner.start()
+            self._t0 = now_us()
+
+        def stop(self, **kwargs):
+            self._inner.stop(**kwargs)
+            if self._t0 is not None:
+                self._recorder.record(self._name, cat="engine", ts_us=self._t0,
+                                      dur_us=now_us() - self._t0)
+                self._t0 = None
+
+        def reset(self):
+            self._inner.reset()
+
+        def elapsed(self, **kwargs):
+            return self._inner.elapsed(**kwargs)
+
+        def mean(self):
+            return self._inner.mean()
+
+    def __init__(self, inner_timers, recorder):
+        self._inner = inner_timers
+        self._recorder = recorder
+        self._wrapped = {}
+
+    def __call__(self, name):
+        if name not in self._wrapped:
+            self._wrapped[name] = self._TracingTimer(self._inner(name), name, self._recorder)
+        return self._wrapped[name]
+
+    def get_timers(self):
+        return self._inner.get_timers()
+
+    def log(self, names, normalizer=1.0, reset=True, memory_breakdown=False, ranks=None):
+        self._inner.log(names, normalizer=normalizer, reset=reset,
+                        memory_breakdown=memory_breakdown, ranks=ranks)

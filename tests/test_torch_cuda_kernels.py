@@ -359,3 +359,65 @@ def test_block_sparse_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     with pytest.raises(RuntimeError, match="launch failed"):
         bsa.block_sparse_attention_fwd(q, k, v, NoSteps(layout, 128, 16, plan.block_q, plan.block_k), 0.1)
     assert bsa.block_sparse_attention_fwd.launches == before
+
+
+@pytest.mark.cuda
+def test_serving_scheduler_launches_the_paged_kernel_from_its_thread(cuda_device):
+    """The port's scheduler serves a tiny bf16 Llama on the card: its decode
+    puts launch the paged kernel (B1) from the scheduler's own thread, the
+    kernel's split counters are back at zero afterwards, and generate() run
+    on a worker thread gives the bits of generate() on the main thread."""
+    import threading
+
+    from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine, generate
+    from deepspeed_tpu_torch.inference.v2.model_implementations import transformer_base
+    from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import (AllocationMode, DSStateManagerConfig,
+                                                                         MemoryConfig)
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_params
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.serving import RequestState, ServingConfig, ServingScheduler
+
+    cfg = LlamaConfig.tiny(dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device,
+                         dtype=torch.bfloat16)
+    mgr = DSStateManagerConfig(memory_config=MemoryConfig(mode=AllocationMode.ALLOCATE, size=64), max_context=512)
+    engine = build_engine(params, cfg, RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=16),
+                          device=cuda_device)
+    prompts = [list(np.random.default_rng(i).integers(0, cfg.vocab_size, n)) for i, n in enumerate((5, 19, 40))]
+    threads = []
+    inner = transformer_base.paged_attention_update
+
+    def spy(*args, **kw):
+        threads.append(threading.current_thread().name)
+        return inner(*args, **kw)
+
+    transformer_base.paged_attention_update = spy
+    try:
+        before = pa.paged_attention_update.launches
+        sched = ServingScheduler(engine, ServingConfig(decode_chunk=4))
+        try:
+            reqs = [sched.submit(p, max_new_tokens=9) for p in prompts]
+            outs = [r.result(timeout=120) for r in reqs]
+        finally:
+            sched.stop(drain=False)
+        assert all(r.state is RequestState.DONE for r in reqs)
+        assert all(len(o) == 9 and all(0 <= t < cfg.vocab_size for t in o) for o in outs)
+        assert pa.paged_attention_update.launches > before
+        assert threads and set(threads) == {"dstpu-serving-scheduler"}
+        torch.cuda.synchronize()
+        for counters, _ in pa._WORKSPACES.values():
+            assert int(counters.abs().sum()) == 0
+        assert engine.free_blocks == 64
+
+        threads.clear()
+        box = {}
+        worker = threading.Thread(target=lambda: box.update(out=generate(engine, prompts, max_new_tokens=9,
+                                                                         decode_chunk=4)),
+                                  name="worker")
+        worker.start()
+        worker.join(timeout=120)
+        assert not worker.is_alive() and set(threads) == {"worker"}
+        assert box["out"] == generate(engine, prompts, max_new_tokens=9, decode_chunk=4)
+    finally:
+        transformer_base.paged_attention_update = inner

@@ -227,9 +227,12 @@ def test_unported_features_are_refused(setup):
     ec = RaggedInferenceEngineConfig.from_dict({"tp": {"tp_size": 2}})
     with pytest.raises(NotImplementedError, match="tensor_parallel"):
         build_engine(params, cfg, ec, device="cpu")
+    with pytest.raises(NotImplementedError, match="A5"):  # KV offload to disk
+        build_engine(params, cfg, _port_config(offload=True), device="cpu")
+    # sampled generate runs through the serving scheduler (seeded per request)
     eng = build_engine(params, cfg, _port_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        generate(eng, [[1, 2]], temperature=0.7)
+    sampled = generate(eng, [[1, 2]], max_new_tokens=3, temperature=0.7, seed=4)
+    assert sampled == generate(eng, [[1, 2]], max_new_tokens=3, temperature=0.7, seed=4)
 
 
 def test_output_projection_bias_is_applied():

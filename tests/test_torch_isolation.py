@@ -1,5 +1,5 @@
 """The port stands alone: no module of deepspeed_tpu_torch, and nothing that
-chip_smoke.py imports, loads jax, flax, pydantic or deepspeed_tpu; and its
+chip_smoke.py imports, loads jax, flax, pydantic, ml_dtypes or deepspeed_tpu; and its
 entry points refuse to fall back to the CPU when no GPU is present."""
 
 import json
@@ -21,7 +21,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # its imports only: the script runs under __main__
 banned = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "pydantic", "deepspeed_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "pydantic", "ml_dtypes", "deepspeed_tpu"))
 print(json.dumps({"imported": names, "banned": banned}))
 """
 
@@ -39,6 +39,11 @@ def test_port_and_chip_smoke_import_no_jax_flax_pydantic_or_reference():
     assert "deepspeed_tpu_torch.ops.block_sparse_attention" in result["imported"]
     assert "deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention" in result["imported"]
     assert "deepspeed_tpu_torch.ops.sparse_attention.sparsity_config" in result["imported"]
+    for name in ("registry", "spans", "config", "catalog", "exporter", "flight_recorder", "compile_watch"):
+        assert f"deepspeed_tpu_torch.telemetry.{name}" in result["imported"]
+    for name in ("overload", "request", "config", "metrics", "scheduler", "server"):
+        assert f"deepspeed_tpu_torch.serving.{name}" in result["imported"]
+    assert "deepspeed_tpu_torch.inference.v2.ragged.tiering" in result["imported"]
     assert result["banned"] == []
 
 

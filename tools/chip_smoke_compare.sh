@@ -3,7 +3,7 @@
 # change, change, parent, so that the card's drift between runs shows as a
 # difference within one tree rather than between the trees.
 #
-#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|MODE,MODE...]
+#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|MODE,MODE...]
 #
 # Each run's output goes to chiprun_out/smoke_<i>_<tree>.log and its full
 # record to chiprun_out/smoke_<i>_<tree>.json, under the directory the script
@@ -14,7 +14,9 @@
 # (check_paged_attention); with "sparse", only the block-sparse phase
 # (check_block_sparse_attention: B5's checks, the sparse step against f32,
 # and B5's times beside its bound, SDPA with the mask and dense B2); with
-# "kernels", paged and flash; modes joined by commas run each. The exit code
+# "kernels", paged and flash; with "main", only the main path (run_main_path:
+# Llama-2-7B through generate, its rates and generate's wall time per run);
+# modes joined by commas run each. The exit code
 # is the last failing run's, else 0.
 set -u
 parent=$(cd "$1" && pwd)
@@ -36,6 +38,11 @@ if "flash" in modes:
     r = c.check_flash_attention(dev)
     print(json.dumps([dict(case=x["case"], err=x["max_abs_err"], **{k: x[k]["ms"] for k in ("fwd", "dkv", "dq")})
                       for x in r]))
+if "main" in modes:
+    r = c.run_main_path(dev)
+    print(json.dumps(dict({k: r[k] for k in ("prefill_tokens_per_s", "decode_tokens_per_s", "ms_per_decode_step",
+                                             "paged_attention_launches")},
+                          generate_wall_s=[x["wall_s"] for x in r["runs"]])))
 if "sparse" in modes:
     r = c.check_block_sparse_attention(dev)
     keys = ("case", "density", "max_abs_err", "tol_use", "ms", "ms_index_order", "ms_sorted_again", "ms_split_steps",
