@@ -44,7 +44,22 @@ Phases (any failure raises and the script exits non-zero):
    dense f32 model (teacher-forced), the SSE stream to its final document,
    the sampled runs to each other and the pool to its size after stop, each
    check with a control it must reject;
-6. training path: train bench.py's headline program (the 530M Llama, full
+6. prefix path: from the same weights, with the prefix cache on, a
+   1,024-token system prompt and 8 user turns of 8-24 tokens over HTTP on a
+   hand-stepped scheduler: request 0 cold, the other 7 arriving one a tick
+   (each hot suffix rides one put of at most 32 tokens through B1 with the
+   running decodes), the 7 again at once, a prompt that differs at token 0,
+   the bare prefix (a copy-on-write fork), two follow-up turns, and the 7
+   under torch.profiler; hits and saved tokens held exactly to a host mirror
+   of the trie, the shared blocks' bytes unchanged, the pool whole after
+   stop; a 256-token request handed off from one engine to a second (same
+   weights, its own pool) as a raw frame claimed once over HTTP, equal bit
+   for bit to the request served whole, a parked request rehydrated with 16
+   more prompt tokens; the serving phase's pressure mix with the tier
+   ladder spilling to disk (every restore bit-exact) and a sequence through
+   offload_path and the native AIO engine; every served greedy token
+   teacher-forced, each check with a control it must reject;
+7. training path: train bench.py's headline program (the 530M Llama, full
    width and depth, S=1024, micro-batch 8, GAS 8, AdamW, bf16 over f32
    masters, ZeRO stage 3, remat "dots", flash attention) through
    deepspeed_tpu_torch.initialize + train_batch, with the flash kernels'
@@ -54,7 +69,7 @@ Phases (any failure raises and the script exits non-zero):
    projections' gradients, through the kernels and through plain attention
    in bf16, to the same step in f32, and show that the check rejects the
    kernel step with dq, or dk and dv, zeroed or with attention replaced;
-7. print one JSON line describing every kernel, then the result line.
+8. print one JSON line describing every kernel, then the result line.
 
 The script imports the port only (never jax or deepspeed_tpu), needs one
 GPU, and writes its full record to chiprun_out/chip_smoke.json.
@@ -77,16 +92,20 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine, generate
 from deepspeed_tpu_torch.inference.v2.model_implementations import transformer_base
+from deepspeed_tpu_torch.inference.v2.ragged.handoff import CONTENT_TYPE as HANDOFF_CONTENT_TYPE
 from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import DSStateManagerConfig, MemoryConfig
+from deepspeed_tpu_torch.inference.v2.ragged.prefix_cache import digest_chain
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, LlamaModel, init_params
 from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops import builder
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import paged_attention as pa
+from deepspeed_tpu_torch.ops.aio import aio_available
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention_update, paged_attention_update_plain
 from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig, FixedSparsityConfig, SparseSelfAttention,
                                                       layout_to_dense_mask)
-from deepspeed_tpu_torch.serving import ServingConfig, ServingScheduler, ServingServer
+from deepspeed_tpu_torch.serving import (KVTierConfig, PrefixCacheConfig, ServingConfig, ServingScheduler,
+                                         ServingServer)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -1443,6 +1462,560 @@ def run_serving_path(dev, params, main) -> dict:
 
 
 # ----------------------------------------------------------------- phase 6 --
+# the shared-prompt configuration (what chat and few-shot users send): a
+# system prompt of PREFIX_TOKENS (16 blocks of BLOCK) and PREFIX_REQUESTS
+# distinct user turns of PREFIX_SUFFIX tokens, NEW_TOKENS greedy tokens each.
+# A hot suffix (at most 24 tokens) with the running decodes (at most 7) fits
+# a put of at most 32 tokens, so it goes through B1; the same 7 at once
+# (over 32 tokens) take the gather branch
+PREFIX_TOKENS = 1024
+PREFIX_SUFFIX = (8, 24)  # suffix lengths drawn from this closed range
+PREFIX_REQUESTS = 8
+TURN_TOKENS = 16  # new tokens of a multi-turn follow-up and of a rehydrate
+HANDOFF_PROMPT = 256  # a 128 MiB frame at Llama-2-7B's 512 KiB a token
+ROUND_TRIP_BLOCKS = 8  # the offload_path engine's pool
+
+
+def _exchange(url, method="GET", data=None, headers=None):
+    """One HTTP exchange: (status, content type, body bytes); an error
+    status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=data, method=method, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.headers.get("Content-Type"), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+class _PutLog:
+    """Wraps ``engine.put``: per put, the uids, the token count of each, the
+    host seconds between two synchronizes and B1's launches."""
+
+    def __init__(self, engine):
+        self.rows = []
+        inner = engine.put
+
+        def put(uids, tokens, *args, **kw):
+            torch.cuda.synchronize()
+            t0, launches = time.perf_counter(), pa.paged_attention_update.launches
+            out = inner(uids, tokens, *args, **kw)
+            torch.cuda.synchronize()
+            self.rows.append(dict(uids=list(uids), lens=[len(t) for t in tokens], s=time.perf_counter() - t0,
+                                  launches=pa.paged_attention_update.launches - launches))
+            return out
+
+        engine.put = put
+
+    def of(self, uid, n_tokens):
+        """The puts that fed ``n_tokens`` tokens of sequence ``uid``."""
+        return [r for r in self.rows if uid in r["uids"] and r["lens"][r["uids"].index(uid)] == n_tokens]
+
+
+class _TrieMirror:
+    """The prefix trie's contents computed on the host from what was served:
+    a finished request publishes the full blocks of its prompt and of its
+    history but the last token (fed only if decoding went on). ``expect`` is
+    the prompt tokens the scheduler must serve from the cache."""
+
+    def __init__(self):
+        self.digests = set()
+
+    def publish(self, prompt, tokens):
+        self.digests.update(digest_chain(prompt, BLOCK))
+        self.digests.update(digest_chain(list(prompt) + list(tokens)[:-1], BLOCK))
+
+    def expect(self, prompt):
+        chain = digest_chain(prompt, BLOCK)
+        n = 0
+        while n < len(chain) and chain[n] in self.digests:
+            n += 1
+        if n * BLOCK < len(prompt):
+            return n * BLOCK
+        return len(prompt) - 1  # fully cached: the last token is fed again
+
+
+def _stepped(sched, threads, limit_s=600):
+    """Step a hand-driven scheduler until every client thread has its answer."""
+    deadline = time.perf_counter() + limit_s
+    while any(t.is_alive() for t in threads):
+        if time.perf_counter() > deadline:
+            raise AssertionError("a prefix-phase client did not finish")
+        if not sched.step():
+            time.sleep(0.0005)
+
+
+def _arrive(sched, url, out, items, limit_s=120):
+    """POST each (key, body) from a client thread; returns once all of them
+    are queued (the scheduler does not tick meanwhile)."""
+    threads = []
+    for key, body in items:
+        t = threading.Thread(target=_http_generate, args=(url, body, False, out, key), daemon=True)
+        t.start()
+        threads.append(t)
+    deadline = time.perf_counter() + limit_s
+    while sched.queue_depth < len(items):
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{sched.queue_depth} of {len(items)} prefix-phase requests arrived")
+        time.sleep(0.0005)
+    return threads
+
+
+def _shared_prompt_mix(params, cfg, dev, prompts, rng, failures) -> dict:
+    """The shared system prompt over HTTP on a hand-stepped scheduler with
+    the prefix cache: request 0 cold, the other 7 one a tick (hot suffixes
+    through B1), the 7 at once, a control prompt that differs at token 0, the
+    bare prefix (fully cached: copy-on-write fork), two follow-up turns of
+    request 0, and the burst again under torch.profiler."""
+    engine = _engine(params, cfg, None, dev)
+    capacity = engine.free_blocks
+    sm = engine._state_manager
+    sched = ServingScheduler(engine, ServingConfig(queue_capacity=64, prefix_cache=PrefixCacheConfig(enabled=True)),
+                             start=False)
+    server = ServingServer(sched, host="127.0.0.1", port=0).start()
+    putlog = _PutLog(engine)
+    mirror = _TrieMirror()
+    out, served, stages = {}, {}, {}
+    body = lambda p: dict(prompt=p, max_new_tokens=NEW_TOKENS)
+
+    def finish(keys, key_prompts):
+        for k in keys:
+            if out[k].get("status") != 200:
+                raise AssertionError(f"prefix-phase request {k} failed: {out[k]}")
+            served[k] = (key_prompts[k], out[k]["doc"]["tokens"])
+        for k in keys:
+            mirror.publish(*served[k])
+
+    try:
+        # cold: request 0 alone publishes the shared prefix
+        stage_prompts = {"cold": prompts[0]}
+        expected = {"cold": mirror.expect(prompts[0])}
+        _stepped(sched, _arrive(sched, server.url, out, [("cold", body(prompts[0]))]))
+        finish(["cold"], stage_prompts)
+        trie = sorted(n.block for n in sched._prefix_cache._by_digest.values() if n.tier == "device")
+        index = torch.from_numpy(np.asarray(trie, np.int64)).to(dev)
+        shared_before = sm.kv_cache.cache[:, :, index].clone()
+
+        # staggered: one arrival a tick, each hot suffix riding a put with the
+        # running decodes
+        keys = [f"staggered_{i}" for i in range(1, len(prompts))]
+        for k, p in zip(keys, prompts[1:]):
+            stage_prompts[k], expected[k] = p, mirror.expect(p)
+        t0, threads = time.perf_counter(), []
+        for k in keys:
+            threads += _arrive(sched, server.url, out, [(k, body(stage_prompts[k]))])
+            sched.step()
+        _stepped(sched, threads)
+        stages["staggered"] = time.perf_counter() - t0
+        finish(keys, stage_prompts)
+
+        # burst: the same 7 at once (buckets over 32 tokens: the gather branch)
+        burst = [f"burst_{i}" for i in range(1, len(prompts))]
+        for k, p in zip(burst, prompts[1:]):
+            stage_prompts[k], expected[k] = p, mirror.expect(p)
+        t0 = time.perf_counter()
+        _stepped(sched, _arrive(sched, server.url, out, [(k, body(stage_prompts[k])) for k in burst]))
+        stages["burst"] = time.perf_counter() - t0
+        finish(burst, stage_prompts)
+
+        # control: a prompt that differs at token 0 shares no block
+        other = [(prompts[0][0] + 1) % cfg.vocab_size] + prompts[0][1:]
+        stage_prompts["control"], expected["control"] = other, mirror.expect(other)
+        _stepped(sched, _arrive(sched, server.url, out, [("control", body(other))]))
+        finish(["control"], stage_prompts)
+
+        # fully cached: the bare prefix forks its last block and re-feeds its
+        # last token; then request 0's next two turns
+        bare = prompts[0][:PREFIX_TOKENS]
+        stage_prompts["fully_cached"], expected["fully_cached"] = bare, mirror.expect(bare)
+        _stepped(sched, _arrive(sched, server.url, out, [("fully_cached", body(bare))]))
+        finish(["fully_cached"], stage_prompts)
+        history = list(prompts[0]) + served["cold"][1]
+        for turn in ("turn_2", "turn_3"):
+            p = history + rng.integers(0, cfg.vocab_size, TURN_TOKENS).tolist()
+            stage_prompts[turn], expected[turn] = p, mirror.expect(p)
+            _stepped(sched, _arrive(sched, server.url, out, [(turn, body(p))]))
+            finish([turn], stage_prompts)
+            history = p + served[turn][1]
+
+        # the burst again under torch.profiler: the card's busy share
+        again = [f"profiled_{i}" for i in range(1, len(prompts))]
+        for k, p in zip(again, prompts[1:]):
+            stage_prompts[k], expected[k] = p, mirror.expect(p)
+        threads = _arrive(sched, server.url, out, [(k, body(stage_prompts[k])) for k in again])
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _stepped(sched, threads)
+            torch.cuda.synchronize()
+            stages["profiled_burst"] = time.perf_counter() - t0
+        finish(again, stage_prompts)
+        counters = sched.stats()["counters"]
+        trie_stats = sched.stats()["prefix_cache"]
+        shared_after = sm.kv_cache.cache[:, :, index].clone()
+    finally:
+        server.stop()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    # --- exact hit accounting against the host mirror
+    cached = {k: out[k]["doc"]["cached_tokens"] for k in stage_prompts}
+    if cached != expected:
+        failures.append(f"cached tokens differ from the host mirror: served {cached}, expected {expected}")
+    want_hits = sum(1 for v in expected.values() if v > 0)
+    want_saved = sum(expected.values())
+    if (counters["prefix_hits"], counters["prefix_tokens_saved"]) != (want_hits, want_saved):
+        failures.append(f"prefix counters {counters['prefix_hits']}/{counters['prefix_tokens_saved']} "
+                        f"!= host-computed {want_hits}/{want_saved}")
+    if expected["control"] != 0 or cached["control"] != 0:
+        failures.append("control: the prompt that differs at token 0 was served from the cache")
+    if not (expected["fully_cached"] == PREFIX_TOKENS - 1 and expected["turn_3"] > PREFIX_TOKENS):
+        failures.append(f"the mirror expected no fork or no multi-turn hit past the prefix: {expected}")
+
+    # --- B1 carried every hot suffix: one put of at most 32 tokens each, with
+    # 2 launches a layer
+    layers = cfg.num_hidden_layers
+    hot, hot_puts = [], []  # the staggered suffixes' puts
+    for k in keys + ["turn_2", "turn_3"]:
+        doc = out[k]["doc"]
+        rows = putlog.of(doc["uid"], len(stage_prompts[k]) - doc["cached_tokens"])
+        hot.append(dict(key=k, suffix=len(stage_prompts[k]) - doc["cached_tokens"],
+                        bucket=[sum(r["lens"]) for r in rows], launches=[r["launches"] for r in rows]))
+        if k in keys:
+            hot_puts += rows
+    staggered_hot = [h for h in hot if h["key"].startswith("staggered")]
+    if not all(len(h["launches"]) == 1 and h["bucket"][0] <= 32 and h["launches"][0] == 2 * layers
+               for h in staggered_hot):
+        failures.append(f"a staggered hot suffix did not ride one put of at most 32 tokens through B1: {hot}")
+    cold_uid = out["cold"]["doc"]["uid"]
+    cold_rows = [r for r in putlog.rows if cold_uid in r["uids"] and r["lens"][r["uids"].index(cold_uid)] > 1]
+    if not cold_rows or all(r["launches"] == 2 * layers for r in cold_rows):
+        failures.append("control: the cold prefill (the gather branch) passed the B1 check")
+    fork_rows = putlog.of(out["fully_cached"]["doc"]["uid"], 1)
+    fork_launches = fork_rows[0]["launches"] if fork_rows else 0
+
+    # --- the shared blocks are the bytes they were: no write landed in them
+    same = bool(torch.equal(_bits(shared_after), _bits(shared_before)))
+    if not same:
+        failures.append("a block shared with the trie changed while hot suffixes and the fork wrote around it")
+    cache = sm.kv_cache.cache
+    blk = int(trie[len(trie) // 2])
+    flat = _bits(cache[0, 0, blk]).view(-1)
+    keep = flat[7].clone()
+    flat[7] ^= 1  # control: one element written into a shared block
+    if torch.equal(_bits(cache[:, :, index]), _bits(shared_before)):
+        failures.append("control: a write into a shared block passed the shared-bytes check")
+    flat[7] = keep
+
+    # --- after stop() cleared the trie: the pool is whole, every count 0
+    refs = sm.kv_cache._allocator._refs
+
+    def pool_whole():
+        return engine.free_blocks == capacity and int(np.abs(refs).sum()) == 0
+
+    if not pool_whole():
+        failures.append(f"after stop: {capacity - engine.free_blocks} blocks held, "
+                        f"{int((refs != 0).sum())} nonzero refcounts")
+    spare = sm.kv_cache.reserve(1)
+    sm.kv_cache.incref(spare)
+    sm.kv_cache.free(spare)
+    if pool_whole():
+        failures.append("control: an extra reference passed the pool check")
+    sm.kv_cache.free(spare)
+
+    ttft = lambda ks: [out[k]["doc"]["ttft_s"] for k in ks]
+    n_tok = lambda ks: sum(len(out[k]["doc"]["tokens"]) for k in ks)
+    res = dict(prompt_tokens=[len(p) for p in prompts], expected_cached=expected, counters=counters,
+               trie=trie_stats, ttft_cold_s=out["cold"]["doc"]["ttft_s"],
+               ttft_staggered_p50_s=_percentile(ttft(keys), 50), ttft_staggered_p99_s=_percentile(ttft(keys), 99),
+               ttft_burst_p50_s=_percentile(ttft(burst), 50), ttft_burst_p99_s=_percentile(ttft(burst), 99),
+               ttft_fully_cached_s=out["fully_cached"]["doc"]["ttft_s"],
+               ttft_turns_s=ttft(["turn_2", "turn_3"]),
+               prefill_tokens_avoided=counters["prefix_tokens_saved"],
+               staggered_wall_s=stages["staggered"], staggered_tokens_per_s=n_tok(keys) / stages["staggered"],
+               burst_wall_s=stages["burst"], burst_tokens_per_s=n_tok(burst) / stages["burst"],
+               hot_suffix_puts=hot, b1_launches_hot_puts=sum(r["launches"] for r in hot_puts),
+               b1_launches_fork_put=fork_launches, b1_launches=sum(r["launches"] for r in putlog.rows),
+               hot_put_ms=[1e3 * r["s"] for r in hot_puts], shared_blocks=len(trie), shared_blocks_unchanged=same,
+               profiled_burst_wall_s=stages["profiled_burst"],
+               device_busy_share_profiled_burst=busy_us / 1e6 / stages["profiled_burst"] if busy_us
+               else "not measured")
+    del engine, sched, server, shared_before, shared_after
+    return res, list(served.values())
+
+
+def _handoff_and_park(params, cfg, dev, rng, failures):
+    """Engine A prefills a HANDOFF_PROMPT-token prompt with ``handoff`` and
+    one new token; engine B (same weight tensors, its own pool) resumes the
+    frame over HTTP as a raw body, claimed once from A; the same request
+    served whole on A is the reference. Then a request parked on A is
+    rehydrated on B with TURN_TOKENS more prompt tokens. Each side's server
+    runs alone, so no second scheduler loop shares the host."""
+    p = rng.integers(0, cfg.vocab_size, HANDOFF_PROMPT).tolist()
+    engine_a, engine_b = _engine(params, cfg, None, dev), _engine(params, cfg, None, dev)
+    sched_a = ServingScheduler(engine_a, ServingConfig())
+    server_a = ServingServer(sched_a, host="127.0.0.1", port=0).start()
+    server_b = None
+    times = {"export": [], "import": [], "unpack": []}
+    _timed(sched_a, "_export_handoff", times["export"])
+    putlog = _PutLog(engine_b)
+    json_post = lambda url, doc, extra=(): _exchange(url, "POST", json.dumps(doc).encode(),
+                                                     dict([("Content-Type", "application/json"), *extra]))
+    try:
+        status, _, whole = json_post(server_a.url + "/v1/generate", dict(prompt=p, max_new_tokens=NEW_TOKENS))
+        whole = json.loads(whole)["tokens"]
+        status_h, _, doc = json_post(server_a.url + "/v1/generate",
+                                     dict(prompt=p, max_new_tokens=1, handoff=True),
+                                     [("X-DSTPU-Handoff-Transport", "ref")])
+        doc = json.loads(doc)
+        t0 = time.perf_counter()
+        status_c, ctype, frame = _exchange(server_a.url + "/v1/handoff/" + doc["handoff_ref"])
+        claim_s = time.perf_counter() - t0
+        second_claim = _exchange(server_a.url + "/v1/handoff/" + doc["handoff_ref"])[0]
+        parked = sched_a.submit(p, max_new_tokens=NEW_TOKENS, park=True)
+        parked.result(timeout=600)
+        server_a.stop()
+
+        sched_b = ServingScheduler(engine_b, ServingConfig())
+        _timed(sched_b, "_import_resume", times["import"])
+        _timed(sched_b, "submit_resume", times["unpack"])
+        server_b = ServingServer(sched_b, host="127.0.0.1", port=0).start()
+        binary = {"Content-Type": HANDOFF_CONTENT_TYPE,
+                  "X-DSTPU-Params": json.dumps(dict(max_new_tokens=NEW_TOKENS - 1))}
+        t0 = time.perf_counter()
+        status_r, _, resumed = _exchange(server_b.url + "/v1/resume", "POST", frame, binary)
+        resume_s = time.perf_counter() - t0
+        resumed = json.loads(resumed)
+        corrupt = bytearray(frame)
+        corrupt[-(len(frame) // 3)] ^= 1  # one KV byte
+        status_x, _, refused = _exchange(server_b.url + "/v1/resume", "POST", bytes(corrupt), binary)
+        # the parked request rehydrated on B, its history extended by TURN_TOKENS
+        extended = p + parked.tokens + rng.integers(0, cfg.vocab_size, TURN_TOKENS).tolist()
+        rehydrated = sched_b.submit_resume(parked.park_payload, prompt=extended, max_new_tokens=NEW_TOKENS)
+        rehydrated.result(timeout=600)
+    finally:
+        server_a.stop()
+        if server_b is not None:
+            server_b.stop()
+    statuses = (status, status_h, status_c, status_r)
+    if statuses != (200, 200, 200, 200) or ctype != HANDOFF_CONTENT_TYPE:
+        failures.append(f"handoff exchange statuses {statuses}, claim content type {ctype}")
+    continued = doc["tokens"] + resumed.get("tokens", [])
+    if continued != whole:
+        failures.append(f"handoff continuation {continued} differs from the request served whole {whole}")
+    if second_claim != 404:
+        failures.append(f"control: a second claim of the handoff ref answered {second_claim}")
+    if status_x != 400 or b"checksum" not in refused:
+        failures.append(f"control: a frame with one KV byte flipped answered {status_x} {refused[:120]!r}")
+    suffix = len(extended) - (HANDOFF_PROMPT + NEW_TOKENS - 1)  # the boundary token is fed again
+    rows = putlog.of(rehydrated.uid, suffix)
+    prefill = [r for r in putlog.rows if rehydrated.uid in r["uids"] and r["lens"][r["uids"].index(rehydrated.uid)] > 1]
+    layers = cfg.num_hidden_layers
+    if not (rehydrated.cached_tokens == HANDOFF_PROMPT + NEW_TOKENS - 1 and len(prefill) == 1 and len(rows) == 1
+            and suffix <= 32 and rows[0]["launches"] == 2 * layers):
+        failures.append(f"the rehydrate did not prefill only its {suffix}-token suffix in one put through B1: "
+                        f"cached {rehydrated.cached_tokens}, prefill puts {prefill}")
+    mb = len(frame) / 2**20
+    res = dict(frame_mib=mb, export_ms=1e3 * times["export"][0], export_mib_per_s=mb / times["export"][0],
+               claim_http_ms=1e3 * claim_s, claim_mib_per_s=mb / claim_s,
+               submit_resume_ms=1e3 * times["unpack"][0], import_ms=1e3 * times["import"][0],
+               import_mib_per_s=mb / times["import"][0], resume_http_ms_with_31_tokens=1e3 * resume_s,
+               continuation_equal=continued == whole, rehydrate_suffix_tokens=suffix,
+               rehydrate_b1_launches=rows[0]["launches"] if rows else 0,
+               park_frame_mib=len(parked.park_payload) / 2**20)
+    served = [(p, whole), (extended, list(rehydrated.tokens))]
+    del engine_a, engine_b, sched_a, sched_b, server_a, server_b
+    return res, served
+
+
+def _disk_tier(params, cfg, dev, spill_root, failures):
+    """The serving phase's pressure mix with the prefix cache and the tier
+    ladder (host budget 0: everything spills to disk), every restore compared bit for bit
+    with the blocks offloaded; then one HANDOFF_PROMPT-token sequence through
+    an engine's offload_path (the native AIO engine) and back, and once more
+    with a byte of its spill file flipped (the control)."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+    mgr = DSStateManagerConfig(max_context=MAX_CONTEXT,
+                               memory_config=MemoryConfig(mode="allocate", size=PRESSURE_BLOCKS))
+    small = build_engine(params, cfg, RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=BLOCK), device=dev)
+    kv = small._state_manager.kv_cache
+    snaps, restores = {}, []
+    inner_offload, inner_restore = kv.offload, kv.restore
+
+    def offload(blocks):
+        before = kv.cache[:, :, torch.from_numpy(np.asarray(blocks, np.int64)).to(dev)].clone()
+        handle = inner_offload(blocks)
+        snaps[handle] = before
+        return handle
+
+    def restore(handle):
+        new = inner_restore(handle)
+        after = kv.cache[:, :, torch.from_numpy(np.asarray(new, np.int64)).to(dev)]
+        restores.append(dict(tier=tiers.get(handle), same=bool(torch.equal(_bits(after), _bits(snaps.pop(handle))))))
+        return new
+
+    tiers = {}
+    inner_read = kv.tiered_store.read
+
+    def read(handle):
+        data, tier = inner_read(handle)
+        tiers[handle] = tier
+        return data, tier
+
+    kv.offload, kv.restore, kv.tiered_store.read = offload, restore, read
+    cfg_tiers = ServingConfig(decode_chunk=PRESSURE_DECODE_CHUNK, prefix_cache=PrefixCacheConfig(enabled=True),
+                              kv_tiers=KVTierConfig(enabled=True, host_bytes=0,
+                                                    spill_dir=os.path.join(spill_root, "tiers")))
+    pressured = ServingScheduler(small, cfg_tiers, start=False)
+    try:
+        t0 = time.perf_counter()
+        reqs = [pressured.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        while not all(r.finished for r in reqs):
+            pressured.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = [r.result(timeout=1) for r in reqs]
+        stats = pressured.stats()
+    finally:
+        pressured.stop(drain=False)
+    store = kv.tier_stats()
+    res = dict(wall_s=wall, counters=stats["counters"], kv_tiers=stats["kv_tiers"], store=store,
+               restores=len(restores), restores_from_disk=sum(r["tier"] == "disk" for r in restores),
+               restores_bit_exact=all(r["same"] for r in restores))
+    if not store["demotions"] > 0:
+        failures.append(f"the tiered pressure mix demoted nothing to disk: {store}")
+    if not (restores and res["restores_bit_exact"]):
+        failures.append(f"a restore under the tier ladder differs from its offloaded blocks: {restores}")
+    del small, pressured, kv
+    gc.collect()
+
+    # --- one sequence through offload_path (spill synchronously) and back
+    mgr = DSStateManagerConfig(max_context=MAX_CONTEXT, offload_path=os.path.join(spill_root, "offload"),
+                               memory_config=MemoryConfig(mode="allocate", size=ROUND_TRIP_BLOCKS))
+    eng = build_engine(params, cfg, RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=BLOCK), device=dev)
+    sm = eng._state_manager
+    p = rng.integers(0, cfg.vocab_size, HANDOFF_PROMPT).tolist()
+
+    def round_trip(flip):
+        uid = 7
+        eng.put([uid], [p])
+        blocks = torch.from_numpy(sm.get_sequence(uid).kv_blocks).to(dev)
+        before = sm.kv_cache.cache[:, :, blocks].clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.offload_sequence(uid)
+        demote_s = time.perf_counter() - t0
+        tier, path = sm.sequence_tier(uid), sm.kv_cache.tiered_store._entries[sm._offloaded[uid]].path
+        if flip:
+            with open(path, "r+b") as f:
+                f.seek(os.path.getsize(path) // 2)
+                byte = f.read(1)
+                f.seek(-1, os.SEEK_CUR)
+                f.write(bytes([byte[0] ^ 1]))
+        t0 = time.perf_counter()
+        eng._restore_offloaded([uid])
+        torch.cuda.synchronize()
+        promote_s = time.perf_counter() - t0
+        after = sm.kv_cache.cache[:, :, torch.from_numpy(sm.get_sequence(uid).kv_blocks).to(dev)]
+        same = bool(torch.equal(_bits(after), _bits(before)))
+        gb = before.numel() * before.element_size() / 1e9
+        eng.flush(uid)
+        return dict(tier=tier, same=same, gb=gb, demote_gb_per_s=gb / demote_s, promote_gb_per_s=gb / promote_s)
+
+    trip = round_trip(flip=False)
+    flipped = round_trip(flip=True)
+    native = aio_available() and sm.kv_cache._aio is not None and sm.kv_cache._aio._handle is not None
+    res.update(round_trip=trip, aio_native=native)
+    if not (trip["tier"] == "disk" and trip["same"]):
+        failures.append(f"the offload_path round trip was not bit-exact through disk: {trip}")
+    if flipped["same"]:
+        failures.append("control: a flipped byte in a spill file passed the round-trip check")
+    if not native:
+        failures.append("the native AIO engine did not load (aio_available() is false)")
+    del eng
+    return res, list(zip(prompts, tokens))
+
+
+def run_prefix_path(dev, params, main) -> dict:
+    """The KV-reuse and KV-movement features on Llama-2-7B under the ported
+    scheduler and server: the shared-prompt mix with the prefix cache, the
+    handoff and park/rehydrate between two engines, and the disk tier. Every
+    served greedy token is held to the dense f32 model (teacher-forced);
+    every check has a control it rejects."""
+    import tempfile
+    t_start = time.perf_counter()
+    cfg = LlamaConfig.llama2_7b()
+    rng = np.random.default_rng(8)
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_TOKENS).tolist()
+    lens = rng.integers(PREFIX_SUFFIX[0], PREFIX_SUFFIX[1] + 1, PREFIX_REQUESTS)
+    prompts = [prefix + rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+    failures = []
+    parts = {}
+    t0 = time.perf_counter()
+    res, served = _shared_prompt_mix(params, cfg, dev, prompts, rng, failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["shared_prompt_mix"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["handoff"], more = _handoff_and_park(params, cfg, dev, rng, failures)
+    served += more
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["handoff_and_park"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dstt_spill_") as spill_root:
+        res["disk_tier"], more = _disk_tier(params, cfg, dev, spill_root, failures)
+    served += more
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["disk_tier"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # --- every served greedy token against the dense f32 model
+    tol = TF_SLACK * max(main["logits_max_abs_err_kernel_vs_f32"], main["logits_max_abs_err_gather_vs_f32"])
+    model = _dense_f32(params, cfg)
+    gaps = _teacher_forced(model, dev, served)
+    # the control needs only a few sequences to show that the check bites
+    shifted = _teacher_forced(model, dev, [(p, t[1:] + t[:1]) for p, t in served[:4]])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["teacher_forced"] = dict(tolerance=tol, sequences=len(served), tokens=int(gaps.numel()),
+                                 max_gap=gaps.max().item(), max_gap_over_tol=gaps.max().item() / tol,
+                                 control_max_gap=shifted.max().item())
+    if not gaps.max().item() <= tol:
+        failures.append(f"a served token's f32 logit trails its row's maximum by {gaps.max().item()} > {tol}")
+    if not shifted.max().item() > tol:
+        failures.append("control: the shifted tokens passed the teacher-forced check")
+    parts["teacher_forced"] = time.perf_counter() - t0
+    res["seconds_by_part"] = parts
+    res["seconds"] = time.perf_counter() - t_start
+    res["failures"] = failures
+    h, d = res["handoff"], res["disk_tier"]
+    log("[prefix] " + json.dumps({k: v for k, v in res.items() if k not in ("counters", "hot_suffix_puts")}))
+    log(f"[prefix] TTFT cold {res['ttft_cold_s'] * 1e3:.1f} ms; hot staggered p50 "
+        f"{res['ttft_staggered_p50_s'] * 1e3:.1f} ms p99 {res['ttft_staggered_p99_s'] * 1e3:.1f} ms; burst p50 "
+        f"{res['ttft_burst_p50_s'] * 1e3:.1f} ms p99 {res['ttft_burst_p99_s'] * 1e3:.1f} ms; "
+        f"{res['prefill_tokens_avoided']} prefill tokens avoided; served {res['staggered_tokens_per_s']:.1f} "
+        f"tokens/s staggered, {res['burst_tokens_per_s']:.1f} burst; card busy "
+        f"{res['device_busy_share_profiled_burst']} of the profiled burst")
+    log(f"[prefix] B1 launches in hot puts {res['b1_launches_hot_puts']} "
+        f"({len(res['hot_suffix_puts'])} hot suffixes), {res['b1_launches']} in the whole mix")
+    log(f"[prefix] handoff frame {h['frame_mib']:.1f} MiB: export {h['export_ms']:.1f} ms "
+        f"({h['export_mib_per_s']:.0f} MiB/s), HTTP claim {h['claim_http_ms']:.1f} ms, import "
+        f"{h['import_ms']:.1f} ms ({h['import_mib_per_s']:.0f} MiB/s); disk: demote "
+        f"{d['round_trip']['demote_gb_per_s']:.2f} GB/s, promote {d['round_trip']['promote_gb_per_s']:.2f} GB/s, "
+        f"{d['store']['demotions']} demotions in the pressure mix")
+    log(card_line())
+    if failures:
+        raise AssertionError("prefix phase: " + "; ".join(failures))
+    return res
+
+
+# ----------------------------------------------------------------- phase 7 --
 def bench_llama(**kw) -> LlamaConfig:
     """bench.py's headline model: the 530M Llama (``_llama_530m``) with
     remat "dots" and flash attention."""
@@ -1668,6 +2241,7 @@ def main() -> int:
     params = main_params(dev)
     record["main_path"] = run_main_path(dev, params)
     record["serving_path"] = run_serving_path(dev, params, record["main_path"])
+    record["prefix_path"] = run_prefix_path(dev, params, record["main_path"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1679,6 +2253,7 @@ def main() -> int:
                     source="deepspeed_tpu_torch/csrc/paged_attention.cu",
                     replaces="deepspeed_tpu/ops/pallas/paged_attention.py:37",
                     launches=record["main_path"]["paged_attention_launches"],
+                    launches_prefix_path=record["prefix_path"]["b1_launches"],
                     max_abs_err=max(r["max_abs_err"] for r in record["paged_attention"]),
                     ms=decode["ms"], plain_ms=decode["plain_ms"], bound_ms=decode["bound_ms"],
                     bound_by=decode["bound_by"], library_ms=decode["library_ms"],

@@ -5,16 +5,19 @@ Port of ``deepspeed_tpu/inference/v2/engine_v2.py`` (InferenceEngineV2):
 greedy single-token decode on the device, ``query``/``can_schedule`` do the
 token and KV-block admission, ``flush``/``flush_all`` recycle blocks and
 ``empty_run`` runs a forward with no live token. ``offload_sequence`` moves a
-cold sequence's KV to the host tier, and the next ``put``/``decode_loop``
-that touches it restores it. ``close`` stops an attached serving scheduler
-(``serving/scheduler.py``). With telemetry on (an engine-owned session from
-``telemetry``, or a process-wide one) ``put`` and ``decode_loop`` record the
-``inference_*`` metric families and a span each.
+cold sequence's KV to the tiered store (host memory, or spill files under
+``state_manager.offload_path``), and the next ``put``/``decode_loop`` that
+touches it restores it. ``export_sequence``/``import_sequence`` move a
+sequence to another engine as a handoff frame (``ragged/handoff.py``).
+``close`` stops an attached serving scheduler (``serving/scheduler.py``).
+With telemetry on (an engine-owned session from ``telemetry``, or a
+process-wide one) ``put`` and ``decode_loop`` record the ``inference_*``
+metric families and a span each.
 
 Not ported yet, and refused with ``NotImplementedError``: tensor and expert
 parallelism, weight quantization and simulated gating (ROADMAP.md A8, A9),
-the tracer (``trace_enabled``), the speculative ``verify`` feeds, handoff
-export/import and sampled ``decode_loop`` (A5).
+the speculative ``verify`` feeds and sampled ``decode_loop`` (A5b), and the
+tracer (``trace_enabled``, A5c).
 """
 
 from typing import Iterable, Optional, Tuple
@@ -24,6 +27,7 @@ import torch
 
 from deepspeed_tpu_torch import telemetry as _telemetry
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+from deepspeed_tpu_torch.inference.v2.ragged import handoff
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_manager import DSStateManager
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import RaggedBatchWrapper
 from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import PlaceholderSequenceDescriptor
@@ -31,16 +35,16 @@ from deepspeed_tpu_torch.inference.v2.scheduling_utils import SchedulingError, S
 
 
 def _refuse_unported(config: RaggedInferenceEngineConfig) -> None:
-    unported = {
-        "tensor_parallel.tp_size > 1": config.tensor_parallel.tp_size > 1,
-        "expert_parallel": config.expert_parallel.enabled,
-        "weight quantization": config.quantization.enabled,
-        "simulated_gating": config.simulated_gating,
-        "trace_enabled": config.trace_enabled,
-    }
-    for what, on in unported.items():
+    unported = (
+        ("tensor_parallel.tp_size > 1", config.tensor_parallel.tp_size > 1, "A8"),
+        ("expert_parallel", config.expert_parallel.enabled, "A9"),
+        ("weight quantization", config.quantization.enabled, "A9"),
+        ("simulated_gating", config.simulated_gating, "A9"),
+        ("trace_enabled (the tracer)", config.trace_enabled, "A5c"),
+    )
+    for what, on, item in unported:
         if on:
-            raise NotImplementedError(f"{what} is not ported to deepspeed_tpu_torch yet (see ROADMAP.md, queue A)")
+            raise NotImplementedError(f"{what} is not ported to deepspeed_tpu_torch yet (see ROADMAP.md {item})")
 
 
 class InferenceEngineV2:
@@ -205,9 +209,9 @@ class InferenceEngineV2:
             raise ValueError("n_steps must be >= 1")
         if any(t.size != 1 for t in batch_tokens):
             raise NotImplementedError("the multi-token (speculative verify) feed runs in one step "
-                                      "and is not ported yet (ROADMAP.md A5)")
+                                      "and is not ported yet (ROADMAP.md A5b)")
         if temperature > 0:
-            raise NotImplementedError("sampled decode_loop is not ported yet (ROADMAP.md A5); "
+            raise NotImplementedError("sampled decode_loop is not ported yet (ROADMAP.md A5b); "
                                       "temperature must be 0")
         if do_checks:
             # each step's ragged batch holds one token per sequence, so the
@@ -328,6 +332,30 @@ class InferenceEngineV2:
 
     def is_offloaded(self, uid: int) -> bool:
         return self._state_manager.is_offloaded(uid)
+
+    # ------------------------------------------------------------- kv handoff --
+    def export_sequence(self, uid: int, tokens=(), extra: Optional[dict] = None, seen_tokens: Optional[int] = None,
+                        version: Optional[int] = None) -> bytes:
+        """Snapshot ``uid`` as a portable bytes payload — token history,
+        KV-block contents and caller ``extra`` state — for
+        :meth:`import_sequence` on another engine (the prefill→decode
+        handoff), built on the same gather/scatter machinery as
+        :meth:`offload_sequence`. ``seen_tokens`` caps the committed count the
+        recipient adopts (chunked decode feeds ahead of the kept history; the
+        recipient recomputes the trimmed tail). The sequence stays tracked
+        here; ``flush(uid)`` once the recipient has taken over. ``version``
+        selects the frame version (None = the live handoff default;
+        ``handoff.PARK_VERSION`` for parked-session frames)."""
+        return handoff.pack_sequence(self._state_manager, uid, tokens, extra=extra, seen_tokens=seen_tokens,
+                                     version=handoff.VERSION if version is None else version)
+
+    def import_sequence(self, payload: bytes, uid: Optional[int] = None) -> Tuple[int, dict]:
+        """Recreate an exported sequence from an :meth:`export_sequence`
+        payload under ``uid`` (default: the donor's uid); the next
+        put/decode_loop continues it exactly where the donor stopped. Returns
+        ``(uid, header)`` — the header carries the token history and the
+        exporter's ``extra`` generation state."""
+        return handoff.import_payload(self._state_manager, payload, uid=uid)
 
     def flush_all(self) -> None:
         """Recycle every tracked sequence's KV blocks."""

@@ -11,7 +11,8 @@ one cache tensor in place: the JAX ``jit(..., donate_argnums=(1,))`` plus
 packed ``tok_meta``/``seq_meta`` arrays are copied to the device once per
 forward, and ``decode_loop`` keeps them there across steps. Per-layer
 compute comes from subclasses (``embed``, ``layer_forward``, ``unembed``);
-the speculative verify programs, KV compaction and tracing are ROADMAP A5.
+the speculative verify programs and KV compaction are ROADMAP A5b, tracing
+A5c.
 """
 
 import math

@@ -39,6 +39,5 @@ class DSStateManagerConfig(DeepSpeedConfigModel):
     max_ragged_sequence_count: int = config_field(512, gt=0)
     max_context: int = config_field(8192, gt=0)
     memory_config: MemoryConfig = config_field(default_factory=MemoryConfig)
-    # KV offload to host or disk is ROADMAP A5; the engine refuses it for now
     offload: bool = False
     offload_path: Optional[str] = None

@@ -2,8 +2,8 @@
 
 Port of ``deepspeed_tpu/inference/v2/ragged/sequence_descriptor.py``
 (per-sequence KV block table, seen and in-flight token counts, and the tier
-of the KV ladder that holds the cache). ``rollback`` (speculative verify) is
-ROADMAP A5.
+of the KV ladder that holds the cache: ``device``, ``host`` or ``disk``).
+``rollback`` (speculative verify) is ROADMAP A5b.
 """
 
 from typing import List

@@ -9,6 +9,10 @@ reused. :func:`build` starts one ``nvcc`` per source, all
 at once, and waits for all of them; ptxas's register and shared-memory report
 for each library is kept in a ``.log`` beside it.
 
+:func:`load_host` builds a host C++ source of the repo (``csrc/aio``, the
+async file I/O engine under the KV disk tier) with the system C++ compiler
+into the same directory, hash-named the same way.
+
 Nothing here runs when the module is imported: the first kernel launch (or an
 explicit :func:`build`) compiles.
 """
@@ -23,7 +27,10 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
+REPO_CSRC_DIR = _PKG.parent / "csrc"  # host C++ sources shared with the JAX package
 BUILD_DIR = _PKG / "_build"
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-Wall")
+CXX_LDFLAGS = ("-lpthread", )
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -94,4 +101,39 @@ def load(name: str) -> ctypes.CDLL:
         path = build([name])[name]
         lib = ctypes.CDLL(str(path))
         _LOADED[name] = lib
+    return lib
+
+
+def _cxx() -> str:
+    for cc in (os.environ.get("CXX"), "g++", "clang++"):
+        if cc and shutil.which(cc):
+            return cc
+    raise RuntimeError("no C++ compiler on PATH (looked for $CXX, g++, clang++)")
+
+
+def host_library_path(name: str, source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(CXX_FLAGS + CXX_LDFLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def load_host(name: str, source: Path) -> ctypes.CDLL:
+    """The loaded library for a host C++ ``source``, compiled first (with
+    :data:`CXX_FLAGS`) if no library for its current hash exists. Raises with
+    the compiler's output if the build fails."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    out = host_library_path(name, source)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.run([_cxx(), *CXX_FLAGS, str(source), "-o", tmp, *CXX_LDFLAGS], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"host build of {source.name} failed:\n{proc.stderr[-4000:]}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _LOADED[name] = lib
     return lib

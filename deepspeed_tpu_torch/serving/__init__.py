@@ -4,9 +4,9 @@ Port of ``deepspeed_tpu/serving/``. Reference: DeepSpeed-FastGen/MII's
 persistent deployment (Holmes et al. 2024) — continuous admission, Dynamic
 SplitFuse chunked-prefill/decode interleaving (iteration-level scheduling per
 Orca, Yu et al. OSDI'22), per-request token streaming, deadlines, and
-backpressure. The prefix cache, speculative decoding, KV tiers and the
-handoff are ROADMAP A5 (``serving/kv_tiers.py`` with them); the scheduler
-refuses their configs.
+backpressure, with the prefix cache, the KV tier ladder
+(``serving/kv_tiers.py``), the handoff and session parking. Speculative
+decoding is ROADMAP A5b; the scheduler refuses its config.
 
 Usage::
 

@@ -4,11 +4,10 @@ Port of ``deepspeed_tpu/serving/config.py`` as dataclasses on
 ``runtime/config_utils.py`` (the reference's blocks are pydantic models), with
 the same fields, defaults, bounds and validator messages.
 
-The prefix cache, speculative decoding and KV tiers are ROADMAP A5, so the
-port's scheduler refuses ``prefix_cache.enabled``, ``speculative.enabled``
-and ``kv_tiers.enabled`` (``serving/scheduler.py``). ``CostConfig`` is on by
+Speculative decoding is ROADMAP A5b, so the port's scheduler refuses
+``speculative.enabled`` (``serving/scheduler.py``). ``CostConfig`` is on by
 default, as in the reference, but its ledger exists only while a telemetry
-session is active, and that combination is refused too (A5 ports
+session is active, and that combination is refused too (A5c ports
 ``telemetry/ledger.py``).
 """
 
@@ -25,8 +24,14 @@ DEFAULT_MAX_RESUME_BODY_BYTES = 2 << 30
 
 @dataclass
 class PrefixCacheConfig(DeepSpeedConfigModel):
-    """Automatic prefix caching (radix-tree KV reuse). ROADMAP A5: the port's
-    scheduler refuses ``enabled``."""
+    """Automatic prefix caching (radix-tree KV reuse with copy-on-write block
+    sharing — ``inference/v2/ragged/prefix_cache.py``). Off by default: the
+    trie pins finished sequences' prefix blocks, so a cache-enabled scheduler
+    intentionally does NOT return the KV pool to empty between requests.
+    ``max_blocks`` caps the device blocks the trie may pin (None = the pool);
+    ``min_prefix_blocks`` is the smallest match worth applying;
+    ``digest_catalog_limit`` is how many trie digests the stats doc
+    publishes (0 = none)."""
 
     enabled: bool = False
     max_blocks: Optional[int] = config_field(None, ge=1)
@@ -36,7 +41,7 @@ class PrefixCacheConfig(DeepSpeedConfigModel):
 
 @dataclass
 class SpeculativeConfig(DeepSpeedConfigModel):
-    """Speculative decoding (``inference/v2/spec/``). ROADMAP A5: the port's
+    """Speculative decoding (``inference/v2/spec/``). ROADMAP A5b: the port's
     scheduler refuses ``enabled``."""
 
     enabled: bool = False
@@ -71,8 +76,15 @@ class SpeculativeConfig(DeepSpeedConfigModel):
 
 @dataclass
 class KVTierConfig(DeepSpeedConfigModel):
-    """Tiered KV memory (device → host → disk demotion under pressure).
-    ROADMAP A5: the port's scheduler refuses ``enabled``."""
+    """Tiered KV memory (``inference/v2/ragged/tiering.py`` +
+    ``serving/kv_tiers.py``): device blocks → host memory → disk spill files.
+    Off by default — when enabled, KV pressure demotes cached-but-idle state
+    down the ladder (prefix-trie nodes first, then offloaded sessions
+    host→disk) before anything is evicted or shed, and brownout gains a
+    demote stage ahead of shedding. ``host_bytes`` is the host-tier budget
+    (None = unbounded), ``spill_dir`` the disk tier's directory (None = the
+    host tier is the floor), ``demote_batch`` the device blocks demoted per
+    pressure tick."""
 
     enabled: bool = False
     host_bytes: Optional[int] = config_field(None, ge=0)
@@ -171,7 +183,7 @@ class OverloadConfig(DeepSpeedConfigModel):
 
 @dataclass
 class CostConfig(DeepSpeedConfigModel):
-    """Cost-attribution plane (``telemetry/ledger.py``). ROADMAP A5: the ledger
+    """Cost-attribution plane (``telemetry/ledger.py``). ROADMAP A5c: the ledger
     materializes only while a telemetry session is active, and the port's
     scheduler refuses ``enabled`` with a session active."""
 
@@ -245,7 +257,8 @@ class ServingConfig(DeepSpeedConfigModel):
     cost: CostConfig = config_field(default_factory=CostConfig)
 
     max_resume_body_bytes: int = config_field(DEFAULT_MAX_RESUME_BODY_BYTES, gt=0)
-    """Upper bound on a ``POST /v1/resume`` body (the route is ROADMAP A5)."""
+    """Upper bound on a ``POST /v1/resume`` body (the base64 KV-handoff
+    payload; real-model KV runs to hundreds of MB and base64 adds 4/3)."""
 
     def __post_init__(self):
         v = self.default_deadline_s

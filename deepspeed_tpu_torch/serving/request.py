@@ -1,8 +1,8 @@
 """Request lifecycle primitives for the serving layer.
 
 Port of ``deepspeed_tpu/serving/request.py`` (host Python; ``now_us`` comes
-from the port's telemetry). The handoff, park and speculative fields stay,
-unused until ROADMAP A5 ports those paths.
+from the port's telemetry). The speculative fields stay, unused until
+ROADMAP A5b ports that path.
 
 Reference role: DeepSpeed-MII's ``RaggedRequest``/``RaggedRequestMsg`` (the
 request objects FastGen's persistent deployment schedules); here the request

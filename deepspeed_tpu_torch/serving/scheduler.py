@@ -27,9 +27,19 @@ Batch composition per tick (``step()``):
    greedy ``decode_loop`` (one dispatch per K tokens);
 6. idle ticks heartbeat ``engine.empty_run()`` when heartbeats are on.
 
-Not ported yet, and refused with ``NotImplementedError``: the prefix cache,
-speculative decoding, KV tiers, handoff (``submit_resume``, the ``handoff``
-flag), parking, peer prefix export and the cost ledger (ROADMAP A5); work
+With ``prefix_cache.enabled`` admission maps each prompt's longest cached
+prefix (``ragged/prefix_cache.py``) into a pre-populated sequence, so only
+the suffix prefills; a fully cached prompt re-feeds its last token into a
+block forked copy-on-write. Prompts publish their full blocks at prefill
+completion and their whole history at finalize. With ``kv_tiers.enabled``
+(``serving/kv_tiers.py``) pressure demotes idle cached state down the
+device→host→disk ladder before anything is evicted or shed. ``handoff`` and
+``park`` export a finished request as a frame (``ragged/handoff.py``) that
+``submit_resume`` continues on another engine; ``export_prefix`` frames
+cached KV for a peer.
+
+Not ported yet, and refused with ``NotImplementedError``: speculative
+decoding (ROADMAP A5b), the cost ledger while telemetry is on (A5c), work
 stealing and SLO-driven pressure (A6).
 """
 
@@ -42,7 +52,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from deepspeed_tpu_torch import telemetry
+from deepspeed_tpu_torch.inference.v2.ragged import handoff as _handoff
+from deepspeed_tpu_torch.inference.v2.ragged.prefix_cache import PrefixCache, digest_chain
 from deepspeed_tpu_torch.inference.v2.scheduling_utils import SchedulingError, SchedulingResult
+from deepspeed_tpu_torch.serving import kv_tiers as _kv_tiers_mod
 from deepspeed_tpu_torch.serving.config import ServingConfig
 from deepspeed_tpu_torch.serving.metrics import ServingMetrics
 from deepspeed_tpu_torch.serving.overload import (BrownoutController, FairSharePolicy,
@@ -68,8 +81,8 @@ KILLED_ERROR_PREFIX = "replica killed"
 
 _DRAFTER_PINS = ("prompt_lookup", "learned", "auto")
 
-# scheduler counters, named and ordered as the reference's; the prefix-cache,
-# speculative, data-motion, tier and park counters stay 0 until A5/A6
+# scheduler counters, named and ordered as the reference's; the speculative
+# counters stay 0 until A5b, the steal counter until A6
 _COUNTERS = ("submitted", "rejected", "completed", "cancelled",
              "timed_out", "failed", "evictions", "batches", "heartbeats",
              "prefix_hits", "prefix_tokens_saved", "prefix_evictions",
@@ -143,8 +156,9 @@ class ServingScheduler:
         self._not_full = threading.Condition(self._lock)
         self._queue: deque = deque()
         self._active: Dict[int, Request] = {}  # uid -> Request, admission order
-        # the request _admit popped but has not yet activated: neither queued
-        # nor active, but drain and load accounting must still see it
+        # the request _admit popped but has not yet activated (a resume KV
+        # import runs in this window, off the lock): it is neither queued nor
+        # active, but drain and load accounting must still see it
         self._admitting: Optional[Request] = None
         self._uids = itertools.count()
         self._counters = {k: 0 for k in _COUNTERS}
@@ -160,6 +174,20 @@ class ServingScheduler:
         # pool capacity for permanent-infeasibility checks (a prompt needing
         # more KV blocks than the whole pool can never run)
         self._capacity_blocks = engine._state_manager.kv_cache.num_blocks
+
+        # fleet data motion: cross-thread control calls (prefix export for a
+        # peer fetch) run on THIS loop via _call_on_loop — the engine, the
+        # trie and the block allocator are all single-threaded state, so a
+        # probe/handler thread must never touch them directly
+        self._control: deque = deque()
+        # fleet-installed hook: fn(digests, have_blocks) -> payload | None.
+        # Called on the scheduler thread at admission when the local trie
+        # match is shallower than the request's chain; a returned frame is
+        # CRC/digest-validated before any block lands.
+        self._peer_fetch = None
+        # companion hook: fn("hit" | "reject") — lets the fleet layer mirror
+        # peer-fetch outcomes into its own metric registry
+        self._peer_fetch_notify = None
 
         # overload control (serving/overload.py): the measured-rate estimator
         # feeds admission feasibility + Retry-After; the brownout controller
@@ -185,6 +213,23 @@ class ServingScheduler:
                 over_factor=ocfg.fair_share_over_factor,
                 hysteresis=ocfg.fair_share_hysteresis)
 
+        # automatic prefix caching: radix-tree KV reuse with copy-on-write
+        # block sharing (inference/v2/ragged/prefix_cache.py). All trie
+        # mutation happens on the scheduler thread — the same thread that owns
+        # every other engine touch.
+        self._prefix_cache = None
+        if self._config.prefix_cache.enabled:
+            self._prefix_cache = PrefixCache(
+                engine._state_manager.kv_cache,
+                max_blocks=self._config.prefix_cache.max_blocks,
+                min_prefix_blocks=self._config.prefix_cache.min_prefix_blocks)
+
+        # tiered KV memory (serving/kv_tiers.py over ragged/tiering.py):
+        # retrofits the engine's host→disk ladder with the operator's budget
+        # and drives demote-under-pressure — idle cached state moves down a
+        # tier before anything is evicted or shed
+        self._kv_tiers = _kv_tiers_mod.maybe_create(engine, self._config.kv_tiers, metrics=self._metrics)
+
         engine._serving_scheduler = self
         # armed last: flight_state() must never observe a half-built
         # scheduler; a manually-step()ped scheduler (start=False) has no loop
@@ -199,11 +244,9 @@ class ServingScheduler:
     @staticmethod
     def _refuse_unported(cfg: ServingConfig) -> None:
         for what, on, item in (
-                ("serving.prefix_cache", cfg.prefix_cache.enabled, "A5"),
-                ("serving.speculative", cfg.speculative.enabled, "A5"),
-                ("serving.kv_tiers", cfg.kv_tiers.enabled, "A5"),
+                ("serving.speculative", cfg.speculative.enabled, "A5b"),
                 ("serving.cost (the cost ledger, built while a telemetry session is active)",
-                 cfg.cost.enabled and telemetry.is_active(), "A5"),
+                 cfg.cost.enabled and telemetry.is_active(), "A5c"),
                 ("serving.overload.slo_pressure (the SLO engine)", cfg.overload.slo_pressure, "A6")):
             if on:
                 raise _unported(what, item)
@@ -269,15 +312,17 @@ class ServingScheduler:
         being admitted to fail later.
 
         ``trace_id``/``parent_span_id`` adopt an upstream trace instead of
-        minting a fresh one. ``handoff`` and ``park`` (KV export at finish)
-        are ROADMAP A5 and raise. ``drafter`` is validated and, with
-        speculative decoding off (A5), ignored, as the reference ignores a
-        pin it cannot honor. ``tenant`` is the request's identity for the
-        fair-share stage (None lands on ``config.cost.default_tenant``)."""
-        if handoff:
-            raise _unported("the KV handoff export (handoff=True)", "A5")
-        if park:
-            raise _unported("session parking (park=True)", "A5")
+        minting a fresh one. ``handoff`` marks a prefill-role request: when
+        it finishes DONE its engine state is exported as a portable
+        KV-handoff payload (``request.handoff_payload``) for
+        :meth:`submit_resume` on a decode-role peer. ``park`` marks a
+        continuable multi-turn session: at finish (length OR eos) the engine
+        state exports as a v2 park frame (``request.park_payload``) that a
+        later :meth:`submit_resume` rehydrates with the next turn's full
+        prompt. ``drafter`` is validated and, with speculative decoding off
+        (A5b), ignored, as the reference ignores a pin it cannot honor.
+        ``tenant`` is the request's identity for the fair-share stage (None
+        lands on ``config.cost.default_tenant``)."""
         req = Request(prompt,
                       max_new_tokens=max_new_tokens if max_new_tokens is not None
                       else self._config.default_max_new_tokens,
@@ -288,24 +333,106 @@ class ServingScheduler:
                       seed=seed,
                       priority=validate_priority(priority),
                       tenant=tenant)
+        req.park_requested = bool(park)
         req._spec_drafter_pin = _validate_drafter_pin(drafter)
         self._admission_gate(req)
-        return self._enqueue(req, trace_id, parent_span_id)
+        return self._enqueue(req, trace_id, parent_span_id, handoff)
 
-    def submit_resume(self, payload, **kwargs) -> Request:
-        """Admit a handed-off sequence for decode continuation: ROADMAP A5."""
-        raise _unported("submit_resume (KV handoff import)", "A5")
+    def submit_resume(self,
+                      payload: bytes,
+                      max_new_tokens: Optional[int] = None,
+                      temperature: float = 0.0,
+                      eos_token_id: Optional[int] = None,
+                      deadline_s: Optional[float] = None,
+                      seed: int = 0,
+                      trace_id: Optional[str] = None,
+                      parent_span_id: Optional[int] = None,
+                      handoff: bool = False,
+                      priority: Optional[str] = None,
+                      prompt=None,
+                      park: bool = False,
+                      drafter: Optional[str] = None,
+                      tenant: Optional[str] = None) -> Request:
+        """Admit a handed-off sequence for decode continuation: ``payload`` is
+        an ``engine.export_sequence`` product from a prefill-role peer (of
+        either package: the frames are the same bytes). The scheduler imports
+        it into its engine at admission (on the scheduler thread — the engine
+        is not thread-safe) and the request enters DECODE directly; its
+        ``prompt`` is the full token history so context, deadline and stats
+        accounting match a locally-prefilled request. Generation state (next
+        input token, sampler RNG state) rides in the payload's ``extra``
+        block, so greedy AND sampled continuations are token-identical to
+        the single-engine run. ``request.tokens`` holds only the tokens
+        generated HERE; the caller merges with the prefill leg's.
 
-    def export_prefix(self, digests, min_blocks: int = 1, timeout: float = 5.0):
-        """Frame cached prefix KV for a fleet peer: ROADMAP A5."""
-        raise _unported("export_prefix (the prefix cache)", "A5")
+        ``prompt`` switches to the *rehydrate* formulation (a parked
+        multi-turn session returning with its next turn): it is the new
+        turn's FULL token history, of which the payload's parked tokens must
+        be a strict prefix. The parked KV imports as-is and the request
+        enters PREFILL for the un-parked suffix only. The new turn samples on
+        its own ``seed`` (the parked ``rng_state`` is NOT adopted), so the
+        result is identical to an uninterrupted request over the same full
+        prompt at the same seed. A frame's drafter state (``extra["spec"]``)
+        is not adopted: speculative decoding is A5b."""
+        if not isinstance(payload, (bytes, bytearray)):
+            # materialize views; a bytearray from the streaming body decoder
+            # is kept as-is (copying it would double the resume peak memory)
+            payload = bytes(payload)
+        header, kv = _handoff.unpack(payload)  # validate framing before queueing
+        extra = header.get("extra") or {}
+        if prompt is None and "next_token" not in extra:
+            raise ValueError(
+                "handoff payload carries no next_token (the donor request must "
+                "finish with finish_reason='length' to be continuable, or the "
+                "caller must rehydrate with the next turn's prompt)")
+        if prompt is not None:
+            new_prompt = np.asarray(prompt, np.int32).reshape(-1)
+            parked = [int(t) for t in header["tokens"]]
+            if (new_prompt.size <= len(parked)
+                    or [int(t) for t in new_prompt[:len(parked)]] != parked):
+                raise ValueError(
+                    "rehydrate prompt must strictly extend the parked token "
+                    "history (the parked turns are a proper prefix of the "
+                    "returning turn's prompt)")
+        req = Request(new_prompt if prompt is not None else header["tokens"],
+                      max_new_tokens=max_new_tokens if max_new_tokens is not None
+                      else self._config.default_max_new_tokens,
+                      temperature=temperature,
+                      eos_token_id=eos_token_id,
+                      deadline_s=deadline_s if deadline_s is not None
+                      else self._config.default_deadline_s,
+                      seed=seed,
+                      priority=validate_priority(priority),
+                      tenant=tenant)
+        req._resume_payload = payload
+        req._resume_header = header
+        req._rehydrate = prompt is not None
+        req.park_requested = bool(park)
+        req._spec_drafter_pin = _validate_drafter_pin(drafter)
+        self._admission_gate(req)  # after the header lands: resume work is
+        # its generation budget (plus a rehydrate's un-parked suffix) only,
+        # the donor already paid the parked turns' prefill
+        req._resume_kv = kv  # zero-copy view into payload; parsed exactly once
+        if req._rehydrate:
+            req.kv_tier_source = (extra.get("tier") or {}).get("source")
+            return self._enqueue(req, trace_id, parent_span_id, handoff)
+        req._next = int(extra["next_token"])
+        rng_state = extra.get("rng_state")
+        if rng_state is not None:
+            # exact sampler continuation: the donor's PCG64 state, not a
+            # reseed — sampled handoffs stay token-identical
+            req._rng = np.random.default_rng()
+            req._rng.bit_generator.state = rng_state
+        req.decode_steps = int(extra.get("decode_steps") or 0)
+        return self._enqueue(req, trace_id, parent_span_id, handoff)
 
     def request_steal(self, handle: str, timeout: float = 5.0) -> dict:
         """Fleet work stealing: ROADMAP A6."""
         raise _unported("request_steal (fleet work stealing)", "A6")
 
     def _enqueue(self, req: Request, trace_id: Optional[str],
-                 parent_span_id: Optional[int]) -> Request:
+                 parent_span_id: Optional[int], handoff: bool) -> Request:
+        req.handoff_requested = bool(handoff)
         if self._spans is not None:
             # trace identity is assigned at admission so the HTTP layer can
             # hand the id back in response headers before streaming begins
@@ -342,8 +469,15 @@ class ServingScheduler:
     @staticmethod
     def _request_work(req: Request) -> int:
         """Engine-token work this request still needs: unfed prompt tokens
-        plus its remaining generation budget."""
-        return (max(0, int(req.prompt.size) - req._fed)
+        plus its remaining generation budget (a resume request's prompt was
+        prefilled by the donor; a rehydrate owes only the un-parked suffix)."""
+        if req._resume_header is not None and not req._rehydrate:
+            return max(0, req.max_new_tokens - len(req.tokens))
+        fed = req._fed
+        if req._rehydrate and fed == 0:
+            # not yet imported: the parked turns count as already-fed
+            fed = int(req._resume_header["seen_tokens"])
+        return (max(0, int(req.prompt.size) - fed)
                 + max(0, req.max_new_tokens - len(req.tokens)))
 
     def _active_work_tokens(self) -> int:
@@ -480,8 +614,29 @@ class ServingScheduler:
             if self._metrics:
                 self._metrics.brownout_transitions.inc(delta)
                 self._metrics.brownout_stage.set(stage)
-        if stage >= 1 and self._config.overload.shed_enabled:
-            self._shed_queued(now)
+        if stage >= 1:
+            # demote-before-shed: with the tier ladder on, pressure first
+            # pushes idle cached KV down a tier (nothing is lost — it
+            # promotes back on the next hit). Shedding only runs on ticks
+            # where demotion freed nothing.
+            demoted = self._demote_for_pressure()
+            if demoted == 0 and self._config.overload.shed_enabled:
+                self._shed_queued(now)
+        if self._kv_tiers is not None:
+            self._kv_tiers.update_gauges(self._prefix_cache)
+
+    def _demote_for_pressure(self) -> int:
+        """Brownout's demote stage: one controller pass down the tier ladder
+        (trie nodes device→host, then coldest offloaded sessions host→disk).
+        Returns demotions performed; 0 when tiering is off or nothing is
+        demotable (shedding then proceeds as before)."""
+        if self._kv_tiers is None:
+            return 0
+        demoted = self._kv_tiers.demote_for_pressure(
+            self._prefix_cache, list(self._active.values()))
+        if demoted:
+            self._counters["brownout_demotions"] += demoted
+        return demoted
 
     def _shed_queued(self, now: float) -> None:
         """Under sustained pressure, shed queued requests whose deadline is
@@ -568,6 +723,7 @@ class ServingScheduler:
     def step(self) -> bool:
         """One scheduling iteration; returns True iff a batch executed.
         Runs on the scheduler thread — or inline when ``start=False``."""
+        self._drain_control()
         now = time.monotonic()
         for req in list(self._active.values()):
             # the deadline check doubles as the decode feed-stop: a request
@@ -602,7 +758,8 @@ class ServingScheduler:
     def _admit(self, now: float) -> None:
         max_active = self._engine._config.state_manager.max_tracked_sequences
         while True:
-            # the queue condition guards ONLY the pop: engine work below must
+            # the queue condition guards ONLY the pop: engine work below (a
+            # resume import scatters hundreds of MB of KV and may evict) must
             # never run under the lock submit()'s handler threads block on
             with self._not_full:
                 if not self._queue or len(self._active) >= max_active:
@@ -636,7 +793,33 @@ class ServingScheduler:
                     self._finalize(req, RequestState.FAILED, error=infeasible)
                     continue
                 req.uid = next(self._uids)
-                req._set_state(RequestState.PREFILL)
+                if req._resume_payload is None and self._prefix_cache is not None:
+                    try:
+                        self._apply_prefix_hit(req)
+                    except Exception:  # pragma: no cover - defensive: a failed
+                        # hit application degrades to a cold prefill, never a
+                        # failed request
+                        logger.exception(f"serving: prefix-cache hit application "
+                                         f"failed for uid {req.uid}; prefilling cold")
+                if req._resume_payload is not None:
+                    outcome = self._import_resume(req)
+                    if outcome is None:
+                        # the pool can't hold the handed-off KV right now and
+                        # nothing was evictable: put it back, retry next tick
+                        req.uid = None
+                        with self._not_full:
+                            self._queue.appendleft(req)
+                        break
+                    if outcome != "ok":
+                        self._finalize(req, RequestState.FAILED, error=outcome)
+                        continue
+                # a rehydrate enters PREFILL: its parked KV imported, the
+                # un-parked suffix still needs feeding (a handoff enters
+                # DECODE — its donor fed everything)
+                req._set_state(RequestState.DECODE
+                               if (req._resume_header is not None
+                                   and not req._rehydrate)
+                               else RequestState.PREFILL)
                 with self._not_full:
                     self._active[req.uid] = req
             finally:
@@ -654,11 +837,329 @@ class ServingScheduler:
             self._metrics.queue_depth.set(queue_depth)
             self._metrics.in_flight.set(len(self._active))
 
+    def _import_resume(self, req: Request) -> Optional[str]:
+        """Import a handed-off sequence under the request's uid (scheduler
+        thread — the engine is not thread-safe), evicting cold idle sequences
+        under KV pressure. ``"ok"`` = imported, the engine owns the state;
+        ``None`` = the pool is full and nothing was evictable (retry next
+        tick); any other string = the import failed with the pool able to
+        hold the payload — NOT capacity, the request can never land (FAIL it
+        rather than retry the queue head forever). Known-permanent problems
+        (geometry, payload > pool or > per-sequence cap) were already
+        rejected by :meth:`_permanently_infeasible`."""
+        kv_meta = (req._resume_header or {}).get("kv")
+        needed = int(kv_meta["shape"][2]) if kv_meta else 0
+        # the manager-level import reuses the header/KV parsed once at
+        # submit_resume (compatibility was checked by _permanently_infeasible)
+        # rather than re-unpacking the full payload on every retry
+        snapshot = {"uid": req.uid,
+                    "seen_tokens": req._resume_header["seen_tokens"],
+                    "kv": req._resume_kv}
+        while True:
+            try:
+                self._engine._state_manager.import_sequence(snapshot, uid=req.uid)
+            except Exception as e:
+                if self._engine.free_blocks >= needed:
+                    return f"handoff import failed: {e}"
+                if self._evict_one({req.uid}):
+                    continue
+                return None
+            req._resume_payload = None  # imported; the engine owns the KV now
+            req._resume_kv = None
+            if req._rehydrate:
+                # the parked turns are prefilled; the new turn's suffix is
+                # not — feed resumes exactly at the import's seen_tokens (the
+                # boundary token re-feeds, same KV slot, like a full prefix
+                # hit) so the cached turns schedule zero prefill chunks
+                seen = int(snapshot["seen_tokens"])
+                req._fed = seen
+                req.cached_tokens = seen
+                self._counters["rehydrates"] += 1
+            else:
+                req._fed = req.prompt.size  # whole history already prefilled
+            return "ok"
+
+    # -------------------------------------------------- fleet data motion --
+    def _call_on_loop(self, fn, timeout: float = 5.0):
+        """Run ``fn`` on the scheduler (engine-owning) thread and return its
+        result — the cross-thread entry for fleet control operations (peer
+        prefix export). A manually-stepped scheduler
+        (``start=False``) runs inline; otherwise the call is queued and
+        drained at the top of the next ``step()``. Raises ``TimeoutError``
+        when the loop does not service it in ``timeout`` (a wedged or
+        mutually-fetching peer: the caller degrades, never deadlocks) and
+        :class:`SchedulerStopped` when the scheduler dies first."""
+        if self._stopped or self._killed:
+            raise SchedulerStopped("scheduler is stopped")
+        if self._thread is None:
+            return fn()
+        box = {"done": threading.Event(), "result": None, "error": None}
+        self._control.append((fn, box))
+        if not box["done"].wait(timeout):
+            raise TimeoutError(f"scheduler control call not serviced in {timeout}s")
+        if box["error"] is not None:
+            raise box["error"]
+        return box["result"]
+
+    def _drain_control(self) -> None:
+        """Service queued control calls (scheduler thread, top of every tick)."""
+        while self._control:
+            try:
+                fn, box = self._control.popleft()
+            except IndexError:  # pragma: no cover - single consumer
+                break
+            try:
+                box["result"] = fn()
+            except BaseException as e:
+                box["error"] = e
+            box["done"].set()
+
+    def _fail_control(self) -> None:
+        """Unblock every pending control caller at stop/kill — a waiter must
+        observe the death, not its timeout."""
+        while self._control:
+            try:
+                _, box = self._control.popleft()
+            except IndexError:  # pragma: no cover - single consumer
+                break
+            box["error"] = SchedulerStopped("scheduler stopped before the "
+                                            "control call was serviced")
+            box["done"].set()
+
+    def prefix_digest_catalog(self) -> Optional[List[str]]:
+        """Truncated-hex digests of this replica's hottest trie paths — what
+        the probe doc publishes for the fleet's cache-aware routing. Safe from
+        probe threads (lock-guarded snapshot; staleness is bounded by the
+        probe TTL). None = cache off or publication disabled."""
+        if self._prefix_cache is None:
+            return None
+        limit = self._config.prefix_cache.digest_catalog_limit
+        if limit <= 0:
+            return None
+        return self._prefix_cache.digest_catalog(limit)
+
+    def export_prefix(self, digests, min_blocks: int = 1,
+                      timeout: float = 5.0) -> Optional[bytes]:
+        """Frame this replica's cached KV along ``digests`` (full chained
+        block digests) as a portable payload — the peer prefix-fetch donor
+        side. Any thread; the trie walk AND the device gather run on the
+        scheduler loop so no block can be freed or recycled mid-gather (the
+        allocator is not thread-safe, and a CRC computed over a recycled
+        block would certify garbage). None = no path at least ``min_blocks``
+        deep (or the cache is off)."""
+        if self._prefix_cache is None:
+            return None
+        digests = list(digests)
+        floor = max(1, min_blocks)
+
+        def _do():
+            blocks, tokens = self._prefix_cache.export_nodes(digests)
+            if len(blocks) < floor:
+                return None
+            return _handoff.pack_blocks(self._engine._state_manager, blocks, tokens,
+                                        extra={"kind": "prefix"})
+        return self._call_on_loop(_do, timeout=timeout)
+
+    def _import_peer_prefix(self, req: Request, have: int) -> bool:
+        """Traced wrapper around :meth:`_import_peer_prefix_inner`: the fetch
+        is a leg of the request's trace — it records under the request root
+        with the original trace id, so a cross-replica KV import shows up in
+        the merged fleet trace instead of as unexplained prefill latency."""
+        spans = self._spans
+        if spans is None:
+            return self._import_peer_prefix_inner(req, have)
+        _t0 = now_us()
+        ok = self._import_peer_prefix_inner(req, have)
+        spans.record("peer_prefix_fetch", cat="serving", ts_us=_t0,
+                     dur_us=now_us() - _t0, trace_id=req.trace_id,
+                     parent_id=req.root_span_id,
+                     args={"uid": req.uid, "have_blocks": have, "imported": ok})
+        return ok
+
+    def _import_peer_prefix_inner(self, req: Request, have: int) -> bool:
+        """Fetch KV blocks along the request's prefix chain from a fleet peer
+        (the router-installed hook) and publish them into the local trie;
+        True = the trie now indexes a deeper prefix than ``have`` blocks and
+        the caller should re-acquire. Every failure mode — transport error,
+        CRC mismatch, geometry drift, a payload whose tokens do not extend
+        THIS prompt's chain — rejects loudly and degrades to a cold prefill:
+        recompute is always correct."""
+        pc = self._prefix_cache
+        sm = self._engine._state_manager
+        notify = self._peer_fetch_notify or (lambda outcome: None)
+        try:
+            payload = self._peer_fetch(list(req._prefix_digests), have)
+        except Exception as e:
+            self._counters["peer_fetch_rejects"] += 1
+            notify("reject")
+            logger.warning(f"serving: peer prefix fetch failed: {e}")
+            return False
+        if payload is None:
+            return False
+        try:
+            header, kv = _handoff.unpack(payload)  # CRC verified here: a flipped byte
+            # in the KV region is a ValueError, never silently wrong attention
+            err = _handoff.compatibility_error(sm, header)
+            if err:
+                raise ValueError(err)
+            tokens = np.asarray(header["tokens"], np.int32)
+            if kv is None or tokens.size != kv.shape[2] * sm.kv_block_size:
+                raise ValueError("peer prefix payload is not block-aligned")
+            got = digest_chain(tokens, sm.kv_block_size)
+            if len(got) <= have or got != req._prefix_digests[:len(got)]:
+                raise ValueError("peer prefix does not extend this prompt's "
+                                 "cached chain")
+        except ValueError as e:
+            self._counters["peer_fetch_rejects"] += 1
+            notify("reject")
+            logger.warning(f"serving: rejecting peer prefix payload: {e}")
+            return False
+        needed = int(kv.shape[2])
+        while True:
+            try:
+                ids = sm.kv_cache.scatter_blocks(kv)
+                break
+            except Exception:
+                if self._engine.free_blocks >= needed:
+                    self._counters["peer_fetch_rejects"] += 1
+                    notify("reject")
+                    return False  # not a capacity problem: give up, recompute
+                if not self._evict_one({req.uid}):
+                    return False  # pool genuinely can't hold it right now
+        # publish takes trie references on the NEW nodes only; dropping the
+        # import reference then frees exactly the blocks that duplicated an
+        # already-indexed prefix
+        pc.publish(tokens, ids, int(tokens.size), digests=got)
+        sm.kv_cache.free(ids)
+        self._counters["peer_fetch_hits"] += 1
+        self._counters["peer_fetch_blocks"] += needed
+        notify("hit")
+        if self._metrics:
+            self._metrics.prefix_trie_blocks.set(pc.n_blocks)
+        return True
+
+    # ---------------------------------------------------------- prefix cache --
+    def _apply_prefix_hit(self, req: Request) -> None:
+        """Map the longest cached prefix of ``req.prompt`` into a
+        pre-populated sequence so only the suffix prefills (scheduler thread).
+
+        A *fully*-cached prompt still re-feeds its final token — the engine
+        needs one forward to produce logits — and that token's KV write lands
+        in the last matched block, which is shared read-only; that block is
+        forked copy-on-write first. When no block is free for the fork (and
+        nothing is evictable) the hit degrades by one block instead, keeping
+        the write in a fresh suffix block."""
+        pc = self._prefix_cache
+        sm = self._engine._state_manager
+        # hash the prompt exactly once per request: the same chain serves the
+        # lookup here and both publish points (prefill completion + finalize)
+        req._prefix_digests = pc.chain(req.prompt)
+        hit = pc.acquire(req.prompt, digests=req._prefix_digests)
+        if (self._peer_fetch is not None
+                and len(hit.blocks) < len(req._prefix_digests)
+                and self._import_peer_prefix(req, have=len(hit.blocks))):
+            # a peer held a deeper prefix and its blocks now live in the
+            # local trie: re-acquire over the extended index. One admission
+            # stays one lookup in the hit-rate denominator — the retry must
+            # not dilute the rate the fleet routing gate reads.
+            pc.release(hit.blocks)
+            hit = pc.acquire(req.prompt, digests=req._prefix_digests)
+            pc.lookups -= 1
+        if self._metrics:
+            self._metrics.prefix_lookups.inc()
+            self._metrics.prefix_lookup_depth.observe(len(hit.blocks))
+        if not hit.blocks:
+            return
+        blocks = list(hit.blocks)
+        seen = hit.tokens
+        try:
+            if seen >= req.prompt.size:
+                forked = self._fork_for_cow(blocks[-1], req.uid)
+                if forked is None:
+                    pc.release([blocks[-1]])
+                    blocks.pop()  # degrade: recompute the last cached block
+                    if len(blocks) < self._config.prefix_cache.min_prefix_blocks:
+                        pc.release(blocks)  # below the configured hit floor
+                        return
+                    seen = len(blocks) * sm.kv_block_size
+                else:
+                    pc.release([blocks[-1]])
+                    blocks[-1] = int(forked)
+                    seen = req.prompt.size - 1  # one last-token step, then DECODE
+            sm.create_cached_sequence(req.uid, blocks, seen)
+        except Exception:
+            # drop every reference this hit still holds (a successful fork
+            # swapped the trie ref for a private refcount-1 copy, which the
+            # same release frees) — a failed application must leak nothing
+            pc.release(blocks)
+            raise
+        req._fed = seen
+        req.cached_tokens = seen
+        pc.record_hit(len(blocks), seen)  # applied for real: now it counts
+        self._counters["prefix_hits"] += 1
+        self._counters["prefix_tokens_saved"] += seen
+        if self._metrics:
+            self._metrics.prefix_hits.inc()
+            self._metrics.prefix_tokens_saved.inc(seen)
+            self._metrics.prefix_trie_blocks.set(pc.n_blocks)
+
+    def _fork_for_cow(self, src_block: int, uid: int) -> Optional[int]:
+        """Copy-on-write fork of one shared block, evicting (trie leaves
+        first, then cold idle sequences) under KV pressure. None = the pool
+        cannot yield a block right now."""
+        kv = self._engine._state_manager.kv_cache
+        while True:
+            if kv.free_blocks >= 1:
+                return int(kv.fork_blocks([src_block])[0])
+            if not self._evict_one({uid}):
+                return None
+
+    def _publish(self, req: Request, seq, tokens, committed: int) -> None:
+        """Index ``tokens``' full KV blocks in the prefix trie. Called at two
+        points: **prefill completion** (the prompt's blocks — so concurrent
+        requests over a shared prefix hit as soon as the first one's prefill
+        lands, not only after it finishes generating) and **finalize** on DONE
+        (prompt + generated history — multi-turn reuse). Publishing is
+        idempotent per content: already-indexed prefixes just refresh LRU.
+        The admission-time digest chain is extended, not recomputed."""
+        try:
+            req._prefix_digests = self._prefix_cache.chain(
+                tokens, base=req._prefix_digests)
+            self._prefix_cache.publish(tokens, seq.kv_blocks, committed,
+                                       digests=req._prefix_digests)
+        except Exception:  # pragma: no cover - defensive: publishing is an
+            # optimization; a failure must not lose the request's result
+            logger.exception(f"serving: prefix-cache publish failed for uid {req.uid}")
+        if self._metrics:
+            self._metrics.prefix_trie_blocks.set(self._prefix_cache.n_blocks)
+
+    def _publish_finished(self, req: Request, seq) -> None:
+        """The finalize-time publish (full history, instead of letting flush
+        free the blocks). Valid positions are those whose KV was computed from
+        a *kept* token: chunked decode commits discarded over-run tokens past
+        the history, so the committed count is capped at the kept length."""
+        history = np.concatenate(
+            [req.prompt, np.asarray(req.tokens, np.int32)]) if req.tokens else req.prompt
+        self._publish(req, seq, history, min(seq.seen_tokens, history.size))
+
     def _permanently_infeasible(self, req: Request) -> Optional[str]:
         """A reason this request can NEVER be scheduled, or None. Failing at
         admission beats starving it forever against budgets that will not
         change."""
         sm = self._engine._config.state_manager
+        if req._resume_header is not None:
+            err = _handoff.compatibility_error(self._engine._state_manager, req._resume_header)
+            if err:
+                return err
+            if int(req._resume_header["seen_tokens"]) + 1 > sm.max_context:
+                return (f"handed-off sequence has "
+                        f"{req._resume_header['seen_tokens']} committed tokens; "
+                        f"max_context={sm.max_context} leaves no room to decode")
+            if req._rehydrate and req.prompt.size + 1 > sm.max_context:
+                return (f"rehydrate prompt of {req.prompt.size} tokens exceeds "
+                        f"max_context={sm.max_context} (room for at least one "
+                        f"generated token is required)")
+            return None
         if req.prompt.size + 1 > sm.max_context:
             return (f"prompt of {req.prompt.size} tokens exceeds max_context="
                     f"{sm.max_context} (room for at least one generated token "
@@ -745,10 +1246,30 @@ class ServingScheduler:
         return plan
 
     def _evict_one(self, exclude_uids) -> bool:
-        """Free device KV blocks under pressure: offload the coldest idle
-        engine-resident sequence (not in the batch being built), which
-        restores transparently when next touched. Returns False when nothing
-        is evictable."""
+        """Free device KV blocks under pressure: evict an unreferenced prefix-
+        trie leaf (LRU) first — reclaiming cached-but-idle state costs nothing
+        live — then fall back to offloading the coldest idle engine-resident
+        sequence (not in the batch being built), which restores transparently
+        when next touched. Returns False when nothing is evictable.
+
+        With the tier ladder on, *demotion* runs ahead of the eviction
+        ladder: a demoted trie node keeps its KV (host tier, promotes back on
+        the next hit) where an evicted leaf recomputes from scratch."""
+        if self._kv_tiers is not None and self._prefix_cache is not None:
+            freed = self._prefix_cache.demote(1)
+            if freed:
+                self._counters["tier_demotions"] += freed
+                if self._metrics:
+                    self._metrics.kv_tier_demotions.inc(freed)
+                return True
+        if self._prefix_cache is not None:
+            freed = self._prefix_cache.evict(1)
+            if freed:
+                self._counters["prefix_evictions"] += freed
+                if self._metrics:
+                    self._metrics.prefix_evictions.inc(freed)
+                    self._metrics.prefix_trie_blocks.set(self._prefix_cache.n_blocks)
+                return True
         engine = self._engine
         candidates = []
         for req in self._active.values():
@@ -859,12 +1380,17 @@ class ServingScheduler:
 
     def _advance_prefill(self, req: Request, toks: np.ndarray, last_row) -> None:
         """Account one executed prefill chunk; on the final chunk: flip to
-        DECODE and emit the first token from the chunk's final-position
-        logits."""
+        DECODE, publish the prompt's blocks (peers sharing the prefix are
+        likely already queued behind it — the burst shape), and emit the
+        first token from the chunk's final-position logits."""
         req._fed += toks.size
         if req._fed < req.prompt.size:
             return  # mid-prefill logits are meaningless
         req._set_state(RequestState.DECODE)
+        if self._prefix_cache is not None:
+            seq = self._engine._state_manager.get_sequence(req.uid)
+            if seq is not None:
+                self._publish(req, seq, req.prompt, seq.seen_tokens)
         nxt = self._sample(req, last_row)
         self._push_token(req, nxt)
         if not req.finished:
@@ -938,6 +1464,54 @@ class ServingScheduler:
     _FINAL_COUNTER = {RequestState.DONE: "completed", RequestState.CANCELLED: "cancelled",
                       RequestState.TIMED_OUT: "timed_out", RequestState.FAILED: "failed"}
 
+    def _export_handoff(self, req: Request) -> bytes:
+        """Portable continuation payload for a DONE handoff-requested request:
+        full token history, KV blocks, next decode input and the sampler's
+        exact RNG state — everything :meth:`submit_resume` on a decode-role
+        peer needs to continue token-identically. Runs on the scheduler
+        thread, before the sequence's KV is flushed. It carries no drafter
+        state: speculative decoding is A5b."""
+        extra = {"generated": len(req.tokens)}
+        if req.finish_reason == "length" and req.tokens:
+            # an eos/context finish is not continuable; length means the donor
+            # stopped at ITS cap with the last kept token as the next input
+            extra["next_token"] = int(req.tokens[-1])
+        if req._rng is not None:
+            extra["rng_state"] = req._rng.bit_generator.state
+        # the dispatch count rides every handoff (tokens-per-step accounting
+        # must survive the migration whether or not the donor ever drafted)
+        extra["decode_steps"] = req.decode_steps
+        tokens = [int(t) for t in req.prompt.tolist()] + [int(t) for t in req.tokens]
+        # chunked greedy decode feeds the device ahead of the kept history (a
+        # mid-chunk cap leaves the last kept token — and discarded over-run —
+        # already committed). Export seen = history-1 so the recipient re-feeds
+        # the last token: deterministic, same KV values into the same slot,
+        # and the continuation stays exactly aligned.
+        return self._engine.export_sequence(req.uid, tokens=tokens, extra=extra,
+                                            seen_tokens=len(tokens) - 1)
+
+    def _export_park(self, req: Request) -> bytes:
+        """Version-2 park frame for a finished park-requested request: the
+        handoff export plus a versioned ``tier`` record (which tier the KV
+        was resident on at finish — what the rehydrate response reports).
+        Unlike a handoff, an eos finish IS parkable: the next turn continues
+        from the full history via a rehydrate prompt, not from ``next_token``.
+        The parked ``rng_state`` is informational — a rehydrate samples on
+        its own seed so the returning turn matches a cold run bitwise."""
+        sm = self._engine._state_manager
+        source = sm.sequence_tier(req.uid)  # capture BEFORE export restores
+        extra = {"generated": len(req.tokens),
+                 "decode_steps": req.decode_steps,
+                 "tier": {"v": _handoff.TIER_FIELD_VERSION, "source": source}}
+        if req.finish_reason == "length" and req.tokens:
+            extra["next_token"] = int(req.tokens[-1])
+        if req._rng is not None:
+            extra["rng_state"] = req._rng.bit_generator.state
+        tokens = [int(t) for t in req.prompt.tolist()] + [int(t) for t in req.tokens]
+        return self._engine.export_sequence(req.uid, tokens=tokens, extra=extra,
+                                            seen_tokens=len(tokens) - 1,
+                                            version=_handoff.PARK_VERSION)
+
     def _finalize(self, req: Request, state: RequestState, error: Optional[str] = None) -> None:
         """Terminal transition on the scheduler thread: free engine state
         (tracked OR offloaded KV), close the stream, account."""
@@ -946,7 +1520,41 @@ class ServingScheduler:
         req.error = error
         if req.uid is not None:
             self._active.pop(req.uid, None)
-            if self._engine._state_manager.get_sequence(req.uid) is not None:
+            seq = self._engine._state_manager.get_sequence(req.uid)
+            if seq is not None:
+                if (state is RequestState.DONE and req.handoff_requested
+                        and req.finish_reason == "length" and req.tokens):
+                    # export BEFORE flushing: the payload reads the sequence's
+                    # live KV blocks (fleet prefill→decode handoff). An eos/
+                    # context finish is not continuable — exporting it would
+                    # device_get the whole KV only for the router to discard it
+                    try:
+                        req.handoff_payload = self._export_handoff(req)
+                    except Exception:  # pragma: no cover - defensive: a failed
+                        # export degrades to a non-continuable response
+                        logger.exception(f"serving: handoff export failed for "
+                                         f"uid {req.uid}")
+                if (state is RequestState.DONE and req.park_requested
+                        and req.finish_reason in ("length", "eos")
+                        and req.tokens):
+                    # park BEFORE flushing, same reason as the handoff export;
+                    # eos finishes park too (a multi-turn session's next turn
+                    # rehydrates with a longer prompt, no next_token needed)
+                    try:
+                        req.park_payload = self._export_park(req)
+                        self._counters["parks"] += 1
+                    except Exception:  # pragma: no cover - defensive: a failed
+                        # park degrades to a cold next turn
+                        logger.exception(f"serving: park export failed for "
+                                         f"uid {req.uid}")
+                if (self._prefix_cache is not None and state is RequestState.DONE
+                        and not self._engine.is_offloaded(req.uid)):
+                    # publish BEFORE flushing: the trie takes references on the
+                    # full blocks, so flush's decref leaves them cached instead
+                    # of freed (an offloaded sequence's table is stale — its
+                    # device blocks were already returned — so it cannot
+                    # publish)
+                    self._publish_finished(req, seq)
                 self._engine.flush(req.uid)  # returns KV blocks (incl. offloaded)
         req._set_state(state)
         self._counters[self._FINAL_COUNTER[state]] += 1
@@ -963,7 +1571,7 @@ class ServingScheduler:
                                "prompt_tokens": int(req.prompt.size),
                                "cached_tokens": req.cached_tokens,
                                "generated": len(req.tokens),
-                               "resumed": False})
+                               "resumed": req._resume_header is not None})
         if self._metrics:
             {RequestState.DONE: self._metrics.completions,
              RequestState.CANCELLED: self._metrics.cancellations,
@@ -1042,6 +1650,11 @@ class ServingScheduler:
             self._finalize(self._queue.popleft(), RequestState.FAILED, error=error)
         self._shutdown = True
         self._killed = True
+        self._fail_control()  # waiters observe the death, not a timeout
+        if self._prefix_cache is not None:
+            self._prefix_cache.clear()  # unpin the trie's blocks
+            if self._metrics:
+                self._metrics.prefix_trie_blocks.set(0)
         if getattr(self._engine, "_serving_scheduler", None) is self:
             self._engine._serving_scheduler = None
         self._attach_flight(None)
@@ -1076,10 +1689,18 @@ class ServingScheduler:
                     time.sleep(self._config.scheduler_tick_s)
         # cancel whatever drain didn't finish (scheduler thread is dead, so
         # touching the engine from here is safe)
+        self._fail_control()
         for req in list(self._active.values()):
             self._finalize(req, RequestState.CANCELLED)
         while self._queue:
             self._finalize(self._queue.popleft(), RequestState.CANCELLED)
+        if self._prefix_cache is not None:
+            # unpin the trie's blocks: a stopped scheduler leaves the engine's
+            # KV pool exactly as it found it (shared blocks survive until any
+            # still-tracked sequence flushes)
+            self._prefix_cache.clear()
+            if self._metrics:
+                self._metrics.prefix_trie_blocks.set(0)
         if getattr(self._engine, "_serving_scheduler", None) is self:
             self._engine._serving_scheduler = None
         self._attach_flight(None)
@@ -1094,7 +1715,8 @@ class ServingScheduler:
     # ----------------------------------------------------------------- stats --
     @property
     def queue_depth(self) -> int:
-        # an in-admission request (popped) still counts as pending work
+        # an in-admission request (popped, importing) still counts as pending
+        # work: drain budgets and least-loaded dispatch must not miss it
         return len(self._queue) + (1 if self._admitting is not None else 0)
 
     @property
@@ -1126,7 +1748,7 @@ class ServingScheduler:
             "age_s": now - req.arrival_s,
             "ttft_s": req.ttft_s,
             "trace_id": req.trace_id,
-            # cost-to-date: the cost ledger is A5, so always None here
+            # cost-to-date: the cost ledger is A5c, so always None here
             "cost": None,
         }
 
@@ -1145,7 +1767,7 @@ class ServingScheduler:
 
     def usage(self) -> dict:
         """The ``/v1/usage`` document: ``{"enabled": False}`` (the cost ledger
-        is A5), plus the fair-share posture when that stage is on."""
+        is A5c), plus the fair-share posture when that stage is on."""
         doc = {"enabled": False}
         if self._fair_share is not None:
             doc["fair_share"] = self._fair_share.doc()
@@ -1156,10 +1778,19 @@ class ServingScheduler:
         return self._stats_doc(queued, active)
 
     def _stats_doc(self, queued: List[Request], active: List[Request]) -> dict:
-        # the reference's document, key for key; the A5/A6 blocks (prefix
-        # cache, speculative, KV tiers, perf, time series, SLO) are None, as
-        # the reference reports them with those features off
+        # the reference's document, key for key; the A5b/A5c/A6 blocks
+        # (speculative, perf, time series, SLO) are None, as the reference
+        # reports them with those features off
         now = time.monotonic()
+        prefix_stats = None
+        if self._prefix_cache is not None:
+            prefix_stats = self._prefix_cache.stats()
+            # the router hashes a request's chain with the replica's block
+            # size — it must ride the same doc as the digest catalog
+            prefix_stats["block_size"] = self._engine._state_manager.kv_block_size
+            digests = self.prefix_digest_catalog()
+            if digests is not None:
+                prefix_stats["digests"] = digests
         return {
             "queue_depth": len(queued),
             "active": {
@@ -1175,9 +1806,10 @@ class ServingScheduler:
                 "capacity_blocks": self._capacity_blocks,
                 "tracked_sequences": self._engine._state_manager.n_tracked_sequences,
             },
-            "prefix_cache": None,
+            "prefix_cache": prefix_stats,
             "speculative": None,
-            "kv_tiers": None,
+            "kv_tiers": (self._kv_tiers.stats(self._prefix_cache)
+                         if self._kv_tiers is not None else None),
             "usage": self.usage(),
             "perf": None,
             "timeseries": None,

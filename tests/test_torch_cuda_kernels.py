@@ -421,3 +421,66 @@ def test_serving_scheduler_launches_the_paged_kernel_from_its_thread(cuda_device
         assert box["out"] == generate(engine, prompts, max_new_tokens=9, decode_chunk=4)
     finally:
         transformer_base.paged_attention_update = inner
+
+
+@pytest.mark.cuda
+def test_hot_suffix_over_shared_blocks_launches_the_paged_kernel(cuda_device):
+    """The prefix cache on the card: a publisher's two full blocks, then two
+    prompts over them whose suffixes (with the running decode) make puts of
+    at most 32 tokens, and the bare prefix (a copy-on-write fork). Each hot
+    put launches B1 (2 launches a layer), the blocks shared with the trie
+    keep their bytes, and after stop the pool is whole."""
+    from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import (AllocationMode, DSStateManagerConfig,
+                                                                         MemoryConfig)
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_params
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.serving import PrefixCacheConfig, ServingConfig, ServingScheduler
+
+    cfg = LlamaConfig.tiny(dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device,
+                         dtype=torch.bfloat16)
+    mgr = DSStateManagerConfig(memory_config=MemoryConfig(mode=AllocationMode.ALLOCATE, size=64), max_context=512)
+    engine = build_engine(params, cfg, RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=16),
+                          device=cuda_device)
+    sched = ServingScheduler(engine, ServingConfig(prefix_cache=PrefixCacheConfig(enabled=True)), start=False)
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(0, cfg.vocab_size, 32).tolist()
+    puts = []
+    inner = engine.put
+
+    def put(uids, tokens, **kw):
+        before = pa.paged_attention_update.launches
+        out = inner(uids, tokens, **kw)
+        puts.append(([len(t) for t in tokens], pa.paged_attention_update.launches - before))
+        return out
+
+    engine.put = put
+
+    def run(reqs):
+        for _ in range(200):
+            if all(r.finished for r in reqs):
+                return
+            sched.step()
+        raise AssertionError("requests did not finish")
+
+    try:
+        run([sched.submit(prefix + rng.integers(0, cfg.vocab_size, 5).tolist(), max_new_tokens=4)])
+        trie = sorted(n.block for n in sched._prefix_cache._by_digest.values())
+        index = torch.tensor(trie, device=cuda_device)
+        shared = engine._state_manager.kv_cache.cache[:, :, index].clone()
+        first = sched.submit(prefix + rng.integers(0, cfg.vocab_size, 9).tolist(), max_new_tokens=6)
+        sched.step()
+        second = sched.submit(prefix + rng.integers(0, cfg.vocab_size, 12).tolist(), max_new_tokens=6)
+        bare = sched.submit(prefix, max_new_tokens=6)
+        run([first, second, bare])
+        assert (first.cached_tokens, second.cached_tokens, bare.cached_tokens) == (32, 32, 31)
+        hot = [launches for lens, launches in puts if any(n in (9, 12) for n in lens)]
+        assert len(hot) == 2 and all(n == 2 * cfg.num_hidden_layers for n in hot)
+        torch.cuda.synchronize()
+        after = engine._state_manager.kv_cache.cache[:, :, index]
+        assert torch.equal(after.view(torch.int16), shared.view(torch.int16))
+    finally:
+        sched.stop(drain=False)
+    assert engine.free_blocks == 64

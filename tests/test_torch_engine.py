@@ -227,8 +227,9 @@ def test_unported_features_are_refused(setup):
     ec = RaggedInferenceEngineConfig.from_dict({"tp": {"tp_size": 2}})
     with pytest.raises(NotImplementedError, match="tensor_parallel"):
         build_engine(params, cfg, ec, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):  # KV offload to disk
-        build_engine(params, cfg, _port_config(offload=True), device="cpu")
+    eng = build_engine(params, cfg, _port_config(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A5b"):  # sampled decode_loop
+        eng.decode_loop([0], [[1]], 2, temperature=0.7)
     # sampled generate runs through the serving scheduler (seeded per request)
     eng = build_engine(params, cfg, _port_config(), device="cpu")
     sampled = generate(eng, [[1, 2]], max_new_tokens=3, temperature=0.7, seed=4)

@@ -43,7 +43,10 @@ def test_port_and_chip_smoke_import_no_jax_flax_pydantic_or_reference():
         assert f"deepspeed_tpu_torch.telemetry.{name}" in result["imported"]
     for name in ("overload", "request", "config", "metrics", "scheduler", "server"):
         assert f"deepspeed_tpu_torch.serving.{name}" in result["imported"]
-    assert "deepspeed_tpu_torch.inference.v2.ragged.tiering" in result["imported"]
+    for name in ("tiering", "prefix_cache", "handoff"):
+        assert f"deepspeed_tpu_torch.inference.v2.ragged.{name}" in result["imported"]
+    assert "deepspeed_tpu_torch.serving.kv_tiers" in result["imported"]
+    assert "deepspeed_tpu_torch.ops.aio.aio_op" in result["imported"]
     assert result["banned"] == []
 
 

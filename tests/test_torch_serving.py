@@ -18,10 +18,13 @@ bytes must be equal with only ``MASKED`` fields replaced (and SSE keepalive
 comments, which only timing decides, dropped). The rest mirrors
 ``tests/unit/serving/test_{request,scheduler,server,overload}.py`` on the
 port's engine (one test per ported path; repeats are parametrised), and
-checks that every A5/A6 path raises, naming its queue item. Every wait on a
+checks that every path still unported (A5b, A5c, A6) raises, naming its
+queue item. The handoff, park, resume and prefix-export routes are held to
+the reference's bytes too, with frames compared by header. Every wait on a
 thread has a timeout.
 """
 
+import base64
 import json
 import queue
 import socket
@@ -39,7 +42,9 @@ from deepspeed_tpu import serving as jserving
 from deepspeed_tpu import telemetry as jtel
 from deepspeed_tpu.inference.v2 import config_v2 as j_config
 from deepspeed_tpu.inference.v2 import engine_factory as j_factory
+from deepspeed_tpu.inference.v2.ragged import handoff as j_handoff
 from deepspeed_tpu.inference.v2.ragged import manager_configs as j_mc
+from deepspeed_tpu.inference.v2.ragged import prefix_cache as j_prefix
 from deepspeed_tpu.serving import request as j_request
 from deepspeed_tpu_torch import serving as tserving
 from deepspeed_tpu_torch import telemetry as ttel
@@ -53,6 +58,7 @@ from deepspeed_tpu_torch.serving import (AdmissionRejected, BrownoutController, 
                                          ServingServer)
 from deepspeed_tpu_torch.serving import request as t_request
 from deepspeed_tpu_torch.serving.config import CostConfig, OverloadConfig
+from deepspeed_tpu_torch.serving.server import HANDOFF_CONTENT_TYPE
 from tests.torch_port_helpers import jax_params, jax_tiny, port_config, port_params
 
 MAX_STEPS = 400  # safety bound for manual stepping loops
@@ -914,6 +920,84 @@ def test_server_responses_equal_the_reference_bytes(setup, make_engine):
             srv.stop(drain=False)
 
 
+def _frame_view(frame: bytes):
+    """A handoff frame with its KV region left out: the header without its
+    CRC, and the KV byte count. The KV is each engine's own f32 rounding, so
+    it is held to the reference by value in ``tests/test_torch_handoff.py``
+    and masked here like the times."""
+    header, kv = j_handoff.unpack(frame)
+    header.pop("kv_crc32", None)
+    return {"header": header, "kv_bytes": 0 if kv is None else kv.nbytes}
+
+
+def _handoff_exchange(url, method, path, body=None, headers=None):
+    """``_exchange`` that also reads raw frames: a frame body, and the
+    base64 ``handoff``/``park`` fields of a JSON document, become
+    ``_frame_view``s."""
+    raw = body if isinstance(body, bytes) else json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url + path, data=raw, method=method,
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        resp = urllib.request.urlopen(req, timeout=WAIT_S)
+    except urllib.error.HTTPError as e:
+        resp = e
+    with resp:
+        ctype, data = resp.headers["Content-Type"], resp.read()
+    status = resp.status if hasattr(resp, "status") else resp.code
+    if ctype == HANDOFF_CONTENT_TYPE:
+        return status, ctype, _frame_view(data), data
+    doc = json.loads(data)
+    frames = {k: base64.b64decode(doc[k]) for k in ("handoff", "park") if k in doc}
+    for k, frame in frames.items():
+        doc[k] = _frame_view(frame)
+    return status, ctype, json.dumps(_mask(doc)), frames
+
+
+def test_handoff_park_resume_and_prefix_routes_equal_the_reference_bytes(setup, make_engine):
+    """The A5 routes on both servers (prefix cache on): ``handoff`` and
+    ``park`` flags, a claim-once ``GET /v1/handoff/<ref>``,
+    ``POST /v1/prefix/export``, and ``POST /v1/resume`` with the JAX
+    server's frames as base64 JSON, as a raw body, and as a rehydrate; every
+    refusal too. Status, content type and body equal, with MASKED fields
+    replaced and frames compared by header."""
+    cfg = {"prefix_cache": {"enabled": True}}
+    servers = {"jax": jserving.ServingServer(jserving.ServingScheduler(_jax_engine(setup),
+                                                                       jserving.ServingConfig(**cfg))).start(),
+               "port": ServingServer(ServingScheduler(make_engine(), ServingConfig.from_dict(cfg))).start()}
+    prompt = list(range(40))
+    ref = {"X-DSTPU-Handoff-Transport": "ref"}
+    try:
+        def both(method, path, body=None, headers=None):
+            got = {k: _handoff_exchange(srv.url, method, path, body, headers) for k, srv in servers.items()}
+            assert got["port"][:3] == got["jax"][:3], (method, path)
+            return got["jax"][3]
+
+        frames = both("POST", "/v1/generate", {"prompt": prompt, "max_new_tokens": 3, "handoff": True})
+        handoff = frames["handoff"]
+        park = both("POST", "/v1/generate", {"prompt": prompt, "max_new_tokens": 4, "park": True})["park"]
+        both("POST", "/v1/generate", {"prompt": prompt[:20], "max_new_tokens": 2, "handoff": True}, ref)
+        both("GET", "/v1/handoff/h0")
+        both("GET", "/v1/handoff/h0")  # claimed once: 404
+        chain = [d.hex() for d in j_prefix.digest_chain(prompt, 16)]
+        both("POST", "/v1/prefix/export", {"digests": chain})
+        both("POST", "/v1/prefix/export", {"digests": chain, "min_blocks": 3})  # deeper than cached: 404
+        both("POST", "/v1/prefix/export", {"digests": ["zz"]})
+        both("POST", "/v1/resume", {"payload": base64.b64encode(handoff).decode(), "max_new_tokens": 3})
+        both("POST", "/v1/resume", handoff,
+             {"Content-Type": HANDOFF_CONTENT_TYPE, "X-DSTPU-Params": json.dumps({"max_new_tokens": 2})})
+        both("POST", "/v1/resume", {"payload": base64.b64encode(park).decode(), "prompt": prompt + [1, 2, 3, 4, 5, 6],
+                                    "max_new_tokens": 2})
+        corrupt = bytearray(handoff)
+        corrupt[-7] ^= 1
+        both("POST", "/v1/resume", bytes(corrupt), {"Content-Type": HANDOFF_CONTENT_TYPE})
+        both("POST", "/v1/resume", {"payload": base64.b64encode(park).decode(), "prompt": prompt[:3]})
+        both("POST", "/v1/resume", {"max_new_tokens": 2})
+        both("GET", "/v1/stats")
+    finally:
+        for srv in servers.values():
+            srv.stop(drain=False)
+
+
 @pytest.fixture
 def server(make_engine):
     engine = make_engine()
@@ -1053,11 +1137,9 @@ def test_graceful_drain_and_healthz_readiness(make_engine):
 
 # ---------------------------------------------------------------- refusals --
 @pytest.mark.parametrize("config,item", [
-    ({"prefix_cache": {"enabled": True}}, "A5"),
-    ({"speculative": {"enabled": True}}, "A5"),
-    ({"kv_tiers": {"enabled": True}}, "A5"),
+    ({"speculative": {"enabled": True}}, "A5b"),
     ({"overload": {"slo_pressure": True}}, "A6"),
-], ids=["prefix_cache", "speculative", "kv_tiers", "slo_pressure"])
+], ids=["speculative", "slo_pressure"])
 def test_unported_serving_configs_are_refused(make_engine, config, item):
     engine = make_engine()
     with pytest.raises(NotImplementedError, match=item):
@@ -1067,34 +1149,25 @@ def test_unported_serving_configs_are_refused(make_engine, config, item):
 
 def test_cost_ledger_with_telemetry_is_refused(make_engine):
     ttel.configure({"enabled": True})
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A5c"):
         ServingScheduler(make_engine(), ServingConfig(), start=False)
     ServingScheduler(make_engine(), ServingConfig(cost=CostConfig(enabled=False)), start=False).stop()
 
 
 def test_unported_scheduler_calls_are_refused(make_engine):
-    from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache
     engine = make_engine()
     sched = ServingScheduler(engine, ServingConfig(), start=False)
-    for call, item in ((lambda: sched.submit([1], handoff=True), "A5"), (lambda: sched.submit([1], park=True), "A5"),
-                       (lambda: sched.submit_resume(b"x"), "A5"), (lambda: sched.export_prefix([b"d"]), "A5"),
-                       (lambda: sched.request_steal("r0"), "A6"),
-                       (lambda: engine._state_manager.kv_cache.configure_tiering("/nowhere"), "A5"),
-                       (lambda: make_engine(offload=True), "A5")):
+    for call, item in ((lambda: sched.request_steal("r0"), "A6"),
+                       (lambda: engine.decode_loop([0], [[1]], 2, temperature=0.5), "A5b")):
         with pytest.raises(NotImplementedError, match=item):
             call()
-    assert sched.queue_depth == 0 and isinstance(engine._state_manager.kv_cache, BlockedKVCache)
+    assert sched.queue_depth == 0 and engine._state_manager.n_tracked_sequences == 0
     sched.stop(drain=False)
 
 
 @pytest.mark.parametrize("method,path,body,item", [
-    ("POST", "/v1/resume", {"payload": "AAAA"}, "A5"),
-    ("POST", "/v1/generate", {"prompt": [1, 2], "handoff": True}, "A5"),
-    ("POST", "/v1/generate", {"prompt": [1, 2], "park": True}, "A5"),
-    ("POST", "/v1/prefix/export", {"digests": []}, "A5"),
-    ("GET", "/v1/handoff/h0", None, "A5"),
     ("POST", "/v1/steal", {"handle": "r0"}, "A6"),
-], ids=["resume", "handoff_flag", "park_flag", "prefix_export", "handoff_ref", "steal"])
+], ids=["steal"])
 def test_unported_routes_answer_400_naming_the_item(server, method, path, body, item):
     srv, _ = server
     status, ctype, doc = _exchange(srv.url, method, path, body)

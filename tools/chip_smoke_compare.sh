@@ -3,7 +3,7 @@
 # change, change, parent, so that the card's drift between runs shows as a
 # difference within one tree rather than between the trees.
 #
-#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|MODE,MODE...]
+#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|MODE,MODE...]
 #
 # Each run's output goes to chiprun_out/smoke_<i>_<tree>.log and its full
 # record to chiprun_out/smoke_<i>_<tree>.json, under the directory the script
@@ -16,7 +16,10 @@
 # and B5's times beside its bound, SDPA with the mask and dense B2); with
 # "kernels", paged and flash; with "main", only the main path (run_main_path:
 # Llama-2-7B through generate, its rates and generate's wall time per run);
-# modes joined by commas run each. The exit code
+# with "prefix", the main path (for its logit errors, the teacher-forced
+# tolerance) and the prefix phase (run_prefix_path: TTFT cold and hot, B1's
+# launches in hot puts, handoff and disk-tier rates); modes joined by commas
+# run each. The exit code
 # is the last failing run's, else 0.
 set -u
 parent=$(cd "$1" && pwd)
@@ -38,11 +41,23 @@ if "flash" in modes:
     r = c.check_flash_attention(dev)
     print(json.dumps([dict(case=x["case"], err=x["max_abs_err"], **{k: x[k]["ms"] for k in ("fwd", "dkv", "dq")})
                       for x in r]))
+if "main" in modes or "prefix" in modes:
+    params = c.main_params(dev)
+    main = c.run_main_path(dev, params)
 if "main" in modes:
-    r = c.run_main_path(dev)
+    r = main
     print(json.dumps(dict({k: r[k] for k in ("prefill_tokens_per_s", "decode_tokens_per_s", "ms_per_decode_step",
                                              "paged_attention_launches")},
                           generate_wall_s=[x["wall_s"] for x in r["runs"]])))
+if "prefix" in modes:
+    r = c.run_prefix_path(dev, params, main)
+    h, d = r["handoff"], r["disk_tier"]["round_trip"]
+    print(json.dumps(dict({k: r[k] for k in ("ttft_cold_s", "ttft_staggered_p50_s", "ttft_staggered_p99_s",
+                                             "ttft_burst_p50_s", "ttft_burst_p99_s", "prefill_tokens_avoided",
+                                             "staggered_tokens_per_s", "burst_tokens_per_s", "b1_launches_hot_puts",
+                                             "device_busy_share_profiled_burst")},
+                          export_ms=h["export_ms"], import_ms=h["import_ms"], claim_http_ms=h["claim_http_ms"],
+                          demote_gb_per_s=d["demote_gb_per_s"], promote_gb_per_s=d["promote_gb_per_s"])))
 if "sparse" in modes:
     r = c.check_block_sparse_attention(dev)
     keys = ("case", "density", "max_abs_err", "tol_use", "ms", "ms_index_order", "ms_sorted_again", "ms_split_steps",
