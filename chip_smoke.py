@@ -59,7 +59,25 @@ Phases (any failure raises and the script exits non-zero):
    ladder spilling to disk (every restore bit-exact) and a sequence through
    offload_path and the native AIO engine; every served greedy token
    teacher-forced, each check with a control it must reject;
-7. training path: train bench.py's headline program (the 530M Llama, full
+7. speculative path: from the same weights, 8 prompts with repeated n-grams
+   (random patterns tiled to 20-1536 tokens): the engine's greedy verify feeds
+   of 1-4 drafts from the spec-off continuation, a rejected feed rolled back,
+   finite garbage in every slot past the committed count (the next verify and
+   decode logits bitwise unchanged through B1 and the gather branch), trees
+   on a short context (a chain, two branches, compaction of an accepted
+   branch) held to the dense f32 model and to linear verify, and one
+   full-width verify_tree (8 trees of 8 nodes: its time and peak memory);
+   the 8 prompts served over HTTP with speculation off, with prompt lookup
+   at a 24-token draft budget (every verify through B1) and at the default
+   budget, and hand-stepped with an oracle drafter (acceptance over 0.9,
+   verify dispatches at most half of spec-off's decode dispatches); the
+   learned drafter and auto (one fresh head at Llama-2-7B width: host ms a
+   draft); sampled decode_loop (seeded draws, each draw's f32 probability
+   above a floor, temperature 1e-6 inside the argmax set, a chi-square test
+   of the sampler); a handoff whose frame carries the drafter state into a
+   second engine; every served greedy token teacher-forced, each check with
+   a control it must reject;
+8. training path: train bench.py's headline program (the 530M Llama, full
    width and depth, S=1024, micro-batch 8, GAS 8, AdamW, bf16 over f32
    masters, ZeRO stage 3, remat "dots", flash attention) through
    deepspeed_tpu_torch.initialize + train_batch, with the flash kernels'
@@ -69,7 +87,7 @@ Phases (any failure raises and the script exits non-zero):
    projections' gradients, through the kernels and through plain attention
    in bf16, to the same step in f32, and show that the check rejects the
    kernel step with dq, or dk and dv, zeroed or with attention replaced;
-8. print one JSON line describing every kernel, then the result line.
+9. print one JSON line describing every kernel, then the result line.
 
 The script imports the port only (never jax or deepspeed_tpu), needs one
 GPU, and writes its full record to chiprun_out/chip_smoke.json.
@@ -94,7 +112,9 @@ from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine, genera
 from deepspeed_tpu_torch.inference.v2.model_implementations import transformer_base
 from deepspeed_tpu_torch.inference.v2.ragged.handoff import CONTENT_TYPE as HANDOFF_CONTENT_TYPE
 from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import DSStateManagerConfig, MemoryConfig
+from deepspeed_tpu_torch.inference.v2.model_implementations.transformer_base import sample_categorical
 from deepspeed_tpu_torch.inference.v2.ragged.prefix_cache import digest_chain
+from deepspeed_tpu_torch.inference.v2.spec import TokenTree
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, LlamaModel, init_params
 from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops import builder
@@ -105,7 +125,7 @@ from deepspeed_tpu_torch.ops.paged_attention import paged_attention_update, page
 from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig, FixedSparsityConfig, SparseSelfAttention,
                                                       layout_to_dense_mask)
 from deepspeed_tpu_torch.serving import (KVTierConfig, PrefixCacheConfig, ServingConfig, ServingScheduler,
-                                         ServingServer)
+                                         ServingServer, SpeculativeConfig)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -2016,6 +2036,741 @@ def run_prefix_path(dev, params, main) -> dict:
 
 
 # ----------------------------------------------------------------- phase 7 --
+# speculative decoding on the main path's engine: 8 prompts with repeated
+# n-grams (a random 8-16-token pattern tiled to PROMPT_LENS + SPEC_OFFSET),
+# NEW_TOKENS greedy tokens each. The offset puts each prompt's end 40 tokens
+# into a block, so a finished request publishes that block with 24 of its
+# generated tokens, and the same prompt served again drafts them from the
+# prefix trie. A verify feed of 8 decodes + 24 drafts fits a 32-token
+# bucket and goes through B1; the default budget (8 x (1 + 4) = 40, bucket 64)
+# takes the gather branch
+SPEC_K = 4  # SpeculativeConfig.max_draft_tokens' default
+SPEC_OFFSET = 40
+SPEC_CONTROL_PROMPTS = 2  # the wrong-token oracle control's requests
+SPEC_B1_BUDGET = 24
+SPEC_TREE_NODES = 8  # the full-width verify_tree: 8 trees of 8 nodes (T = 64)
+SPEC_SHORT_PROMPT, SPEC_LONG_BRANCH = 6, 20  # the tree and compaction checks' context
+LEARNED_REQUESTS, LEARNED_NEW_TOKENS = 2, 8
+# sampled decode_loop: SAMPLE_STEPS steps for the 8 sequences at
+# SAMPLE_TEMPERATURE; every draw's probability under the dense f32 model must
+# be at least SAMPLE_FLOOR_ALPHA / (vocab x draws), so a correct sampler fails
+# the check with probability at most SAMPLE_FLOOR_ALPHA (0.1%) (a draw lands
+# on tokens of total probability at most vocab x floor)
+SAMPLE_STEPS, SAMPLE_TEMPERATURE, SAMPLE_FLOOR_ALPHA = 16, 0.3, 1e-3
+# chi-square of CHI2_DRAWS draws of one real logits row at SAMPLE_TEMPERATURE,
+# binned into its 15 likeliest tokens and the rest: 15 degrees of freedom,
+# critical value 37.70 at p = 0.001
+CHI2_DRAWS, CHI2_CHUNK, CHI2_CRITICAL = 100_000, 10_000, 37.70
+
+
+def _spec_prompts(cfg, rng):
+    """Prompt i: a random pattern of 8-16 tokens tiled to PROMPT_LENS[i] +
+    SPEC_OFFSET tokens."""
+    out = []
+    for n in PROMPT_LENS:
+        n += SPEC_OFFSET
+        pattern = rng.integers(0, cfg.vocab_size, int(rng.integers(8, 17))).tolist()
+        out.append((pattern * (n // len(pattern) + 1))[:n])
+    return out
+
+
+def _put_prompt(engine, uid, prompt):
+    """Prefill ``prompt`` as ``uid`` in puts of the token budget; the last
+    put's f32 logits row."""
+    chunk = engine.config.state_manager.max_ragged_batch_size
+    for start in range(0, len(prompt), chunk):
+        logits = engine.put([uid], [prompt[start:start + chunk]])
+    return logits[0].float()
+
+
+class _OracleDrafter:
+    """Proposes the spec-off run's own next tokens while the request's history
+    is a prefix of that run's history, else nothing: acceptance is then
+    certain whatever the random weights do (where bf16 verify and decode
+    logits agree)."""
+
+    def __init__(self, prompts, continuations, skip=0):
+        self._runs = [list(p) + list(c) for p, c in zip(prompts, continuations)]
+        self._skip = skip  # the control's wrong drafts: the run's tokens `skip` further on
+
+    def draft(self, history, k, digests=None):
+        history = [int(t) for t in history]
+        for run in self._runs:
+            if len(history) < len(run) and run[:len(history)] == history:
+                start = len(history) + self._skip
+                return np.asarray(run[start:start + k], np.int32)
+        return np.empty(0, np.int32)
+
+
+class _DispatchLog:
+    """Wraps a scheduler's ``_execute`` and its engine's ``put``/``verify``/
+    ``verify_tree``: per tick whether it carried decode work, per verify call
+    its width and B1's launches."""
+
+    def __init__(self, sched):
+        self.decode_ticks, self.verifies, self.verify_trees, self.puts = 0, [], [], 0
+        engine, inner_exec = sched._engine, sched._execute
+
+        def execute(plan):
+            if any(req.state.name == "DECODE" for req, _ in plan):
+                self.decode_ticks += 1
+            return inner_exec(plan)
+
+        def wrap(name, rows):
+            inner = getattr(engine, name)
+
+            def call(uids, feeds, *args, **kw):
+                before = pa.paged_attention_update.launches
+                out = inner(uids, feeds, *args, **kw)
+                rows.append(dict(sequences=len(uids), launches=pa.paged_attention_update.launches - before,
+                                 tokens=int(sum(np.asarray(getattr(f, "tokens", f)).size for f in feeds))))
+                return out
+
+            setattr(engine, name, call)
+
+        inner_put = engine.put
+
+        def put(*args, **kw):
+            self.puts += 1
+            return inner_put(*args, **kw)
+
+        sched._execute, engine.put = execute, put
+        wrap("verify", self.verifies)
+        wrap("verify_tree", self.verify_trees)
+
+    def unwrap(self, sched):
+        for name in ("put", "verify", "verify_tree"):
+            del sched._engine.__dict__[name]
+        del sched.__dict__["_execute"]
+
+
+def _serve_spec(params, cfg, dev, prompts, spec, passes=1, oracle=None, sequential=False):
+    """The 8 prompts, greedy, NEW_TOKENS each, through a fresh engine and a
+    scheduler with ``spec`` (None: speculation off). With ``oracle`` None:
+    over HTTP (a scheduler on its own thread behind ServingServer) with the
+    prefix cache on, all 8 at once, ``passes`` times (the second pass drafts
+    from the trie the first one published). ``sequential``: one request at a
+    time, stepped by hand, so that a verify feed and a decode step see the
+    same bucket (T = 8) and compute the same logits; ``oracle`` replaces the
+    drafter. Returns per pass the tokens and the record."""
+    engine = _engine(params, cfg, None, dev)
+    capacity = engine.free_blocks
+    http = not sequential
+    config = ServingConfig(queue_capacity=64, prefix_cache=PrefixCacheConfig(enabled=http),
+                           speculative=spec or SpeculativeConfig())
+    sched = ServingScheduler(engine, config, start=http)
+    if oracle is not None:
+        sched._drafter = oracle
+    server = ServingServer(sched, host="127.0.0.1", port=0).start() if http else None
+    pushes = {}
+    inner_push = sched._push_token
+
+    def push(req, tok, record_itl=True):
+        pushes.setdefault(req.uid, (req, []))[1].append(time.monotonic())
+        return inner_push(req, tok, record_itl)
+
+    sched._push_token = push
+    runs = []
+    try:
+        for _ in range(passes):
+            log_ = _DispatchLog(sched)
+            pushes.clear()
+            before = dict(sched.stats()["counters"])
+            pa.paged_attention_update.launches = 0
+            t0 = time.perf_counter()
+            if http:
+                out, threads = {}, []
+                for i, q in enumerate(prompts):
+                    t = threading.Thread(target=_http_generate, daemon=True,
+                                         args=(server.url, dict(prompt=q, max_new_tokens=NEW_TOKENS), False, out, i))
+                    t.start()
+                    threads.append(t)
+                for t in threads:
+                    t.join(timeout=600)
+                bad = {k: v for k, v in out.items() if v.get("status") != 200}
+                if bad or len(out) != len(prompts):
+                    raise AssertionError(f"speculative serving requests failed: {bad}")
+                tokens = [out[i]["doc"]["tokens"] for i in range(len(prompts))]
+                spec_field = [out[i]["doc"].get("spec") for i in range(len(prompts))]
+            else:
+                tokens, spec_field = [], []
+                for q in prompts:
+                    req = sched.submit(q, max_new_tokens=NEW_TOKENS)
+                    while not req.finished:
+                        sched.step()
+                    tokens.append(req.result(timeout=1))
+                    spec_field.append(dict(drafted=req.spec_drafted, accepted=req.spec_accepted,
+                                           decode_steps=req.decode_steps))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log_.unwrap(sched)
+            counters = {k: v - before[k] for k, v in sched.stats()["counters"].items()}
+            ttft = [ts[0] - req.arrival_s for req, ts in pushes.values()]
+            itl = [b - a for _, ts in pushes.values() for a, b in zip(ts, ts[1:])]
+            n = sum(len(t) for t in tokens)
+            drafted, accepted = counters["spec_drafted"], counters["spec_accepted"]
+            runs.append((tokens, dict(
+                wall_s=wall, served_tokens=n, served_tokens_per_s=n / wall, ttft_p50_s=_percentile(ttft, 50),
+                ttft_p99_s=_percentile(ttft, 99), itl_p50_s=_percentile(itl, 50), itl_p99_s=_percentile(itl, 99),
+                decode_ticks=log_.decode_ticks, verify_dispatches=len(log_.verifies),
+                verify_tree_dispatches=len(log_.verify_trees), puts=log_.puts,
+                b1_launches=pa.paged_attention_update.launches,
+                b1_launches_per_verify=[r["launches"] for r in log_.verifies],
+                verify_tokens=[r["tokens"] for r in log_.verifies], drafted=drafted, accepted=accepted,
+                rolled_back=counters["spec_rollback"], verify_steps=counters["spec_steps"],
+                acceptance=accepted / drafted if drafted else None,
+                # per request and verify step: its accepted drafts and the token after them
+                tokens_per_verify_step=((accepted + counters["spec_steps"]) / counters["spec_steps"]
+                                        if counters["spec_steps"] else None),
+                prefix_tokens_saved=counters["prefix_tokens_saved"], spec_field=spec_field,
+                decode_steps=[f["decode_steps"] for f in spec_field] if not http else None,
+                # tokens emitted after each request's first, per tick that carried decode work
+                tokens_per_decode_tick=(n - len(prompts)) / max(1, log_.decode_ticks))))
+    finally:
+        if server is not None:
+            server.stop()
+        sched.stop(drain=False)
+    for _, r in runs:
+        r["pool_whole_after_stop"] = engine.free_blocks == capacity
+    del engine, sched, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _stale_slots_check(engine, seq, uid, feed, failures, label):
+    """Hazard of write-then-truncate: after a rejection the slots past the
+    committed count hold stale K/V. Overwrite every one of them with finite
+    garbage (random x 100; not NaN, which the gather branch's 0 x NaN would
+    spread even under a correct mask) and run the next verify and decode:
+    their logits must be bitwise those of the same run without the garbage.
+    Control: garbage in the last committed slot must change them."""
+    cache = engine._state_manager.kv_cache.cache
+    blocks = torch.from_numpy(seq.kv_blocks).to(cache.device)
+    saved = cache[:, :, blocks].clone()
+    seen = seq.seen_tokens
+    gen = torch.Generator(device=cache.device).manual_seed(7)
+
+    def garbage(start):
+        view = cache[:, :, blocks].clone()  # [L, 2, nb, KVH, bs, D]
+        flat = view.permute(0, 1, 2, 4, 3, 5).reshape(view.shape[0], 2, -1, view.shape[3], view.shape[5])
+        flat[:, :, start:] = (torch.randn(flat[:, :, start:].shape, generator=gen, device=cache.device)
+                              * 100).to(cache.dtype)
+        cache[:, :, blocks] = flat.reshape(view.shape[0], 2, view.shape[2], view.shape[4], view.shape[3],
+                                           view.shape[5]).permute(0, 1, 2, 4, 3, 5)
+
+    def run(start):
+        cache[:, :, blocks] = saved
+        if start is not None:
+            garbage(start)
+        rows = engine.verify([uid], [feed])[0]
+        engine.rollback(uid, len(feed) - 1)
+        dec = engine.put([uid], [[int(feed[1])]]).float().cpu().numpy()
+        engine.rollback(uid, 2)  # back to `seen` for the next run
+        return rows, dec
+
+    clean, stale, control = run(None), run(seen), run(seen - 1)
+    cache[:, :, blocks] = saved
+    ok = all(np.array_equal(a, b) for a, b in zip(clean, stale))
+    bites = not np.array_equal(clean[0], control[0])
+    if not ok:
+        failures.append(f"{label}: garbage past the committed count changed the next verify/decode logits")
+    if not bites:
+        failures.append(f"{label}: control: garbage in a committed slot left the logits unchanged")
+    return dict(bitwise_equal=ok, control_changed=bites)
+
+
+def _engine_legs(engine, cfg, prompts, failures):
+    """Leg a: verify feeds of drafts k = 1..4 from the spec-off greedy
+    continuation, a rejected feed, the stale-slot checks through B1 and the
+    gather branch, verify_tree against linear verify (a chain, a two-branch
+    tree and a control tree whose siblings see each other), compaction, and
+    the peak memory and time of one full-width verify_tree."""
+    res, served = {}, []
+    p = prompts[3]
+    t1 = int(_put_prompt(engine, 0, p).argmax())
+    cont = [t1] + engine.decode_loop([0], [[t1]], NEW_TOKENS - 1)[0].tolist()
+    engine.flush(0)
+
+    # --- verify feeds of k = 1..4 drafts from the continuation, greedy ids
+    _put_prompt(engine, 1, p)
+    out, k, steps, b1 = [t1], 1, 0, []
+    while len(out) < NEW_TOKENS:
+        feed = np.asarray([out[-1]] + cont[len(out):len(out) + k], np.int32)
+        before = pa.paged_attention_update.launches
+        ids = engine.verify([1], [feed], greedy=True)[0]
+        b1.append(pa.paged_attention_update.launches - before)
+        acc = 0
+        while acc < feed.size - 1 and int(ids[acc]) == int(feed[acc + 1]):
+            acc += 1
+        engine.rollback(1, feed.size - 1 - acc)
+        out.extend(int(t) for t in ids[:acc + 1])
+        k, steps = k % SPEC_K + 1, steps + 1
+    out = out[:NEW_TOKENS]
+    engine.flush(1)
+    served.append((p, out))
+    res["verify_feeds"] = dict(steps=steps, tokens=len(out), agree_with_decode=sum(a == b for a, b in zip(out, cont)),
+                               b1_launches=b1)
+    if not all(n == 2 * cfg.num_hidden_layers for n in b1):
+        failures.append(f"a verify feed of at most 5 tokens did not launch B1 once per layer: {b1}")
+
+    # --- a rejected feed rolls back and continues; then the stale slots
+    _put_prompt(engine, 2, p)
+    seq = engine._state_manager.get_sequence(2)
+    wrong = np.asarray([t1] + [(t + 1) % cfg.vocab_size for t in cont[1:4]], np.int32)
+    ids = engine.verify([2], [wrong], greedy=True)[0]
+    engine.rollback(2, 3)
+    nxt = int(ids[0])
+    res["rejection"] = dict(seen_after_rollback=seq.seen_tokens, next_equals_continuation=nxt == cont[1])
+    if seq.seen_tokens != len(p) + 1:
+        failures.append(f"rollback left {seq.seen_tokens} committed tokens, not {len(p) + 1}")
+    feed = np.asarray([nxt] + cont[2:4], np.int32)
+    res["stale_b1"] = _stale_slots_check(engine, seq, 2, feed, failures, "B1")
+    engine.config.use_paged_kernel = False  # the gather branch
+    try:
+        res["stale_gather"] = _stale_slots_check(engine, seq, 2, feed, failures, "gather")
+    finally:
+        engine.config.use_paged_kernel = None
+    engine.flush(2)
+
+    # --- trees on a short context (SPEC_SHORT_PROMPT tokens), where the
+    # context a mask fault adds or drops moves the logits far past bf16's
+    # noise: each set of rows is held to the dense f32 model on its own
+    # context (rel. L2 <= LOGITS_L2_TOL, the main path's limit) and to the
+    # linear verify of the same path (<= 2x that: each within it of f32)
+    ps = prompts[0][:SPEC_SHORT_PROMPT]
+    rng = np.random.default_rng(10)
+    a_path = rng.integers(0, cfg.vocab_size, 2).tolist()
+    b_path = rng.integers(0, cfg.vocab_size, SPEC_LONG_BRANCH).tolist()
+    f32_checks = []
+
+    def fresh(uid):
+        return int(_put_prompt(engine, uid, ps).argmax())
+
+    def linear(tokens):
+        fresh(9)
+        rows = engine.verify([9], [np.asarray(tokens, np.int32)])[0]
+        engine.flush(9)
+        return rows
+
+    def tree_rows(tree, leaky=False):
+        inner = engine.model._tree_visibility
+        if leaky:  # control: a mask that lets every node see all nodes before it
+            def chain_mask(tok_meta, seq_meta, tree_meta):
+                visible, qm = inner(tok_meta, seq_meta, tree_meta)
+                seen, n = int(seq_meta[0, 0]), int(seq_meta[0, 1])
+                visible[0, :n, seen:seen + n] = np.tril(np.ones((n, n), bool))
+                return visible, qm
+            engine.model._tree_visibility = chain_mask
+        try:
+            fresh(8)
+            rows = engine.verify_tree([8], [tree])[0]["rows"]
+        finally:
+            engine.model.__dict__.pop("_tree_visibility", None)
+        engine.flush(8)
+        return rows
+
+    t1s = fresh(9)
+    engine.flush(9)
+    chain = [t1s] + b_path[:4]
+    f32_checks.append(("tree_chain", ps + chain, tree_rows(TokenTree.chain(chain)), False))
+    f32_checks.append(("linear_chain", ps + chain, linear(chain), False))
+    # two branches, the long one first: a mask that lets siblings see each
+    # other shows the short branch all of the long one
+    sib = TokenTree([t1s] + b_path + a_path, [-1] + list(range(SPEC_LONG_BRANCH)) + [0, SPEC_LONG_BRANCH + 1])
+    rows = tree_rows(sib)
+    a_nodes = [0, SPEC_LONG_BRANCH + 1, SPEC_LONG_BRANCH + 2]
+    f32_checks.append(("tree_branch_short", ps + [t1s] + a_path, rows[a_nodes], False))
+    f32_checks.append(("tree_branch_long", ps + [t1s] + b_path, rows[:SPEC_LONG_BRANCH + 1], False))
+    f32_checks.append(("control_leaky_branch_short", ps + [t1s] + a_path, tree_rows(sib, leaky=True)[a_nodes], True))
+    f32_checks.append(("linear_branch_short", ps + [t1s] + a_path, linear([t1s] + a_path), False))
+    f32_checks.append(("linear_branch_long", ps + [t1s] + b_path, linear([t1s] + b_path), False))
+    pairs = [("tree_chain", "linear_chain"), ("tree_branch_short", "linear_branch_short"),
+             ("tree_branch_long", "linear_branch_long")]
+
+    # --- compaction: two long branches, the second accepted; then one decode.
+    # The control leaves the first branch's KV where the accepted one belongs
+    n = SPEC_LONG_BRANCH
+    a_long = rng.integers(0, cfg.vocab_size, n).tolist()
+    cmp_tree = TokenTree([t1s] + a_long + b_path, [-1] + list(range(n)) + [0] + list(range(n + 1, 2 * n)))
+    accepted = list(range(n + 1, 2 * n + 1))
+    x = b_path[0]
+
+    def after_tree(compact):
+        fresh(7)
+        engine.verify_tree([7], [cmp_tree])
+        if compact:
+            engine.compact_accepted(7, cmp_tree.size, accepted)
+        else:  # control: truncate to the path's length, leave its KV where it was
+            engine.rollback(7, cmp_tree.size - 1 - SPEC_LONG_BRANCH)
+        rows = engine.put([7], [[x]]).float().cpu().numpy()
+        engine.flush(7)
+        return rows
+
+    f32_checks.append(("compacted_decode", ps + [t1s] + b_path + [x], after_tree(True), False))
+    f32_checks.append(("control_uncompacted_decode", ps + [t1s] + b_path + [x], after_tree(False), True))
+    fresh(6)
+    engine.verify([6], [np.asarray([t1s] + b_path, np.int32)])
+    f32_checks.append(("linear_decode", ps + [t1s] + b_path + [x], engine.put([6], [[x]]).float().cpu().numpy(),
+                       False))
+    engine.flush(6)
+    pairs.append(("compacted_decode", "linear_decode"))
+
+    # --- one full-width verify_tree: 8 trees of 8 nodes over the 8 prompts
+    uids = list(range(20, 28))
+    firsts = [int(_put_prompt(engine, uid, q).argmax()) for uid, q in zip(uids, prompts)]
+    trees = [TokenTree([f] + [(f + j) % cfg.vocab_size for j in range(1, SPEC_TREE_NODES)],
+                       [-1, 0, 0, 1, 1, 2, 2, 3]) for f in firsts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine.verify_tree(uids, trees, greedy=True)
+    torch.cuda.synchronize()
+    res["full_width_verify_tree"] = dict(
+        sequences=len(uids), nodes=len(uids) * SPEC_TREE_NODES, max_context=max(len(q) for q in prompts) + 8,
+        ms=1e3 * (time.perf_counter() - t0),
+        peak_extra_mib=(torch.cuda.max_memory_allocated() - base_mem) / 2**20)
+    for uid in uids:
+        engine.flush(uid)
+    return res, served, (f32_checks, pairs)
+
+
+def _tree_checks(model, dev, f32_checks, pairs, failures):
+    """The engine legs' tree and compaction rows against the dense f32 model
+    on each row set's own context, and each tree against its linear
+    counterpart; every control must exceed the limit."""
+    rows = {}
+    out = {}
+    with torch.no_grad():
+        for name, context, got, control in f32_checks:
+            got = torch.as_tensor(got, device=dev).float()
+            ref = model(torch.tensor([context], device=dev))[0, -got.shape[0]:].float()
+            rows[name] = got
+            err = _l2_rel(got, ref)
+            out[name] = err
+            if control and not err > LOGITS_L2_TOL:
+                failures.append(f"control {name}: within {LOGITS_L2_TOL} of f32 ({err})")
+            if not control and not err <= LOGITS_L2_TOL:
+                failures.append(f"{name}: {err} from f32 > {LOGITS_L2_TOL}")
+    for a, b in pairs:
+        err = _l2_rel(rows[a], rows[b])
+        out[f"{a}_vs_{b}"] = err
+        if not err <= 2 * LOGITS_L2_TOL:
+            failures.append(f"{a} differs from {b} by {err} > {2 * LOGITS_L2_TOL}")
+    return out
+
+
+def _sampled_legs(engine, cfg, dev, prompts, model, failures):
+    """Leg e: sampled decode_loop seeded by a torch.Generator, the draws'
+    f32 probabilities, T -> 0 against the argmax set, and a chi-square test
+    of sample_categorical on one real logits row."""
+    uids = list(range(len(prompts)))
+    firsts = [int(_put_prompt(engine, uid, q).argmax()) for uid, q in zip(uids, prompts)]
+    rows = engine.put(uids, [[f] for f in firsts]).float()  # one real decode step's logits
+    engine.flush_all()
+
+    def draw(seed):
+        for uid, q in zip(uids, prompts):
+            _put_prompt(engine, uid, q)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        toks = engine.decode_loop(uids, [[f] for f in firsts], SAMPLE_STEPS, temperature=SAMPLE_TEMPERATURE,
+                                  generator=g)
+        engine.flush_all()
+        return toks
+
+    a, b, c = draw(1), draw(1), draw(2)
+    res = dict(same_seed_equal=bool(np.array_equal(a, b)), other_seed_differs=not np.array_equal(a, c))
+    if not res["same_seed_equal"]:
+        failures.append("sampled decode_loop with one generator seed gave different tokens")
+    if not res["other_seed_differs"]:
+        failures.append("control: sampled decode_loop with another seed gave the same tokens")
+
+    # every draw's probability under the dense f32 model, against the floor
+    draws = a.shape[0] * a.shape[1]
+    floor = SAMPLE_FLOOR_ALPHA / (cfg.vocab_size * draws)
+    probs, argmin_probs = [], []
+    with torch.no_grad():
+        for q, f, toks in zip(prompts, firsts, a):
+            seq = list(q) + [f] + toks.tolist()
+            logits = model(torch.tensor([seq[:-1]], device=dev))[0, len(q):].float()
+            p = torch.softmax(logits / SAMPLE_TEMPERATURE, -1)
+            probs.append(p[torch.arange(len(toks), device=dev), torch.tensor(toks, device=dev)].cpu())
+            argmin_probs.append(p.min(-1).values.cpu())
+    probs, argmin_probs = torch.cat(probs), torch.cat(argmin_probs)
+    res.update(floor=floor, draws=draws, min_draw_probability=probs.min().item(),
+               control_argmin_max_probability=argmin_probs.max().item())
+    if not probs.min().item() >= floor:
+        failures.append(f"a sampled token's f32 probability {probs.min().item()} is under the floor {floor}")
+    if not argmin_probs.max().item() < floor:
+        failures.append("control: a row's argmin passed the probability floor")
+
+    # temperature -> 0: each draw is in its row's argmax set (exact, ties kept)
+    g = torch.Generator(device=dev).manual_seed(3)
+    cold = sample_categorical(rows, 1e-6, g)
+    warm = sample_categorical(rows, 1.0, g)
+    top = rows == rows.max(-1, keepdim=True).values
+    in_top = lambda ids: top[torch.arange(rows.shape[0], device=dev), ids.long()]
+    res.update(cold_draws_in_argmax_set=int(in_top(cold).sum()), rows=rows.shape[0],
+               control_warm_draws_in_argmax_set=int(in_top(warm).sum()))
+    if not bool(in_top(cold).all()):
+        failures.append("a draw at temperature 1e-6 is not a greedy token of its row")
+    if bool(in_top(warm).all()):
+        failures.append("control: every draw at temperature 1 was a greedy token")
+
+    # chi-square of one row's draws, binned into its 15 likeliest tokens + rest
+    row = rows[0]
+    order = torch.argsort(row, descending=True)[:15]
+    p = torch.softmax(row.double() / SAMPLE_TEMPERATURE, -1)
+    expected = torch.cat([p[order], (1 - p[order].sum())[None]]) * CHI2_DRAWS
+    counts = torch.zeros(16, dtype=torch.float64, device=dev)
+    rank = torch.full((row.numel(), ), 15, dtype=torch.long, device=dev)
+    rank[order] = torch.arange(15, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    for _ in range(CHI2_DRAWS // CHI2_CHUNK):
+        ids = sample_categorical(row.expand(CHI2_CHUNK, -1), SAMPLE_TEMPERATURE, g)
+        counts += torch.bincount(rank[ids.long()], minlength=16).double()
+    chi2 = float(((counts - expected)**2 / expected).sum())
+    control = torch.bincount(rank[sample_categorical(row.expand(CHI2_CHUNK, -1), 1.0, g).long()],
+                             minlength=16).double() * (CHI2_DRAWS // CHI2_CHUNK)
+    chi2_control = float(((control - expected)**2 / expected).sum())
+    res.update(chi2=chi2, chi2_critical=CHI2_CRITICAL, chi2_control=chi2_control,
+               top_token_probability=float(p[order[0]]))
+    if not chi2 < CHI2_CRITICAL:
+        failures.append(f"sample_categorical's draws fail the chi-square test: {chi2} >= {CHI2_CRITICAL}")
+    if not chi2_control >= CHI2_CRITICAL:
+        failures.append("control: draws at temperature 1 passed the chi-square test at the phase's temperature")
+    return res
+
+
+def _learned_legs(params, cfg, dev, prompts, failures):
+    """Leg d: the learned drafter (a fresh Medusa head at Llama-2-7B width,
+    numpy on the host, built once and loaded by both schedulers from an
+    ``.npz``) and ``auto``, LEARNED_REQUESTS requests of LEARNED_NEW_TOKENS
+    greedy tokens each, stepped by hand; the host ms of each draft."""
+    import tempfile
+    from deepspeed_tpu_torch.inference.v2.spec import MedusaDraftHead
+    res, served = {}, []
+    t0 = time.perf_counter()
+    head = MedusaDraftHead.fresh(cfg.hidden_size, cfg.vocab_size, num_heads=1)  # what the scheduler builds
+    res["head_build_s"] = time.perf_counter() - t0
+    res["head_bytes"] = sum(v.nbytes for p in head.params for v in p.values())
+    tmp = tempfile.TemporaryDirectory(prefix="dstt_heads_")
+    path = os.path.join(tmp.name, "heads.npz")
+    head.save(path)
+    del head
+    for drafter in ("learned", "auto"):
+        engine = _engine(params, cfg, None, dev)
+        t0 = time.perf_counter()
+        sched = ServingScheduler(engine, ServingConfig(speculative=SpeculativeConfig(
+            enabled=True, drafter=drafter, draft_head_path=path)), start=False)
+        build_s = time.perf_counter() - t0
+        draft_s = []
+        _timed(sched._learned, "draft_tree", draft_s)
+        log_ = _DispatchLog(sched)
+        reqs = [sched.submit(q, max_new_tokens=LEARNED_NEW_TOKENS) for q in prompts[:LEARNED_REQUESTS]]
+        while not all(r.finished for r in reqs):
+            sched.step()
+        counters = sched.stats()["counters"]
+        sched.stop(drain=False)
+        log_.unwrap(sched)
+        served += [(q, r.result(timeout=1)) for q, r in zip(prompts, reqs)]
+        res[drafter] = dict(head_load_s=build_s, drafts=len(draft_s),
+                            host_ms_per_draft=1e3 * statistics.median(draft_s) if draft_s else None,
+                            verify_tree_dispatches=len(log_.verify_trees), tree_nodes=counters["spec_tree_nodes"],
+                            drafted=counters["spec_drafted"], accepted=counters["spec_accepted"],
+                            switches=counters["spec_drafter_switches"],
+                            pool_whole_after_stop=engine.free_blocks == engine._state_manager.kv_cache.num_blocks)
+        if not log_.verify_trees or not draft_s:
+            failures.append(f"the {drafter} drafter ran no tree verify or no draft")
+        if not res[drafter]["pool_whole_after_stop"]:
+            failures.append(f"KV blocks still held after the {drafter} leg")
+        del engine, sched
+        gc.collect()
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+    return res, served
+
+
+def _spec_handoff(params, cfg, dev, prompt, failures):
+    """Leg f: a request drafting on engine A (from the prefix trie, which the
+    same prompt served whole just filled) is handed off to engine B: B's
+    scheduler adopts ``extra["spec"]`` (the acceptance EWMA, the drafted and
+    accepted counts) before any step; a frame stripped of it (the control)
+    adopts nothing. Returns the continuation and the request served whole
+    on A, for the teacher-forced check."""
+    from deepspeed_tpu_torch.inference.v2.ragged import handoff
+    spec = SpeculativeConfig(enabled=True)
+    engine_a = _engine(params, cfg, None, dev)
+    sched_a = ServingScheduler(engine_a, ServingConfig(speculative=spec, prefix_cache=PrefixCacheConfig(enabled=True)),
+                               start=False)
+    whole = sched_a.submit(prompt, max_new_tokens=NEW_TOKENS)  # publishes: the head then drafts from the trie
+    while not whole.finished:
+        sched_a.step()
+    head = sched_a.submit(prompt, max_new_tokens=NEW_TOKENS // 2, handoff=True)
+    while not head.finished:
+        sched_a.step()
+    sched_a.stop(drain=False)
+    del engine_a, sched_a
+    gc.collect()
+    torch.cuda.empty_cache()
+    frame = head.handoff_payload
+    header, kv = handoff.unpack(frame)
+    stripped = handoff._frame(dict(header, extra={k: v for k, v in header["extra"].items() if k != "spec"}),
+                              bytes(frame[len(frame) - kv.numel() * kv.element_size():]))
+    engine_b = _engine(params, cfg, None, dev)
+    sched_b = ServingScheduler(engine_b, ServingConfig(speculative=spec), start=False)
+    state = lambda r: (r._spec_ewma, r.spec_drafted, r.spec_accepted, r.decode_steps)
+    tail = sched_b.submit_resume(frame, max_new_tokens=NEW_TOKENS - NEW_TOKENS // 2)
+    adopted = state(tail) == state(head)
+    bare = sched_b.submit_resume(stripped, max_new_tokens=1)
+    while not (tail.finished and bare.finished):
+        sched_b.step()
+    sched_b.stop(drain=False)
+    res = dict(donor_spec=header["extra"].get("spec"), adopted=adopted, control_adopted=state(bare) == state(head),
+               continuation_tokens_equal_whole=head.tokens + tail.tokens == whole.tokens,
+               pool_whole_after_stop=engine_b.free_blocks == engine_b._state_manager.kv_cache.num_blocks)
+    if not head.spec_drafted:
+        failures.append("the handed-off request drafted nothing on engine A")
+    if not adopted:
+        failures.append(f"engine B did not adopt the donor's drafter state: {state(tail)} != {state(head)}")
+    if res["control_adopted"]:
+        failures.append("control: a frame without extra['spec'] passed the adoption check")
+    del engine_b, sched_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, [(prompt, head.tokens + tail.tokens), (prompt, whole.tokens)]
+
+
+def run_spec_path(dev, params, main) -> dict:
+    """Speculative decoding on Llama-2-7B under the ported scheduler and
+    server: the engine's verify, verify_tree, rollback and compaction (with
+    the stale-slot checks through B1 and the gather branch), the
+    prompt-lookup drafter over HTTP with a 24-token draft budget (B1) and
+    the default one (gather), an oracle drafter, the learned drafter and
+    auto, sampled decode_loop and a handoff that carries the drafter state.
+    Every served greedy token is held to the dense f32 model
+    (teacher-forced); every check has a control it rejects."""
+    t_start = time.perf_counter()
+    cfg = LlamaConfig.llama2_7b()
+    rng = np.random.default_rng(9)
+    prompts = _spec_prompts(cfg, rng)
+    err = max(main["logits_max_abs_err_kernel_vs_f32"], main["logits_max_abs_err_gather_vs_f32"])
+    tol = TF_SLACK * err
+    failures, parts, served = [], {}, []
+
+    t0 = time.perf_counter()
+    engine = _engine(params, cfg, None, dev)
+    res, more, (f32_checks, pairs) = _engine_legs(engine, cfg, prompts, failures)
+    served += more
+    parts["engine_legs"] = time.perf_counter() - t0
+
+    # --- b: over HTTP with the prefix cache, twice (the second pass drafts
+    # from the trie): spec-off, prompt lookup at a 24-token budget (B1) and
+    # at the default budget (gather); c: an oracle drafter, one at a time
+    t0 = time.perf_counter()
+    legs = {}
+    for name, spec in (("spec_off", None),
+                       ("lookup_b1", SpeculativeConfig(enabled=True, draft_token_budget=SPEC_B1_BUDGET)),
+                       ("lookup_gather", SpeculativeConfig(enabled=True))):
+        (cold_tokens, cold), (warm_tokens, warm) = _serve_spec(params, cfg, dev, prompts, spec, passes=2)
+        legs[name] = warm_tokens
+        res[name] = dict(warm, cold=cold)
+        served += list(zip(prompts, cold_tokens)) + list(zip(prompts, warm_tokens))
+    seq_prompts = prompts[::2]  # one at a time: half the prompts keep the phase short
+    ((seq_off_tokens, seq_off), ) = _serve_spec(params, cfg, dev, seq_prompts, None, sequential=True)
+    ((oracle_tokens, oracle), ) = _serve_spec(params, cfg, dev, seq_prompts, SpeculativeConfig(enabled=True),
+                                              oracle=_OracleDrafter(seq_prompts, seq_off_tokens), sequential=True)
+    ((_, wrong), ) = _serve_spec(params, cfg, dev, seq_prompts[:SPEC_CONTROL_PROMPTS], SpeculativeConfig(enabled=True),
+                                 oracle=_OracleDrafter(seq_prompts, seq_off_tokens, skip=1), sequential=True)
+    res["spec_off_sequential"], res["oracle"], res["control_wrong_oracle"] = seq_off, oracle, wrong
+    served += list(zip(seq_prompts, seq_off_tokens)) + list(zip(seq_prompts, oracle_tokens))
+    legs["oracle"] = oracle_tokens
+    parts["served_legs"] = time.perf_counter() - t0
+    for name in legs:
+        leg = res[name]
+        ref = legs["spec_off"] if name != "oracle" else seq_off_tokens
+        leg["tokens_agreeing_with_spec_off"] = sum(a == b for t, o in zip(legs[name], ref) for a, b in zip(t, o))
+        if not leg["pool_whole_after_stop"]:
+            failures.append(f"{name}: KV blocks still held after stop")
+    b1 = res["lookup_b1"]
+    if not (b1["verify_dispatches"] and all(n > 0 for n in b1["b1_launches_per_verify"])
+            and max(b1["verify_tokens"]) <= 32):
+        failures.append(f"B1 was not launched in every verify tick of the budget-{SPEC_B1_BUDGET} leg: "
+                        f"{b1['b1_launches_per_verify']} (tokens {b1['verify_tokens']})")
+    gather = res["lookup_gather"]
+    wide = [n for n, t in zip(gather["b1_launches_per_verify"], gather["verify_tokens"]) if t > 32]
+    if not wide or any(wide):  # the default budget's wide feeds take the gather branch
+        failures.append(f"the default-budget leg's verifies wider than 32 tokens launched B1 {wide} "
+                        f"(tokens {gather['verify_tokens']})")
+    # the oracle: acceptance over 0.9, and its decode dispatches (every one a
+    # verify) at most half of spec-off's; the control drafts the wrong tokens
+    for leg, control in ((oracle, False), (wrong, True)):
+        off_ticks = sum(seq_off["decode_steps"][:len(leg["decode_steps"])])
+        ok = (leg["acceptance"] or 0) > 0.9 and leg["decode_ticks"] <= off_ticks / 2
+        if ok == control:
+            failures.append(f"{'control: the wrong-token oracle' if control else 'the oracle drafter'}: acceptance "
+                            f"{leg['acceptance']}, {leg['decode_ticks']} decode dispatches against spec-off's "
+                            f"{off_ticks}")
+
+    # --- d: the learned drafter and auto
+    t0 = time.perf_counter()
+    res["learned"], more = _learned_legs(params, cfg, dev, prompts, failures)
+    served += more
+    parts["learned_legs"] = time.perf_counter() - t0
+
+    # --- f: handoff with drafter state
+    t0 = time.perf_counter()
+    res["handoff"], more = _spec_handoff(params, cfg, dev, prompts[5], failures)
+    served += more
+    parts["handoff"] = time.perf_counter() - t0
+
+    # --- e: sampled decode_loop, and every served greedy token teacher-forced
+    t0 = time.perf_counter()
+    model = _dense_f32(params, cfg)
+    res["sampled"] = _sampled_legs(engine, cfg, dev, prompts, model, failures)
+    res["tree"] = _tree_checks(model, dev, f32_checks, pairs, failures)
+    del engine
+    gc.collect()
+    parts["sampled"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    unique = list({(tuple(p), tuple(t)): (p, t) for p, t in served}.values())
+    gaps = _teacher_forced(model, dev, unique)
+    shifted = _teacher_forced(model, dev, [(p, t[1:] + t[:1]) for p, t in unique[:4]])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["teacher_forced"] = dict(tolerance=tol, sequences=len(unique), tokens=int(gaps.numel()),
+                                 max_gap=gaps.max().item(), max_gap_over_tol=gaps.max().item() / tol,
+                                 control_max_gap=shifted.max().item())
+    if not gaps.max().item() <= tol:
+        failures.append(f"a served token's f32 logit trails its row's maximum by {gaps.max().item()} > {tol}")
+    if not shifted.max().item() > tol:
+        failures.append("control: the shifted tokens passed the teacher-forced check")
+    parts["teacher_forced"] = time.perf_counter() - t0
+    res["seconds_by_part"] = parts
+    res["seconds"] = time.perf_counter() - t_start
+    res["failures"] = failures
+    res["b1_launches"] = b1["b1_launches"]
+    log("[spec] " + json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "counters"} if isinstance(v, dict) else v)
+                                for k, v in res.items()}))
+    for name in ("spec_off", "lookup_b1", "lookup_gather", "spec_off_sequential", "oracle"):
+        leg = res[name]
+        log(f"[spec] {name}: TTFT p50 {leg['ttft_p50_s'] * 1e3:.1f} ms, ITL p50 {leg['itl_p50_s'] * 1e3:.1f} ms, "
+            f"{leg['served_tokens_per_s']:.1f} tokens/s; decode ticks {leg['decode_ticks']}, verify dispatches "
+            f"{leg['verify_dispatches']}; drafted {leg['drafted']} accepted {leg['accepted']} rolled back "
+            f"{leg['rolled_back']}; {leg['tokens_per_decode_tick']:.2f} tokens a decode tick; B1 "
+            f"{leg['b1_launches']}; {leg.get('tokens_agreeing_with_spec_off')} tokens agree with spec-off")
+    fw = res["full_width_verify_tree"]
+    log(f"[spec] full-width verify_tree ({fw['nodes']} nodes): {fw['ms']:.1f} ms, peak +{fw['peak_extra_mib']:.0f} MiB; "
+        f"learned drafter {res['learned']['learned']['host_ms_per_draft']} host ms a draft")
+    log(card_line())
+    if failures:
+        raise AssertionError("speculative phase: " + "; ".join(failures))
+    return res
+
+
+# ----------------------------------------------------------------- phase 8 --
 def bench_llama(**kw) -> LlamaConfig:
     """bench.py's headline model: the 530M Llama (``_llama_530m``) with
     remat "dots" and flash attention."""
@@ -2242,6 +2997,7 @@ def main() -> int:
     record["main_path"] = run_main_path(dev, params)
     record["serving_path"] = run_serving_path(dev, params, record["main_path"])
     record["prefix_path"] = run_prefix_path(dev, params, record["main_path"])
+    record["spec_path"] = run_spec_path(dev, params, record["main_path"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2254,6 +3010,7 @@ def main() -> int:
                     replaces="deepspeed_tpu/ops/pallas/paged_attention.py:37",
                     launches=record["main_path"]["paged_attention_launches"],
                     launches_prefix_path=record["prefix_path"]["b1_launches"],
+                    launches_spec_path=record["spec_path"]["b1_launches"],
                     max_abs_err=max(r["max_abs_err"] for r in record["paged_attention"]),
                     ms=decode["ms"], plain_ms=decode["plain_ms"], bound_ms=decode["bound_ms"],
                     bound_by=decode["bound_by"], library_ms=decode["library_ms"],

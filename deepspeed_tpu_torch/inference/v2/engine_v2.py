@@ -10,17 +10,21 @@ cold sequence's KV to the tiered store (host memory, or spill files under
 touches it restores it. ``export_sequence``/``import_sequence`` move a
 sequence to another engine as a handoff frame (``ragged/handoff.py``).
 ``close`` stops an attached serving scheduler (``serving/scheduler.py``).
-With telemetry on (an engine-owned session from ``telemetry``, or a
-process-wide one) ``put`` and ``decode_loop`` record the ``inference_*``
+Speculative decoding: ``verify`` scores a next-input token plus draft tokens
+per sequence in one ragged forward, ``verify_tree`` a draft token tree under
+the tree mask, ``rollback`` and ``compact_accepted`` truncate (and re-pack)
+what the caller rejected; ``decode_loop`` samples on the device with a
+``torch.Generator`` at ``temperature > 0``. With telemetry on (an
+engine-owned session from ``telemetry``, or a process-wide one) ``put``,
+``decode_loop``, ``verify`` and ``verify_tree`` record the ``inference_*``
 metric families and a span each.
 
 Not ported yet, and refused with ``NotImplementedError``: tensor and expert
 parallelism, weight quantization and simulated gating (ROADMAP.md A8, A9),
-the speculative ``verify`` feeds and sampled ``decode_loop`` (A5b), and the
-tracer (``trace_enabled``, A5c).
+and the tracer (``trace_enabled``, A5c).
 """
 
-from typing import Iterable, Optional, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -158,49 +162,76 @@ class InferenceEngineV2:
         sequence's final token only."""
         batch_uids = list(batch_uids)
         batch_tokens = [np.atleast_1d(np.asarray(t)) for t in batch_tokens]
+        self._insert_feeds(batch_uids, batch_tokens, do_checks)
+        return self._dispatch("put", batch_uids, int(sum(t.size for t in batch_tokens)),
+                              lambda: self._model.forward(self._batch))
+
+    def _insert_feeds(self, batch_uids, feeds, do_checks, trees=None) -> None:
+        """Admission, restore and batch composition of a forward that feeds
+        each sequence its tokens (``put``, ``verify``, ``verify_tree``):
+        every fed position gets its KV blocks and is committed by the forward
+        (``seen_tokens`` advances by the feed's width)."""
         if do_checks:
             # BEFORE restoring: can_schedule counts offloaded sequences'
             # restore cost, so admission failure is a SchedulingError here,
             # never a raw allocator error mid-restore
-            schedule_check = self.can_schedule(batch_uids, [t.size for t in batch_tokens])
+            schedule_check = self.can_schedule(batch_uids, [t.size for t in feeds])
             if schedule_check != SchedulingResult.Success:
                 raise SchedulingError(schedule_check)
         self._restore_offloaded(batch_uids)
-
         self._batch.clear()
-        for uid, tokens in zip(batch_uids, batch_tokens):
+        for i, (uid, tokens) in enumerate(zip(batch_uids, feeds)):
             seq_desc = self._state_manager.get_or_create_sequence(uid)
             self._model.maybe_allocate_kv(seq_desc, tokens.size)
             seq_desc.pre_forward(tokens.size)
-            self._batch.insert_sequence(seq_desc, tokens, do_checks=do_checks)
+            tree = None if trees is None else (trees[i].parents, trees[i].depths)
+            self._batch.insert_sequence(seq_desc, tokens, do_checks=do_checks, tree=tree)
         self._batch.finalize()
+
+    def _dispatch(self, kind: str, batch_uids, n_tokens: int, forward):
+        """Run ``forward`` over the composed batch with the dispatch
+        observer, the span and the telemetry of ``kind``; commits every fed
+        position."""
         spans = self._resolve_spans()
         observer = self.dispatch_observer
         if spans is not None or observer is not None:
             _t0 = _telemetry.now_us()
-        logits = self._model.forward(self._batch)
-        n_tokens = int(sum(t.size for t in batch_tokens))
+        out = forward()
         if observer is not None:
-            observer("put", len(batch_uids), n_tokens, (_telemetry.now_us() - _t0) / 1e6)
+            observer(kind, len(batch_uids), n_tokens, (_telemetry.now_us() - _t0) / 1e6)
         for uid in batch_uids:
             self._state_manager.get_sequence(uid).post_forward()
         if spans is not None:
             # uids link this batch span to the per-request serving traces
-            spans.record("put", cat="inference", ts_us=_t0, dur_us=_telemetry.now_us() - _t0,
+            spans.record(kind, cat="inference", ts_us=_t0, dur_us=_telemetry.now_us() - _t0,
                          args={"sequences": len(batch_uids), "tokens": n_tokens,
                                "uids": [int(u) for u in batch_uids]})
         metrics = self._resolve_tel_metrics()
         if metrics is not None:
             self._write_telemetry(metrics, batch_tokens=n_tokens)
-        return logits
+        return out
 
     # ------------------------------------------------------------ decode_loop --
     def decode_loop(self, batch_uids: Iterable[int], batch_tokens: Iterable, n_steps: int,
-                    do_checks: bool = True, temperature: float = 0.0) -> np.ndarray:
-        """Greedy-generate ``n_steps`` tokens per sequence with no host round
-        trip per token (see ``DSTransformerModelBase.decode_loop``).
-        ``batch_tokens`` holds each sequence's one next-input token; returns
-        host int32 tokens ``[n_seqs, n_steps]``."""
+                    do_checks: bool = True, temperature: float = 0.0,
+                    generator: Optional[torch.Generator] = None):
+        """Generate ``n_steps`` tokens per sequence with no host round trip
+        per token (see ``DSTransformerModelBase.decode_loop``).
+        ``batch_tokens`` holds each sequence's next-input token; returns host
+        int32 tokens ``[n_seqs, n_steps]``. ``temperature`` 0 is greedy; above
+        0 each step draws from ``softmax(logits / temperature)`` on the
+        device with ``generator`` (a ``torch.Generator`` on the engine's
+        device; required).
+
+        **Multi-token verify feed** (speculative decoding): an entry may carry
+        its next-input token followed by k draft tokens. Any entry wider than
+        one token switches the call into verify mode (``n_steps`` must be 1,
+        greedy only): one ragged forward scores every fed position and the
+        return value is a list of per-sequence int32 arrays, element i
+        holding for each of sequence i's ``1+k_i`` positions the greedy next
+        token after the feed up to and including that position. The caller
+        accepts the longest prefix where ``out[i][j] == feed_i[j+1]`` and
+        rolls back the rejected tail with :meth:`rollback`."""
         batch_uids = list(batch_uids)
         batch_tokens = [np.atleast_1d(np.asarray(t)) for t in batch_tokens]
         if any(t.size < 1 for t in batch_tokens):
@@ -208,11 +239,17 @@ class InferenceEngineV2:
         if n_steps < 1:
             raise ValueError("n_steps must be >= 1")
         if any(t.size != 1 for t in batch_tokens):
-            raise NotImplementedError("the multi-token (speculative verify) feed runs in one step "
-                                      "and is not ported yet (ROADMAP.md A5b)")
-        if temperature > 0:
-            raise NotImplementedError("sampled decode_loop is not ported yet (ROADMAP.md A5b); "
-                                      "temperature must be 0")
+            if n_steps != 1:
+                raise ValueError("a multi-token verify feed runs exactly one step "
+                                 "(n_steps=1); the device loop takes single-token "
+                                 "entries only")
+            if temperature > 0:
+                raise ValueError("the multi-token verify feed is greedy; sampled "
+                                 "verification consumes engine.verify() logits "
+                                 "host-side")
+            # device-side argmax: only [1+k] int32 ids per sequence cross the
+            # host boundary, not [1+k, vocab] float32 logits
+            return self.verify(batch_uids, batch_tokens, do_checks=do_checks, greedy=True)
         if do_checks:
             # each step's ragged batch holds one token per sequence, so the
             # token budget is checked against n_seqs; the KV-block budget must
@@ -244,7 +281,8 @@ class InferenceEngineV2:
         observer = self.dispatch_observer
         if spans is not None or observer is not None:
             _t0 = _telemetry.now_us()
-        tokens = self._model.decode_loop(self._batch, n_steps)  # [n_steps, S_bucket]
+        tokens = self._model.decode_loop(self._batch, n_steps, temperature=temperature,
+                                         generator=generator)  # [n_steps, S_bucket]
         if observer is not None:
             observer("decode_loop", len(batch_uids), len(batch_uids) * n_steps,
                      (_telemetry.now_us() - _t0) / 1e6)
@@ -262,6 +300,107 @@ class InferenceEngineV2:
                 seq_desc.pre_forward(n_steps - 1)
                 seq_desc.post_forward()
         return tokens[:, :len(batch_uids)].T
+
+    # ------------------------------------------------------ speculative verify --
+    def verify(self, batch_uids: Iterable[int], batch_tokens: Iterable, do_checks: bool = True,
+               greedy: bool = False) -> List[np.ndarray]:
+        """Speculative verify step: feed each sequence its next-input token
+        plus draft tokens (``batch_tokens[i]`` holds ``1+k_i`` ids) through one
+        ragged forward and return per-position host logits: a list of f32
+        arrays, element i shaped ``[1+k_i, vocab]``, where row j scores the
+        token after ``batch_tokens[i][:j+1]``. ``greedy=True`` returns the
+        device argmax instead (int32 ``[1+k_i]``), so only ids cross to the
+        host.
+
+        Every fed position's KV is written and committed (``seen_tokens``
+        advances by ``1+k_i``); the caller decides the accepted prefix and
+        truncates the rejected tail with :meth:`rollback`
+        (write-then-truncate)."""
+        batch_uids = list(batch_uids)
+        batch_tokens = [np.atleast_1d(np.asarray(t)) for t in batch_tokens]
+        self._insert_feeds(batch_uids, batch_tokens, do_checks)
+        n_tokens = int(sum(t.size for t in batch_tokens))
+        rows = self._dispatch("verify", batch_uids, n_tokens,
+                                lambda: self._model.forward_verify(self._batch, greedy=greedy).cpu().numpy())
+        # insertion order is batch order: each sequence's positions are one
+        # contiguous token-major run
+        out, offset = [], 0
+        for tokens in batch_tokens:
+            out.append(rows[offset:offset + tokens.size])
+            offset += tokens.size
+        return out
+
+    def verify_tree(self, batch_uids: Iterable[int], trees: Iterable, greedy: bool = False,
+                    do_checks: bool = True) -> List[dict]:
+        """Token-tree verify: feed each sequence a draft tree
+        (:class:`~deepspeed_tpu_torch.inference.v2.spec.tree.TokenTree`, root
+        = next-input token) through one ragged forward under the tree mask.
+        Returns one dict per sequence, on the host:
+
+        - ``rows``:   f32 ``[n_nodes, vocab]`` logits (None when greedy); row
+          j scores the token after node j's root path;
+        - ``ids``:    int32 ``[n_nodes]`` device-argmax ids (greedy only);
+        - ``hidden``: f32 ``[n_nodes, hidden]`` residual states before the
+          final norm, the learned draft head's input.
+
+        Every node's KV is written at slot ``seen + node`` and committed
+        (``seen_tokens`` advances by ``n_nodes``); the caller walks the tree
+        and re-packs and truncates with :meth:`compact_accepted`."""
+        batch_uids = list(batch_uids)
+        trees = list(trees)
+        self._insert_feeds(batch_uids, [t.tokens for t in trees], do_checks, trees=trees)
+        n_tokens = int(sum(t.size for t in trees))
+
+        def forward():
+            rows, hidden = self._model.forward_verify_tree(self._batch, greedy=greedy)
+            return rows.cpu().numpy(), hidden.cpu().numpy()
+
+        rows, hidden = self._dispatch("verify_tree", batch_uids, n_tokens, forward)
+        out, offset = [], 0
+        for tree in trees:
+            n = tree.size
+            out.append({"rows": None if greedy else rows[offset:offset + n],
+                        "ids": rows[offset:offset + n] if greedy else None,
+                        "hidden": hidden[offset:offset + n]})
+            offset += n
+        return out
+
+    def compact_accepted(self, uid: int, n_fed: int, path_indices) -> int:
+        """Tree-aware KV compaction after a :meth:`verify_tree` step over an
+        ``n_fed``-node tree: keep the root plus the accepted path
+        ``path_indices`` (ascending local node indices, root excluded),
+        re-pack their KV to contiguous slots ``seen0 + 1..m`` in one
+        gather-then-scatter, and truncate the rejected remainder with the
+        write-then-truncate rollback. A chain-shaped acceptance (``path[j] ==
+        j+1``, the prompt-lookup case) moves no KV. Returns the number of
+        rejected positions truncated."""
+        seq_desc = self._state_manager.get_sequence(uid)
+        if seq_desc is None:
+            raise ValueError(f"compact_accepted: unknown uid {uid}")
+        path = [int(i) for i in path_indices]
+        if any(not (0 < i < n_fed) for i in path) or any(b <= a for a, b in zip(path, path[1:])):
+            raise ValueError(f"accepted path must be ascending non-root node "
+                             f"indices inside the {n_fed}-node tree: {path}")
+        copies = [(i, j + 1) for j, i in enumerate(path) if i != j + 1]
+        if copies:
+            seen0 = seq_desc.seen_tokens - n_fed  # committed count pre-feed
+            self._model.compact_kv(seq_desc, [seen0 + s for s, _ in copies], [seen0 + d for _, d in copies])
+        rejected = n_fed - 1 - len(path)
+        if rejected > 0:
+            seq_desc.rollback(rejected)
+        return rejected
+
+    def rollback(self, uid: int, n_tokens: int) -> None:
+        """Truncate ``uid``'s last ``n_tokens`` committed tokens after a verify
+        step rejected them: the stale KV stays in its blocks and is
+        overwritten when the correct tokens are fed at those positions
+        (write-then-truncate). The blocks stay allocated for the sequence."""
+        if n_tokens <= 0:
+            return
+        seq_desc = self._state_manager.get_sequence(uid)
+        if seq_desc is None:
+            raise ValueError(f"rollback: unknown uid {uid}")
+        seq_desc.rollback(n_tokens)
 
     # ------------------------------------------------------------- scheduling --
     def query(self, uid: int, max_request_tokens: int, max_request_blocks: int) -> Tuple[int, int]:

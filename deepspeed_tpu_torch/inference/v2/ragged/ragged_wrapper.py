@@ -8,7 +8,11 @@ position, valid) and ``seq_meta [S, 4 + MB]`` (seen, n_tokens, last token,
 valid, block table). PyTorch runs eagerly and needs no static shapes; the
 buckets are kept so that the two packages see identical batches and the
 paged kernel sees the padding it was written for. Padding tokens point at
-sequence ``S - 1`` with ``valid = 0``; unused table slots are ``-1``.
+sequence ``S - 1`` with ``valid = 0``; unused table slots are ``-1``. A
+speculative token tree (``insert_sequence(..., tree=(parents, depths))``)
+adds a third array, ``tree_meta [2, T]`` (each token's parent as a local
+node index, -1 for the root, and its depth), packed only when a tree was
+inserted.
 """
 
 from typing import List
@@ -52,6 +56,13 @@ class RaggedBatchWrapper:
         self._token_ids: List[int] = []
         self._token_seq: List[int] = []  # token -> index of its sequence in this batch
         self._token_pos: List[int] = []  # absolute position within the sequence
+        # tree-verify metadata (inference/v2/spec/tree.py): per token, the
+        # parent's local feed index within its sequence (-1 = root) and the
+        # root distance. Linear feeds default to the chain (parent = i-1,
+        # depth = i), so mixed chain/tree batches pack uniformly.
+        self._token_parent: List[int] = []
+        self._token_depth: List[int] = []
+        self._has_tree = False
         self._seq_descs: List[DSSequenceDescriptor] = []
         self._seq_seen: List[int] = []
         self._seq_ntok: List[int] = []
@@ -66,13 +77,32 @@ class RaggedBatchWrapper:
     def current_tokens(self) -> int:
         return len(self._token_ids)
 
-    def insert_sequence(self, seq_desc: DSSequenceDescriptor, tokens, do_checks: bool = True) -> None:
+    def insert_sequence(self, seq_desc: DSSequenceDescriptor, tokens, do_checks: bool = True,
+                        tree=None) -> None:
+        """``tree`` (optional) is a ``(parents, depths)`` pair of local-index
+        arrays aligned with ``tokens`` — a speculative token tree (see
+        spec/tree.py). Token i then occupies KV slot ``seen + i`` (sibling
+        branches get distinct cache slots) and its ``token_pos`` stays the
+        slot position; the tree-verify forward derives the logical (RoPE)
+        position ``seen + depths[i]`` from the packed tree metadata."""
         tokens = np.atleast_1d(np.asarray(tokens)).astype(np.int32)
         if do_checks:
             if self.current_tokens + tokens.size > self._config.max_ragged_batch_size:
                 raise ValueError("ragged batch token budget exceeded")
             if self.current_sequences + 1 > self._config.max_ragged_sequence_count:
                 raise ValueError("ragged batch sequence budget exceeded")
+        if tree is not None:
+            # validate before mutating: a rejected insert must leave the
+            # wrapper consistent so the caller can retry with a clean feed
+            parents = np.asarray(tree[0], np.int32).reshape(-1)
+            depths = np.asarray(tree[1], np.int32).reshape(-1)
+            if do_checks:
+                if parents.size != tokens.size or depths.size != tokens.size:
+                    raise ValueError("tree metadata must align with the token feed")
+                if tokens.size and (parents[0] != -1 or depths[0] != 0):
+                    raise ValueError("tree node 0 must be the root (parent -1, depth 0)")
+                if any(not (-1 <= int(parents[i]) < i) for i in range(tokens.size)):
+                    raise ValueError("tree parents must be topological local indices")
         seq_idx = len(self._seq_descs)
         seen = seq_desc.seen_tokens
         self._seq_descs.append(seq_desc)
@@ -82,6 +112,13 @@ class RaggedBatchWrapper:
         self._token_ids.extend(int(t) for t in tokens)
         self._token_seq.extend([seq_idx] * tokens.size)
         self._token_pos.extend(range(seen, seen + tokens.size))
+        if tree is None:
+            self._token_parent.extend(range(-1, tokens.size - 1))
+            self._token_depth.extend(range(tokens.size))
+        else:
+            self._token_parent.extend(int(p) for p in parents)
+            self._token_depth.extend(int(d) for d in depths)
+            self._has_tree = True
 
     def finalize(self):
         """Pad to the bucket and build the packed numpy arrays."""
@@ -108,6 +145,14 @@ class RaggedBatchWrapper:
             blocks = self._seq_blocks[i]
             seq_meta[i, 4:4 + len(blocks)] = blocks
         self._device_batch = dict(tok_meta=tok_meta, seq_meta=seq_meta, n_tokens=n_tok, n_seqs=n_seq)
+        if self._has_tree:
+            # packed only when a tree was inserted: the plain decode/prefill
+            # path builds exactly the two arrays it always did
+            tree_meta = np.zeros((2, T), np.int32)
+            tree_meta[0] = -1
+            tree_meta[0, :n_tok] = self._token_parent
+            tree_meta[1, :n_tok] = self._token_depth
+            self._device_batch["tree_meta"] = tree_meta
         return self._device_batch
 
     @property

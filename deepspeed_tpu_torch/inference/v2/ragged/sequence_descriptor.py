@@ -2,8 +2,9 @@
 
 Port of ``deepspeed_tpu/inference/v2/ragged/sequence_descriptor.py``
 (per-sequence KV block table, seen and in-flight token counts, and the tier
-of the KV ladder that holds the cache: ``device``, ``host`` or ``disk``).
-``rollback`` (speculative verify) is ROADMAP A5b.
+of the KV ladder that holds the cache: ``device``, ``host`` or ``disk``),
+and ``rollback``, which truncates the committed count after a speculative
+verify rejected drafts.
 """
 
 from typing import List
@@ -68,6 +69,20 @@ class DSSequenceDescriptor:
         """Commit in-flight tokens to seen after the forward."""
         self._seen_tokens += self._in_flight_tokens
         self._in_flight_tokens = 0
+
+    def rollback(self, n_tokens: int) -> None:
+        """Forget the last ``n_tokens`` committed tokens (write-then-truncate):
+        their KV stays in place and is overwritten when the correct tokens are
+        fed at those positions — the speculative-verify rejection path. The
+        blocks stay allocated; only the committed count moves."""
+        n_tokens = int(n_tokens)
+        if self._in_flight_tokens:
+            raise RuntimeError(f"sequence {self.tracking_id}: rollback with "
+                               f"{self._in_flight_tokens} in-flight tokens")
+        if n_tokens < 0 or n_tokens > self._seen_tokens:
+            raise ValueError(f"rollback({n_tokens}) with {self._seen_tokens} "
+                             f"committed tokens")
+        self._seen_tokens -= n_tokens
 
 
 class PlaceholderSequenceDescriptor(DSSequenceDescriptor):

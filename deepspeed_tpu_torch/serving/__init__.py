@@ -5,8 +5,8 @@ persistent deployment (Holmes et al. 2024) — continuous admission, Dynamic
 SplitFuse chunked-prefill/decode interleaving (iteration-level scheduling per
 Orca, Yu et al. OSDI'22), per-request token streaming, deadlines, and
 backpressure, with the prefix cache, the KV tier ladder
-(``serving/kv_tiers.py``), the handoff and session parking. Speculative
-decoding is ROADMAP A5b; the scheduler refuses its config.
+(``serving/kv_tiers.py``), the handoff, session parking and speculative
+decoding (``SpeculativeConfig``).
 
 Usage::
 

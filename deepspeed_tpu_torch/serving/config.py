@@ -4,8 +4,7 @@ Port of ``deepspeed_tpu/serving/config.py`` as dataclasses on
 ``runtime/config_utils.py`` (the reference's blocks are pydantic models), with
 the same fields, defaults, bounds and validator messages.
 
-Speculative decoding is ROADMAP A5b, so the port's scheduler refuses
-``speculative.enabled`` (``serving/scheduler.py``). ``CostConfig`` is on by
+``CostConfig`` is on by
 default, as in the reference, but its ledger exists only while a telemetry
 session is active, and that combination is refused too (A5c ports
 ``telemetry/ledger.py``).
@@ -41,8 +40,27 @@ class PrefixCacheConfig(DeepSpeedConfigModel):
 
 @dataclass
 class SpeculativeConfig(DeepSpeedConfigModel):
-    """Speculative decoding (``inference/v2/spec/``). ROADMAP A5b: the port's
-    scheduler refuses ``enabled``."""
+    """Speculative decoding (``inference/v2/spec/``): a drafter proposes
+    continuation tokens per sequence per decode step at batch-build time and
+    the engine verifies every proposed position in one ragged forward. Output
+    is token-identical to non-speculative decoding at the same seed, greedy
+    and sampled, wherever the verify and decode logits agree (bit for bit in
+    f32 on the CPU); the only effect is fewer decode dispatches. Off by
+    default.
+
+    ``drafter``: ``prompt_lookup`` mines n-gram repeats (linear ``1+k`` feeds
+    through ``engine.verify``), ``learned`` reads the target's hidden state
+    through Medusa-style heads and proposes a token tree
+    (``engine.verify_tree``), ``auto`` arbitrates per request on measured
+    per-drafter acceptance EWMAs. ``max_draft_tokens`` bounds k (the tree
+    depth for the learned drafter), adapted per request from an acceptance
+    EWMA (``accept_alpha``) down to 0, with a one-token probe every
+    ``probe_interval`` steps. ``num_draft_heads``, ``tree_width`` and
+    ``tree_node_budget`` shape fresh heads and their trees;
+    ``draft_head_path`` loads trained heads (``spec/distill.py``).
+    ``min_ngram``/``max_ngram`` bound the self-lookup window.
+    ``draft_token_budget`` caps draft tokens per batch (None = the ragged
+    token budget); brownout stage >= 2 zeroes it."""
 
     enabled: bool = False
     drafter: Literal["prompt_lookup", "learned", "auto"] = "prompt_lookup"

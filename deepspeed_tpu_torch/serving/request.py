@@ -1,8 +1,8 @@
 """Request lifecycle primitives for the serving layer.
 
 Port of ``deepspeed_tpu/serving/request.py`` (host Python; ``now_us`` comes
-from the port's telemetry). The speculative fields stay, unused until
-ROADMAP A5b ports that path.
+from the port's telemetry), with every speculative field the scheduler
+reads (``spec_drafted``, ``spec_accepted`` and the ``_spec_*`` drafter state).
 
 Reference role: DeepSpeed-MII's ``RaggedRequest``/``RaggedRequestMsg`` (the
 request objects FastGen's persistent deployment schedules); here the request

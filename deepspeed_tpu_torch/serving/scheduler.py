@@ -27,6 +27,14 @@ Batch composition per tick (``step()``):
    greedy ``decode_loop`` (one dispatch per K tokens);
 6. idle ticks heartbeat ``engine.empty_run()`` when heartbeats are on.
 
+With ``speculative.enabled`` a drafter proposes draft tokens per decoding
+request at batch-build time (``inference/v2/spec/``): prompt lookup feeds a
+linear ``1+k`` verify through ``engine.verify``, the learned (Medusa-style)
+heads and ``auto`` arbitration feed token trees through
+``engine.verify_tree``. Each request accepts the longest prefix its own
+sampling rule would have emitted and rolls back (or compacts) the rest, so
+output equals speculation off, greedy or sampled, in fewer dispatches.
+
 With ``prefix_cache.enabled`` admission maps each prompt's longest cached
 prefix (``ragged/prefix_cache.py``) into a pre-populated sequence, so only
 the suffix prefills; a fully cached prompt re-feeds its last token into a
@@ -38,9 +46,9 @@ device→host→disk ladder before anything is evicted or shed. ``handoff`` and
 ``submit_resume`` continues on another engine; ``export_prefix`` frames
 cached KV for a peer.
 
-Not ported yet, and refused with ``NotImplementedError``: speculative
-decoding (ROADMAP A5b), the cost ledger while telemetry is on (A5c), work
-stealing and SLO-driven pressure (A6).
+Not ported yet, and refused with ``NotImplementedError``: the cost ledger
+while telemetry is on (ROADMAP A5c), work stealing and SLO-driven pressure
+(A6).
 """
 
 import itertools
@@ -55,6 +63,7 @@ from deepspeed_tpu_torch import telemetry
 from deepspeed_tpu_torch.inference.v2.ragged import handoff as _handoff
 from deepspeed_tpu_torch.inference.v2.ragged.prefix_cache import PrefixCache, digest_chain
 from deepspeed_tpu_torch.inference.v2.scheduling_utils import SchedulingError, SchedulingResult
+from deepspeed_tpu_torch.inference.v2.spec import LearnedDrafter, MedusaDraftHead, PromptLookupDrafter, TokenTree
 from deepspeed_tpu_torch.serving import kv_tiers as _kv_tiers_mod
 from deepspeed_tpu_torch.serving.config import ServingConfig
 from deepspeed_tpu_torch.serving.metrics import ServingMetrics
@@ -81,8 +90,8 @@ KILLED_ERROR_PREFIX = "replica killed"
 
 _DRAFTER_PINS = ("prompt_lookup", "learned", "auto")
 
-# scheduler counters, named and ordered as the reference's; the speculative
-# counters stay 0 until A5b, the steal counter until A6
+# scheduler counters, named and ordered as the reference's; the steal counter
+# stays 0 until A6
 _COUNTERS = ("submitted", "rejected", "completed", "cancelled",
              "timed_out", "failed", "evictions", "batches", "heartbeats",
              "prefix_hits", "prefix_tokens_saved", "prefix_evictions",
@@ -230,6 +239,37 @@ class ServingScheduler:
         # tier before anything is evicted or shed
         self._kv_tiers = _kv_tiers_mod.maybe_create(engine, self._config.kv_tiers, metrics=self._metrics)
 
+        # speculative decoding (inference/v2/spec/): a model-free drafter
+        # proposes k continuation tokens per decode step at batch-build time;
+        # the engine verifies 1+k positions in one ragged forward and the
+        # execute path accepts the longest matching prefix. Trie-backed when
+        # the prefix cache runs, self-lookup otherwise.
+        self._drafter = None
+        self._spec_accept_ewma: Optional[float] = None
+        self._drafter_mode = "prompt_lookup"
+        self._learned = None
+        self._spec_head_id: Optional[str] = None
+        self._spec_drafter_ewmas: Dict[str, float] = {}
+        if self._config.speculative.enabled:
+            scfg = self._config.speculative
+            self._drafter = PromptLookupDrafter(min_ngram=scfg.min_ngram, max_ngram=scfg.max_ngram,
+                                                prefix_cache=self._prefix_cache)
+            self._drafter_mode = scfg.drafter
+            if scfg.drafter != "prompt_lookup":
+                # learned / auto: Medusa-style heads read the target's hidden
+                # state and propose token trees verified by engine.verify_tree;
+                # "auto" races them against prompt lookup per request on
+                # measured acceptance EWMAs. Untrained fresh heads are safe:
+                # acceptance adapts their k to 0 until spec.distill trains them
+                if scfg.draft_head_path:
+                    head = MedusaDraftHead.load(scfg.draft_head_path)
+                else:
+                    mcfg = engine.model.config
+                    head = MedusaDraftHead.fresh(mcfg.hidden_size, mcfg.vocab_size,
+                                                 num_heads=scfg.num_draft_heads)
+                self._learned = LearnedDrafter(head, width=scfg.tree_width, node_budget=scfg.tree_node_budget)
+                self._spec_head_id = head.head_id
+
         engine._serving_scheduler = self
         # armed last: flight_state() must never observe a half-built
         # scheduler; a manually-step()ped scheduler (start=False) has no loop
@@ -244,7 +284,6 @@ class ServingScheduler:
     @staticmethod
     def _refuse_unported(cfg: ServingConfig) -> None:
         for what, on, item in (
-                ("serving.speculative", cfg.speculative.enabled, "A5b"),
                 ("serving.cost (the cost ledger, built while a telemetry session is active)",
                  cfg.cost.enabled and telemetry.is_active(), "A5c"),
                 ("serving.overload.slo_pressure (the SLO engine)", cfg.overload.slo_pressure, "A6")):
@@ -319,8 +358,14 @@ class ServingScheduler:
         continuable multi-turn session: at finish (length OR eos) the engine
         state exports as a v2 park frame (``request.park_payload``) that a
         later :meth:`submit_resume` rehydrates with the next turn's full
-        prompt. ``drafter`` is validated and, with speculative decoding off
-        (A5b), ignored, as the reference ignores a pin it cannot honor.
+        prompt.
+
+        ``drafter`` pins this request's speculative drafter
+        (``prompt_lookup`` | ``learned`` | ``auto``), overriding the
+        scheduler's ``SpeculativeConfig.drafter`` arbitration. A pin the
+        scheduler cannot honor (``learned`` without a draft head, or any pin
+        on a linear prompt_lookup scheduler, or speculation off) is ignored,
+        never an error: output does not depend on the drafter.
         ``tenant`` is the request's identity for the fair-share stage (None
         lands on ``config.cost.default_tenant``)."""
         req = Request(prompt,
@@ -372,8 +417,11 @@ class ServingScheduler:
         enters PREFILL for the un-parked suffix only. The new turn samples on
         its own ``seed`` (the parked ``rng_state`` is NOT adopted), so the
         result is identical to an uninterrupted request over the same full
-        prompt at the same seed. A frame's drafter state (``extra["spec"]``)
-        is not adopted: speculative decoding is A5b."""
+        prompt at the same seed. A handoff frame's drafter state
+        (``extra["spec"]``: the acceptance EWMA, the drafted and accepted
+        counts, the per-drafter EWMAs and the head id) is adopted, so
+        adaptive k resumes where the donor stopped; a learned EWMA from
+        another head is dropped."""
         if not isinstance(payload, (bytes, bytearray)):
             # materialize views; a bytearray from the streaming body decoder
             # is kept as-is (copying it would double the resume peak memory)
@@ -424,6 +472,24 @@ class ServingScheduler:
             req._rng = np.random.default_rng()
             req._rng.bit_generator.state = rng_state
         req.decode_steps = int(extra.get("decode_steps") or 0)
+        spec = extra.get("spec")
+        if spec:
+            # drafter continuation: adopt the donor's acceptance EWMA and
+            # counters so adaptive k resumes where it left off
+            ewma = spec.get("accept_ewma")
+            req._spec_ewma = float(ewma) if ewma is not None else None
+            req.spec_drafted = int(spec.get("drafted") or 0)
+            req.spec_accepted = int(spec.get("accepted") or 0)
+            drafters = spec.get("drafters")
+            if drafters:
+                donor_head = spec.get("head_id")
+                for name, val in drafters.items():
+                    if name == "learned" and donor_head is not None \
+                            and donor_head != self._spec_head_id:
+                        # a different head's acceptance record says nothing
+                        # about ours: the learned drafter re-explores cold
+                        continue
+                    req._spec_ewmas[str(name)] = float(val)
         return self._enqueue(req, trace_id, parent_span_id, handoff)
 
     def request_steal(self, handle: str, timeout: float = 5.0) -> dict:
@@ -550,10 +616,12 @@ class ServingScheduler:
                 self._counters["brownout_clamped"] += 1
                 if self._metrics:
                     self._metrics.brownout_clamped.inc()
-        if stage >= 2 and self._config.decode_chunk > 1:
-            # the decode chunk is globally off at stage >= 2 (the first
-            # capacity lever that touches no request's token budget); flagged
-            # per affected request so no degradation is silent
+        if stage >= 2 and (self._config.decode_chunk > 1
+                           or self._config.speculative.enabled):
+            # speculative extras — the decode chunk and the draft budget —
+            # are globally off at stage >= 2 (the first capacity lever that
+            # touches no request's token budget); flagged per affected
+            # request so no degradation is silent
             req.degraded_mode.append("speculative_disabled")
         if ocfg.admission_control and req.deadline_s is not None:
             own = self._request_work(req)
@@ -1142,6 +1210,179 @@ class ServingScheduler:
             [req.prompt, np.asarray(req.tokens, np.int32)]) if req.tokens else req.prompt
         self._publish(req, seq, history, min(seq.seen_tokens, history.size))
 
+    # ---------------------------------------------------- speculative decode --
+    def _spec_draft_budget(self) -> int:
+        """Draft tokens this batch may spend (0 = drafting off this tick).
+        Brownout stage >= 2 zeroes the budget — speculation is the first
+        capacity lever pulled under overload, before anything clamps a
+        request's own token budget."""
+        if self._drafter is None:
+            return 0
+        if self._config.overload.enabled and self._brownout.stage >= 2:
+            return 0
+        budget = self._config.speculative.draft_token_budget
+        return budget if budget is not None else (1 << 30)
+
+    def _spec_k(self, req: Request) -> int:
+        """Per-request adaptive draft depth: the acceptance EWMA scales
+        ``max_draft_tokens`` down to 0 on adversarial (pattern-free) text —
+        bounded regression — with a periodic single-token probe so acceptance
+        can recover when the text turns repetitive again."""
+        scfg = self._config.speculative
+        ewma = req._spec_ewma
+        k = (scfg.max_draft_tokens if ewma is None
+             else int(scfg.max_draft_tokens * ewma + 0.5))
+        if k == 0 and req.decode_steps % scfg.probe_interval == 0:
+            k = 1
+        return k
+
+    @staticmethod
+    def _history_for(req: Request) -> np.ndarray:
+        """The request's token history (prompt + generated) as a read-only
+        view over an incrementally-grown buffer: each decode tick copies only
+        the newly-pushed tokens, not the whole history — per-token drafting
+        cost stays O(new), not O(length)."""
+        n = int(req.prompt.size) + len(req.tokens)
+        buf = req._spec_history
+        if buf is None or n > buf.size:
+            grown = np.empty(max(64, 2 * n), np.int32)
+            if buf is None:
+                grown[:req.prompt.size] = req.prompt
+                req._spec_history_len = int(req.prompt.size)
+            else:
+                grown[:req._spec_history_len] = buf[:req._spec_history_len]
+            req._spec_history = buf = grown
+        if req._spec_history_len < n:
+            tail = req.tokens[req._spec_history_len - int(req.prompt.size):]
+            buf[req._spec_history_len:n] = tail
+            req._spec_history_len = n
+        return buf[:n]
+
+    def _draft_for(self, req: Request, k: int) -> np.ndarray:
+        """Up to ``k`` proposed continuation tokens for ``req`` (scheduler
+        thread). History = prompt + everything generated; the admission-time
+        digest chain is extended (never recomputed) so the trie walk hashes
+        only newly-completed blocks."""
+        history = self._history_for(req)
+        digests = None
+        if self._prefix_cache is not None:
+            req._prefix_digests = self._prefix_cache.chain(
+                history, base=req._prefix_digests)
+            digests = req._prefix_digests
+        return self._drafter.draft(history, k, digests=digests)
+
+    def _pick_drafter(self, req: Request) -> str:
+        """Which drafter builds this request's feed this step. ``auto``
+        arbitrates on per-request per-drafter acceptance EWMAs: cold drafters
+        explore first (learned before lookup — it needs a step to capture its
+        hidden state anyway), then the higher EWMA wins, with the loser
+        probed every ``probe_interval`` decode steps so arbitration can
+        reverse when the text regime changes mid-stream. A per-request pin
+        (``submit(drafter=...)``) overrides both, when honorable: a
+        ``learned`` pin needs a loaded draft head."""
+        pin = req._spec_drafter_pin
+        if pin is not None and pin != "auto" and \
+                (pin != "learned" or self._learned is not None):
+            return pin
+        mode = self._drafter_mode
+        if mode != "auto":
+            return mode
+        ew = req._spec_ewmas
+        learned, lookup = ew.get("learned"), ew.get("prompt_lookup")
+        if learned is None:
+            return "learned"
+        if lookup is None:
+            return "prompt_lookup"
+        winner, loser = (("learned", "prompt_lookup") if learned >= lookup
+                         else ("prompt_lookup", "learned"))
+        if req.decode_steps and \
+                req.decode_steps % self._config.speculative.probe_interval == 0:
+            return loser  # periodic probe: the loser gets a round to recover
+        return winner
+
+    def _arb_update(self, req: Request, name: str, rate: float) -> None:
+        """Fold one step's depth-productivity ``rate`` into the arbitration
+        EWMAs: the request's (what ``auto`` decides on) and the scheduler's
+        (the per-drafter gauge). A picked drafter that proposes NOTHING
+        scores 0 here — otherwise "auto" wedges on a drafter that never
+        proposes and therefore never gets measured — while ``req._spec_ewma``
+        keeps the linear-path rule that an empty draft is not rejection."""
+        alpha = self._config.speculative.accept_alpha
+        prev = req._spec_ewmas.get(name)
+        req._spec_ewmas[name] = (rate if prev is None
+                                 else alpha * rate + (1 - alpha) * prev)
+        sprev = self._spec_drafter_ewmas.get(name)
+        self._spec_drafter_ewmas[name] = (rate if sprev is None
+                                          else alpha * rate + (1 - alpha) * sprev)
+        if self._metrics:
+            gauge = (self._metrics.spec_drafter_learned_ewma if name == "learned"
+                     else self._metrics.spec_drafter_lookup_ewma)
+            gauge.set(self._spec_drafter_ewmas[name])
+
+    def _draft_tree_for(self, req: Request, k: int, room: int):
+        """A :class:`TokenTree` feed for the learned/auto modes (always
+        non-None: every decode entry in tree mode feeds a tree, so one
+        ``verify_tree`` dispatch carries the whole tick). ``k`` caps draft
+        DEPTH, ``room`` caps draft NODES (root excluded) under the ragged
+        token budget. A prompt-lookup draft rides as a chain tree — the
+        linear verify's function under the tree mask — and a learned draft without a
+        valid hidden state bootstraps with a root-only tree whose verify
+        returns the hidden state the next step drafts from."""
+        scfg = self._config.speculative
+        name = self._pick_drafter(req)
+        if name != req._spec_last_drafter:
+            if req._spec_last_drafter is not None:
+                self._counters["spec_drafter_switches"] += 1
+                if self._metrics:
+                    self._metrics.spec_drafter_switches.inc()
+            req._spec_last_drafter = name
+        root = np.asarray([req._next], np.int32)
+        room = min(room, scfg.tree_node_budget - 1)
+        if k <= 0 or room <= 0:
+            return TokenTree.chain(root)
+        if name == "prompt_lookup":
+            draft = self._draft_for(req, min(k, room))
+            if draft.size == 0:
+                self._arb_update(req, name, 0.0)  # no n-gram match: scored 0
+                return TokenTree.chain(root)
+            return TokenTree.chain(np.concatenate([root, draft]))
+        hist = int(req.prompt.size) + len(req.tokens)
+        if req._spec_hidden is None or req._spec_hidden_pos != hist:
+            return TokenTree.chain(root)  # bootstrap: capture hidden first
+        tree = self._learned.draft_tree(req._spec_hidden, int(req._next), k,
+                                        node_budget=room + 1)
+        if tree is None:
+            self._arb_update(req, name, 0.0)  # nothing fit the node budget
+            return TokenTree.chain(root)
+        return tree
+
+    def _spec_accept(self, req: Request, feed: np.ndarray, rows: np.ndarray):
+        """The acceptance rule over one verify feed. ``rows[j]`` scores the
+        token after ``feed[:j+1]``; the emitted sequence is EXACTLY what
+        non-speculative decoding would produce: each emitted token is sampled
+        (or argmaxed) from the target distribution with the request's own
+        stream — one draw per emitted token, same draw order as spec-off — and
+        a draft survives only when it equals that token (rejection sampling
+        with a point-mass draft distribution). Returns ``(emitted,
+        accepted_drafts)``; emission stops at eos / the generation cap,
+        mirroring :meth:`_push_token`'s rules."""
+        emitted: List[int] = []
+        accepted = 0
+        k = int(feed.size) - 1
+        for j in range(int(feed.size)):
+            tok = self._sample(req, rows[j])
+            emitted.append(tok)
+            if req.eos_token_id is not None and tok == req.eos_token_id:
+                break
+            if len(req.tokens) + len(emitted) >= req.max_new_tokens:
+                break
+            if j >= k:
+                break  # the bonus token: no more drafts to validate
+            if int(feed[j + 1]) != tok:
+                break  # rejection: the target model disagrees with the draft
+            accepted += 1
+        return emitted, accepted
+
     def _permanently_infeasible(self, req: Request) -> Optional[str]:
         """A reason this request can NEVER be scheduled, or None. Failing at
         admission beats starving it forever against budgets that will not
@@ -1206,7 +1447,9 @@ class ServingScheduler:
             # this a permanently-admitted peer could starve a deferred one
             return sorted(reqs, key=lambda r: (-r._deferred, r.uid))
 
-        # --- decode tokens first: one each, latency-critical
+        # --- decode tokens first: one each (plus up to k draft tokens when
+        # speculation is on), latency-critical
+        draft_budget = self._spec_draft_budget()
         for req in by_pressure_priority(
                 [r for r in list(self._active.values()) if r.state is RequestState.DECODE]):
             if len(lens) + 1 > sm_cfg.max_ragged_sequence_count or sum(lens) + 1 > budget:
@@ -1217,8 +1460,42 @@ class ServingScheduler:
                 req.finish_reason = "context"
                 self._finalize(req, RequestState.DONE)
                 continue
-            if admit_under_pressure(req, 1):
+            feed = None
+            tree = None
+            req._spec_tree = None
+            if draft_budget > 0:
+                # draft tokens compete with prefill chunks under the same
+                # ragged token budget; never draft past the generation cap or
+                # the context window (the device commits every fed position)
+                room = min(draft_budget, budget - sum(lens) - 1,
+                           req.max_new_tokens - len(req.tokens) - 1)
+                if seq is not None:
+                    room = min(room, sm_cfg.max_context - seq.seen_tokens - 1)
+                k = min(self._spec_k(req), room)
+                if self._drafter_mode != "prompt_lookup":
+                    # learned/auto: every decode entry feeds a TokenTree so
+                    # one verify_tree dispatch carries the tick (a root-only
+                    # tree when nothing drafts — its verify still returns the
+                    # hidden state the learned drafter reads next step)
+                    tree = self._draft_tree_for(req, k, room)
+                    feed = tree.tokens
+                elif k > 0:
+                    draft = self._draft_for(req, k)
+                    if draft.size:
+                        feed = np.concatenate([np.asarray([req._next], np.int32), draft])
+            if feed is not None and admission(req.uid, int(feed.size)) == SchedulingResult.Success:
+                # drafts are speculative: they never trigger eviction — a feed
+                # the pool can't take falls back to the k=0 single token below
                 req._deferred = 0
+                req._spec_tree = tree
+                admit(req, feed)
+                draft_budget -= int(feed.size) - 1
+            elif admit_under_pressure(req, 1):
+                req._deferred = 0
+                if tree is not None:
+                    # tree mode under pressure: a root-only tree keeps the
+                    # tick on one verify_tree dispatch (same 1-token cost)
+                    req._spec_tree = TokenTree.chain(np.asarray([req._next], np.int32))
                 admit(req, [req._next])
             else:
                 req._deferred += 1  # KV held by in-flight work; retry next tick
@@ -1313,9 +1590,21 @@ class ServingScheduler:
                              args={"uid": req.uid,
                                    "tokens": ntok if counts is None else counts[i]})
 
+        # tree verify (learned/auto drafters): any decode entry carrying a
+        # TokenTree — root-only trees included — routes the tick through one
+        # engine.verify_tree dispatch
+        if any(req._spec_tree is not None for req, _ in plan):
+            self._execute_verify_tree(plan, _record_phase_spans)
+            return
+        # speculative verify: any decode feed wider than one token (next
+        # input + draft tokens) routes the tick through the verify path
+        if any(req.state is RequestState.DECODE and toks.size > 1 for req, toks in plan):
+            self._execute_verify(plan, _record_phase_spans)
+            return
+
         K = self._config.decode_chunk
         if K > 1 and self._config.overload.enabled and self._brownout.stage >= 2:
-            K = 1  # brownout stage >= 2: chunked decode disabled
+            K = 1  # brownout stage >= 2: speculative extras disabled
         max_context = self._engine._config.state_manager.max_context
 
         def chunk_safe(req):
@@ -1382,7 +1671,9 @@ class ServingScheduler:
         """Account one executed prefill chunk; on the final chunk: flip to
         DECODE, publish the prompt's blocks (peers sharing the prefix are
         likely already queued behind it — the burst shape), and emit the
-        first token from the chunk's final-position logits."""
+        first token from the chunk's final-position logits. Shared by the
+        put and verify execute paths so prefill behavior cannot depend on
+        whether a draft rode the same batch."""
         req._fed += toks.size
         if req._fed < req.prompt.size:
             return  # mid-prefill logits are meaningless
@@ -1397,7 +1688,8 @@ class ServingScheduler:
             req._next = nxt
 
     def _push_burst(self, req: Request, toks) -> None:
-        """Stream a multi-token burst (a decode chunk's kept tokens): pushes
+        """Stream a multi-token burst (a decode chunk's kept tokens, a verify
+        step's emitted run): pushes
         honor :meth:`_push_token`'s finish rules, ``req._next`` advances to
         the last pushed token, and the dispatch gap is amortized per token so
         ITL reflects the cadence a client sees rather than the microsecond
@@ -1415,6 +1707,235 @@ class ServingScheduler:
             gap = (req._last_token_s - prev) / pushed
             for _ in range(pushed):
                 self._metrics.itl.observe(gap)
+
+    def _execute_verify(self, plan: List[Tuple[Request, np.ndarray]],
+                        record_spans) -> None:
+        """Execute a tick containing speculative verify feeds. The decode
+        entries (each a next-input token plus k drafts) run through ONE
+        ``engine.verify`` dispatch; prefill chunks sharing the tick run
+        through their normal ``engine.put`` — a prefill bucket must not pay
+        the verify program's all-position unembed (and a [T, vocab] logits
+        transfer at prefill widths) for a peer's draft. Each decode entry
+        accepts its longest matching draft prefix, rolls the rejected tail
+        back (write-then-truncate on ``seen_tokens``) and streams the
+        emitted tokens."""
+        engine = self._engine
+        decode_plan = [(req, toks) for req, toks in plan
+                       if req.state is not RequestState.PREFILL]
+        prefill_plan = [(req, toks) for req, toks in plan
+                        if req.state is RequestState.PREFILL]
+        try:
+            per_seq = engine.verify([req.uid for req, _ in decode_plan],
+                                    [toks for _, toks in decode_plan])
+            prefill_logits = (engine.put([req.uid for req, _ in prefill_plan],
+                                         [toks for _, toks in prefill_plan]).float().cpu().numpy()
+                              if prefill_plan else None)
+        except Exception as e:  # pragma: no cover - defensive: same contract
+            # as the put path — the scheduler thread must survive
+            logger.exception("serving: engine verify tick failed; failing the batch")
+            for req, _ in plan:
+                self._finalize(req, RequestState.FAILED, error=f"engine error: {e}")
+            return
+        # the estimator measures engine-token throughput: verify feeds cost
+        # their full width (accepted or not), like any other fed token
+        self._rate.observe(sum(int(t.size) for _, t in plan))
+        self._charge_members([(req, "verify", int(t.size))
+                              for req, t in decode_plan])
+        if prefill_plan:
+            self._charge_members([(req, "prefill", int(t.size))
+                                  for req, t in prefill_plan])
+        alpha = self._config.speculative.accept_alpha
+        # sample/accept BEFORE any push: span token counts must be final when
+        # the root span closes, and each request's private stream makes the
+        # per-request draw order independent of processing order
+        accepts = {id(req): self._spec_accept(req, toks, rows)
+                   for (req, toks), rows in zip(decode_plan, per_seq)}
+        record_spans(counts=[len(accepts[id(req)][0]) if id(req) in accepts
+                             else int(toks.size) for req, toks in plan])
+        for (req, toks), rows in zip(decode_plan, per_seq):
+            emitted, accepted = accepts[id(req)]
+            k = int(toks.size) - 1
+            rejected = int(toks.size) - len(emitted)
+            # rollback BEFORE pushing: a push may finalize, and the handoff
+            # export / trie publish there must see the truncated seen_tokens
+            # (= full history - 1, the same invariant every other path keeps)
+            engine.rollback(req.uid, rejected)
+            req.decode_steps += 1
+            if k:
+                # a k=0 feed riding a verify batch proposed nothing — no
+                # acceptance evidence, no EWMA movement
+                req.spec_drafted += k
+                req.spec_accepted += accepted
+                self._counters["spec_steps"] += 1
+                self._counters["spec_drafted"] += k
+                self._counters["spec_rollback"] += rejected
+                self._counters["spec_accepted"] += accepted
+                rate = accepted / k
+                req._spec_ewma = (rate if req._spec_ewma is None
+                                  else alpha * rate + (1 - alpha) * req._spec_ewma)
+                self._spec_accept_ewma = (rate if self._spec_accept_ewma is None
+                                          else alpha * rate
+                                          + (1 - alpha) * self._spec_accept_ewma)
+                if self._metrics:
+                    self._metrics.spec_verify_steps.inc()
+                    self._metrics.spec_drafted.inc(k)
+                    self._metrics.spec_accepted.inc(accepted)
+                    self._metrics.spec_rollback.inc(rejected)
+                    self._metrics.spec_accept_rate.set(self._spec_accept_ewma or 0.0)
+                    self._metrics.spec_tokens_per_step.observe(len(emitted))
+            self._push_burst(req, emitted)
+        for i, (req, toks) in enumerate(prefill_plan):
+            self._advance_prefill(req, toks, prefill_logits[i])
+
+    def _spec_accept_tree(self, req: Request, tree, rows, ids):
+        """The acceptance rule over one verified token tree. Walk from the
+        root: each emitted token is sampled (or argmaxed) from the target
+        distribution with the request's own stream — one draw per emitted
+        token, same draw order as spec-off — then the walk descends into the
+        child CARRYING that token while one exists (rejection sampling with a
+        point-mass draft at each branch). The deepest matching path is
+        accepted; the first disagreement's sampled token is the bonus
+        emission. Returns ``(emitted, path, last_node)``: ``path`` lists the
+        accepted draft node indices (root-exclusive, the compaction input)
+        and ``last_node`` is the deepest CONSUMED node, whose hidden state
+        seeds the next learned draft. Emission stops at eos / the generation
+        cap, mirroring :meth:`_push_token`'s rules."""
+        emitted: List[int] = []
+        path: List[int] = []
+        node = 0
+        while True:
+            tok = (int(ids[node]) if rows is None
+                   else self._sample(req, rows[node]))
+            emitted.append(tok)
+            if req.eos_token_id is not None and tok == req.eos_token_id:
+                break
+            if len(req.tokens) + len(emitted) >= req.max_new_tokens:
+                break
+            child = tree.child_with_token(node, tok)
+            if child is None:
+                break  # rejection: the target disagrees with every branch
+            path.append(child)
+            node = child
+        return emitted, path, node
+
+    def _execute_verify_tree(self, plan: List[Tuple[Request, np.ndarray]],
+                             record_spans) -> None:
+        """Execute a tick whose decode entries carry TokenTree feeds (the
+        learned/auto drafter modes). Every tree — branching, chain, or
+        root-only — verifies in ONE ``engine.verify_tree`` dispatch; prefill
+        chunks sharing the tick keep their normal ``engine.put`` (same split
+        as :meth:`_execute_verify`, same reason). Each entry accepts its
+        deepest matching path under the spec-off sampling rule, compacts the
+        accepted path's KV left behind the committed history (tree-aware
+        write-then-truncate) and streams the emitted run; the deepest
+        consumed node's hidden state is captured for the next learned
+        draft."""
+        engine = self._engine
+        decode_plan = [(req, toks) for req, toks in plan
+                       if req.state is not RequestState.PREFILL]
+        prefill_plan = [(req, toks) for req, toks in plan
+                        if req.state is RequestState.PREFILL]
+        trees = []
+        for req, toks in decode_plan:
+            tree = req._spec_tree
+            req._spec_tree = None
+            if tree is None:  # defensive: a plain feed rides as a chain
+                tree = TokenTree.chain(toks)
+            trees.append(tree)
+        # the device-argmax program only when EVERY decode entry is greedy: a
+        # sampled request needs the full rows for its private stream (greedy
+        # peers argmax the same f32 rows host-side — the identical result)
+        greedy = all(req.temperature <= 0.0 for req, _ in decode_plan)
+        try:
+            per_seq = engine.verify_tree([req.uid for req, _ in decode_plan],
+                                         trees, greedy=greedy)
+            prefill_logits = (engine.put([req.uid for req, _ in prefill_plan],
+                                         [toks for _, toks in prefill_plan]).float().cpu().numpy()
+                              if prefill_plan else None)
+        except Exception as e:  # pragma: no cover - defensive: same contract
+            # as the put path — the scheduler thread must survive
+            logger.exception("serving: tree-verify tick failed; failing the batch")
+            for req, _ in plan:
+                self._finalize(req, RequestState.FAILED, error=f"engine error: {e}")
+            return
+        # verify feeds cost their full width (accepted or not), like any fed
+        # token — tree nodes included
+        self._rate.observe(sum(int(t.size) for _, t in plan))
+        self._charge_members([(req, "tree_verify", int(t.size))
+                              for req, t in decode_plan])
+        if prefill_plan:
+            self._charge_members([(req, "prefill", int(t.size))
+                                  for req, t in prefill_plan])
+        alpha = self._config.speculative.accept_alpha
+        # sample/accept BEFORE any push: span token counts must be final when
+        # the root span closes, and each request's private stream makes the
+        # per-request draw order independent of processing order
+        accepts = {id(req): self._spec_accept_tree(req, tree,
+                                                   res["rows"], res["ids"])
+                   for (req, _), tree, res in zip(decode_plan, trees, per_seq)}
+        record_spans(counts=[len(accepts[id(req)][0]) if id(req) in accepts
+                             else int(toks.size) for req, toks in plan])
+        for (req, toks), tree, res in zip(decode_plan, trees, per_seq):
+            emitted, path, last_node = accepts[id(req)]
+            k = tree.size - 1  # draft nodes proposed (the root is the input)
+            accepted = len(path)
+            # compact BEFORE pushing (a push may finalize, and the handoff
+            # export / trie publish there must see the truncated seen_tokens):
+            # accepted-path KV moves contiguously behind the committed
+            # history, the rejected remainder truncates off — the same
+            # full-history-minus-1 invariant every other path leaves behind
+            rejected = engine.compact_accepted(req.uid, tree.size, path)
+            req.decode_steps += 1
+            # the hidden state behind the next decode input is the deepest
+            # CONSUMED node's residual; _spec_hidden_pos stamps the history
+            # length it is valid at (stale after any gap: handoff, brownout)
+            hidden = res.get("hidden")
+            if hidden is not None:
+                req._spec_hidden = np.asarray(hidden[last_node], np.float32)
+                req._spec_hidden_pos = (int(req.prompt.size) + len(req.tokens)
+                                        + len(emitted))
+            self._counters["spec_tree_nodes"] += tree.size
+            compacted = any(p != j + 1 for j, p in enumerate(path))
+            if compacted:
+                self._counters["spec_tree_compactions"] += 1
+            if self._metrics:
+                self._metrics.spec_tree_nodes.inc(tree.size)
+                if compacted:
+                    self._metrics.spec_tree_compactions.inc()
+            if k:
+                # a root-only bootstrap proposed nothing — no acceptance
+                # evidence, no EWMA movement (linear-path rule, tree-shaped)
+                drafter = req._spec_last_drafter or self._drafter_mode
+                short = "learned" if drafter == "learned" else "lookup"
+                # the arbitration/adaptation signal is DEPTH productivity:
+                # accepted serial depth over proposed depth — comparable
+                # across a branching tree and a linear chain at the same k
+                rate = accepted / max(int(tree.max_depth), 1)
+                req.spec_drafted += k
+                req.spec_accepted += accepted
+                self._counters["spec_steps"] += 1
+                self._counters["spec_drafted"] += k
+                self._counters["spec_rollback"] += rejected
+                self._counters["spec_accepted"] += accepted
+                self._counters[f"spec_drafted_{short}"] += k
+                self._counters[f"spec_accepted_{short}"] += accepted
+                req._spec_ewma = (rate if req._spec_ewma is None
+                                  else alpha * rate + (1 - alpha) * req._spec_ewma)
+                self._arb_update(req, drafter, rate)
+                self._spec_accept_ewma = (rate if self._spec_accept_ewma is None
+                                          else alpha * rate
+                                          + (1 - alpha) * self._spec_accept_ewma)
+                if self._metrics:
+                    self._metrics.spec_verify_steps.inc()
+                    self._metrics.spec_drafted.inc(k)
+                    self._metrics.spec_accepted.inc(accepted)
+                    self._metrics.spec_rollback.inc(rejected)
+                    self._metrics.spec_accept_rate.set(self._spec_accept_ewma or 0.0)
+                    self._metrics.spec_tokens_per_step.observe(len(emitted))
+                    self._metrics.spec_tree_accept_depth.observe(accepted)
+            self._push_burst(req, emitted)
+        for i, (req, toks) in enumerate(prefill_plan):
+            self._advance_prefill(req, toks, prefill_logits[i])
 
     @staticmethod
     def _kept_tokens(req: Request, row) -> int:
@@ -1469,8 +1990,8 @@ class ServingScheduler:
         full token history, KV blocks, next decode input and the sampler's
         exact RNG state — everything :meth:`submit_resume` on a decode-role
         peer needs to continue token-identically. Runs on the scheduler
-        thread, before the sequence's KV is flushed. It carries no drafter
-        state: speculative decoding is A5b."""
+        thread, before the sequence's KV is flushed. Drafter state rides in
+        ``extra["spec"]``."""
         extra = {"generated": len(req.tokens)}
         if req.finish_reason == "length" and req.tokens:
             # an eos/context finish is not continuable; length means the donor
@@ -1481,6 +2002,23 @@ class ServingScheduler:
         # the dispatch count rides every handoff (tokens-per-step accounting
         # must survive the migration whether or not the donor ever drafted)
         extra["decode_steps"] = req.decode_steps
+        if req._spec_ewma is not None or req.spec_drafted:
+            # drafter state rides the handoff: the decode-role peer continues
+            # the acceptance adaptation exactly where the donor stopped (no
+            # cold re-probe tax on a mid-stream migration)
+            extra["spec"] = {"accept_ewma": req._spec_ewma,
+                             "drafted": req.spec_drafted,
+                             "accepted": req.spec_accepted}
+            if req._spec_ewmas:
+                # per-drafter EWMAs: an "auto" peer resumes the arbitration
+                # mid-race instead of re-exploring both drafters cold
+                extra["spec"]["drafters"] = {
+                    name: val for name, val in req._spec_ewmas.items()
+                    if val is not None}
+            if self._spec_head_id is not None:
+                # which trained heads produced the learned EWMA: a peer with
+                # different heads must not inherit their acceptance record
+                extra["spec"]["head_id"] = self._spec_head_id
         tokens = [int(t) for t in req.prompt.tolist()] + [int(t) for t in req.tokens]
         # chunked greedy decode feeds the device ahead of the kept history (a
         # mid-chunk cap leaves the last kept token — and discarded over-run —
@@ -1765,6 +2303,40 @@ class ServingScheduler:
                          for q in (0.5, 0.95, 0.99)}
         return out
 
+    def _spec_stats(self) -> Optional[dict]:
+        if self._drafter is None:
+            return None
+        drafted = self._counters["spec_drafted"]
+        out = {
+            "enabled": True,
+            "drafter": self._drafter_mode,
+            "drafted": drafted,
+            "accepted": self._counters["spec_accepted"],
+            "accept_rate": (self._counters["spec_accepted"] / drafted
+                            if drafted else 0.0),
+            "accept_ewma": self._spec_accept_ewma,
+            "verify_steps": self._counters["spec_steps"],
+            "rollback_tokens": self._counters["spec_rollback"],
+            "max_draft_tokens": self._config.speculative.max_draft_tokens,
+        }
+        if self._drafter_mode != "prompt_lookup":
+            scfg = self._config.speculative
+            out["head_id"] = self._spec_head_id
+            out["tree"] = {
+                "nodes": self._counters["spec_tree_nodes"],
+                "compactions": self._counters["spec_tree_compactions"],
+                "width": scfg.tree_width,
+                "node_budget": scfg.tree_node_budget,
+            }
+            out["drafter_switches"] = self._counters["spec_drafter_switches"]
+            out["drafters"] = {
+                name: {"drafted": self._counters[f"spec_drafted_{short}"],
+                       "accepted": self._counters[f"spec_accepted_{short}"],
+                       "ewma": self._spec_drafter_ewmas.get(name)}
+                for name, short in (("learned", "learned"),
+                                    ("prompt_lookup", "lookup"))}
+        return out
+
     def usage(self) -> dict:
         """The ``/v1/usage`` document: ``{"enabled": False}`` (the cost ledger
         is A5c), plus the fair-share posture when that stage is on."""
@@ -1778,9 +2350,9 @@ class ServingScheduler:
         return self._stats_doc(queued, active)
 
     def _stats_doc(self, queued: List[Request], active: List[Request]) -> dict:
-        # the reference's document, key for key; the A5b/A5c/A6 blocks
-        # (speculative, perf, time series, SLO) are None, as the reference
-        # reports them with those features off
+        # the reference's document, key for key; the A5c/A6 blocks (perf,
+        # time series, SLO) are None, as the reference reports them with
+        # those features off
         now = time.monotonic()
         prefix_stats = None
         if self._prefix_cache is not None:
@@ -1807,7 +2379,7 @@ class ServingScheduler:
                 "tracked_sequences": self._engine._state_manager.n_tracked_sequences,
             },
             "prefix_cache": prefix_stats,
-            "speculative": None,
+            "speculative": self._spec_stats(),
             "kv_tiers": (self._kv_tiers.stats(self._prefix_cache)
                          if self._kv_tiers is not None else None),
             "usage": self.usage(),

@@ -245,9 +245,8 @@ def parse_request_body(handler, resume: bool, max_bytes: Optional[int] = None) -
 def _request_doc(req: Request, raw_handoff: bool = False,
                  handoff_ref: Optional[str] = None) -> dict:
     """The final response document (JSON body, SSE ``done`` event): the
-    reference's fields in its order. Its ``cost`` and ``spec`` fields come
-    with the cost ledger (A5c) and speculative decoding (A5b), so never
-    here."""
+    reference's fields in its order. Its ``cost`` field comes with the cost
+    ledger (A5c), so never here."""
     doc = {
         "uid": req.uid,
         "handle": req.handle,
@@ -264,6 +263,14 @@ def _request_doc(req: Request, raw_handoff: bool = False,
         "priority": req.priority,
         "tenant": req.tenant,
     }
+    if req.spec_drafted:
+        # speculative decoding rode this request: drafted/accepted let a
+        # client compute acceptance rate and tokens-per-step without
+        # scraping /v1/stats; "drafter" is which drafter family served the
+        # request (the last one used, under auto arbitration)
+        doc["spec"] = {"drafted": req.spec_drafted,
+                       "accepted": req.spec_accepted,
+                       "drafter": req._spec_last_drafter or "prompt_lookup"}
     if req.degraded_mode:
         # brownout degradations applied to THIS request — never silent
         doc["degraded_mode"] = list(req.degraded_mode)

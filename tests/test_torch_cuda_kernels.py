@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+from deepspeed_tpu_torch.inference.v2.ragged import manager_configs as mc
 from deepspeed_tpu_torch.ops.paged_attention import (SPLIT_POSITIONS, kernel_geometry, paged_attention_geometry,
                                                      paged_attention_update, paged_attention_update_plain)
 
@@ -484,3 +487,64 @@ def test_hot_suffix_over_shared_blocks_launches_the_paged_kernel(cuda_device):
     finally:
         sched.stop(drain=False)
     assert engine.free_blocks == 64
+
+
+# --------------------------------------------------- speculative decoding --
+@pytest.mark.cuda
+def test_b1_on_a_multi_token_verify_feed_matches_plain(cuda_device):
+    """A verify feed: 8 sequences each 1 input + 3 drafts, 32 tokens, bf16."""
+    rng = np.random.default_rng(0)
+    H, KVH, D, bs, S, MB, L = 8, 8, 128, 64, 8, 8, 2
+    seen = rng.integers(20, MB * bs - 4, S)
+    seq = np.repeat(np.arange(S), 4).astype(np.int32)
+    pos = (seen[:, None] + np.arange(4)[None]).reshape(-1).astype(np.int32)
+    table = rng.permutation(S * MB).reshape(S, MB).astype(np.int32)
+    f = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    i = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    q, k, v, cache = f(32, H, D), f(32, KVH, D), f(32, KVH, D), f(L, 2, S * MB, KVH, bs, D)
+    args = (1, i(table), i(seq), i(pos), i(np.ones(32, np.int32)))
+    c1, c2 = cache.clone(), cache.clone()
+    before = paged_attention_update.launches
+    got, _ = paged_attention_update(q, k, v, c1, *args)
+    want, _ = paged_attention_update_plain(q, k, v, c2, *args)
+    torch.cuda.synchronize()
+    assert paged_attention_update.launches == before + 2 and torch.equal(c1, c2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=2**-7)
+
+
+@pytest.mark.cuda
+def test_stale_slots_after_a_rollback_are_never_read(cuda_device):
+    """Garbage written into every slot past the committed count after a
+    rejection leaves the next verify and decode logits bitwise unchanged,
+    through B1 and through the gather branch; garbage in a committed slot
+    changes them (the control)."""
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_params
+    cfg = LlamaConfig.tiny(dtype=torch.bfloat16, hidden_size=256, num_attention_heads=2, num_key_value_heads=2)
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, 40)
+
+    def run(kernel, garbage_from):
+        mgr = mc.DSStateManagerConfig(memory_config=mc.MemoryConfig(mode=mc.AllocationMode.ALLOCATE, size=16),
+                                        max_context=256)
+        eng = build_engine(params, cfg, RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=64,
+                                                                    use_paged_kernel=kernel), device=cuda_device)
+        t1 = int(eng.put([0], [prompt])[0].argmax())
+        eng.verify([0], [np.asarray([t1, 5, 6, 7], np.int32)])
+        eng.rollback(0, 3)
+        seq = eng._state_manager.get_sequence(0)
+        cache = eng._state_manager.kv_cache.cache
+        if garbage_from is not None:
+            g = torch.Generator(device=cuda_device).manual_seed(1)
+            for p in range(garbage_from, seq.cur_allocated_blocks * 64):
+                view = cache[:, :, int(seq.kv_blocks[p // 64]), :, p % 64]
+                view.copy_(torch.randn(view.shape, generator=g, device=cuda_device) * 100)
+        rows = eng.verify([0], [np.asarray([5, 9], np.int32)])[0]
+        eng.rollback(0, 1)
+        return rows, eng.put([0], [[9]]).float().cpu().numpy()
+
+    for kernel in (True, False):
+        clean = run(kernel, None)
+        stale = run(kernel, prompt.size + 1)
+        np.testing.assert_array_equal(stale[0], clean[0])
+        np.testing.assert_array_equal(stale[1], clean[1])
+        assert not np.array_equal(run(kernel, prompt.size - 1)[0], clean[0])  # control

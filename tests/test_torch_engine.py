@@ -196,11 +196,11 @@ def test_decode_loop_validation_and_budgets(setup):
     _, _, cfg, params, _, _ = setup
     eng = build_engine(params, cfg, _port_config(max_ragged_batch_size=64), device="cpu")
     eng.put([0], [np.arange(5) % cfg.vocab_size])
-    with pytest.raises(NotImplementedError, match="verify"):
-        eng.decode_loop([0], [np.array([1, 2])], 1)
+    with pytest.raises(ValueError, match="one step"):  # a verify feed runs one step
+        eng.decode_loop([0], [np.array([1, 2])], 2)
     with pytest.raises(ValueError, match="n_steps"):
         eng.decode_loop([0], [np.array([1])], 0)
-    with pytest.raises(NotImplementedError, match="sampled"):
+    with pytest.raises(ValueError, match="torch.Generator"):  # sampling needs a generator
         eng.decode_loop([0], [np.array([1])], 2, temperature=1.0)
     free_before = eng.free_blocks
     with pytest.raises(SchedulingError):
@@ -227,13 +227,43 @@ def test_unported_features_are_refused(setup):
     ec = RaggedInferenceEngineConfig.from_dict({"tp": {"tp_size": 2}})
     with pytest.raises(NotImplementedError, match="tensor_parallel"):
         build_engine(params, cfg, ec, device="cpu")
-    eng = build_engine(params, cfg, _port_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A5b"):  # sampled decode_loop
-        eng.decode_loop([0], [[1]], 2, temperature=0.7)
     # sampled generate runs through the serving scheduler (seeded per request)
     eng = build_engine(params, cfg, _port_config(), device="cpu")
     sampled = generate(eng, [[1, 2]], max_new_tokens=3, temperature=0.7, seed=4)
     assert sampled == generate(eng, [[1, 2]], max_new_tokens=3, temperature=0.7, seed=4)
+
+
+@pytest.mark.parametrize("kernel", [False, True], ids=["gather", "paged_kernel"])
+def test_sampled_decode_loop_runs_and_tends_to_the_jax_greedy_loop(setup, kernel):
+    """Sampled decode_loop draws on the device from a torch.Generator: the
+    same seed gives the same tokens, and as the temperature falls to 0 the
+    tokens are the JAX engine's greedy decode_loop's. A multi-token feed
+    runs the greedy verify and equals the JAX engine's."""
+    jcfg, jparams, cfg, params, prompts, _ = setup
+    uids, toks = list(prompts), list(prompts.values())
+    mgr = j_mc.DSStateManagerConfig(memory_config=j_mc.MemoryConfig(mode=j_mc.AllocationMode.ALLOCATE, size=64),
+                                    max_context=512)
+    jeng = j_factory.build_engine(jparams, jcfg, j_config.RaggedInferenceEngineConfig(state_manager=mgr,
+                                                                                      kv_block_size=16,
+                                                                                      use_paged_kernel=kernel))
+    first = np.argmax(np.asarray(jeng.put(uids, toks)), -1)
+    want = np.asarray(jeng.decode_loop(uids, [np.array([c]) for c in first], 4))
+    feeds = [np.array([c, 3, 5]) for c in want[:, -1]]
+    want_verify = jeng.decode_loop(uids, feeds, 1)
+    runs = []
+    for temperature, seed in ((1e-7, 0), (1.0, 1), (1.0, 1)):
+        eng = build_engine(params, cfg, _port_config(use_paged_kernel=kernel), device="cpu")
+        eng.put(uids, toks)
+        runs.append(eng.decode_loop(uids, [np.array([c]) for c in first], 4, temperature=temperature,
+                                    generator=torch.Generator().manual_seed(seed)))
+    np.testing.assert_array_equal(runs[0], want)
+    np.testing.assert_array_equal(runs[1], runs[2])
+    assert not np.array_equal(runs[1], want)
+    eng = build_engine(params, cfg, _port_config(use_paged_kernel=kernel), device="cpu")
+    eng.put(uids, toks)
+    eng.decode_loop(uids, [np.array([c]) for c in first], 4)
+    for got, ref in zip(eng.decode_loop(uids, feeds, 1), want_verify):
+        np.testing.assert_array_equal(got, np.asarray(ref)[:3])
 
 
 def test_output_projection_bias_is_applied():

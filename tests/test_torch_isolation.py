@@ -47,6 +47,8 @@ def test_port_and_chip_smoke_import_no_jax_flax_pydantic_or_reference():
         assert f"deepspeed_tpu_torch.inference.v2.ragged.{name}" in result["imported"]
     assert "deepspeed_tpu_torch.serving.kv_tiers" in result["imported"]
     assert "deepspeed_tpu_torch.ops.aio.aio_op" in result["imported"]
+    for name in ("tree", "drafter", "learned", "distill"):
+        assert f"deepspeed_tpu_torch.inference.v2.spec.{name}" in result["imported"]
     assert result["banned"] == []
 
 

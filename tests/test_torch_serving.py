@@ -18,8 +18,8 @@ bytes must be equal with only ``MASKED`` fields replaced (and SSE keepalive
 comments, which only timing decides, dropped). The rest mirrors
 ``tests/unit/serving/test_{request,scheduler,server,overload}.py`` on the
 port's engine (one test per ported path; repeats are parametrised), and
-checks that every path still unported (A5b, A5c, A6) raises, naming its
-queue item. The handoff, park, resume and prefix-export routes are held to
+checks that every path still unported (A5c, A6) raises, naming its queue
+item. The handoff, park, resume and prefix-export routes are held to
 the reference's bytes too, with frames compared by header. Every wait on a
 thread has a timeout.
 """
@@ -1137,14 +1137,25 @@ def test_graceful_drain_and_healthz_readiness(make_engine):
 
 # ---------------------------------------------------------------- refusals --
 @pytest.mark.parametrize("config,item", [
-    ({"speculative": {"enabled": True}}, "A5b"),
     ({"overload": {"slo_pressure": True}}, "A6"),
-], ids=["speculative", "slo_pressure"])
+], ids=["slo_pressure"])
 def test_unported_serving_configs_are_refused(make_engine, config, item):
     engine = make_engine()
     with pytest.raises(NotImplementedError, match=item):
         ServingScheduler(engine, ServingConfig.from_dict(config), start=False)
     assert engine.serving_scheduler is None
+
+
+@pytest.mark.parametrize("drafter", ["prompt_lookup", "auto"])
+def test_speculative_config_serves_like_the_reference(setup, drafter):
+    """``speculative.enabled`` (refused until ROADMAP A5b was ported) builds a
+    scheduler that serves the reference's tokens, states and counters tick
+    for tick; tests/test_torch_spec_serving.py holds the rest of A5b."""
+    config = {"speculative": {"enabled": True, "drafter": drafter}}
+    prompts = _prompts(3, (24, 9))
+    script = [_submit(prompts[0] * 2, max_new_tokens=8), ("step", 1), _submit(prompts[1], max_new_tokens=6)]
+    jax_run, port_run = _side_by_side(setup, script, config_kw=config)
+    assert port_run == jax_run and port_run["counters"]["spec_drafted"] > 0
 
 
 def test_cost_ledger_with_telemetry_is_refused(make_engine):
@@ -1154,13 +1165,27 @@ def test_cost_ledger_with_telemetry_is_refused(make_engine):
     ServingScheduler(make_engine(), ServingConfig(cost=CostConfig(enabled=False)), start=False).stop()
 
 
+def test_sampled_decode_loop_runs_beside_a_scheduler(make_engine):
+    """The engine's sampled decode_loop (refused until ROADMAP A5b was
+    ported) runs on an engine a scheduler serves, seeded by its generator,
+    and leaves the pool whole after a flush."""
+    engine = make_engine()
+    sched = ServingScheduler(engine, ServingConfig(), start=False)
+    draws = []
+    for seed in (4, 4):
+        engine.put([0], [np.arange(9)])
+        draws.append(engine.decode_loop([0], [[1]], 3, temperature=0.5,
+                                        generator=torch.Generator().manual_seed(seed)).tolist())
+        engine.flush(0)
+    assert draws[0] == draws[1] and len(draws[0][0]) == 3 and engine.free_blocks == 64
+    sched.stop(drain=False)
+
+
 def test_unported_scheduler_calls_are_refused(make_engine):
     engine = make_engine()
     sched = ServingScheduler(engine, ServingConfig(), start=False)
-    for call, item in ((lambda: sched.request_steal("r0"), "A6"),
-                       (lambda: engine.decode_loop([0], [[1]], 2, temperature=0.5), "A5b")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="A6"):
+        sched.request_steal("r0")
     assert sched.queue_depth == 0 and engine._state_manager.n_tracked_sequences == 0
     sched.stop(drain=False)
 

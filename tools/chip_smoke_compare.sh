@@ -3,7 +3,7 @@
 # change, change, parent, so that the card's drift between runs shows as a
 # difference within one tree rather than between the trees.
 #
-#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|MODE,MODE...]
+#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|spec|MODE,MODE...]
 #
 # Each run's output goes to chiprun_out/smoke_<i>_<tree>.log and its full
 # record to chiprun_out/smoke_<i>_<tree>.json, under the directory the script
@@ -18,8 +18,12 @@
 # Llama-2-7B through generate, its rates and generate's wall time per run);
 # with "prefix", the main path (for its logit errors, the teacher-forced
 # tolerance) and the prefix phase (run_prefix_path: TTFT cold and hot, B1's
-# launches in hot puts, handoff and disk-tier rates); modes joined by commas
-# run each. The exit code
+# launches in hot puts, handoff and disk-tier rates); with "spec", the main
+# path and the speculative phase (run_spec_path: served TTFT, ITL and tokens/s
+# with speculation off, prompt lookup through B1 and the gather branch, and
+# an oracle drafter; acceptance, verify dispatches, B1 launches, the
+# full-width verify_tree's time and peak memory, the learned drafter's host
+# ms a draft); modes joined by commas run each. The exit code
 # is the last failing run's, else 0.
 set -u
 parent=$(cd "$1" && pwd)
@@ -41,7 +45,7 @@ if "flash" in modes:
     r = c.check_flash_attention(dev)
     print(json.dumps([dict(case=x["case"], err=x["max_abs_err"], **{k: x[k]["ms"] for k in ("fwd", "dkv", "dq")})
                       for x in r]))
-if "main" in modes or "prefix" in modes:
+if modes & {"main", "prefix", "spec"}:
     params = c.main_params(dev)
     main = c.run_main_path(dev, params)
 if "main" in modes:
@@ -58,6 +62,14 @@ if "prefix" in modes:
                                              "device_busy_share_profiled_burst")},
                           export_ms=h["export_ms"], import_ms=h["import_ms"], claim_http_ms=h["claim_http_ms"],
                           demote_gb_per_s=d["demote_gb_per_s"], promote_gb_per_s=d["promote_gb_per_s"])))
+if "spec" in modes:
+    r = c.run_spec_path(dev, params, main)
+    legs = ("spec_off", "lookup_b1", "lookup_gather", "oracle")
+    keys = ("ttft_p50_s", "itl_p50_s", "served_tokens_per_s", "decode_ticks", "verify_dispatches", "acceptance",
+            "b1_launches")
+    print(json.dumps(dict({leg: {k: r[leg][k] for k in keys} for leg in legs},
+                          verify_tree=r["full_width_verify_tree"],
+                          learned_host_ms_per_draft=r["learned"]["learned"]["host_ms_per_draft"])))
 if "sparse" in modes:
     r = c.check_block_sparse_attention(dev)
     keys = ("case", "density", "max_abs_err", "tol_use", "ms", "ms_index_order", "ms_sorted_again", "ms_split_steps",
