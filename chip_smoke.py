@@ -77,7 +77,27 @@ Phases (any failure raises and the script exits non-zero):
    of the sampler); a handoff whose frame carries the drafter state into a
    second engine; every served greedy token teacher-forced, each check with
    a control it must reject;
-8. training path: train bench.py's headline program (the 530M Llama, full
+8. observe path: from the same weights, the per-layer tracer, the cost
+   plane and the SLO engine. The 8 main-path requests through an untraced
+   engine and a traced one (trace_enabled, CUDA events resolved once a
+   forward): prefill puts (the gather branch), 8 decode puts of 8 tokens
+   (B1, 64 launches each) and 3 more under torch.profiler, the last with its
+   end events recorded at phase entry (the control); every decode put's
+   summary has every phase timed, the phases of a profiled put sum to
+   between the profiler's device time and the synchronized host wall, the
+   Chrome trace holds 2 x 32 + 2 phase spans a put with its uids, ordered
+   and apart, the greedy tokens are the untraced ones, and an untraced put
+   creates no CUDA event and waits on nothing; a 768-token prefill put's
+   observed dispatch seconds against its profiled device time (control: the
+   end time taken before the wait). Then a telemetry session with the cost
+   plane: 6 tiled-pattern prompts twice over HTTP (prefix hits, prompt
+   lookup) billed to three tenants (header, JSON field, none), /v1/usage
+   conserved (control: a charge dropped), each final document's cost folded
+   into its tenant, billed plus amnesty seconds equal to the observed ones,
+   the /v1/stats perf block on the H100 row with each first sight amnestied;
+   and an SLO burst: an ITL objective of 1 ms breaches and slo_pressure lifts
+   the brownout stage (control: a 10 s objective does not);
+9. training path: train bench.py's headline program (the 530M Llama, full
    width and depth, S=1024, micro-batch 8, GAS 8, AdamW, bf16 over f32
    masters, ZeRO stage 3, remat "dots", flash attention) through
    deepspeed_tpu_torch.initialize + train_batch, with the flash kernels'
@@ -87,13 +107,14 @@ Phases (any failure raises and the script exits non-zero):
    projections' gradients, through the kernels and through plain attention
    in bf16, to the same step in f32, and show that the check rejects the
    kernel step with dq, or dk and dv, zeroed or with attention replaced;
-9. print one JSON line describing every kernel, then the result line.
+10. print one JSON line describing every kernel, then the result line.
 
 The script imports the port only (never jax or deepspeed_tpu), needs one
 GPU, and writes its full record to chiprun_out/chip_smoke.json.
 """
 
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -2170,6 +2191,14 @@ def _serve_spec(params, cfg, dev, prompts, spec, passes=1, oracle=None, sequenti
         return inner_push(req, tok, record_itl)
 
     sched._push_token = push
+    # the loop idles until every request of a pass is queued, in the prompts'
+    # order: the 8 requests then prefill and decode in the same ticks whatever
+    # the client threads' timing, and the default budget's verify feeds are
+    # up to 8 x (1 + k) tokens
+    gate = threading.Event()
+    if http:
+        inner_step = sched.step
+        sched.step = lambda: gate.is_set() and inner_step()
     runs = []
     try:
         for _ in range(passes):
@@ -2179,12 +2208,17 @@ def _serve_spec(params, cfg, dev, prompts, spec, passes=1, oracle=None, sequenti
             pa.paged_attention_update.launches = 0
             t0 = time.perf_counter()
             if http:
+                gate.clear()
                 out, threads = {}, []
                 for i, q in enumerate(prompts):
                     t = threading.Thread(target=_http_generate, daemon=True,
                                          args=(server.url, dict(prompt=q, max_new_tokens=NEW_TOKENS), False, out, i))
                     t.start()
                     threads.append(t)
+                    deadline = time.monotonic() + 60  # a failed request is reported below
+                    while sched.queue_depth < i + 1 and t.is_alive() and time.monotonic() < deadline:
+                        time.sleep(0.001)
+                gate.set()
                 for t in threads:
                     t.join(timeout=600)
                 bad = {k: v for k, v in out.items() if v.get("status") != 200}
@@ -2771,6 +2805,516 @@ def run_spec_path(dev, params, main) -> dict:
 
 
 # ----------------------------------------------------------------- phase 8 --
+# observability: the per-layer tracer, the cost plane and the SLO engine on
+# Llama-2-7B. OBSERVE_DECODE_PUTS decode puts of the 8 main-path requests (8
+# tokens each: B1) with tracing off and on, then OBSERVE_PROFILED_PUTS more
+# under torch.profiler, one at a time, the last of them the control (its end
+# events recorded at phase entry). The cost plane serves OBSERVE_COST_PROMPTS
+# tiled-pattern prompts twice over HTTP (the second wave hits the prefix
+# cache) with prompt lookup at a B1-sized draft budget, across three tenants.
+# The SLO leg serves a burst under an ITL objective of SLO_ITL_TARGET_S, which
+# no decode put on the card meets, with overload.slo_pressure; its control
+# objective is SLO_CONTROL_TARGET_S.
+OBSERVE_DECODE_PUTS = 8
+OBSERVE_PROFILED_PUTS = 3  # two held to the profiler and the wall, then the control
+OBSERVE_PREFILL = 768  # the engine-level prefill put whose observed seconds the profiler bounds
+OBSERVE_COST_PROMPTS = 6
+OBSERVE_NEW_TOKENS = 16
+OBSERVE_TENANTS = (("header", "acme"), ("json", "globex"), ("none", "default"))
+SLO_ITL_TARGET_S, SLO_CONTROL_TARGET_S = 0.001, 10.0
+SLO_INTERVAL_S = 0.1
+SLO_TAIL_S = 1.0  # /v1/stats read on after the burst: the breach outlives it by the fast window
+PHASE_NAMES = ("embed", "attn", "ffn", "unembed")
+
+
+class _CudaCalls:
+    """Counts, while armed, every CUDA event constructed and every wait
+    (``torch.cuda.synchronize``, an event's or a stream's ``synchronize``)."""
+
+    def __init__(self):
+        self.armed, self.events, self.waits = False, 0, 0
+        self._saved = []
+        calls, real_event = self, torch.cuda.Event
+
+        class Event(real_event):
+
+            def __new__(cls, *a, **k):
+                if calls.armed:
+                    calls.events += 1
+                return super().__new__(cls, *a, **k)
+
+            def synchronize(self):
+                if calls.armed:
+                    calls.waits += 1
+                return super().synchronize()
+
+        def counted(inner):
+
+            def call(*a, **k):
+                if calls.armed:
+                    calls.waits += 1
+                return inner(*a, **k)
+
+            return call
+
+        for owner, name, value in ((torch.cuda, "Event", Event),
+                                   (torch.cuda, "synchronize", counted(torch.cuda.synchronize)),
+                                   (torch.cuda.Stream, "synchronize", counted(torch.cuda.Stream.synchronize))):
+            self._saved.append((owner, name, getattr(owner, name)))
+            setattr(owner, name, value)
+
+    def restore(self):
+        for owner, name, value in self._saved:
+            setattr(owner, name, value)
+
+
+def _synced(fn):
+    """``fn()``'s result and its host microseconds between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e6
+
+
+def _profiled(fn):
+    """``fn()`` under torch.profiler: its result, the device time of its
+    kernels in microseconds (copies and memsets left out: the traced forward
+    times kernels) and its synchronized host microseconds."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out, wall_us = _synced(fn)
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.key.lower().startswith(("memcpy", "memset")))
+    return out, device_us, wall_us
+
+
+def _phase_us(s):
+    return s.embed + s.unembed + sum(row[0] + row[1] for row in s.record_exec_times)
+
+
+def _decode_puts(engine, first, n, wrap=None):
+    """``n`` greedy decode puts of the 8 sequences from ``first``: per put
+    its tokens, logits, synchronized host microseconds and B1 launches
+    (``wrap(fn)`` replaces the synchronized timer)."""
+    uids = list(range(len(first)))
+    nxt, rows = list(first), []
+    for _ in range(n):
+        before = pa.paged_attention_update.launches
+        feed = [[t] for t in nxt]
+        out = (wrap or _synced)(lambda: engine.put(uids, feed))
+        logits = out[0]
+        nxt = logits.argmax(-1).tolist()
+        rows.append(dict(tokens=nxt, logits=logits, launches=pa.paged_attention_update.launches - before,
+                         timing=out[1:]))
+    return rows
+
+
+def _end_at_entry(name):
+    """Control for the tracer: ``record`` with the end event recorded when
+    the phase is entered, so every phase reads about zero."""
+    from deepspeed_tpu_torch.inference.v2 import tracer as tracer_mod
+
+    @contextlib.contextmanager
+    def record(phase):
+        tracer = tracer_mod.get_tracer()
+        start = tracer_mod._timing_event()
+        tracer.add_events(phase, start, tracer_mod._timing_event())
+        yield
+
+    return record
+
+
+def _tracer_leg(params, cfg, dev, failures) -> dict:
+    """The same 8 requests through an untraced engine and a traced one:
+    prefill (the gather branch), OBSERVE_DECODE_PUTS decode puts of 8 tokens
+    (B1), then OBSERVE_PROFILED_PUTS profiled puts on the traced engine."""
+    from deepspeed_tpu_torch.inference.v2 import tracer as tracer_mod
+    from deepspeed_tpu_torch.inference.v2.model_implementations import llama_v2
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+    first = [int(t) for t in rng.integers(0, cfg.vocab_size, len(prompts))]
+    n_puts = OBSERVE_DECODE_PUTS + OBSERVE_PROFILED_PUTS
+    res = {}
+
+    # untraced: no CUDA event, no wait inside a put
+    engine = _engine(params, cfg, None, dev)
+    _prefill(engine, prompts)
+    calls = _CudaCalls()
+    armed_put = engine.put
+
+    def put(*a, **k):
+        calls.armed = True
+        try:
+            return armed_put(*a, **k)
+        finally:
+            calls.armed = False
+
+    engine.put = put
+    try:
+        plain = _decode_puts(engine, first, n_puts)
+    finally:
+        calls.restore()
+    del engine.put
+    res["untraced_events_and_waits_in_decode_puts"] = [calls.events, calls.waits]
+    if calls.events or calls.waits:
+        failures.append(f"untraced decode puts created {calls.events} CUDA events and {calls.waits} waits")
+    res["untraced_decode_put_ms"] = [r["timing"][0] / 1e3 for r in plain[:OBSERVE_DECODE_PUTS]]
+
+    # the engine-level dispatch timing: an observer's seconds for a
+    # OBSERVE_PREFILL-token prefill put against the profiler's device time;
+    # control: the end time taken before the wait
+    seen = []
+    engine.dispatch_observer = lambda kind, n_seqs, n_tokens, s: seen.append(s)
+    long_prompt = rng.integers(0, cfg.vocab_size, OBSERVE_PREFILL).tolist()
+    prefill = {}
+    for label, uid in (("observed", 100), ("control_end_before_wait", 101)):
+        if label.startswith("control"):
+            engine._wait_for_device = lambda: None
+        _, device_us, wall_us = _profiled(lambda: engine.put([uid], [long_prompt]))
+        prefill[label] = dict(observed_s=seen[-1], profiler_device_s=device_us / 1e6, wall_s=wall_us / 1e6)
+        ok = seen[-1] >= device_us / 1e6
+        if ok == label.startswith("control"):
+            failures.append(f"{label}: a {OBSERVE_PREFILL}-token prefill put observed {seen[-1]:.6f} s against the "
+                            f"profiler's {device_us / 1e6:.6f} s of device time")
+    res["prefill_put_dispatch_timing"] = prefill
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # traced, with an engine-owned telemetry session for the spans
+    ecfg = RaggedInferenceEngineConfig(
+        state_manager=DSStateManagerConfig(max_context=MAX_CONTEXT, memory_config=MemoryConfig(size=KV_BYTES)),
+        kv_block_size=BLOCK, trace_enabled=True, telemetry={"enabled": True})
+    engine = build_engine(params, cfg, ecfg, device=dev)
+    _prefill(engine, prompts)
+    traced = _decode_puts(engine, first, OBSERVE_DECODE_PUTS)
+    traced += _decode_puts(engine, traced[-1]["tokens"], OBSERVE_PROFILED_PUTS - 1, wrap=_profiled)
+    saved = llama_v2.record
+    llama_v2.record = transformer_base.record = _end_at_entry("control")
+    try:
+        traced += _decode_puts(engine, traced[-1]["tokens"], 1, wrap=_profiled)
+    finally:
+        llama_v2.record = transformer_base.record = saved
+    summaries = engine.tracer.drain_summaries()
+    n_prefill = len(summaries) - n_puts
+    decode = summaries[n_prefill:]
+    layers = cfg.num_hidden_layers
+    res["prefill_puts"] = n_prefill
+    for i, (s, r) in enumerate(zip(decode, traced)):
+        label = "control" if i == n_puts - 1 else f"decode put {i}"
+        if i < n_puts - 1:
+            if not (len(s.record_exec_times) == layers and s.embed > 0 and s.unembed > 0
+                    and all(row[0] > 0 and row[1] > 0 for row in s.record_exec_times)):
+                failures.append(f"{label}: a phase of the summary is not timed")
+            if r["launches"] != 2 * layers:
+                failures.append(f"{label}: B1 launched {r['launches']} times, not {2 * layers}")
+        if len(r["timing"]) == 2:  # profiled: device time <= the phases <= the host wall
+            device_us, wall_us = r["timing"]
+            total = _phase_us(s)
+            ok = device_us <= total <= wall_us
+            res.setdefault("profiled_puts", []).append(dict(label=label, phases_ms=total / 1e3,
+                                                            profiler_device_ms=device_us / 1e3,
+                                                            wall_ms=wall_us / 1e3))
+            if ok == (label == "control"):
+                failures.append(f"{label}: the phases sum to {total} us against the profiler's {device_us} us of "
+                                f"device time and the synchronized {wall_us:.0f} us on the host")
+    if [r["tokens"] for r in traced] != [r["tokens"] for r in plain]:
+        failures.append("traced greedy tokens differ from untraced ones")
+    res["traced_logits_bitwise_equal_untraced"] = all(torch.equal(_bits(a["logits"]), _bits(b["logits"]))
+                                                      for a, b in zip(traced, plain))
+    # the per-layer split of a decode put (the unprofiled ones)
+    unprofiled = decode[:OBSERVE_DECODE_PUTS]
+    attn = [sum(row[0] for row in s.record_exec_times) / 1e3 for s in unprofiled]
+    ffn = [sum(row[1] for row in s.record_exec_times) / 1e3 for s in unprofiled]
+    traced_ms = [r["timing"][0] / 1e3 for r in traced[:OBSERVE_DECODE_PUTS]]
+    res["decode_put_split"] = dict(
+        puts=len(unprofiled), tokens_per_put=len(prompts), attn_ms=statistics.median(attn),
+        ffn_ms=statistics.median(ffn), embed_ms=statistics.median(s.embed / 1e3 for s in unprofiled),
+        unembed_ms=statistics.median(s.unembed / 1e3 for s in unprofiled),
+        phases_ms=statistics.median(_phase_us(s) / 1e3 for s in unprofiled),
+        attn_ms_per_layer=statistics.median(attn) / layers, ffn_ms_per_layer=statistics.median(ffn) / layers,
+        traced_put_ms=statistics.median(traced_ms), untraced_put_ms=statistics.median(res["untraced_decode_put_ms"]))
+    split = res["decode_put_split"]
+    split["attn_share"] = split["attn_ms"] / split["phases_ms"]
+    split["tracing_overhead_ms_per_put"] = split["traced_put_ms"] - split["untraced_put_ms"]
+    # the Chrome trace: 2 x layers + 2 phase spans a traced put, each with
+    # the put's uids, ordered and apart within a batch
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = engine._telemetry.spans.export_chrome_trace(os.path.join("chiprun_out", "observe_trace.json"))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "inference" and e["name"] in PHASE_NAMES]
+    res["trace_spans"] = len(events)
+    for s in summaries:
+        mine = sorted((e for e in events if e["args"]["batch_id"] == s.batch_id), key=lambda e: e["ts"])
+        if len(mine) != 2 * layers + 2 or any(e["args"]["uids"] != s.uids for e in mine):
+            failures.append(f"batch {s.batch_id}: {len(mine)} phase spans, uids {[e['args']['uids'] for e in mine[:1]]}"
+                            f" against {s.uids}")
+        elif any(a["ts"] + a["dur"] > b["ts"] for a, b in zip(mine, mine[1:])):
+            failures.append(f"batch {s.batch_id}: phase spans overlap")
+    engine.close()
+    if tracer_mod.get_tracer() is not None:
+        failures.append("close() left the tracer registered")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _post_tenant(url, body, how, tenant, out, key):
+    """POST /v1/generate with the tenant in the header, in the JSON body, or
+    not at all."""
+    headers = {"Content-Type": "application/json"}
+    if how == "header":
+        headers["X-DSTPU-Tenant"] = tenant
+    elif how == "json":
+        body = dict(body, tenant=tenant)
+    status, _, raw = _exchange(url + "/v1/generate", "POST", json.dumps(body).encode(), headers)
+    out[key] = dict(status=status, doc=json.loads(raw))
+
+
+def _ledger_numbers(ledger):
+    """The ledger's own (unrounded) numbers: per tenant and for the
+    aggregate, its integer fields and its seconds."""
+
+    def numbers(c):
+        ints = dict(**{f"tokens.{p}": n for p, n in c.tokens.items()}, drafted=c.drafted_tokens,
+                    accepted=c.accepted_tokens, saved_prefix=c.saved_prefix_tokens,
+                    saved_spec=c.saved_spec_tokens, requests=c.requests,
+                    **{f"wire.{k}": v for k, v in c.wire_bytes.items()})
+        secs = dict(device=c.device_seconds, amnesty=c.amnesty_seconds,
+                    **{f"kv.{k}": v for k, v in c.kv_block_seconds.items()})
+        return dict(ints=ints, secs=secs)
+
+    return dict(tenants={t: numbers(c) for t, c in ledger.tenants.items()}, totals=numbers(ledger.totals))
+
+
+def _conservation_failures(numbers, observed):
+    """The usage invariants: every integer field over the tenants equals the
+    aggregate, the seconds within 1e-9 relative, and the billed device
+    seconds plus the amnesty equal the observed dispatch seconds."""
+    out = []
+    rows, totals = numbers["tenants"].values(), numbers["totals"]
+    for key, want in totals["ints"].items():
+        got = sum(r["ints"].get(key, 0) for r in rows)
+        if got != want:
+            out.append(f"{key}: tenants sum to {got}, the aggregate says {want}")
+    for key, want in totals["secs"].items():
+        got = sum(r["secs"].get(key, 0.0) for r in rows)
+        if abs(got - want) > 1e-9 * max(abs(want), 1e-12):
+            out.append(f"{key} seconds: tenants sum to {got!r}, the aggregate says {want!r}")
+    billed = totals["secs"]["device"] + totals["secs"]["amnesty"]
+    if abs(billed - sum(observed)) > 1e-9 * sum(observed):
+        out.append(f"billed {billed!r} s (device + amnesty) against {sum(observed)!r} s observed")
+    return out
+
+
+def _cost_leg(params, cfg, dev, failures) -> dict:
+    """OBSERVE_COST_PROMPTS tiled-pattern prompts over HTTP, twice (the second
+    wave hits the prefix cache), with prompt lookup at a B1-sized budget,
+    billed to three tenants; then the usage, stats and final documents."""
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.perf.observed import PerfObservedLedger, _bucket
+
+    session = telemetry.configure({"enabled": True})
+    engine = _engine(params, cfg, None, dev)
+    sched = ServingScheduler(engine, ServingConfig(queue_capacity=64, prefix_cache=PrefixCacheConfig(enabled=True),
+                                                   speculative=SpeculativeConfig(enabled=True,
+                                                                                 draft_token_budget=SPEC_B1_BUDGET)))
+    observed, sights = [], []
+    inner = engine.dispatch_observer
+
+    def observer(kind, n_seqs, n_tokens, seconds):
+        observed.append(seconds)
+        sights.append((kind, n_seqs, n_tokens))
+        inner(kind, n_seqs, n_tokens, seconds)
+
+    engine.dispatch_observer = observer
+    server = ServingServer(sched, host="127.0.0.1", port=0).start()
+    prompts = _spec_prompts(cfg, np.random.default_rng(10))[:OBSERVE_COST_PROMPTS]
+    res, finals = {}, []
+    try:
+        for wave in range(2):
+            out, threads = {}, []
+            for i, q in enumerate(prompts):
+                how, tenant = OBSERVE_TENANTS[i % len(OBSERVE_TENANTS)]
+                t = threading.Thread(target=_post_tenant, daemon=True,
+                                     args=(server.url, dict(prompt=q, max_new_tokens=OBSERVE_NEW_TOKENS), how, tenant,
+                                           out, i))
+                t.start()
+                threads.append(t)
+            for t in threads:
+                t.join(timeout=600)
+            if len(out) != len(prompts) or any(v["status"] != 200 for v in out.values()):
+                raise AssertionError(f"cost-plane requests failed: {out}")
+            finals += [out[i]["doc"] for i in range(len(prompts))]
+        _, _, usage_raw = _exchange(server.url + "/v1/usage")
+        _, _, stats_raw = _exchange(server.url + "/v1/stats")
+    finally:
+        server.stop()
+        sched.stop(drain=False)
+    usage, stats = json.loads(usage_raw), json.loads(stats_raw)
+    ledger = sched._ledger
+    tenants = usage["tenants"]
+    res.update(tenants=sorted(tenants), totals=usage["totals"], pricing=usage["pricing"], dispatches=len(observed),
+               observed_s=sum(observed))
+    if sorted(tenants) != sorted(t for _, t in OBSERVE_TENANTS):
+        failures.append(f"tenants billed: {sorted(tenants)}")
+    totals = usage["totals"]
+    if not (totals["saved_tokens"]["prefix"] > 0 and totals["speculative"]["drafted"] > 0):
+        failures.append(f"no prefix hit or no draft was charged: {totals['saved_tokens']}, {totals['speculative']}")
+    # the JSON document's integer fields, exactly
+    for key in ("prefill", "decode", "verify", "tree_verify", "billed"):
+        if sum(t["tokens"][key] for t in tenants.values()) != totals["tokens"][key]:
+            failures.append(f"/v1/usage tokens.{key} do not sum over the tenants")
+    numbers = _ledger_numbers(ledger)
+    res["conservation_failures"] = _conservation_failures(numbers, observed)
+    failures += res["conservation_failures"]
+    # control: the same numbers with one decode charge of one tenant dropped
+    # (its token and its share of a dispatch's seconds)
+    dropped = copy.deepcopy(numbers)
+    row = dropped["tenants"]["acme"]
+    row["ints"]["tokens.decode"] -= 1
+    row["secs"]["device"] -= next(s for s in observed if s > 0) / len(prompts)
+    res["control_dropped_charge_failures"] = _conservation_failures(dropped, observed)
+    if not res["control_dropped_charge_failures"]:
+        failures.append("control: a usage ledger with one charge dropped passed the conservation check")
+    # each request's final bill folds into its tenant
+    by_tenant = {}
+    for doc in finals:
+        cost = doc["cost"]
+        acc = by_tenant.setdefault(doc["tenant"], dict(tokens={}, device_seconds=0.0, requests=0))
+        for k, v in cost["tokens"].items():
+            acc["tokens"][k] = acc["tokens"].get(k, 0) + v
+        acc["device_seconds"] += cost["device_seconds"]
+        acc["requests"] += 1
+    for tenant, acc in by_tenant.items():
+        row = tenants[tenant]
+        if acc["tokens"] != row["tokens"] or acc["requests"] != row["requests"] or \
+                abs(acc["device_seconds"] - row["device_seconds"]) > 1e-6 * (acc["requests"] + 1):
+            failures.append(f"tenant {tenant}: the final documents' costs do not fold into its usage row")
+    # the perf block: the H100 row; each (program, bucket) first seen amnestied
+    perf = stats["perf"]
+    counts = {}
+    for kind, n_seqs, n_tokens in sights:
+        key = (PerfObservedLedger.program_for(kind, n_seqs, n_tokens), _bucket(n_tokens))
+        counts[key] = counts.get(key, 0) + 1
+    rows = {(r["program"], r["bucket"]): r for r in perf["programs"]}
+    if perf["chip"] != "h100" or set(rows) != set(counts) or \
+            any(rows[k]["dispatches"] != n - 1 for k, n in counts.items()):
+        failures.append(f"perf block: chip {perf['chip']}, rows {sorted(rows)} against sights {counts}")
+    res["perf"] = perf
+    res["request_cost_example"] = finals[-1]["cost"]
+    session.close()
+    del engine, sched, server, ledger, dropped
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _slo_burst(params, cfg, dev, target_s) -> dict:
+    """A burst of the 8 main-path prompts over HTTP with ``slo_pressure``
+    under an ITL objective of ``target_s``; /v1/stats read every
+    SLO_INTERVAL_S while it runs and for SLO_TAIL_S after."""
+    from deepspeed_tpu_torch import telemetry
+
+    objective = dict(name="itl", metric="itl", target_s=target_s, target_ratio=0.99, fast_window_s=1.0,
+                     slow_window_s=3.0, burn_threshold=2.0)
+    session = telemetry.configure({"enabled": True, "timeseries": {"enabled": True, "interval_s": SLO_INTERVAL_S},
+                                   "slo": {"enabled": True, "objectives": [objective]}})
+    engine = _engine(params, cfg, None, dev)
+    sched = ServingScheduler(engine, ServingConfig(queue_capacity=64, overload=dict(slo_pressure=True)))
+    server = ServingServer(sched, host="127.0.0.1", port=0).start()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+    samples, out = [], {}
+    try:
+        threads = [threading.Thread(target=_http_generate, daemon=True,
+                                    args=(server.url, dict(prompt=p, max_new_tokens=NEW_TOKENS), False, out, i))
+                   for i, p in enumerate(prompts)]
+        for t in threads:
+            t.start()
+        burst_end = None
+        while burst_end is None or time.perf_counter() < burst_end + SLO_TAIL_S:
+            _, _, raw = _exchange(server.url + "/v1/stats")
+            doc = json.loads(raw)
+            samples.append((doc["overload"]["brownout_stage"], bool(doc["slo"] and doc["slo"]["in_breach"]),
+                            burst_end is None))
+            if burst_end is None and not any(t.is_alive() for t in threads):
+                burst_end = time.perf_counter()
+            time.sleep(SLO_INTERVAL_S)
+        for t in threads:
+            t.join(timeout=600)
+        _, _, raw = _exchange(server.url + "/v1/stats")
+        final = json.loads(raw)
+    finally:
+        server.stop()
+        sched.stop(drain=False)
+        session.close()
+    if len(out) != len(prompts) or any(v.get("status") != 200 for v in out.values()):
+        raise AssertionError(f"SLO burst requests failed: {out}")
+    del engine, sched, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(target_s=target_s, max_stage=max(s for s, _, _ in samples),
+                max_stage_during_burst=max(s for s, _, during in samples if during),
+                breached=any(b for _, b, _ in samples), breached_during_burst=any(b for _, b, d in samples if d),
+                stats_reads=len(samples), slo=final["slo"],
+                itl_p50_s=(final["latency"] or {}).get("itl_s", {}).get("p50"),
+                timeseries_ticks=(final["timeseries"] or {}).get("ticks"))
+
+
+def run_observe_path(dev, params, main) -> dict:
+    """The per-layer tracer, the cost plane and the SLO engine on Llama-2-7B:
+    traced decode puts through B1 held to the profiler and the host wall
+    (bitwise the untraced tokens), billing over HTTP across three tenants
+    with a prefix hit and prompt lookup (conserved, amnesty included), and an
+    SLO breach that lifts the brownout stage; every check has a control that
+    fails it."""
+    t_start = time.perf_counter()
+    cfg = LlamaConfig.llama2_7b()
+    failures, parts = [], {}
+    pa.paged_attention_update.launches = 0
+    t0 = time.perf_counter()
+    res = dict(tracer=_tracer_leg(params, cfg, dev, failures))
+    parts["tracer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["cost"] = _cost_leg(params, cfg, dev, failures)
+    parts["cost"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["slo"] = _slo_burst(params, cfg, dev, SLO_ITL_TARGET_S)
+    res["slo_control"] = _slo_burst(params, cfg, dev, SLO_CONTROL_TARGET_S)
+    parts["slo"] = time.perf_counter() - t0
+    if not (res["slo"]["breached"] and res["slo"]["max_stage"] >= 1):
+        failures.append(f"an ITL objective of {SLO_ITL_TARGET_S} s did not breach and lift brownout: {res['slo']}")
+    if res["slo_control"]["breached"] or res["slo_control"]["max_stage"] != 0:
+        failures.append(f"control: an ITL objective of {SLO_CONTROL_TARGET_S} s breached: {res['slo_control']}")
+    res["b1_launches"] = pa.paged_attention_update.launches
+    # the analytic price (a weight read per token) against the card
+    book = res["cost"]["pricing"]
+    prefill = res["tracer"]["prefill_put_dispatch_timing"]["observed"]
+    predicted = OBSERVE_PREFILL * book["bytes_per_token"] / HBM_BYTES_PER_S
+    res["pricebook_vs_card"] = dict(prefill_tokens=OBSERVE_PREFILL, predicted_s=predicted,
+                                    observed_s=prefill["observed_s"], ratio=prefill["observed_s"] / predicted,
+                                    main_path_ms_per_decode_step=main["ms_per_decode_step"])
+    res["seconds_by_part"] = parts
+    res["seconds"] = time.perf_counter() - t_start
+    res["failures"] = failures
+    split = res["tracer"]["decode_put_split"]
+    log("[observe] " + json.dumps(res, default=str))
+    log(f"[observe] traced decode put of 8 tokens: attn {split['attn_ms']:.2f} ms, ffn {split['ffn_ms']:.2f} ms, "
+        f"embed {split['embed_ms']:.3f} ms, unembed {split['unembed_ms']:.3f} ms (phases {split['phases_ms']:.2f} ms; "
+        f"put {split['traced_put_ms']:.2f} ms traced, {split['untraced_put_ms']:.2f} ms untraced); "
+        f"B1 {res['b1_launches']} launches in the phase")
+    log(card_line())
+    if failures:
+        raise AssertionError("observe phase: " + "; ".join(failures))
+    return res
+
+
+# ----------------------------------------------------------------- phase 9 --
 def bench_llama(**kw) -> LlamaConfig:
     """bench.py's headline model: the 530M Llama (``_llama_530m``) with
     remat "dots" and flash attention."""
@@ -2998,6 +3542,7 @@ def main() -> int:
     record["serving_path"] = run_serving_path(dev, params, record["main_path"])
     record["prefix_path"] = run_prefix_path(dev, params, record["main_path"])
     record["spec_path"] = run_spec_path(dev, params, record["main_path"])
+    record["observe_path"] = run_observe_path(dev, params, record["main_path"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3011,6 +3556,7 @@ def main() -> int:
                     launches=record["main_path"]["paged_attention_launches"],
                     launches_prefix_path=record["prefix_path"]["b1_launches"],
                     launches_spec_path=record["spec_path"]["b1_launches"],
+                    launches_observe_path=record["observe_path"]["b1_launches"],
                     max_abs_err=max(r["max_abs_err"] for r in record["paged_attention"]),
                     ms=decode["ms"], plain_ms=decode["plain_ms"], bound_ms=decode["bound_ms"],
                     bound_by=decode["bound_by"], library_ms=decode["library_ms"],

@@ -3,10 +3,11 @@
 Port of ``deepspeed_tpu/inference/v2/config_v2.py`` as dataclasses with the
 same fields, defaults and aliases (``tp``, ``weight_quantization``, ``ep``,
 ``manager``; the aliases apply in :meth:`from_dict`). Tensor and expert
-parallelism, weight quantization, simulated gating and tracing keep their
-fields so that configs carry across, but the port's engine refuses them until
-they are ported (see ``engine_v2.py``). ``telemetry`` is the telemetry block
-of ``telemetry/config.py``.
+parallelism, weight quantization and simulated gating keep their fields so
+that configs carry across, but the port's engine refuses them until they are
+ported (see ``engine_v2.py``). ``trace_enabled`` builds the per-layer tracer
+(``tracer.py``). ``telemetry`` is the telemetry block of
+``telemetry/config.py``.
 """
 
 from dataclasses import dataclass
@@ -56,5 +57,7 @@ class RaggedInferenceEngineConfig(DeepSpeedConfigModel):
     simulated_gating_temperature: float = 1.0
     trace_enabled: bool = False
     max_trace_batches: int = 1024
+    """Tracer ring-buffer capacity (batches); beyond it the oldest unconsumed
+    trace is dropped — drain via ``engine.tracer.drain_summaries()``."""
 
     telemetry: TelemetryConfig = config_field(default_factory=TelemetryConfig)

@@ -17,11 +17,16 @@ what the caller rejected; ``decode_loop`` samples on the device with a
 ``torch.Generator`` at ``temperature > 0``. With telemetry on (an
 engine-owned session from ``telemetry``, or a process-wide one) ``put``,
 ``decode_loop``, ``verify`` and ``verify_tree`` record the ``inference_*``
-metric families and a span each.
+metric families and a span each. ``trace_enabled`` builds the per-layer
+tracer (``tracer.py``): ``put``, ``verify``, ``verify_tree`` and
+``empty_run`` open a batch trace, and the model's traced forward times
+``embed``, each layer's ``attn`` and ``ffn``, and ``unembed`` (CUDA events on
+the card); ``decode_loop`` stays untraced, as in the JAX package. With a
+``dispatch_observer`` installed (the serving scheduler's cost plane) each
+dispatch's end time is taken after its device work has finished.
 
 Not ported yet, and refused with ``NotImplementedError``: tensor and expert
-parallelism, weight quantization and simulated gating (ROADMAP.md A8, A9),
-and the tracer (``trace_enabled``, A5c).
+parallelism, weight quantization and simulated gating (ROADMAP.md A8, A9).
 """
 
 from typing import Iterable, List, Optional, Tuple
@@ -36,6 +41,7 @@ from deepspeed_tpu_torch.inference.v2.ragged.ragged_manager import DSStateManage
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import RaggedBatchWrapper
 from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import PlaceholderSequenceDescriptor
 from deepspeed_tpu_torch.inference.v2.scheduling_utils import SchedulingError, SchedulingResult
+from deepspeed_tpu_torch.inference.v2.tracer import Tracer, get_tracer, set_tracer
 
 
 def _refuse_unported(config: RaggedInferenceEngineConfig) -> None:
@@ -44,7 +50,6 @@ def _refuse_unported(config: RaggedInferenceEngineConfig) -> None:
         ("expert_parallel", config.expert_parallel.enabled, "A9"),
         ("weight quantization", config.quantization.enabled, "A9"),
         ("simulated_gating", config.simulated_gating, "A9"),
-        ("trace_enabled (the tracer)", config.trace_enabled, "A5c"),
     )
     for what, on, item in unported:
         if on:
@@ -75,10 +80,21 @@ class InferenceEngineV2:
         # stops it so the engine can always be torn down safely
         self._serving_scheduler = None
 
-        # dispatch hook: a callable ``(kind, n_seqs, n_tokens, wall_seconds)``
-        # invoked after every put / decode_loop forward; None (the default)
-        # costs one attribute load per dispatch
+        # cost-attribution hook (telemetry/ledger.py + perf/observed.py): a
+        # scheduler with an active telemetry session installs a callable
+        # ``(kind, n_seqs, n_tokens, seconds)`` invoked after every dispatch
+        # (put / decode_loop / verify / verify_tree) has finished on the
+        # device. None — the default, and always the case with telemetry off
+        # — costs one attribute load per dispatch and adds no wait.
         self.dispatch_observer = None
+
+        if engine_config.trace_enabled:
+            self._tracer = Tracer(max_batches=engine_config.max_trace_batches,
+                                  span_recorder=self._telemetry.spans if self._telemetry is not None else None,
+                                  device=model.device)
+            set_tracer(self._tracer)
+        else:
+            self._tracer = None
 
     # ------------------------------------------------------------ properties --
     @property
@@ -98,6 +114,10 @@ class InferenceEngineV2:
         return self._model.device
 
     @property
+    def tracer(self) -> Optional[Tracer]:
+        return self._tracer
+
+    @property
     def serving_scheduler(self):
         """The attached :class:`ServingScheduler` (None when not serving)."""
         return self._serving_scheduler
@@ -109,10 +129,14 @@ class InferenceEngineV2:
 
     def close(self) -> None:
         """Tear the engine down (idempotent): stop an attached serving
-        scheduler and close an engine-owned telemetry session."""
+        scheduler, deregister this engine's tracer from the module-global slot
+        (so tracer state cannot leak into the next engine in this process),
+        and close an engine-owned telemetry session."""
         if self._serving_scheduler is not None:
             self._serving_scheduler.stop(drain=False)
             self._serving_scheduler = None
+        if self._tracer is not None and get_tracer() is self._tracer:
+            set_tracer(None)
         if self._telemetry is not None:
             self._telemetry.close()
             self._telemetry = None
@@ -180,12 +204,16 @@ class InferenceEngineV2:
                 raise SchedulingError(schedule_check)
         self._restore_offloaded(batch_uids)
         self._batch.clear()
+        if self._tracer:
+            self._tracer.init_batch(is_empty_run=False, num_layers=self._model.num_layers)
         for i, (uid, tokens) in enumerate(zip(batch_uids, feeds)):
             seq_desc = self._state_manager.get_or_create_sequence(uid)
             self._model.maybe_allocate_kv(seq_desc, tokens.size)
             seq_desc.pre_forward(tokens.size)
             tree = None if trees is None else (trees[i].parents, trees[i].depths)
             self._batch.insert_sequence(seq_desc, tokens, do_checks=do_checks, tree=tree)
+            if self._tracer:
+                self._tracer.add_sequence(seq_desc)
         self._batch.finalize()
 
     def _dispatch(self, kind: str, batch_uids, n_tokens: int, forward):
@@ -198,6 +226,7 @@ class InferenceEngineV2:
             _t0 = _telemetry.now_us()
         out = forward()
         if observer is not None:
+            self._wait_for_device()
             observer(kind, len(batch_uids), n_tokens, (_telemetry.now_us() - _t0) / 1e6)
         for uid in batch_uids:
             self._state_manager.get_sequence(uid).post_forward()
@@ -210,6 +239,15 @@ class InferenceEngineV2:
         if metrics is not None:
             self._write_telemetry(metrics, batch_tokens=n_tokens)
         return out
+
+    def _wait_for_device(self) -> None:
+        """Block until the work queued on the current stream has finished (an
+        event after it): the observer's seconds are then the dispatch's
+        device time plus its launches, not its launches alone."""
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
 
     # ------------------------------------------------------------ decode_loop --
     def decode_loop(self, batch_uids: Iterable[int], batch_tokens: Iterable, n_steps: int,
@@ -505,6 +543,8 @@ class InferenceEngineV2:
     def empty_run(self) -> None:
         """A forward with zero live tokens (keeps replicas in lock-step once
         expert parallelism is ported)."""
+        if self._tracer:
+            self._tracer.init_batch(is_empty_run=True, num_layers=self._model.num_layers)
         metrics = self._resolve_tel_metrics()
         if metrics is not None:
             metrics["empty_runs"].inc()

@@ -4,13 +4,15 @@ Port of ``deepspeed_tpu/inference/v2/model_implementations/llama_v2.py``: per
 layer, RMSNorm → q/k/v projections → RoPE at each token's absolute position
 → paged attention → output projection, then RMSNorm → SwiGLU, over the
 ragged batch. Weights are the ``state_dict``-keyed dict of
-``models/llama.py`` (``models/convert.py`` builds it from a flax tree).
+``models/llama.py`` (``models/convert.py`` builds it from a flax tree). The
+traced layer records the attention and the SwiGLU phases apart.
 """
 
 import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.inference.v2.model_implementations.transformer_base import DSTransformerModelBase
+from deepspeed_tpu_torch.inference.v2.tracer import record
 from deepspeed_tpu_torch.models.llama import LlamaConfig, rms_norm, rotary_embedding
 
 
@@ -91,6 +93,13 @@ class LlamaV2Model(DSTransformerModelBase):
     def layer_forward(self, li, x, cache, attn_fn, batch):
         x, cache = self._attn_phase(li, x, cache, attn_fn, batch)
         return self._ffn_phase(li, x), cache
+
+    def layer_forward_traced(self, li, x, cache, attn_fn, batch):
+        with record("attn"):
+            x, cache = self._attn_phase(li, x, cache, attn_fn, batch)
+        with record("ffn"):
+            x = self._ffn_phase(li, x)
+        return x, cache
 
 
 class MistralV2Model(LlamaV2Model):

@@ -12,8 +12,13 @@ one cache tensor in place: the JAX ``jit(..., donate_argnums=(1,))`` plus
 ``set_cache`` becomes an in-place write by the attention of each layer. The
 packed ``tok_meta``/``seq_meta`` arrays are copied to the device once per
 forward, and ``decode_loop`` keeps them there across steps. Per-layer
-compute comes from subclasses (``embed``, ``layer_forward``, ``unembed``);
-tracing is ROADMAP A5c.
+compute comes from subclasses (``embed``, ``layer_forward``, ``unembed``).
+With a tracer set (``trace_enabled``), ``forward`` and ``empty_run`` run the
+same eager ops with a ``record`` around each phase (``embed``, per layer
+``attn`` and ``ffn`` from ``layer_forward_traced``, ``unembed``) and resolve
+the phase times with one wait at the end, where the JAX package splits its
+fused program into phases with a barrier each; the kernel choice is the
+untraced forward's, so B1 still takes decode feeds of 32 tokens or fewer.
 
 Tree verify computes the reference's function without its per-query virtual
 KV view (``[S, Qm, KV, H, D]``, tens of GB at Llama-2-7B width): every query
@@ -35,6 +40,7 @@ from deepspeed_tpu_torch.inference.v2.modules.heuristics import attention_implem
 from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import KVCacheConfig
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import RaggedBatchWrapper
 from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import DSSequenceDescriptor
+from deepspeed_tpu_torch.inference.v2.tracer import get_tracer, record
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention_update
 
 _CACHE_DTYPES = {torch.bfloat16: "bfloat16", torch.float16: "float16", torch.float32: "float32"}
@@ -144,6 +150,9 @@ class DSTransformerModelBase:
         K/V into the cache in place."""
         batch = ragged_batch.device_batch
         tok_meta, seq_meta = self._to_device(batch)
+        tracer = get_tracer()
+        if tracer is not None:
+            return self._traced_forward(tracer, tok_meta, seq_meta, batch["n_tokens"])[:batch["n_seqs"]]
         return self._forward_impl(tok_meta, seq_meta, batch["n_tokens"])[:batch["n_seqs"]]
 
     def empty_run(self) -> None:
@@ -218,6 +227,25 @@ class DSTransformerModelBase:
         # unembed only each sequence's last token
         x_last = x[batch["last_tok"].long()]
         return self.unembed(x_last).float()
+
+    def _traced_forward(self, tracer, tok_meta, seq_meta, n_tokens):
+        """:meth:`_forward_impl`'s ops with each phase recorded: ``embed``,
+        per layer ``attn`` and ``ffn``, ``unembed``; then one wait resolves
+        the phase times (no-op waits on a CPU tracer)."""
+        batch = self._unpack_batch(tok_meta, seq_meta, n_tokens)
+        attn = partial(self._paged_attention, batch=batch)
+        cache = self._state_manager.kv_cache.cache
+        with record("embed"):
+            x = self.embed(batch["input_ids"])
+        for li in range(self.num_layers):
+            x, cache = self.layer_forward_traced(li, x, cache, attn, batch)
+        with record("unembed"):
+            logits = self.unembed(x[batch["last_tok"].long()]).float()
+        tracer.resolve()
+        return logits
+
+    def layer_forward_traced(self, li, x, cache, attn_fn, batch):
+        raise NotImplementedError("tracing requires a model with phase-split layers")
 
     # ----------------------------------------------------- speculative verify --
     @torch.no_grad()

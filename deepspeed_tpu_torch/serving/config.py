@@ -2,12 +2,8 @@
 
 Port of ``deepspeed_tpu/serving/config.py`` as dataclasses on
 ``runtime/config_utils.py`` (the reference's blocks are pydantic models), with
-the same fields, defaults, bounds and validator messages.
-
-``CostConfig`` is on by
-default, as in the reference, but its ledger exists only while a telemetry
-session is active, and that combination is refused too (A5c ports
-``telemetry/ledger.py``).
+the same fields, defaults, bounds and validator messages. ``CostConfig.perf_chip``
+defaults to the port's H100 row (``perf/chip_specs.py``).
 """
 
 import dataclasses
@@ -170,8 +166,11 @@ class OverloadConfig(DeepSpeedConfigModel):
     drain rate (429/503 responses)."""
 
     slo_pressure: bool = False
-    """Feed the SLO engine's breach signal into the pressure sample. The SLO
-    engine is ROADMAP A6: the port's scheduler refuses it."""
+    """Feed the SLO engine's breach signal (fast-window burn normalized by
+    its alert threshold, in [0, 1]) into the brownout pressure sample as a
+    floor — a burning error budget browns the engine out even while queue
+    depth and KV occupancy look healthy. Requires an active telemetry
+    session with ``telemetry.slo`` configured; off by default."""
 
     fair_share_enabled: bool = False
     """Tenant fair-share stage in the admission path (opt-in): under
@@ -201,20 +200,42 @@ class OverloadConfig(DeepSpeedConfigModel):
 
 @dataclass
 class CostConfig(DeepSpeedConfigModel):
-    """Cost-attribution plane (``telemetry/ledger.py``). ROADMAP A5c: the ledger
-    materializes only while a telemetry session is active, and the port's
-    scheduler refuses ``enabled`` with a session active."""
+    """Cost-attribution plane (``telemetry/ledger.py`` + ``perf/observed.py``):
+    per-request metering, bounded per-tenant rollups (``/v1/usage``), and the
+    predicted-vs-observed perf ledger. The plane only materializes while a
+    telemetry session is active — with telemetry off every hot-path site is a
+    single None check and the registry sees zero api_calls."""
 
     enabled: bool = True
+    """Meter requests when telemetry is active. False = no ledger even with
+    telemetry on (spans/metrics still record)."""
+
     default_tenant: str = "default"
     """Tenant billed for requests that carry no identity (no ``tenant`` JSON
     field, no ``X-DSTPU-Tenant`` header)."""
     max_tenants: int = config_field(64, ge=1)
+    """Bound on distinct tenants in the usage rollup; later tenants fold
+    into ``<other>`` (sums still reconcile against the aggregate)."""
+
     tenant_metric_top_k: int = config_field(8, ge=1)
-    perf_chip: str = "v5e"
+    """Bound on per-tenant metric label sets (``serving_tenant_*``); tenants
+    past the cap share the ``<other>`` label."""
+
+    perf_chip: str = "h100"
+    """Card spec the observed-vs-predicted join prices rooflines against
+    (``perf/chip_specs.py``); drift detection is baseline-relative, so an
+    off-target card only shifts the absolute ratio, not the alarm."""
+
     perf_drift_factor: float = config_field(4.0, gt=1)
+    """Observed/predicted ratio above ``factor x baseline`` counts toward a
+    drift episode."""
+
     perf_drift_consecutive: int = config_field(3, ge=1)
+    """Consecutive over-factor dispatches that raise one drift event."""
+
     perf_baseline_dispatches: int = config_field(8, ge=1)
+    """Post-amnesty dispatches averaged into each (program, bucket)'s
+    baseline ratio before drift detection arms."""
 
 
 @dataclass

@@ -46,9 +46,15 @@ device→host→disk ladder before anything is evicted or shed. ``handoff`` and
 ``submit_resume`` continues on another engine; ``export_prefix`` frames
 cached KV for a peer.
 
-Not ported yet, and refused with ``NotImplementedError``: the cost ledger
-while telemetry is on (ROADMAP A5c), work stealing and SLO-driven pressure
-(A6).
+While a telemetry session is active the cost plane (``telemetry/ledger.py``
++ ``perf/observed.py``) bills every dispatch, KV block-second, wire byte and
+cache saving to its request and tenant (``usage()``, ``/v1/usage``), and
+joins each dispatch's observed seconds against the roofline price (the
+stats document's ``perf`` block); ``overload.slo_pressure`` floors the
+brownout pressure with the SLO engine's breach signal.
+
+Not ported yet, and refused with ``NotImplementedError``: fleet work
+stealing (ROADMAP A6).
 """
 
 import itertools
@@ -64,6 +70,7 @@ from deepspeed_tpu_torch.inference.v2.ragged import handoff as _handoff
 from deepspeed_tpu_torch.inference.v2.ragged.prefix_cache import PrefixCache, digest_chain
 from deepspeed_tpu_torch.inference.v2.scheduling_utils import SchedulingError, SchedulingResult
 from deepspeed_tpu_torch.inference.v2.spec import LearnedDrafter, MedusaDraftHead, PromptLookupDrafter, TokenTree
+from deepspeed_tpu_torch.perf.observed import PerfObservedLedger
 from deepspeed_tpu_torch.serving import kv_tiers as _kv_tiers_mod
 from deepspeed_tpu_torch.serving.config import ServingConfig
 from deepspeed_tpu_torch.serving.metrics import ServingMetrics
@@ -73,6 +80,7 @@ from deepspeed_tpu_torch.serving.overload import (BrownoutController, FairShareP
 from deepspeed_tpu_torch.serving.request import Request, RequestState
 from deepspeed_tpu_torch.telemetry import new_span_id, new_trace_id, now_us
 from deepspeed_tpu_torch.telemetry.flight_recorder import SERVING_SCHEDULER_CHANNEL
+from deepspeed_tpu_torch.telemetry.ledger import CostLedger, PriceBook
 from deepspeed_tpu_torch.utils.logging import logger
 
 # ticks with active requests but nothing engine-schedulable before the
@@ -91,7 +99,7 @@ KILLED_ERROR_PREFIX = "replica killed"
 _DRAFTER_PINS = ("prompt_lookup", "learned", "auto")
 
 # scheduler counters, named and ordered as the reference's; the steal counter
-# stays 0 until A6
+# stays 0 (fleet work stealing is ROADMAP A6)
 _COUNTERS = ("submitted", "rejected", "completed", "cancelled",
              "timed_out", "failed", "evictions", "batches", "heartbeats",
              "prefix_hits", "prefix_tokens_saved", "prefix_evictions",
@@ -152,9 +160,8 @@ class ServingScheduler:
         if getattr(engine, "_serving_scheduler", None) is not None:
             raise RuntimeError("engine already has an attached ServingScheduler; "
                                "stop it (or engine.close()) first")
-        self._config = config or ServingConfig()
-        self._refuse_unported(self._config)
         self._engine = engine
+        self._config = config or ServingConfig()
         self._metrics = ServingMetrics.maybe_create()
         # per-instance channel: two schedulers under one telemetry session
         # must not clobber each other's provider or heartbeat watch
@@ -197,6 +204,29 @@ class ServingScheduler:
         # companion hook: fn("hit" | "reject") — lets the fleet layer mirror
         # peer-fetch outcomes into its own metric registry
         self._peer_fetch_notify = None
+
+        # cost-attribution plane (telemetry/ledger.py + perf/observed.py):
+        # both exist only while a telemetry session is active, so every
+        # charging site below is one `is not None` check and disabled
+        # telemetry pays nothing — the same zero-cost contract as _metrics.
+        # The engine's dispatch_observer stashes each dispatch's seconds
+        # here (same thread, same tick) for the execute path to attribute.
+        ccfg = self._config.cost
+        self._ledger = None
+        self._perf_obs = None
+        self._last_dispatch_s = 0.0
+        self._last_dispatch_amnesty_s = 0.0
+        if ccfg.enabled and telemetry.is_active():
+            pricebook = PriceBook.from_model_config(getattr(getattr(engine, "model", None), "config", None))
+            registry = telemetry.get_registry()
+            self._ledger = CostLedger(registry, pricebook, max_tenants=ccfg.max_tenants,
+                                      tenant_metric_top_k=ccfg.tenant_metric_top_k,
+                                      default_tenant=ccfg.default_tenant)
+            self._perf_obs = PerfObservedLedger(registry, pricebook, chip=ccfg.perf_chip,
+                                                drift_factor=ccfg.perf_drift_factor,
+                                                drift_consecutive=ccfg.perf_drift_consecutive,
+                                                baseline_dispatches=ccfg.perf_baseline_dispatches)
+            engine.dispatch_observer = self._on_dispatch
 
         # overload control (serving/overload.py): the measured-rate estimator
         # feeds admission feasibility + Retry-After; the brownout controller
@@ -281,15 +311,6 @@ class ServingScheduler:
                                             daemon=True)
             self._thread.start()
 
-    @staticmethod
-    def _refuse_unported(cfg: ServingConfig) -> None:
-        for what, on, item in (
-                ("serving.cost (the cost ledger, built while a telemetry session is active)",
-                 cfg.cost.enabled and telemetry.is_active(), "A5c"),
-                ("serving.overload.slo_pressure (the SLO engine)", cfg.overload.slo_pressure, "A6")):
-            if on:
-                raise _unported(what, item)
-
     @property
     def _spans(self):
         """The live SpanRecorder (None while telemetry is off) — resolved per
@@ -314,9 +335,27 @@ class ServingScheduler:
             if watch:
                 flight.watch_heartbeat(self._flight_channel)
 
-    def _charge_members(self, members) -> None:
-        """Feed one executed dispatch's plan members (``[(req, phase,
-        tokens)]``) to the fair-share policy's per-tenant rate EWMAs."""
+    # ------------------------------------------------------------ cost plane --
+    def _on_dispatch(self, kind: str, n_seqs: int, n_tokens: int, seconds: float) -> None:
+        """Engine ``dispatch_observer`` hook (scheduler thread, fired once a
+        dispatch's device work has finished): feeds the predicted-vs-observed
+        perf ledger and stashes the seconds — minus any compile amnesty — for
+        the execute path's cost attribution on the same tick."""
+        amnesty = 0.0
+        if self._perf_obs is not None:
+            amnesty = self._perf_obs.observe(kind, n_seqs, n_tokens, seconds)
+        self._last_dispatch_s = seconds - amnesty
+        self._last_dispatch_amnesty_s = amnesty
+
+    def _charge_members(self, members, seconds: Optional[float] = None, amnesty: Optional[float] = None) -> None:
+        """Bill one executed dispatch to its plan members
+        (``[(req, phase, tokens)]``): ledger attribution amortized by token
+        share, plus the fair-share policy's per-tenant rate EWMAs. Defaults
+        to the observer-stashed seconds of the dispatch that just ran."""
+        if self._ledger is not None and members:
+            self._ledger.charge_dispatch([(req.cost, phase, tokens) for req, phase, tokens in members],
+                                         self._last_dispatch_s if seconds is None else seconds,
+                                         self._last_dispatch_amnesty_s if amnesty is None else amnesty)
         if self._fair_share is not None:
             by_tenant: Dict[str, int] = {}
             for req, _, tokens in members:
@@ -325,6 +364,22 @@ class ServingScheduler:
             now = time.monotonic()
             for tenant, tokens in by_tenant.items():
                 self._fair_share.observe(tenant, tokens, now=now)
+
+    def _touch_kv_plan(self, plan) -> None:
+        """Re-anchor each scheduled request's KV block-second accrual at its
+        current (blocks, tier) — piecewise-constant billing between execute
+        ticks; the final segment closes at ledger finalize."""
+        if self._ledger is None:
+            return
+        sm = self._engine._state_manager
+        now_s = time.monotonic()
+        for req, _ in plan:
+            if req.cost is None:
+                continue
+            seq = sm.get_sequence(req.uid)
+            blocks = seq.cur_allocated_blocks if seq is not None else 0
+            tier = (sm.sequence_tier(req.uid) or "device") if blocks else "device"
+            self._ledger.touch_kv(req.cost, blocks, tier, now_s)
 
     # ------------------------------------------------------------- submission --
     def submit(self,
@@ -366,8 +421,12 @@ class ServingScheduler:
         scheduler cannot honor (``learned`` without a draft head, or any pin
         on a linear prompt_lookup scheduler, or speculation off) is ignored,
         never an error: output does not depend on the drafter.
-        ``tenant`` is the request's identity for the fair-share stage (None
-        lands on ``config.cost.default_tenant``)."""
+
+        ``tenant`` is the cost-attribution identity (JSON field or
+        ``X-DSTPU-Tenant`` header at the HTTP layer): the ledger bills every
+        dispatch/KV/wire charge to it and the opt-in fair-share stage sheds
+        a tenant over its measured share first under pressure. None lands on
+        ``config.cost.default_tenant``."""
         req = Request(prompt,
                       max_new_tokens=max_new_tokens if max_new_tokens is not None
                       else self._config.default_max_new_tokens,
@@ -499,6 +558,10 @@ class ServingScheduler:
     def _enqueue(self, req: Request, trace_id: Optional[str],
                  parent_span_id: Optional[int], handoff: bool) -> Request:
         req.handoff_requested = bool(handoff)
+        if self._ledger is not None:
+            # every admitted request carries a RequestCost from birth (the
+            # charging sites assume it); rejected requests never get one
+            self._ledger.begin(req)
         if self._spans is not None:
             # trace identity is assigned at admission so the HTTP layer can
             # hand the id back in response headers before streaming begins
@@ -581,7 +644,7 @@ class ServingScheduler:
         provably-doomed request wastes prefill work and queue capacity."""
         if req.tenant is None:
             # every request bills to a concrete tenant from here on (the
-            # fair-share EWMAs and the stats rows key on it)
+            # ledger, the fair-share EWMAs and the stats rows all key on it)
             req.tenant = self._config.cost.default_tenant
         ocfg = self._config.overload
         if not ocfg.enabled:
@@ -673,6 +736,12 @@ class ServingScheduler:
         kv_occupancy = (1.0 - self._engine.free_blocks / self._capacity_blocks
                         if self._capacity_blocks else 0.0)
         pressure = max(depth / self._config.queue_capacity, kv_occupancy)
+        if self._config.overload.slo_pressure:
+            # config-gated: a burning error budget floors the pressure sample
+            # even while queue depth and KV occupancy look healthy
+            slo = telemetry.get_slo_engine()
+            if slo is not None:
+                pressure = max(pressure, slo.breach_signal())
         stage = self._brownout.update(pressure)
         if self._brownout.transitions != self._brownout_transitions_seen:
             delta = self._brownout.transitions - self._brownout_transitions_seen
@@ -932,6 +1001,8 @@ class ServingScheduler:
                 if self._evict_one({req.uid}):
                     continue
                 return None
+            if self._ledger is not None and req.cost is not None:
+                self._ledger.charge_wire(req.cost, "resume", len(req._resume_payload))
             req._resume_payload = None  # imported; the engine owns the KV now
             req._resume_kv = None
             if req._rehydrate:
@@ -1099,6 +1170,8 @@ class ServingScheduler:
         # already-indexed prefix
         pc.publish(tokens, ids, int(tokens.size), digests=got)
         sm.kv_cache.free(ids)
+        if self._ledger is not None and req.cost is not None:
+            self._ledger.charge_wire(req.cost, "peer_fetch", len(payload))
         self._counters["peer_fetch_hits"] += 1
         self._counters["peer_fetch_blocks"] += needed
         notify("hit")
@@ -1163,6 +1236,10 @@ class ServingScheduler:
             raise
         req._fed = seen
         req.cached_tokens = seen
+        if self._ledger is not None and req.cost is not None:
+            # the savings side of the bill: prompt tokens this request did
+            # NOT pay to prefill
+            self._ledger.charge_prefix(req.cost, seen)
         pc.record_hit(len(blocks), seen)  # applied for real: now it counts
         self._counters["prefix_hits"] += 1
         self._counters["prefix_tokens_saved"] += seen
@@ -1572,6 +1649,9 @@ class ServingScheduler:
         now = time.monotonic()
         for req, _ in plan:
             req._last_touch_s = now
+        # close + re-anchor each member's KV block-second segment at its
+        # pre-dispatch occupancy (the final segment closes at finalize)
+        self._touch_kv_plan(plan)
         spans = self._spans
         if spans is not None:
             # capture each request's phase before the processing loop mutates
@@ -1727,6 +1807,10 @@ class ServingScheduler:
         try:
             per_seq = engine.verify([req.uid for req, _ in decode_plan],
                                     [toks for _, toks in decode_plan])
+            # stash the verify dispatch's observed seconds before the
+            # prefill put overwrites the observer slots
+            verify_s = self._last_dispatch_s
+            verify_amnesty_s = self._last_dispatch_amnesty_s
             prefill_logits = (engine.put([req.uid for req, _ in prefill_plan],
                                          [toks for _, toks in prefill_plan]).float().cpu().numpy()
                               if prefill_plan else None)
@@ -1740,7 +1824,8 @@ class ServingScheduler:
         # their full width (accepted or not), like any other fed token
         self._rate.observe(sum(int(t.size) for _, t in plan))
         self._charge_members([(req, "verify", int(t.size))
-                              for req, t in decode_plan])
+                              for req, t in decode_plan],
+                             seconds=verify_s, amnesty=verify_amnesty_s)
         if prefill_plan:
             self._charge_members([(req, "prefill", int(t.size))
                                   for req, t in prefill_plan])
@@ -1766,6 +1851,8 @@ class ServingScheduler:
                 # acceptance evidence, no EWMA movement
                 req.spec_drafted += k
                 req.spec_accepted += accepted
+                if self._ledger is not None and req.cost is not None:
+                    self._ledger.charge_spec(req.cost, k, accepted)
                 self._counters["spec_steps"] += 1
                 self._counters["spec_drafted"] += k
                 self._counters["spec_rollback"] += rejected
@@ -1849,6 +1936,10 @@ class ServingScheduler:
         try:
             per_seq = engine.verify_tree([req.uid for req, _ in decode_plan],
                                          trees, greedy=greedy)
+            # stash the tree-verify dispatch's observed seconds before the
+            # prefill put overwrites the observer slots
+            verify_s = self._last_dispatch_s
+            verify_amnesty_s = self._last_dispatch_amnesty_s
             prefill_logits = (engine.put([req.uid for req, _ in prefill_plan],
                                          [toks for _, toks in prefill_plan]).float().cpu().numpy()
                               if prefill_plan else None)
@@ -1862,7 +1953,8 @@ class ServingScheduler:
         # token — tree nodes included
         self._rate.observe(sum(int(t.size) for _, t in plan))
         self._charge_members([(req, "tree_verify", int(t.size))
-                              for req, t in decode_plan])
+                              for req, t in decode_plan],
+                             seconds=verify_s, amnesty=verify_amnesty_s)
         if prefill_plan:
             self._charge_members([(req, "prefill", int(t.size))
                                   for req, t in prefill_plan])
@@ -1913,6 +2005,8 @@ class ServingScheduler:
                 rate = accepted / max(int(tree.max_depth), 1)
                 req.spec_drafted += k
                 req.spec_accepted += accepted
+                if self._ledger is not None and req.cost is not None:
+                    self._ledger.charge_spec(req.cost, k, accepted)
                 self._counters["spec_steps"] += 1
                 self._counters["spec_drafted"] += k
                 self._counters["spec_rollback"] += rejected
@@ -2068,6 +2162,8 @@ class ServingScheduler:
                     # device_get the whole KV only for the router to discard it
                     try:
                         req.handoff_payload = self._export_handoff(req)
+                        if self._ledger is not None and req.cost is not None:
+                            self._ledger.charge_wire(req.cost, "handoff", len(req.handoff_payload))
                     except Exception:  # pragma: no cover - defensive: a failed
                         # export degrades to a non-continuable response
                         logger.exception(f"serving: handoff export failed for "
@@ -2080,6 +2176,8 @@ class ServingScheduler:
                     # rehydrates with a longer prompt, no next_token needed)
                     try:
                         req.park_payload = self._export_park(req)
+                        if self._ledger is not None and req.cost is not None:
+                            self._ledger.charge_wire(req.cost, "park", len(req.park_payload))
                         self._counters["parks"] += 1
                     except Exception:  # pragma: no cover - defensive: a failed
                         # park degrades to a cold next turn
@@ -2096,6 +2194,10 @@ class ServingScheduler:
                 self._engine.flush(req.uid)  # returns KV blocks (incl. offloaded)
         req._set_state(state)
         self._counters[self._FINAL_COUNTER[state]] += 1
+        if self._ledger is not None and req.cost is not None:
+            # close the open KV segment and fold the bill into the tenant
+            # rollup — conservation holds once every request finalizes
+            self._ledger.finalize(req, time.monotonic())
         spans = self._spans  # bind once: the property re-resolves
         if spans is not None and req.trace_id is not None:
             # the trace's root: arrival → terminal state, with the ids every
@@ -2195,8 +2297,16 @@ class ServingScheduler:
                 self._metrics.prefix_trie_blocks.set(0)
         if getattr(self._engine, "_serving_scheduler", None) is self:
             self._engine._serving_scheduler = None
+        self._detach_observer()
         self._attach_flight(None)
         self._stopped = True
+
+    def _detach_observer(self) -> None:
+        """Clear the engine's dispatch observer iff it is still ours — a
+        stopped scheduler must not keep feeding (or block a successor from
+        installing) the cost plane's timing hook."""
+        if getattr(self._engine, "dispatch_observer", None) == self._on_dispatch:
+            self._engine.dispatch_observer = None
 
     def _has_work(self) -> bool:
         return (bool(self._queue) or bool(self._active)
@@ -2241,6 +2351,7 @@ class ServingScheduler:
                 self._metrics.prefix_trie_blocks.set(0)
         if getattr(self._engine, "_serving_scheduler", None) is self:
             self._engine._serving_scheduler = None
+        self._detach_observer()
         self._attach_flight(None)
         self._stopped = True
 
@@ -2286,8 +2397,9 @@ class ServingScheduler:
             "age_s": now - req.arrival_s,
             "ttft_s": req.ttft_s,
             "trace_id": req.trace_id,
-            # cost-to-date: the cost ledger is A5c, so always None here
-            "cost": None,
+            # cost-to-date (None with telemetry off): post-mortems and the
+            # stats surface see the bill as it accrues, not only at the end
+            "cost": req.cost.compact_row() if req.cost is not None else None,
         }
 
     def _latency_percentiles(self) -> Optional[dict]:
@@ -2338,9 +2450,11 @@ class ServingScheduler:
         return out
 
     def usage(self) -> dict:
-        """The ``/v1/usage`` document: ``{"enabled": False}`` (the cost ledger
-        is A5c), plus the fair-share posture when that stage is on."""
-        doc = {"enabled": False}
+        """The ``/v1/usage`` document: ledger totals, per-tenant rollups,
+        pricing, and the fair-share posture. ``{"enabled": False}`` with
+        telemetry (or the cost plane) off — the endpoint stays useful as a
+        feature probe either way."""
+        doc = self._ledger.usage_doc() if self._ledger is not None else {"enabled": False}
         if self._fair_share is not None:
             doc["fair_share"] = self._fair_share.doc()
         return doc
@@ -2350,9 +2464,7 @@ class ServingScheduler:
         return self._stats_doc(queued, active)
 
     def _stats_doc(self, queued: List[Request], active: List[Request]) -> dict:
-        # the reference's document, key for key; the A5c/A6 blocks (perf,
-        # time series, SLO) are None, as the reference reports them with
-        # those features off
+        # the reference's document, key for key
         now = time.monotonic()
         prefix_stats = None
         if self._prefix_cache is not None:
@@ -2383,9 +2495,10 @@ class ServingScheduler:
             "kv_tiers": (self._kv_tiers.stats(self._prefix_cache)
                          if self._kv_tiers is not None else None),
             "usage": self.usage(),
-            "perf": None,
-            "timeseries": None,
-            "slo": None,
+            "perf": self._perf_obs.doc() if self._perf_obs is not None else None,
+            "timeseries": (ts.snapshot(max_points=64)
+                           if (ts := telemetry.get_timeseries()) is not None else None),
+            "slo": slo.status() if (slo := telemetry.get_slo_engine()) is not None else None,
             "overload": {
                 "enabled": self._config.overload.enabled,
                 "brownout_stage": self._brownout.stage,

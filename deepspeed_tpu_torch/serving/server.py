@@ -245,8 +245,7 @@ def parse_request_body(handler, resume: bool, max_bytes: Optional[int] = None) -
 def _request_doc(req: Request, raw_handoff: bool = False,
                  handoff_ref: Optional[str] = None) -> dict:
     """The final response document (JSON body, SSE ``done`` event): the
-    reference's fields in its order. Its ``cost`` field comes with the cost
-    ledger (A5c), so never here."""
+    reference's fields in its order."""
     doc = {
         "uid": req.uid,
         "handle": req.handle,
@@ -263,6 +262,11 @@ def _request_doc(req: Request, raw_handoff: bool = False,
         "priority": req.priority,
         "tenant": req.tenant,
     }
+    if req.cost is not None:
+        # the per-request bill (telemetry active): device-seconds by phase,
+        # priced token work, KV block-seconds by tier, wire bytes by channel,
+        # and the cache/spec savings — same shape as the /v1/usage rollup rows
+        doc["cost"] = req.cost.to_dict()
     if req.spec_drafted:
         # speculative decoding rode this request: drafted/accepted let a
         # client compute acceptance rate and tokens-per-step without

@@ -10,10 +10,11 @@ sites perform exactly one boolean check (``telemetry.state.active``) and
 nothing else — no registry lookups, no allocations. The registry counts its
 own API calls so tests can enforce this.
 
-Port of ``deepspeed_tpu/telemetry/__init__.py``. The fleet trace
-collector, the metric time-series store and the SLO engine are ROADMAP A6:
-their names resolve lazily and raise ``NotImplementedError``, and a config
-that enables ``timeseries`` or ``slo`` is refused (``telemetry/config.py``).
+Port of ``deepspeed_tpu/telemetry/__init__.py``, with the metric time-series
+store (``timeseries.py``) and the SLO engine (``slo.py``), which a session
+builds from ``timeseries``/``slo`` and stops at close. The fleet trace
+collector is ROADMAP A6: its name resolves lazily and raises
+``NotImplementedError``.
 
 Usage::
 
@@ -34,14 +35,17 @@ from deepspeed_tpu_torch.telemetry.exporter import (TelemetryHTTPServer, scrape_
 from deepspeed_tpu_torch.telemetry.flight_recorder import FlightRecorder
 from deepspeed_tpu_torch.telemetry.registry import (Counter, Gauge, Histogram, MetricsRegistry,
                                                     parse_prometheus_text)
+from deepspeed_tpu_torch.telemetry.slo import SLOEngine
 from deepspeed_tpu_torch.telemetry.spans import (Span, SpanRecorder, TracingTimers,
                                                  current_trace, new_span_id, new_trace_id,
                                                  now_us, trace_context)
+from deepspeed_tpu_torch.telemetry.timeseries import TimeSeriesStore
 from deepspeed_tpu_torch.utils.logging import logger
 
 __all__ = [
     "TelemetryConfig", "TelemetryHTTPConfig", "FlightRecorderConfig", "MetricsRegistry",
-    "TimeSeriesConfig", "SLOConfig", "SLOObjectiveConfig",
+    "TimeSeriesConfig", "SLOConfig", "SLOObjectiveConfig", "TimeSeriesStore",
+    "SLOEngine",
     "Counter", "Gauge", "Histogram", "SpanRecorder", "Span", "TracingTimers",
     "TelemetryHTTPServer", "TelemetrySession", "FlightRecorder", "configure",
     "shutdown", "get_registry", "get_span_recorder", "get_flight_recorder",
@@ -51,9 +55,9 @@ __all__ = [
     "trace_context", "current_trace", "compile_watch",
 ]
 
-# the fleet observability plane (telemetry/{collector,timeseries,slo}.py of
-# the JAX package) comes with ROADMAP A6
-_A6_NAMES = ("TraceCollector", "TimeSeriesStore", "SLOEngine")
+# the fleet trace collector (telemetry/collector.py of the JAX package; its
+# only consumer is the fleet router) comes with ROADMAP A6
+_A6_NAMES = ("TraceCollector", )
 
 
 def __getattr__(name):
@@ -164,9 +168,19 @@ class TelemetrySession:
             self.flight_recorder = FlightRecorder(config.flight_recorder,
                                                   self.registry,
                                                   spans=self.spans).install()
-        # time series and SLOs are ROADMAP A6: TelemetryConfig refuses them
         self.timeseries = None
         self.slo = None
+        if config.timeseries.enabled or config.slo.enabled:
+            # the SLO engine reads windowed deltas from the store, so
+            # enabling SLOs implies the sampler even without timeseries
+            ts_cfg = config.timeseries
+            self.timeseries = TimeSeriesStore(
+                self.registry, interval_s=ts_cfg.interval_s,
+                retention_points=ts_cfg.retention_points,
+                families=ts_cfg.families or None)
+            if config.slo.enabled:
+                self.slo = SLOEngine(config.slo, self.timeseries, self.registry)
+            self.timeseries.start()
         state.spans = self.spans
         state.flight_recorder = self.flight_recorder
         state.timeseries = self.timeseries

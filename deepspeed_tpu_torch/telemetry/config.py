@@ -4,9 +4,6 @@ Port of ``deepspeed_tpu/telemetry/config.py`` as dataclasses on
 ``runtime/config_utils.py`` (the reference's blocks are pydantic models), with
 the same fields and defaults. One switch for the metrics registry, span
 recorder and HTTP exporter.
-
-The metric time-series store and the SLO engine are ROADMAP A6: a config that
-enables ``timeseries`` or ``slo`` raises ``NotImplementedError``.
 """
 
 from dataclasses import dataclass
@@ -65,30 +62,60 @@ class FlightRecorderConfig(DeepSpeedConfigModel):
 
 @dataclass
 class TimeSeriesConfig(DeepSpeedConfigModel):
-    """Metric time-series history (ROADMAP A6; refused when enabled)."""
+    """Metric time-series history: fixed-interval snapshots of selected
+    registry families into bounded rings, so windowed percentiles/rates
+    ("p99 TTFT over the last minute") are computable locally. Memory is
+    ``retention_points`` points per family; wall coverage is
+    ``interval_s * retention_points`` seconds (defaults: 1s × 600 = 10 min).
+    See ``telemetry/timeseries.py``."""
 
     enabled: bool = False
     interval_s: float = 1.0
+    """Sampling resolution (seconds between snapshots)."""
+
     retention_points: int = 600
+    """Ring capacity per family; oldest points drop beyond this."""
+
     families: List[str] = config_field(default_factory=list)
+    """Registry families to sample; empty = the curated serving/fleet
+    default set (``timeseries.DEFAULT_FAMILIES``)."""
 
 
 @dataclass
 class SLOObjectiveConfig(DeepSpeedConfigModel):
-    """One declarative SLO (the SLO engine is ROADMAP A6)."""
+    """One declarative SLO: a metric objective, its target, and the
+    fast/slow burn-rate windows it is evaluated over."""
 
     name: str = ""
+    """Label for metrics/events/status docs (defaults to the metric kind)."""
+
     metric: str = "ttft"
+    """Objective kind: ``ttft`` | ``itl`` | ``e2e`` (latency percentile
+    objectives), ``error_rate``, ``goodput``, or ``perf_drift``
+    (observed-vs-predicted dispatch-time drift events per dispatch)."""
+
     target_s: float = 1.0
+    """Latency bound (seconds) an observation must meet — latency kinds."""
+
     target_ratio: float = 0.99
+    """Promised good fraction; the error budget is ``1 - target_ratio``."""
+
     fast_window_s: float = 60.0
+    """Fast burn window (quick detection)."""
+
     slow_window_s: float = 300.0
+    """Slow burn window (blip filtering); both must burn to alert."""
+
     burn_threshold: float = 2.0
+    """Burn-rate level that counts as a breach in both windows."""
 
 
 @dataclass
 class SLOConfig(DeepSpeedConfigModel):
-    """SLO burn-rate engine (ROADMAP A6; refused when enabled)."""
+    """SLO burn-rate engine over the time-series store (which a session
+    builds for it even without ``timeseries.enabled``); breaches bump
+    ``slo_breaches_total``, emit a registry event and fire one
+    flight-recorder dump per episode."""
 
     enabled: bool = False
     objectives: List[SLOObjectiveConfig] = config_field(default_factory=list)
@@ -130,10 +157,3 @@ class TelemetryConfig(DeepSpeedConfigModel):
     timeseries: TimeSeriesConfig = config_field(default_factory=TimeSeriesConfig)
 
     slo: SLOConfig = config_field(default_factory=SLOConfig)
-
-    def __post_init__(self):
-        super().__post_init__()
-        for name in ("timeseries", "slo"):
-            if getattr(self, name).enabled:
-                raise NotImplementedError(f"telemetry.{name} is not ported to deepspeed_tpu_torch yet "
-                                          f"(see ROADMAP.md A6)")

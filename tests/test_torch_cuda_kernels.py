@@ -548,3 +548,94 @@ def test_stale_slots_after_a_rollback_are_never_read(cuda_device):
         np.testing.assert_array_equal(stale[0], clean[0])
         np.testing.assert_array_equal(stale[1], clean[1])
         assert not np.array_equal(run(kernel, prompt.size - 1)[0], clean[0])  # control
+
+
+def _observe_engine(cfg, dev, **kw):
+    from deepspeed_tpu_torch.models.llama import init_params
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
+    mgr = mc.DSStateManagerConfig(memory_config=mc.MemoryConfig(mode=mc.AllocationMode.ALLOCATE, size=128),
+                                  max_context=2048)
+    return build_engine(params, cfg, RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=64, **kw),
+                        device=dev)
+
+
+@pytest.mark.cuda
+def test_traced_put_phase_events_against_a_synchronized_timer(cuda_device):
+    """A traced 768-token prefill put at Llama-2-7B width (2 layers) on the
+    card: every phase is timed, and the phases' event times sum to no more
+    than the put's synchronized host time and to at least half of it (the
+    put is bound by the card, not by its launches). A traced decode put of 8
+    tokens runs B1 twice a layer."""
+    import time
+
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype=torch.bfloat16)
+    engine = _observe_engine(cfg, cuda_device, trace_enabled=True)
+    try:
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, 768) for _ in range(9)]
+        engine.put([0], [prompts[0]])  # warm-up: first-use work stays out of the timed put
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.put([1], [prompts[1]])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        for uid in range(2, 9):
+            engine.put([uid], [prompts[uid][:40]])
+        before = pa.paged_attention_update.launches
+        engine.put(list(range(1, 9)), [[5]] * 8)
+        assert pa.paged_attention_update.launches - before == 2 * cfg.num_hidden_layers
+        summaries = engine.tracer.drain_summaries()
+        prefill, decode = summaries[1], summaries[-1]
+        for s in (prefill, decode):
+            assert s.embed > 0 and s.unembed > 0
+            assert all(row[0] > 0 and row[1] > 0 for row in s.record_exec_times)
+        total = prefill.embed + prefill.unembed + sum(row[0] + row[1] for row in prefill.record_exec_times)
+        assert 0.5 * wall_us <= total <= wall_us, (total, wall_us)
+    finally:
+        engine.close()
+
+
+@pytest.mark.cuda
+def test_untraced_decode_put_creates_no_event_and_no_synchronize(cuda_device, monkeypatch):
+    """With tracing and the cost plane off, a decode put records no CUDA event
+    and waits on nothing; an installed dispatch observer adds one event and
+    one wait; a traced put adds an anchor, an event pair a phase and one wait."""
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+
+    calls = []
+    real_event = torch.cuda.Event
+
+    class Counting(real_event):
+
+        def record(self, *a, **k):
+            calls.append("record")
+            return super().record(*a, **k)
+
+        def synchronize(self):
+            calls.append("synchronize")
+            return super().synchronize()
+
+    cfg = LlamaConfig.tiny(dtype=torch.bfloat16, hidden_size=256, num_attention_heads=2, num_key_value_heads=2)
+    phases = 2 * cfg.num_hidden_layers + 2
+    for trace in (False, True):
+        engine = _observe_engine(cfg, cuda_device, trace_enabled=trace)
+        try:
+            engine.put([0, 1], [np.arange(9), np.arange(20)])
+            torch.cuda.synchronize()
+            monkeypatch.setattr(torch.cuda, "Event", Counting)
+            monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: calls.append("device_sync"))
+            calls.clear()
+            engine.put([0, 1], [[1], [2]])
+            assert calls == ([] if not trace else ["record"] * (1 + 2 * phases) + ["synchronize"])
+            calls.clear()
+            engine.dispatch_observer = lambda *args: None
+            engine.put([0, 1], [[3], [4]])
+            assert calls == (["record", "synchronize"] if not trace else
+                             ["record"] * (1 + 2 * phases) + ["synchronize", "record", "synchronize"])
+        finally:
+            monkeypatch.undo()
+            engine.close()

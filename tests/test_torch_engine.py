@@ -220,7 +220,7 @@ def test_kv_cache_dtype_follows_model_dtype(setup):
 
 def test_unported_features_are_refused(setup):
     _, _, cfg, params, _, _ = setup
-    for field, value in (("trace_enabled", True), ("simulated_gating", True)):
+    for field, value in (("quantization", {"enabled": True}), ("simulated_gating", True)):
         ec = dataclasses.replace(_port_config(), **{field: value})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_engine(params, cfg, ec, device="cpu")

@@ -49,6 +49,11 @@ def test_port_and_chip_smoke_import_no_jax_flax_pydantic_or_reference():
     assert "deepspeed_tpu_torch.ops.aio.aio_op" in result["imported"]
     for name in ("tree", "drafter", "learned", "distill"):
         assert f"deepspeed_tpu_torch.inference.v2.spec.{name}" in result["imported"]
+    for name in ("ledger", "timeseries", "slo"):
+        assert f"deepspeed_tpu_torch.telemetry.{name}" in result["imported"]
+    for name in ("chip_specs", "observed"):
+        assert f"deepspeed_tpu_torch.perf.{name}" in result["imported"]
+    assert "deepspeed_tpu_torch.inference.v2.tracer" in result["imported"]
     assert result["banned"] == []
 
 

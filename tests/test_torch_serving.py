@@ -18,8 +18,9 @@ bytes must be equal with only ``MASKED`` fields replaced (and SSE keepalive
 comments, which only timing decides, dropped). The rest mirrors
 ``tests/unit/serving/test_{request,scheduler,server,overload}.py`` on the
 port's engine (one test per ported path; repeats are parametrised), and
-checks that every path still unported (A5c, A6) raises, naming its queue
-item. The handoff, park, resume and prefix-export routes are held to
+checks that every path still unported (A6) raises, naming its queue
+item (the cost plane and the SLO engine are held to the reference in
+``tests/test_torch_cost.py`` and ``tests/test_torch_slo.py``). The handoff, park, resume and prefix-export routes are held to
 the reference's bytes too, with frames compared by header. Every wait on a
 thread has a timeout.
 """
@@ -461,8 +462,9 @@ def test_serving_metrics_zero_cost_when_disabled(make_engine):
 
 def test_serving_metrics_spans_and_stats_match_the_reference(setup, make_engine):
     """With a telemetry session on, both schedulers record the same metric
-    samples (times aside), the same spans and the same latency block. The
-    port refuses the cost ledger (A5), so its run has cost.enabled=False."""
+    samples (times aside), the same spans and the same latency block; the
+    cost plane is on in both (the default ``CostConfig``), so its token and
+    tenant families count the same too."""
     got = []
     for pkg in ("jax", "port"):
         tel = jtel if pkg == "jax" else ttel
@@ -470,7 +472,7 @@ def test_serving_metrics_spans_and_stats_match_the_reference(setup, make_engine)
         if pkg == "jax":
             sched = jserving.ServingScheduler(_jax_engine(setup), jserving.ServingConfig(), start=False)
         else:
-            sched = ServingScheduler(make_engine(), ServingConfig(cost=CostConfig(enabled=False)), start=False)
+            sched = ServingScheduler(make_engine(), ServingConfig(), start=False)
         done = sched.submit([1, 2, 3, 4], max_new_tokens=3)
         _run_until(sched, lambda: done.finished)
         # drop capacity so the reject counter fires too (the pydantic config
@@ -484,10 +486,9 @@ def test_serving_metrics_spans_and_stats_match_the_reference(setup, make_engine)
         stats = sched.stats()
         sched.stop(drain=False)
         snap = tel.get_registry().snapshot()
-        # the reference's ledger families (serving_cost_*, serving_tenant_*)
-        # are A5's
+        # the ledger's second-valued families hold times
         counts = {k: v for k, v in snap.items() if k.startswith("serving_") and not k.endswith(("_sum", "_bucket"))
-                  and not k.startswith(("serving_cost_", "serving_tenant_"))}
+                  and not k.startswith(("serving_cost_device_", "serving_cost_amnesty_", "serving_cost_kv_"))}
         spans = [(s["name"], s["cat"], s.get("parent_id") is not None)
                  for s in tel.get_span_recorder().tail(100) if s["cat"] == "serving"]
         got.append((counts, spans, sorted(stats["latency"]), done.trace_id is not None))
@@ -497,6 +498,7 @@ def test_serving_metrics_spans_and_stats_match_the_reference(setup, make_engine)
     assert counts["serving_completions_total"][0][1] == 1
     assert counts["serving_rejections_total"][0][1] == 1
     assert counts["serving_inter_token_seconds_count"][0][1] == 2  # 3 tokens -> 2 gaps
+    assert counts["serving_tenant_requests_total"] == [({"tenant": "default"}, 1.0)]
 
 
 def test_idle_heartbeat_runs_empty_batches(make_engine):
@@ -1136,16 +1138,6 @@ def test_graceful_drain_and_healthz_readiness(make_engine):
 
 
 # ---------------------------------------------------------------- refusals --
-@pytest.mark.parametrize("config,item", [
-    ({"overload": {"slo_pressure": True}}, "A6"),
-], ids=["slo_pressure"])
-def test_unported_serving_configs_are_refused(make_engine, config, item):
-    engine = make_engine()
-    with pytest.raises(NotImplementedError, match=item):
-        ServingScheduler(engine, ServingConfig.from_dict(config), start=False)
-    assert engine.serving_scheduler is None
-
-
 @pytest.mark.parametrize("drafter", ["prompt_lookup", "auto"])
 def test_speculative_config_serves_like_the_reference(setup, drafter):
     """``speculative.enabled`` (refused until ROADMAP A5b was ported) builds a
@@ -1156,13 +1148,6 @@ def test_speculative_config_serves_like_the_reference(setup, drafter):
     script = [_submit(prompts[0] * 2, max_new_tokens=8), ("step", 1), _submit(prompts[1], max_new_tokens=6)]
     jax_run, port_run = _side_by_side(setup, script, config_kw=config)
     assert port_run == jax_run and port_run["counters"]["spec_drafted"] > 0
-
-
-def test_cost_ledger_with_telemetry_is_refused(make_engine):
-    ttel.configure({"enabled": True})
-    with pytest.raises(NotImplementedError, match="A5c"):
-        ServingScheduler(make_engine(), ServingConfig(), start=False)
-    ServingScheduler(make_engine(), ServingConfig(cost=CostConfig(enabled=False)), start=False).stop()
 
 
 def test_sampled_decode_loop_runs_beside_a_scheduler(make_engine):

@@ -5,7 +5,7 @@ registries must render identical Prometheus text; spans, Chrome traces,
 JSONL events, the HTTP exporter's responses and flight-recorder dumps must
 carry the reference's fields. The port's engine records the reference's
 ``inference_*`` families and ``put``/``decode_loop`` spans. What belongs to
-ROADMAP A6 (time series, SLOs, the trace collector) raises.
+ROADMAP A6 (the fleet trace collector) raises.
 """
 
 import json
@@ -248,15 +248,20 @@ def test_process_index_is_zero_without_torch_distributed():
 
 
 def test_a6_pieces_are_refused():
-    for name in ("TraceCollector", "TimeSeriesStore", "SLOEngine"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            getattr(ttel, name)
+    """The fleet trace collector is ROADMAP A6; the time-series store and the
+    SLO engine (A6 until they were ported with the cost plane) build from a
+    config and stop with their session."""
+    with pytest.raises(NotImplementedError, match="A6"):
+        ttel.TraceCollector
+    assert ttel.TimeSeriesStore.__module__ == "deepspeed_tpu_torch.telemetry.timeseries"
+    assert ttel.SLOEngine.__module__ == "deepspeed_tpu_torch.telemetry.slo"
     for block in ("timeseries", "slo"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            ttel.TelemetryConfig.from_dict({"enabled": True, block: {"enabled": True}})
-        with pytest.raises(NotImplementedError, match="A6"):
-            ttel.configure({"enabled": True, block: {"enabled": True}})
-    assert ttel.get_timeseries() is None and ttel.get_slo_engine() is None
+        session = ttel.configure({"enabled": True, block: {"enabled": True, "interval_s": 60.0}
+                                  if block == "timeseries" else {"enabled": True}})
+        assert ttel.get_timeseries() is not None
+        assert (ttel.get_slo_engine() is not None) == (block == "slo")
+        session.close()
+        assert ttel.get_timeseries() is None and ttel.get_slo_engine() is None
 
 
 # ------------------------------------------------------------ the engine --

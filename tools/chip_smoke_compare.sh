@@ -3,7 +3,7 @@
 # change, change, parent, so that the card's drift between runs shows as a
 # difference within one tree rather than between the trees.
 #
-#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|spec|MODE,MODE...]
+#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|spec|observe|MODE,MODE...]
 #
 # Each run's output goes to chiprun_out/smoke_<i>_<tree>.log and its full
 # record to chiprun_out/smoke_<i>_<tree>.json, under the directory the script
@@ -23,7 +23,11 @@
 # with speculation off, prompt lookup through B1 and the gather branch, and
 # an oracle drafter; acceptance, verify dispatches, B1 launches, the
 # full-width verify_tree's time and peak memory, the learned drafter's host
-# ms a draft); modes joined by commas run each. The exit code
+# ms a draft); with "observe", the main path and the observe phase
+# (run_observe_path: a traced decode put's per-layer split and tracing
+# overhead, the profiled puts' phases against device time and host wall, the
+# prefill put's observed seconds, the cost plane's totals and the SLO bursts);
+# modes joined by commas run each. The exit code
 # is the last failing run's, else 0.
 set -u
 parent=$(cd "$1" && pwd)
@@ -45,7 +49,7 @@ if "flash" in modes:
     r = c.check_flash_attention(dev)
     print(json.dumps([dict(case=x["case"], err=x["max_abs_err"], **{k: x[k]["ms"] for k in ("fwd", "dkv", "dq")})
                       for x in r]))
-if modes & {"main", "prefix", "spec"}:
+if modes & {"main", "prefix", "spec", "observe"}:
     params = c.main_params(dev)
     main = c.run_main_path(dev, params)
 if "main" in modes:
@@ -70,6 +74,14 @@ if "spec" in modes:
     print(json.dumps(dict({leg: {k: r[leg][k] for k in keys} for leg in legs},
                           verify_tree=r["full_width_verify_tree"],
                           learned_host_ms_per_draft=r["learned"]["learned"]["host_ms_per_draft"])))
+if "observe" in modes:
+    r = c.run_observe_path(dev, params, main)
+    t = r["tracer"]
+    print(json.dumps(dict(split=t["decode_put_split"], profiled_puts=t["profiled_puts"],
+                          prefill_put=t["prefill_put_dispatch_timing"], cost_totals=r["cost"]["totals"],
+                          pricebook_vs_card=r["pricebook_vs_card"],
+                          slo={k: {kk: r[k][kk] for kk in ("max_stage", "breached", "itl_p50_s")}
+                               for k in ("slo", "slo_control")})))
 if "sparse" in modes:
     r = c.check_block_sparse_attention(dev)
     keys = ("case", "density", "max_abs_err", "tol_use", "ms", "ms_index_order", "ms_sorted_again", "ms_split_steps",
