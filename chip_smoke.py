@@ -107,7 +107,21 @@ Phases (any failure raises and the script exits non-zero):
    projections' gradients, through the kernels and through plain attention
    in bf16, to the same step in f32, and show that the check rejects the
    kernel step with dq, or dk and dv, zeroed or with attention replaced;
-10. print one JSON line describing every kernel, then the result line.
+10. checkpoint path: on the same model and batches, a save into
+   tempfile.mkdtemp() and a resume in a fresh engine, its losses and f32
+   masters bitwise those of the run that never stopped (the flash kernels'
+   launch counts zeroed just before the resumed steps and read just after);
+   an async save (nebula) committing beside two steps; two NaN steps from
+   DSTPU_TRAIN_FAULTS under the anomaly sentinel, the first skipped bitwise,
+   the second rolling back to the async tag; SIGTERM turned into a final
+   checkpoint, PREEMPTED.json and TrainingPreempted, and a fresh engine
+   resuming from it bitwise; the newest tag corrupted: a tag=None load falls
+   back (counted), an explicit one raises, and an unverified load of it (the
+   control) differs from the saved state; a tag without its manifest reads
+   torn. Then every optimizer but AdamW on the model cut to 2 layers (3
+   steps on one batch: finite, falling) and its f32 updates of a tiny
+   config's tree on the card against the CPU's; save, load and CRC times;
+11. print one JSON line describing every kernel, then the result line.
 
 The script imports the port only (never jax or deepspeed_tpu), needs one
 GPU, and writes its full record to chiprun_out/chip_smoke.json.
@@ -117,10 +131,14 @@ import contextlib
 import copy
 import gc
 import json
+import math
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -136,13 +154,16 @@ from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import DSStateManag
 from deepspeed_tpu_torch.inference.v2.model_implementations.transformer_base import sample_categorical
 from deepspeed_tpu_torch.inference.v2.ragged.prefix_cache import digest_chain
 from deepspeed_tpu_torch.inference.v2.spec import TokenTree
-from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, LlamaModel, init_params
+from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, LlamaModel, init_params, param_shapes
 from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops import builder
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import paged_attention as pa
 from deepspeed_tpu_torch.ops.aio import aio_available
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention_update, paged_attention_update_plain
+from deepspeed_tpu_torch.runtime.checkpoint_engine import engine as ckpt
+from deepspeed_tpu_torch.runtime.engine import TrainingPreempted, _make_optimizer
+from deepspeed_tpu_torch.runtime.faults import TrainFaultConfig, TrainFaultInjector
 from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig, FixedSparsityConfig, SparseSelfAttention,
                                                       layout_to_dense_mask)
 from deepspeed_tpu_torch.serving import (KVTierConfig, PrefixCacheConfig, ServingConfig, ServingScheduler,
@@ -907,8 +928,8 @@ def check_block_sparse_attention(dev) -> dict:
 
 
 # ----------------------------------------------------------------- phase 4 --
-def _engine(params, cfg, use_paged_kernel, dev):
-    mgr = DSStateManagerConfig(max_context=MAX_CONTEXT, memory_config=MemoryConfig(size=KV_BYTES))
+def _engine(params, cfg, use_paged_kernel, dev, **state_manager):
+    mgr = DSStateManagerConfig(max_context=MAX_CONTEXT, memory_config=MemoryConfig(size=KV_BYTES), **state_manager)
     return build_engine(params, cfg, RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=BLOCK,
                                                                  use_paged_kernel=use_paged_kernel),
                         device=dev)
@@ -2817,7 +2838,7 @@ def run_spec_path(dev, params, main) -> dict:
 # objective is SLO_CONTROL_TARGET_S.
 OBSERVE_DECODE_PUTS = 8
 OBSERVE_PROFILED_PUTS = 3  # two held to the profiler and the wall, then the control
-OBSERVE_PREFILL = 768  # the engine-level prefill put whose observed seconds the profiler bounds
+OBSERVE_PREFILL = 2048  # the engine-level prefill put whose observed seconds the profiler bounds
 OBSERVE_COST_PROMPTS = 6
 OBSERVE_NEW_TOKENS = 16
 OBSERVE_TENANTS = (("header", "acme"), ("json", "globex"), ("none", "default"))
@@ -2877,12 +2898,16 @@ def _synced(fn):
     return out, (time.perf_counter() - t0) * 1e6
 
 
-def _profiled(fn):
+def _profiled(fn, host=True):
     """``fn()`` under torch.profiler: its result, the device time of its
     kernels in microseconds (copies and memsets left out: the traced forward
-    times kernels) and its synchronized host microseconds."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    times kernels) and its synchronized host microseconds. ``host`` False
+    traces the card's activity alone: the profiler then records no host op,
+    so the launches keep about their unprofiled pace."""
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=activities) as prof:
         out, wall_us = _synced(fn)
     device_us = sum(e.self_device_time_total for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA
@@ -2962,10 +2987,19 @@ def _tracer_leg(params, cfg, dev, failures) -> dict:
     if calls.events or calls.waits:
         failures.append(f"untraced decode puts created {calls.events} CUDA events and {calls.waits} waits")
     res["untraced_decode_put_ms"] = [r["timing"][0] / 1e3 for r in plain[:OBSERVE_DECODE_PUTS]]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # the engine-level dispatch timing: an observer's seconds for a
     # OBSERVE_PREFILL-token prefill put against the profiler's device time;
-    # control: the end time taken before the wait
+    # control: the end time taken before the wait. Without the wait the put
+    # returns once its last launch is queued, so the check tells the two
+    # apart only while the device runs behind the host: at 768 tokens a
+    # kernel took about as long as its launch and the control read 0.79 and
+    # 1.01 of the device time in two H100 runs; OBSERVE_PREFILL tokens make
+    # each kernel several times longer (its own engine: the token budget)
+    engine = _engine(params, cfg, None, dev, max_ragged_batch_size=OBSERVE_PREFILL)
     seen = []
     engine.dispatch_observer = lambda kind, n_seqs, n_tokens, s: seen.append(s)
     long_prompt = rng.integers(0, cfg.vocab_size, OBSERVE_PREFILL).tolist()
@@ -2973,7 +3007,7 @@ def _tracer_leg(params, cfg, dev, failures) -> dict:
     for label, uid in (("observed", 100), ("control_end_before_wait", 101)):
         if label.startswith("control"):
             engine._wait_for_device = lambda: None
-        _, device_us, wall_us = _profiled(lambda: engine.put([uid], [long_prompt]))
+        _, device_us, wall_us = _profiled(lambda: engine.put([uid], [long_prompt]), host=False)
         prefill[label] = dict(observed_s=seen[-1], profiler_device_s=device_us / 1e6, wall_s=wall_us / 1e6)
         ok = seen[-1] >= device_us / 1e6
         if ok == label.startswith("control"):
@@ -3325,22 +3359,45 @@ def bench_llama(**kw) -> LlamaConfig:
     return LlamaConfig(**base)
 
 
-def _train_engine(cfg, micro, gas, bf16, dev):
+def _train_engine(cfg, micro, gas, bf16, dev, optimizer=None, extra=None):
     """initialize() on the bench config: weights drawn on the card from seed
-    0, AdamW, ZeRO stage 3, bf16 over f32 masters (or f32 throughout)."""
+    0, AdamW (unless ``optimizer`` names another), ZeRO stage 3, bf16 over
+    f32 masters (or f32 throughout), plus the ``extra`` config blocks."""
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.float32)
     with torch.device("meta"):
         model = LlamaForCausalLM(cfg)
     config = {"train_micro_batch_size_per_gpu": micro, "gradient_accumulation_steps": gas,
-              "optimizer": {"type": "AdamW", "params": {"lr": TRAIN_LR}}, "zero_optimization": {"stage": 3},
-              "bf16": {"enabled": bf16}}
+              "optimizer": optimizer or {"type": "AdamW", "params": {"lr": TRAIN_LR}},
+              "zero_optimization": {"stage": 3}, "bf16": {"enabled": bf16}, **(extra or {})}
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params, config=config, device=dev)
     return engine
+
+
+def _train_batches(cfg, dev):
+    """bench.py's batches: np.random.default_rng(0), 8 global batches of
+    [micro * gas, S] tokens, made up front and put on the card."""
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(8):
+        ids = rng.integers(0, cfg.vocab_size, size=(TRAIN_MICRO * TRAIN_GAS, TRAIN_S + 1), dtype=np.int64)
+        batches.append(tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (ids[:, :-1], ids[:, 1:])))
+    return batches
 
 
 def _flash_launches():
     return {"fwd": fa.flash_attention_fwd.launches, "dkv": fa.flash_attention_bwd_dkv.launches,
             "dq": fa.flash_attention_bwd_dq.launches}
+
+
+def _zero_flash_launches():
+    fa.flash_attention_fwd.launches = fa.flash_attention_bwd_dkv.launches = fa.flash_attention_bwd_dq.launches = 0
+
+
+def _expected_flash_launches(steps, L):
+    """Per train_batch: each of GAS micro-batches runs L attention forwards,
+    L more in the remat recompute ("dots" saves only the projections), and L
+    backwards of two launches."""
+    return {"fwd": steps * TRAIN_GAS * 2 * L, "dkv": steps * TRAIN_GAS * L, "dq": steps * TRAIN_GAS * L}
 
 
 def _profile_train_batch(engine, batch):
@@ -3372,13 +3429,7 @@ def run_training_path(dev) -> dict:
     n_params = sum(p.numel() for p in engine.params.values())
     torch.cuda.synchronize()
     log(f"[train] bench Llama: {n_params} parameters ({L} layers), engine ready in {time.perf_counter() - t0:.1f} s")
-    # bench.py's batches: np.random.default_rng(0), 8 global batches of
-    # [micro * gas, S] tokens, made up front and put on the card
-    rng = np.random.default_rng(0)
-    batches = []
-    for _ in range(8):
-        ids = rng.integers(0, cfg.vocab_size, size=(micro * gas, S + 1), dtype=np.int64)
-        batches.append(tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (ids[:, :-1], ids[:, 1:])))
+    batches = _train_batches(cfg, dev)
 
     for i in range(TRAIN_WARMUP):
         engine.train_batch(batch=batches[i % len(batches)])
@@ -3386,7 +3437,7 @@ def run_training_path(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     # the measured steps: kernel launch counts zeroed just before, read just after
-    fa.flash_attention_fwd.launches = fa.flash_attention_bwd_dkv.launches = fa.flash_attention_bwd_dq.launches = 0
+    _zero_flash_launches()
     times, losses = [], []
     for i in range(TRAIN_MEASURED):
         torch.cuda.synchronize()
@@ -3396,11 +3447,7 @@ def run_training_path(dev) -> dict:
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
     launches = _flash_launches()
-    # per train_batch: each of gas micro-batches runs L attention forwards,
-    # L more in the remat recompute ("dots" saves only the projections), and
-    # L backwards of two launches
-    expected = {"fwd": TRAIN_MEASURED * gas * 2 * L, "dkv": TRAIN_MEASURED * gas * L,
-                "dq": TRAIN_MEASURED * gas * L}
+    expected = _expected_flash_launches(TRAIN_MEASURED, L)
     if launches != expected:
         raise AssertionError(f"flash kernel launches {launches} != predicted {expected}")
     if not all(np.isfinite(losses)):
@@ -3520,6 +3567,380 @@ CONTROLS = (
 )
 
 
+# ---------------------------------------------------------------- phase 10 --
+CKPT_STEPS = 2  # steps after TRAIN_WARMUP before the save, and while the async commit runs
+CKPT_RESUME = 3  # steps after the save, in run A and in the resumed run B
+OPT_LAYERS = 2  # the optimizer leg's depth cut
+OPT_STEPS = 3
+OPT_TINY_TOL = 1e-5  # card against CPU, f32, relative to each tensor's largest entry
+# every optimizer but Adam/AdamW, at a lr that moves the bf16 weights in 3
+# steps: Lamb's trust ratio scales its step by about |p| / |u| ~ 0.02, and
+# SGD's step is lr times a gradient of about 1e-4 an entry; the 1-bit ones
+# freeze after step 2, so step 3 runs compressed (a shorter warmup leaves
+# the frozen variance of near-zero gradients tiny, and a compressed
+# momentum of the tensor's mean size over it can raise the loss)
+OPTIMIZERS = {
+    "cpuadam": {"type": "CPUAdam", "params": {"lr": TRAIN_LR}},
+    "lamb": {"type": "Lamb", "params": {"lr": 5e-3}},
+    "lion": {"type": "Lion", "params": {"lr": TRAIN_LR}},
+    "adagrad": {"type": "Adagrad", "params": {"lr": 1e-3}},
+    "sgd": {"type": "SGD", "params": {"lr": 0.5, "momentum": 0.9}},
+    "onebitadam": {"type": "OnebitAdam", "params": {"lr": TRAIN_LR, "freeze_step": 2}},
+    "onebitlamb": {"type": "OnebitLamb", "params": {"lr": 5e-3, "freeze_step": 2}},
+    "zerooneadam": {"type": "ZeroOneAdam", "params": {"lr": TRAIN_LR, "var_freeze_step": 2}},
+}
+
+
+@contextlib.contextmanager
+def _env(name, value):
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+@contextlib.contextmanager
+def _timed_calls(module, names, out):
+    """Add the seconds each named function of ``module`` takes to ``out``."""
+    olds = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                out[name] = out.get(name, 0.0) + time.perf_counter() - t0
+
+        return timed
+
+    for n, fn in olds.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield out
+    finally:
+        for n, fn in olds.items():
+            setattr(module, n, fn)
+
+
+def _state_of(engine):
+    """Clones of the masters and every optimizer-state tensor, on the card."""
+    return {path: t.clone() for path, t in ckpt._leaves({"params": engine.params, "opt_state": engine.opt_state})}
+
+
+def _state_diff(engine, want):
+    """Paths whose tensor is not bitwise ``want``'s."""
+    got = dict(ckpt._leaves({"params": engine.params, "opt_state": engine.opt_state}))
+    return [p for p, t in want.items() if p not in got or not torch.equal(got[p], t)]
+
+
+def _masters_diff(engine, want):
+    return [p for p in want if not torch.equal(engine.params[p], want[p])]
+
+
+def _tag_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _steps(engine, batches, start, n, times=None):
+    losses = []
+    for i in range(start, start + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batches[i % len(batches)])))
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append(time.perf_counter() - t0)
+    return losses
+
+
+def _expect(cond, what):
+    if not cond:
+        raise AssertionError(f"checkpoint phase: {what}")
+
+
+def _free(*engines):
+    for e in engines:
+        e.destroy()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _checkpoint_legs(dev, cfg, batches, save_dir, res):
+    """Resume (sync), async, sentinel and preemption on the bench model, then
+    the loud fallback with its controls (see run_checkpoint_path)."""
+    L, k = cfg.num_hidden_layers, TRAIN_WARMUP + CKPT_STEPS
+    # ---- resume: run A saves at step k and trains on; B resumes from the save
+    a = _train_engine(cfg, TRAIN_MICRO, TRAIN_GAS, True, dev)
+    _steps(a, batches, 0, k)
+    sync = {}
+    with _timed_calls(ckpt, ("_host_snapshot", "array_checksums", "_write_state", "write_manifest"), sync):
+        t0 = time.perf_counter()
+        a.save_checkpoint(save_dir)
+        sync["save_s"] = time.perf_counter() - t0
+    tag_a = os.path.join(save_dir, f"global_step{k}")
+    sync["bytes"] = _tag_bytes(tag_a)
+    sync["GB_per_s"] = sync["bytes"] / sync["save_s"] / 1e9
+    t0 = time.perf_counter()
+    verdict = ckpt.verify_checkpoint(tag_a)
+    sync["verify_s"] = time.perf_counter() - t0
+    _expect(verdict[0] == "good", f"the sync save does not verify: {verdict}")
+    res["sync_save"] = sync
+    times_a = []
+    losses_a = _steps(a, batches, k, CKPT_RESUME, times_a)
+    masters_a = {n: p.clone() for n, p in a.params.items()}
+    del a
+    _free()
+
+    nan_steps = [k + CKPT_RESUME + CKPT_STEPS, k + CKPT_RESUME + CKPT_STEPS + 1]
+    with _env("DSTPU_TRAIN_FAULTS", json.dumps({"enabled": True, "nan_at_steps": nan_steps})):
+        b = _train_engine(cfg, TRAIN_MICRO, TRAIN_GAS, True, dev, extra={
+            "nebula": {"enabled": True},
+            "anomaly_sentinel": {"enabled": True, "max_consecutive": 2, "warmup_steps": 0}})
+    t0 = time.perf_counter()
+    path, _ = b.load_checkpoint(save_dir)
+    res["load_s"] = time.perf_counter() - t0
+    _expect(path == tag_a and b.global_steps == k, f"tag=None loaded {path} at step {b.global_steps}")
+    times_b = []
+    _zero_flash_launches()
+    losses_b = _steps(b, batches, k, CKPT_RESUME, times_b)
+    launches = _flash_launches()
+    expected = _expected_flash_launches(CKPT_RESUME, L)
+    res["resume"] = dict(losses_a=losses_a, losses_b=losses_b, flash_launches=launches,
+                         expected_flash_launches=expected, masters_differ=_masters_diff(b, masters_a),
+                         step_s_a=times_a, step_s_b=times_b)
+    del masters_a
+    _expect(launches == expected, f"resumed run's flash launches {launches} != predicted {expected}")
+    _expect(losses_b == losses_a, f"resumed losses {losses_b} != uninterrupted {losses_a}")
+    _expect(not res["resume"]["masters_differ"],
+            f"{len(res['resume']['masters_differ'])} masters differ from the uninterrupted run's")
+
+    # ---- async: dispatch at step k + CKPT_RESUME, CKPT_STEPS steps while it commits
+    at_save = _state_of(b)
+    s_async = b.global_steps
+    wall0 = time.time()
+    t0 = time.perf_counter()
+    b.save_checkpoint(save_dir)
+    dispatch_s = time.perf_counter() - t0
+    in_flight = b._async_ckpt["thread"] is not None and b._async_ckpt["thread"].is_alive()
+    times_async = []
+    losses_async = _steps(b, batches, s_async, CKPT_STEPS, times_async)
+    t0 = time.perf_counter()
+    b.checkpoint_wait()
+    wait_s = time.perf_counter() - t0
+    tag_async = os.path.join(save_dir, f"global_step{s_async}")
+    commit_s = os.path.getmtime(os.path.join(save_dir, ckpt.LATEST_FILE)) - wall0
+    res["async_save"] = dict(dispatch_s=dispatch_s, commit_s=commit_s, wait_after_steps_s=wait_s,
+                             in_flight_after_dispatch=in_flight, step_s_during_commit=times_async,
+                             step_s_without=times_b, bytes=_tag_bytes(tag_async),
+                             verdict=ckpt.verify_checkpoint(tag_async))
+    _expect(in_flight, "the async save was not in flight after dispatch")
+    _expect(res["async_save"]["verdict"][0] == "good", f"the async save does not verify: {res['async_save']}")
+    _expect(ckpt.read_manifest(tag_async)["global_steps"] == s_async, "the async manifest is not the dispatch step's")
+
+    # ---- sentinel: two poisoned steps (DSTPU_TRAIN_FAULTS), the second rolls back
+    before = _state_of(b)
+    s_nan = b.global_steps
+    _expect(s_nan == nan_steps[0], f"the sentinel leg starts at step {s_nan}, not {nan_steps[0]}")
+    poisoned = _steps(b, batches, s_nan, 1)
+    skip = dict(loss=poisoned[0], skipped_steps=b.skipped_steps, anomalies=b._sentinel.anomalies,
+                state_differs=_state_diff(b, before))
+    t0 = time.perf_counter()
+    _steps(b, batches, s_nan + 1, 1)
+    rollback_s = time.perf_counter() - t0
+    res["sentinel"] = dict(skip=skip, rollbacks=b._sentinel.rollbacks, rollback_step_s=rollback_s,
+                           steps_after_rollback=b.global_steps, state_differs_from_async_save=_state_diff(b, at_save))
+    _expect(not math.isfinite(skip["loss"]) and skip["skipped_steps"] == 1 and skip["anomalies"] == 1,
+            f"the poisoned step was not skipped: {skip}")
+    _expect(not skip["state_differs"], f"the skipped step changed {skip['state_differs'][:4]}")
+    _expect(b._sentinel.rollbacks == 1 and b.global_steps == s_async,
+            f"no rollback to the async tag: {res['sentinel']}")
+    _expect(not res["sentinel"]["state_differs_from_async_save"], "the rollback did not restore the async save")
+    # the async save resumes step-exact: the steps trained during its commit again
+    res["async_save"]["losses_resumed"] = again = _steps(b, batches, s_async, CKPT_STEPS)
+    _expect(again == losses_async, f"steps after the async tag {again} != during its commit {losses_async}")
+    _expect(not _state_diff(b, before), "the run resumed from the async save diverged")
+
+    # ---- preemption: SIGTERM between steps, the next step boundary exits
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        b.install_preemption_handler(save_dir)
+        signal.raise_signal(signal.SIGTERM)
+        t0 = time.perf_counter()
+        try:
+            b.train_batch(batch=batches[b.global_steps % len(batches)])
+            raise AssertionError("checkpoint phase: SIGTERM did not raise TrainingPreempted")
+        except TrainingPreempted as e:
+            preempted = e
+        preempt_s = time.perf_counter() - t0
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    with open(os.path.join(save_dir, ckpt.PREEMPT_MARKER)) as f:
+        marker = json.load(f)
+    res["preemption"] = dict(tag=preempted.tag, step=preempted.step, code=preempted.code, marker=marker,
+                             final_save_s=preempt_s)
+    _expect(preempted.code == 143 and preempted.tag == f"preempt_step{s_nan}" == marker["tag"],
+            f"preemption: {res['preemption']}")
+    _free(b)
+    del b
+
+    g = _train_engine(cfg, TRAIN_MICRO, TRAIN_GAS, True, dev)
+    t0 = time.perf_counter()
+    path, client = g.load_checkpoint(save_dir)
+    res["preemption"]["resume_load_s"] = time.perf_counter() - t0
+    res["preemption"]["state_differs"] = _state_diff(g, before)
+    _expect(path.endswith(marker["tag"]) and g.global_steps == marker["global_steps"] and client == {"preempted": True},
+            f"the resume from the marker loaded {path} at step {g.global_steps}")
+    _expect(not res["preemption"]["state_differs"], "the preemption checkpoint does not resume step-exact")
+
+    # ---- fallback: corrupt the newest tag's largest state file
+    from deepspeed_tpu_torch import telemetry
+    session = telemetry.configure({"enabled": True, "compile_watch": False})
+    try:
+        fallbacks = telemetry.get_registry().counter("checkpoint_load_fallbacks_total")
+        newest = os.path.join(save_dir, marker["tag"])
+        rel = TrainFaultInjector(TrainFaultConfig(enabled=True)).corrupt_checkpoint(newest, 0)
+        n0 = fallbacks.value
+        t0 = time.perf_counter()
+        path, _ = g.load_checkpoint(save_dir)
+        fall = dict(corrupted=rel, loaded=path, step=g.global_steps, fallbacks_counted=fallbacks.value - n0,
+                    load_s=time.perf_counter() - t0, state_differs_from_async_save=_state_diff(g, at_save))
+    finally:
+        session.close()
+    del at_save
+    _expect(path == tag_async and g.global_steps == s_async and fall["fallbacks_counted"] == 1
+            and not fall["state_differs_from_async_save"], f"tag=None over a corrupt newest tag: {fall}")
+    try:
+        g.load_checkpoint(save_dir, tag=marker["tag"])
+        raise AssertionError("checkpoint phase: an explicit corrupt tag loaded")
+    except ckpt.CheckpointCorruptionError as e:
+        fall["explicit_tag_raises"] = str(e)[:200]
+    _expect("CORRUPT" in fall["explicit_tag_raises"], fall["explicit_tag_raises"])
+    # control: without verification the corrupt tag loads, and is not the saved state
+    g._config.checkpoint_config.verify_on_load = False
+    g.load_checkpoint(save_dir, tag=marker["tag"])
+    g._config.checkpoint_config.verify_on_load = True
+    fall["control_unverified_differs"] = _state_diff(g, before)
+    _expect(len(fall["control_unverified_differs"]) == 1,
+            f"control: the unverified corrupt load differs in {fall['control_unverified_differs'][:4]}")
+    # a tag whose manifest is gone reads as torn, and an explicit load of it raises
+    os.unlink(os.path.join(tag_async, ckpt.MANIFEST_FILE))
+    fall["torn_verdict"] = ckpt.verify_checkpoint(tag_async)
+    try:
+        g.load_checkpoint(save_dir, tag=os.path.basename(tag_async))
+        raise AssertionError("checkpoint phase: an explicit torn tag loaded")
+    except ckpt.CheckpointCorruptionError as e:
+        fall["torn_explicit_raises"] = str(e)[:200]
+    _expect(fall["torn_verdict"][0] == "torn" and "TORN" in fall["torn_explicit_raises"], f"torn tag: {fall}")
+    res["fallback"] = fall
+    _free(g)
+    del g
+
+
+def _tiny_updates(spec, p0, grads, where):
+    """init and one update a gradient tree on ``where``, in f32: every
+    parameter and optimizer-state tensor by its key path."""
+    opt = _make_optimizer(spec["type"], spec["params"])
+    params = {k: torch.from_numpy(v).to(where) for k, v in p0.items()}
+    state = opt.init(params)
+    for g in grads:
+        params, state = opt.update({k: torch.from_numpy(v).to(where) for k, v in g.items()}, state, params,
+                                   spec["params"]["lr"])
+    return dict(ckpt._leaves({"params": params, "opt_state": state}))
+
+
+def _optimizer_legs(dev, batches, res):
+    """Each optimizer but Adam/AdamW: the bench model cut to OPT_LAYERS, bf16,
+    OPT_STEPS train_batch on one repeated batch (the loss must be finite and
+    fall); then OPT_STEPS f32 updates of a tiny config's parameter tree on the
+    card against the same updates on the CPU, with the same gradients on both
+    (through a model the two devices' matmuls round apart, and a sign-based
+    update turns a near-zero difference into a whole step)."""
+    cfg = bench_llama(num_hidden_layers=OPT_LAYERS)
+    tiny = LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                       num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128)
+    rng = np.random.default_rng(0)
+    shapes = param_shapes(tiny)
+    p0 = {k: rng.normal(scale=0.02, size=s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: rng.normal(scale=1e-3, size=s).astype(np.float32) for k, s in shapes.items()}
+             for _ in range(OPT_STEPS)]
+    out = {}
+    for name, spec in OPTIMIZERS.items():
+        engine = _train_engine(cfg, TRAIN_MICRO, TRAIN_GAS, True, dev, optimizer=spec)
+        t0 = time.perf_counter()
+        losses = [float(engine.train_batch(batch=batches[1])) for _ in range(OPT_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        finite = all(bool(torch.isfinite(t).all()) for _, t in ckpt._leaves({"p": engine.params, "s": engine.opt_state}))
+        _free(engine)
+        del engine
+        card, host = (_tiny_updates(spec, p0, grads, where) for where in (dev, torch.device("cpu")))
+        err = max(((card[p].cpu().double() - t.double()).abs().max() /
+                   t.double().abs().max().clamp(min=1e-30)).item() for p, t in host.items())
+        out[name] = dict(losses=losses, state_finite=finite, seconds=wall, tiny_card_vs_cpu_rel_err=err)
+        log(f"[checkpoint] optimizer {name}: losses {losses}, card vs CPU {err:.2e}")
+        _expect(finite and all(map(math.isfinite, losses)) and losses[-1] < losses[0], f"{name}: {out[name]}")
+        _expect(err <= OPT_TINY_TOL, f"{name}: card against CPU {err} > {OPT_TINY_TOL}")
+    res["optimizers"] = dict(layers=OPT_LAYERS, steps=OPT_STEPS, runs=out)
+
+
+def run_checkpoint_path(dev) -> dict:
+    """Checkpoints, the sentinel, preemption and the optimizers on the bench
+    model (full width and depth; the optimizer leg cut to OPT_LAYERS):
+
+    - resume: run A trains TRAIN_WARMUP + CKPT_STEPS steps, saves (sync) and
+      trains CKPT_RESUME more; a fresh engine B loads with tag=None and trains
+      the same steps: losses and f32 masters bitwise A's, and the flash
+      kernels launched as run_training_path predicts;
+    - async (nebula.enabled): B saves, trains CKPT_STEPS steps while the
+      commit runs, and waits;
+    - sentinel: DSTPU_TRAIN_FAULTS poisons B's next two steps; the first is
+      skipped (masters and optimizer state bitwise unchanged), the second
+      rolls back to the async tag (bitwise its state), and the steps trained
+      during the commit, trained again, give the same losses and state;
+    - preemption: SIGTERM between steps; the next step writes
+      preempt_step<N> and PREEMPTED.json and raises TrainingPreempted; a
+      fresh engine resumes from the marker's tag, bitwise;
+    - fallback: the newest tag's largest state file corrupted, a tag=None
+      load falls back to the older tag (counted), an explicit load raises,
+      and (the control) a load without verification loads the corrupt bytes;
+      a tag without its manifest reads torn;
+    - the optimizer legs (_optimizer_legs).
+    """
+    t_phase = time.perf_counter()
+    cfg = bench_llama()
+    batches = _train_batches(cfg, dev)
+    root = tempfile.mkdtemp(prefix="dstt_ckpt_")
+    res = dict(layers=cfg.num_hidden_layers, hidden=cfg.hidden_size, seq_len=TRAIN_S, micro_batch=TRAIN_MICRO,
+               gas=TRAIN_GAS, save_dir_fs=subprocess.run(["df", "-T", root], capture_output=True,
+                                                         text=True).stdout.strip().splitlines()[-1])
+    try:
+        t0 = time.perf_counter()
+        _checkpoint_legs(dev, cfg, batches, os.path.join(root, "run"), res)
+        res["checkpoint_legs_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    _optimizer_legs(dev, batches, res)
+    res["optimizer_legs_s"] = time.perf_counter() - t0
+    res["seconds"] = time.perf_counter() - t_phase
+    log("[checkpoint] " + json.dumps(res, default=str))
+    sync, asy = res["sync_save"], res["async_save"]
+    log(f"[checkpoint] {sync['bytes'] / 1e9:.2f} GB a tag; sync save {sync['save_s']:.2f} s ({sync['GB_per_s']:.2f} GB/s: "
+        f"snapshot {sync['_host_snapshot']:.2f} s, array CRC {sync['array_checksums']:.2f} s, write "
+        f"{sync['_write_state']:.2f} s, file CRC + manifest {sync['write_manifest']:.2f} s); async dispatch "
+        f"{asy['dispatch_s']:.2f} s, commit {asy['commit_s']:.2f} s; verify {sync['verify_s']:.2f} s; "
+        f"load {res['load_s']:.2f} s; phase {res['seconds']:.1f} s")
+    log(card_line())
+    return res
+
+
 # --------------------------------------------------------------------- main --
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3547,6 +3968,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     record["training_path"] = run_training_path(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["checkpoint_path"] = run_checkpoint_path(dev)
     record["seconds"] = time.perf_counter() - t_start
 
     decode = record["paged_attention"][0]  # the serving path's decode shape

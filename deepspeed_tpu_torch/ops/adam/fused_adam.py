@@ -1,7 +1,7 @@
 """Adam / AdamW, functional.
 
-Port of ``deepspeed_tpu/ops/adam/fused_adam.py`` (``FusedAdam``), with its
-arithmetic in its order: an int32 step, bias corrections ``1 - beta**step``
+Port of ``deepspeed_tpu/ops/adam/fused_adam.py`` (``FusedAdam`` and
+``DeepSpeedCPUAdam``), with its arithmetic in its order: an int32 step, bias corrections ``1 - beta**step``
 in f32, eps added outside the square root, and the decoupled (AdamW) decay
 ``wd * p`` added to the step before ``lr`` scales it; the L2 (Adam) decay is
 added to the gradient before the moments. ``torch.optim.AdamW`` orders its
@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from deepspeed_tpu_torch.ops.optimizer import TorchOptimizer, zeros_like_tree
+from deepspeed_tpu_torch.ops.optimizer import TorchOptimizer, bias_corrections, step_zero, zeros_like_tree
 
 
 class AdamState(NamedTuple):
@@ -34,19 +34,12 @@ class FusedAdam(TorchOptimizer):
         self.bias_correction = bias_correction
 
     def init(self, params: dict) -> AdamState:
-        device = next(iter(params.values())).device if params else None
-        return AdamState(step=torch.zeros([], dtype=torch.int32, device=device),
-                         exp_avg=zeros_like_tree(params), exp_avg_sq=zeros_like_tree(params))
+        return AdamState(step=step_zero(params), exp_avg=zeros_like_tree(params), exp_avg_sq=zeros_like_tree(params))
 
     def update(self, grads: dict, state: AdamState, params: dict, lr):
         b1, b2 = self.betas
         step = state.step + 1
-        stepf = step.float()
-        if self.bias_correction:
-            bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32, device=stepf.device)**stepf
-            bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32, device=stepf.device)**stepf
-        else:
-            bc1 = bc2 = 1.0
+        bc1, bc2 = bias_corrections(step, b1, b2) if self.bias_correction else (1.0, 1.0)
         wd = self.weight_decay
         new_p, new_m, new_v = {}, {}, {}
         for name, p in params.items():
@@ -61,3 +54,15 @@ class FusedAdam(TorchOptimizer):
             new_p[name] = p - lr * update
             new_m[name], new_v[name] = m, v
         return new_p, AdamState(step=step, exp_avg=new_m, exp_avg_sq=new_v)
+
+
+class DeepSpeedCPUAdam(FusedAdam):
+    """Reference ``DeepSpeedCPUAdam``: FusedAdam's numerics under the
+    reference's argument names. The reference keeps its moments in host
+    memory between steps (ZeRO offload, ROADMAP A8); here they stay on the
+    engine's device."""
+
+    def __init__(self, *args, adamw_mode=True, fp32_optimizer_states=True, **kwargs):
+        kwargs.pop("adam_w_mode", None)
+        super().__init__(*args, adam_w_mode=adamw_mode, **kwargs)
+        self.fp32_optimizer_states = fp32_optimizer_states

@@ -38,3 +38,16 @@ class TorchOptimizer:
 
 def zeros_like_tree(params: dict) -> dict:
     return {k: torch.zeros_like(p) for k, p in params.items()}
+
+
+def step_zero(params: dict) -> torch.Tensor:
+    """The int32 step counter at 0, on the parameters' device."""
+    device = next(iter(params.values())).device if params else None
+    return torch.zeros([], dtype=torch.int32, device=device)
+
+
+def bias_corrections(step: torch.Tensor, b1: float, b2: float):
+    """``(1 - b1**step, 1 - b2**step)`` in f32, as the reference computes
+    them from its int32 step."""
+    stepf = step.float()
+    return tuple(1.0 - torch.tensor(b, dtype=torch.float32, device=stepf.device)**stepf for b in (b1, b2))

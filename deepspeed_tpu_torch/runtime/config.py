@@ -4,8 +4,9 @@ Port of ``deepspeed_tpu/runtime/config.py``: ``DeepSpeedConfig`` parses a
 dict or a JSON path, fills the batch-size triangle
 (``train_batch_size = micro_batch * gradient_accumulation_steps * dp``),
 refuses bf16 together with fp16, and exposes the optimizer, scheduler,
-gradient-clipping, ZeRO and ``data_types.grad_accum_dtype`` settings under
-the JAX package's attribute names. The port trains on one device, so the
+gradient-clipping, ZeRO, ``data_types.grad_accum_dtype``, ``checkpoint``,
+``nebula`` and ``anomaly_sentinel`` settings under the JAX package's
+attribute names. The port trains on one device, so the
 data-parallel size is 1. Keys this port does not read are kept in
 ``_param_dict`` (as the pydantic models keep extra keys); the engine refuses
 the features it does not run.
@@ -17,8 +18,9 @@ from dataclasses import dataclass, field
 from typing import Optional, Union
 
 from deepspeed_tpu_torch.runtime import constants as C
-from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
+from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel, config_field
 from deepspeed_tpu_torch.runtime.precision_config import BF16Config, FP16Config
+from deepspeed_tpu_torch.runtime.sentinel import AnomalySentinelConfig
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -48,6 +50,43 @@ class ActivationCheckpointingConfig(DeepSpeedConfigModel):
     number_checkpoints: Optional[int] = None
     synchronize_checkpoint_boundary: bool = False
     profile: bool = False
+
+
+@dataclass
+class CheckpointConfig(DeepSpeedConfigModel):
+    tag_validation: str = C.CHECKPOINT_TAG_VALIDATION_DEFAULT
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: dict = field(default_factory=dict)
+
+    keep_last_k: int = config_field(0, ge=0)
+    """Retention: keep the newest K tags after each commit (0: all). The
+    newest manifest-sealed tag is never deleted."""
+
+    array_checksums: bool = True
+    """Record a CRC32 of every saved tensor in the manifest."""
+
+    verify_on_load: bool = True
+    """Verify the manifest (file sizes and CRC32s) before restoring; with
+    ``tag=None`` a torn or corrupt tag falls back loudly to the newest good
+    one."""
+
+    verify_arrays_on_load: bool = False
+    """Also re-checksum every restored tensor against the manifest."""
+
+    preemption_grace_s: float = config_field(30.0, gt=0)
+    """Budget between a preemption signal and exit: finish the step, drain
+    an async save, write the final synchronous checkpoint."""
+
+    gang_seal_timeout_s: float = config_field(60.0, gt=0)
+    """How long rank 0 waits for every rank's shard seal (accepted; unused
+    with one rank)."""
+
+
+@dataclass
+class NebulaConfig(DeepSpeedConfigModel):
+    """``nebula`` block: ``enabled`` makes ``save_checkpoint`` asynchronous."""
+    enabled: bool = False
 
 
 @dataclass
@@ -106,6 +145,12 @@ class DeepSpeedConfig:
             pd.get("activation_checkpointing", {}))
         self.data_types_config = DataTypesConfig.from_dict(pd.get(C.DATA_TYPES, {}))
         self.grad_accum_dtype = self.data_types_config.grad_accum_dtype
+
+        self.checkpoint_config = CheckpointConfig.from_dict(pd.get(C.CHECKPOINT, {}))
+        self.checkpoint_tag_validation_enabled = self.checkpoint_config.tag_validation != "Ignore"
+        self.checkpoint_tag_validation_fail = self.checkpoint_config.tag_validation == "Fail"
+        self.nebula_config = NebulaConfig.from_dict(pd.get(C.NEBULA, {}))
+        self.anomaly_sentinel_config = AnomalySentinelConfig.from_dict(pd.get(C.ANOMALY_SENTINEL, {}))
 
         self.pipeline_parallel_size = pd.get(C.PIPELINE_PARALLEL_SIZE, 1)
         self.sequence_parallel_size = pd.get(C.SEQUENCE_PARALLEL_SIZE, 1)

@@ -8,7 +8,7 @@ port keeps:
 - nested blocks may be given as dicts and are built into their dataclass;
 - enum fields accept their value (``"allocate"``) as well as the member;
 - fields declared with :func:`config_field` take an ``alias`` (used by
-  :meth:`DeepSpeedConfigModel.from_dict`) and ``gt``/``ge``/``le`` bounds,
+  :meth:`DeepSpeedConfigModel.from_dict`) and ``gt``/``ge``/``lt``/``le`` bounds,
   which a None value skips;
 - ``Literal`` fields accept only their listed values, and a list given for a
   ``Tuple`` field is stored as a tuple;
@@ -21,9 +21,9 @@ import typing
 from dataclasses import MISSING
 
 
-def config_field(default=MISSING, *, default_factory=MISSING, alias=None, gt=None, ge=None, le=None):
+def config_field(default=MISSING, *, default_factory=MISSING, alias=None, gt=None, ge=None, lt=None, le=None):
     return dataclasses.field(default=default, default_factory=default_factory,
-                             metadata={"alias": alias, "gt": gt, "ge": ge, "le": le})
+                             metadata={"alias": alias, "gt": gt, "ge": ge, "lt": lt, "le": le})
 
 
 class DeepSpeedConfigModel:
@@ -50,11 +50,13 @@ class DeepSpeedConfigModel:
                 setattr(self, f.name, tuple(value))
             if value is None:
                 continue
-            gt, ge, le = f.metadata.get("gt"), f.metadata.get("ge"), f.metadata.get("le")
+            gt, ge, lt, le = (f.metadata.get(k) for k in ("gt", "ge", "lt", "le"))
             if gt is not None and not value > gt:
                 raise ValueError(f"{type(self).__name__}.{f.name}={value!r} must be > {gt}")
             if ge is not None and not value >= ge:
                 raise ValueError(f"{type(self).__name__}.{f.name}={value!r} must be >= {ge}")
+            if lt is not None and not value < lt:
+                raise ValueError(f"{type(self).__name__}.{f.name}={value!r} must be < {lt}")
             if le is not None and not value <= le:
                 raise ValueError(f"{type(self).__name__}.{f.name}={value!r} must be <= {le}")
 

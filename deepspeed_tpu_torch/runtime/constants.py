@@ -28,3 +28,9 @@ EXPERT_PARALLEL_SIZE = "expert_parallel_size"
 
 # data types
 DATA_TYPES = "data_types"
+
+# checkpoints and training fault tolerance
+CHECKPOINT = "checkpoint"
+CHECKPOINT_TAG_VALIDATION_DEFAULT = "Warn"
+NEBULA = "nebula"
+ANOMALY_SENTINEL = "anomaly_sentinel"

@@ -10,10 +10,19 @@ GPU. The public API and the arithmetic are the JAX engine's:
 - the micro-step API ``forward`` / ``backward`` / ``step``, and the fused
   ``train_batch``: the global batch is split into ``[gas, micro, ...]``, each
   micro-batch's gradients of ``loss * scale`` are summed in the accumulation
-  dtype, and one apply divides by ``scale * gas``, checks finiteness (fp16),
-  takes the global norm, clips, runs the optimizer and updates the scale;
-  ``train_batch`` returns the mean of the micro losses;
-- an fp16 step that overflowed changes neither the weights nor the schedule.
+  dtype, and one apply divides by ``scale * gas``, checks finiteness (fp16,
+  or any precision with the anomaly sentinel on), takes the global norm,
+  clips, runs the optimizer and updates the scale; ``train_batch`` returns
+  the mean of the micro losses;
+- a step that is not finite (an fp16 overflow, or a NaN/inf step under the
+  sentinel) changes neither the weights, the optimizer state nor the
+  schedule, and counts as skipped;
+- checkpoint save and load (``runtime/checkpoint_engine``: a manifest sealed
+  last, keep-last-K retention, a loud fallback past torn or corrupt tags,
+  async commit under ``nebula.enabled``), preemption handling
+  (``install_preemption_handler``: a final checkpoint, ``PREEMPTED.json``,
+  then :class:`TrainingPreempted`), the anomaly sentinel and the training
+  fault injector (``DSTPU_TRAIN_FAULTS``).
 
 The model runs in the compute dtype (bf16, fp16 or f32): its parameters are
 the master weights cast once per optimizer step, and each micro-step's
@@ -22,32 +31,64 @@ the JAX engine's gradient of the loss through the master -> compute cast
 (whose backward casts the cotangent to f32), without a cast per micro-step.
 
 On one device every ZeRO stage runs the same math: nothing is partitioned
-with one rank. Offload, ZeRO++ (qwZ, qgZ, hpZ, MiCS), pipeline, sequence and
-tensor parallelism, progressive layer drop, compression, eigenvalue,
-curriculum, telemetry, the anomaly sentinel, preemption handling and
-checkpoint save/load raise ``NotImplementedError``.
+with one rank. What still raises ``NotImplementedError``: progressive layer
+drop, eigenvalue, curriculum learning, compression training and training
+telemetry (ROADMAP A7, second half); ZeRO offload, ZeRO++ (qwZ, qgZ, hpZ,
+MiCS), pipeline, sequence, tensor and expert parallelism (A8).
 """
 
 import itertools
+import json
+import os
+import signal
+import threading
+import time
 
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
+from deepspeed_tpu_torch.ops.adagrad.cpu_adagrad import DeepSpeedCPUAdagrad
+from deepspeed_tpu_torch.ops.adam.fused_adam import DeepSpeedCPUAdam, FusedAdam
+from deepspeed_tpu_torch.ops.adam.onebit_adam import OnebitAdam
+from deepspeed_tpu_torch.ops.adam.zero_one_adam import ZeroOneAdam
+from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
+from deepspeed_tpu_torch.ops.lamb.onebit_lamb import OnebitLamb
+from deepspeed_tpu_torch.ops.lion.fused_lion import FusedLion
+from deepspeed_tpu_torch.ops.sgd.sgd import SGD
+from deepspeed_tpu_torch.runtime import sentinel as _sentinel_mod
+from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import (PREEMPT_MARKER, CheckpointCorruptionError,
+                                                                  checkpoint_barrier, close_async_checkpointer,
+                                                                  list_tags, load_engine_state, save_engine_state)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+from deepspeed_tpu_torch.runtime.faults import injector_from_env
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (dynamic_loss_scale_state, static_loss_scale_state,
                                                           update_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule_class
-from deepspeed_tpu_torch.runtime.utils import clip_grads_by_global_norm, global_norm, tree_all_finite
+from deepspeed_tpu_torch.runtime.utils import cast_tree, clip_grads_by_global_norm, global_norm, tree_all_finite
 from deepspeed_tpu_torch.utils.device import resolve_device
+from deepspeed_tpu_torch.utils.logging import logger
 
 _ACCUM_DTYPES = {None: torch.float32, "fp32": torch.float32, "fp16": torch.float16, "bf16": torch.bfloat16}
 
 
+class TrainingPreempted(SystemExit):
+    """Raised after a preemption's final checkpoint committed: exits with
+    code 143 (the SIGTERM convention), so a supervisor can tell a clean
+    preemption from a crash. Carries the final checkpoint's ``tag`` (None
+    when no save directory was known) and the ``step``."""
+
+    EXIT_CODE = 143
+
+    def __init__(self, tag, step):
+        super().__init__(self.EXIT_CODE)
+        self.tag = tag
+        self.step = step
+
+
 def _make_optimizer(name, params_cfg):
-    """Type Adam means AdamW unless ``adam_w_mode`` is false; type AdamW
-    always decouples (the reference rule, ``engine.py:79-85``)."""
+    """The reference's names (``engine.py:69-105``). Type Adam means AdamW
+    unless ``adam_w_mode`` is false; type AdamW always decouples."""
     name = (name or "adamw").lower()
     cfg = dict(params_cfg or {})
     cfg.pop("torch_adam", None)
@@ -56,37 +97,42 @@ def _make_optimizer(name, params_cfg):
         if name == "adamw":
             awm = True
         return FusedAdam(adam_w_mode=awm, **cfg)
-    raise NotImplementedError(f"optimizer {name!r}: the port has Adam/AdamW only so far (ROADMAP A7)")
+    classes = {"cpuadam": DeepSpeedCPUAdam, "onebitadam": OnebitAdam, "onebitlamb": OnebitLamb,
+               "zerooneadam": ZeroOneAdam, "lamb": FusedLamb, "fusedlamb": FusedLamb, "lion": FusedLion,
+               "fusedlion": FusedLion, "adagrad": DeepSpeedCPUAdagrad, "sgd": SGD}
+    if name not in classes:
+        raise ValueError(f"Unknown optimizer {name!r}")
+    return classes[name](**cfg)
 
 
 def _unsupported(cfg: DeepSpeedConfig):
-    """The names of configured features this engine does not run."""
+    """Configured features this engine does not run, each with the ROADMAP
+    queue item that ports it."""
     zc, pd = cfg.zero_config, cfg._param_dict
     found = []
     for block in (zc.offload_optimizer, zc.offload_param):
         if block is not None and block.device.value != "none":
-            found.append(f"ZeRO offload to {block.device.value}")
+            found.append(f"ZeRO offload to {block.device.value} (A8)")
     if zc.cpu_offload or zc.cpu_offload_param:
-        found.append("ZeRO CPU offload")
+        found.append("ZeRO CPU offload (A8)")
     if zc.zero_quantized_weights or zc.zero_quantized_nontrainable_weights:
-        found.append("qwZ (zero_quantized_weights)")
+        found.append("qwZ (zero_quantized_weights) (A8)")
     if zc.zero_quantized_gradients:
-        found.append("qgZ (zero_quantized_gradients)")
+        found.append("qgZ (zero_quantized_gradients) (A8)")
     if zc.zero_hpz_partition_size > 1 or zc.mics_shard_size > 0:
-        found.append("hpZ/MiCS secondary partitioning")
+        found.append("hpZ/MiCS secondary partitioning (A8)")
     for key, what in ((cfg.pipeline_parallel_size, "pipeline parallelism"),
                       (cfg.sequence_parallel_size, "sequence parallelism"),
                       (cfg.tensor_parallel_size, "tensor parallelism"),
                       (cfg.expert_parallel_size, "expert parallelism")):
         if key > 1:
-            found.append(what)
+            found.append(f"{what} (A8)")
     for key, what in (("progressive_layer_drop", "progressive layer drop"), ("eigenvalue", "eigenvalue"),
-                      ("curriculum_learning", "curriculum learning"), ("telemetry", "telemetry"),
-                      ("anomaly_sentinel", "the anomaly sentinel")):
+                      ("curriculum_learning", "curriculum learning"), ("telemetry", "training telemetry")):
         if pd.get(key, {}).get("enabled", False):
-            found.append(what)
+            found.append(f"{what} (A7)")
     if pd.get("compression_training"):
-        found.append("compression training")
+        found.append("compression training (A7)")
     return found
 
 
@@ -101,7 +147,7 @@ class DeepSpeedEngine:
         self._config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
         missing = _unsupported(self._config)
         if missing:
-            raise NotImplementedError(f"not ported yet (ROADMAP A7/A8): {', '.join(missing)}")
+            raise NotImplementedError(f"not ported yet, each with the ROADMAP item that ports it: {', '.join(missing)}")
 
         self.global_steps = 0
         self.global_samples = 0
@@ -165,6 +211,20 @@ class DeepSpeedEngine:
             self._current_lr = self.lr_scheduler.get_last_lr()[0]
 
         self.training_dataloader = self.deepspeed_io(training_data) if training_data is not None else None
+
+        # training fault tolerance: the anomaly sentinel (all-precision finite
+        # gate, rollback to the last good checkpoint), preemption-safe exit and
+        # the training fault injector; disabled, each costs one check a hook
+        sent_cfg = self._config.anomaly_sentinel_config
+        self._anomaly_guard = sent_cfg.enabled
+        self._sentinel = _sentinel_mod.LossAnomalySentinel(sent_cfg) if sent_cfg.enabled else None
+        self._train_faults = injector_from_env(os.environ.get("DSTPU_TRAIN_FAULTS"))
+        self._ckpt_save_dir = None
+        self._sentinel_good_step = None
+        self._preempt_event = None
+        self._preempt_cfg = None
+        self._preempt_at = None
+        self._last_loss = None
 
     # ------------------------------------------------------------------ setup --
     def _configure_lr_scheduler(self, client_scheduler):
@@ -231,13 +291,37 @@ class DeepSpeedEngine:
     def eval(self):
         self.train(False)
 
-    def module_state_dict(self):
+    def module_state_dict(self, exclude_frozen_parameters=False):
         """Host copy of the f32 master weights."""
         return {k: v.detach().cpu() for k, v in self.params.items()}
+
+    def load_module_state_dict(self, state_dict, strict=True, custom_load_fn=None):
+        """The masters become ``state_dict`` (cast to f32, on the device), and
+        the module follows. ``custom_load_fn(src=..., dst=...)`` returns the
+        dict to load, as the reference's does."""
+        if custom_load_fn is not None:
+            state_dict = custom_load_fn(src=state_dict, dst=self.params)
+            if state_dict is None:
+                raise ValueError("custom_load_fn must return the parameter dict")
+        if strict and set(state_dict) != set(self.params):
+            raise KeyError(f"state_dict does not fit the model: missing {sorted(set(self.params) - set(state_dict))}, "
+                           f"unexpected {sorted(set(state_dict) - set(self.params))}")
+        new = cast_tree({k: torch.as_tensor(v).to(self.device) for k, v in state_dict.items()}, self.master_dtype)
+        self.params = {k: new.get(k, p) for k, p in self.params.items()}
+        self._sync_module()
 
     def zero_grad(self):
         self.acc_grads = None
         self._cached_loss = None
+
+    def destroy(self):
+        """Release the engine's resources: the last async save commits (or its
+        failure is logged) first."""
+        try:
+            close_async_checkpointer(self)
+        except Exception:
+            logger.exception("async checkpoint drain at destroy failed (the checkpoint is absent, never torn)")
+        self.zero_grad()
 
     # ------------------------------------------------------------- data path --
     def _to_device(self, batch):
@@ -283,7 +367,9 @@ class DeepSpeedEngine:
         inv = 1.0 / (self.scale_state.cur_scale * gas)
         grads = {k: g.float() * inv for k, g in self.acc_grads.items()}
         self.acc_grads = None
-        finite = tree_all_finite(grads).to(self.device) if self._fp16 else None
+        # fp16 always gates on finite gradients (overflow skip); the anomaly
+        # sentinel arms the same gate in every precision (skip-step)
+        finite = tree_all_finite(grads).to(self.device) if self._fp16 or self._anomaly_guard else None
         norm = global_norm(grads)
         clip = self._config.gradient_clipping
         if clip > 0.0:
@@ -309,9 +395,9 @@ class DeepSpeedEngine:
         return overflow
 
     def _step_lr_scheduler(self, overflow):
-        """Advance the schedule unless this fp16 step overflowed (the host
-        reads the flag only under fp16)."""
-        if self._fp16 and bool(overflow):
+        """Advance the schedule unless this step was skipped (the host reads
+        the flag only under fp16 or with the sentinel's gate armed)."""
+        if (self._fp16 or self._anomaly_guard) and bool(overflow):
             return
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
@@ -338,19 +424,29 @@ class DeepSpeedEngine:
         assert loss is not None, "backward() must follow forward()"
         self._accumulate(self._micro_grads(loss))
         self._cached_loss = None
+        self._last_loss = loss.detach()
         return loss
 
     def step(self):
         """Optimizer step at gradient-accumulation boundaries."""
-        if self.is_gradient_accumulation_boundary():
+        boundary = self.is_gradient_accumulation_boundary()
+        if boundary:
             assert self.acc_grads is not None, "step() with no accumulated gradients"
             self._step_lr_scheduler(self._apply())
         self.micro_steps += 1
+        if boundary:
+            # after the count, so a preemption checkpoint taken here resumes
+            # on the next accumulation window
+            self._after_boundary_step(self._last_loss)
 
     def train_batch(self, data_iter=None, batch=None):
         """One global batch (``[gas * micro, ...]`` per leaf, or ``gas``
         micro-batches from ``data_iter``): accumulate, then one optimizer
         step. Returns the mean micro-batch loss (0-d tensor on the device)."""
+        # a preemption notice that arrived between steps exits before paying
+        # for another one (one that arrives mid-step finalizes at its end)
+        self._maybe_finalize_preemption()
+        self._pre_step_fault_hooks()
         gas = self.gradient_accumulation_steps()
         if batch is None:
             assert data_iter is not None, "train_batch needs data_iter or batch"
@@ -361,28 +457,216 @@ class DeepSpeedEngine:
             batch = self._to_device(batch)
             stacked = self._tree_map(lambda x: x.reshape((gas, -1) + tuple(x.shape[1:])), batch)
             micro = [self._tree_map(lambda x, i=i: x[i], stacked) for i in range(gas)]
+        poison_loss = False
+        if self._train_faults is not None and self._train_faults.fire_step("nan_inject", self.global_steps) is not None:
+            logger.error(f"chaos: NaN injected into the batch for step {self.global_steps}")
+            poisoned = [self._train_faults.poison_batch(mb) for mb in micro]
+            # a batch of token ids has no floating tensor to poison: the
+            # step's losses carry the NaN instead
+            poison_loss = all(p is mb for p, mb in zip(poisoned, micro))
+            micro = poisoned
         losses = []
         for mb in micro:
             loss = self.module(mb)
+            if poison_loss:
+                loss = loss * float("nan")
             self._accumulate(self._micro_grads(loss))
             losses.append(loss.detach().float())
         self.micro_steps += gas
         self._step_lr_scheduler(self._apply())
-        return torch.stack(losses).mean()
+        loss = torch.stack(losses).mean()
+        self._after_boundary_step(loss)
+        return loss
 
-    # ----------------------------------------------------------- not ported --
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError("checkpoint save is not ported yet (ROADMAP A7: runtime/checkpoint_engine)")
+    # ------------------------------------------------------- fault tolerance --
+    def _pre_step_fault_hooks(self):
+        """Step entry: the ``hang_rank_at_step`` chaos point, a sleep inside
+        the step (a wedged collective's shape; the one process is rank 0).
+        The gang heartbeat beside it comes with ROADMAP A8."""
+        inj = self._train_faults
+        if inj is not None and inj.fire_step_rank("hang_rank_at_step", self.global_steps) is not None:
+            logger.error(f"chaos: rank 0 hanging {inj.config.hang_seconds:.0f}s at step {self.global_steps}")
+            time.sleep(inj.config.hang_seconds)
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError("checkpoint load is not ported yet (ROADMAP A7: runtime/checkpoint_engine)")
+    def _after_boundary_step(self, loss):
+        """At a completed optimizer step: the sentinel's observation
+        (anomaly count, rollback), the chaos SIGTERM and SIGKILL points, and
+        the preemption finalizer: the step finishes, then the engine acts."""
+        if self._sentinel is not None and loss is not None:
+            self._observe_loss(loss)
+        inj = self._train_faults
+        if inj is not None:
+            if inj.fire_step("sigterm_at_step", self.global_steps) is not None:
+                logger.error(f"chaos: SIGTERM at step {self.global_steps}")
+                os.kill(os.getpid(), signal.SIGTERM)
+            if inj.fire_step("kill_at_step", self.global_steps) is not None:
+                logger.error(f"chaos: SIGKILL at step {self.global_steps}")
+                os.kill(os.getpid(), signal.SIGKILL)
+            if inj.fire_step_rank("kill_rank_at_step", self.global_steps) is not None:
+                logger.error(f"chaos: SIGKILL rank 0 at step {self.global_steps}")
+                os.kill(os.getpid(), signal.SIGKILL)
+        self._maybe_finalize_preemption()
 
-    def install_preemption_handler(self, *args, **kwargs):
-        raise NotImplementedError("preemption handling is not ported yet (ROADMAP A7)")
+    def _observe_loss(self, loss):
+        verdict = self._sentinel.observe(float(loss))  # a device sync; the sentinel is opt-in
+        if verdict == _sentinel_mod.OK:
+            # the rollback horizon: checkpoints at or before this step hold
+            # weights from before the anomaly (a spike applies its update, so
+            # a loop that saves every step checkpoints the divergence too)
+            self._sentinel_good_step = self.global_steps
+        elif verdict == _sentinel_mod.ROLLBACK:
+            self._sentinel_rollback()
+
+    def _sentinel_rollback(self):
+        """M anomalies in a row: reload the newest committed checkpoint taken
+        at or before the last healthy step (a later save holds the diverged
+        state). ``load_checkpoint`` verifies; a tag it rejects moves on to the
+        next older one."""
+        cfg = self._sentinel.config
+        save_dir = self._ckpt_save_dir
+        if not cfg.rollback or save_dir is None:
+            logger.error(f"anomaly sentinel: escalation without rollback (rollback={cfg.rollback}, checkpoint dir "
+                         f"known={save_dir is not None}); training continues on the anomalous state")
+            return
+        horizon = self._sentinel_good_step
+        for entry in list_tags(save_dir):
+            step = (entry["manifest"] or {}).get("global_steps")
+            if entry["status"] != "committed":
+                continue
+            if horizon is not None and (step is None or step > horizon):
+                continue  # saved after the divergence started
+            logger.error(f"anomaly sentinel: rolling back to {entry['tag']} under {save_dir} "
+                         f"(last healthy step: {horizon})")
+            self.zero_grad()
+            try:
+                path, _ = self.load_checkpoint(save_dir, tag=entry["tag"])
+            except CheckpointCorruptionError as e:
+                logger.error(f"anomaly sentinel: rollback target bad ({e}); trying the next older tag")
+                continue
+            logger.warning(f"anomaly sentinel: resumed from {path} (step {self.global_steps})")
+            return
+        logger.error(f"anomaly sentinel: no usable checkpoint at or before the last healthy step {horizon} "
+                     f"under {save_dir}; NOT rolling back, training continues")
+
+    def install_preemption_handler(self, save_dir=None, grace_s=None, signals=(signal.SIGTERM, )):
+        """Turn a preemption notice (SIGTERM by default) into a clean exit:
+        the step in flight finishes, an async save drains, a final
+        synchronous checkpoint commits within ``grace_s``
+        (``checkpoint.preemption_grace_s`` when unset), ``PREEMPTED.json``
+        lands beside ``latest``, and :class:`TrainingPreempted` (code 143) is
+        raised. ``save_dir`` defaults to the last ``save_checkpoint``
+        directory. Call from the main thread (a constraint of ``signal``)."""
+        self._preempt_cfg = {"save_dir": os.path.abspath(save_dir) if save_dir else None,
+                             "grace_s": float(grace_s) if grace_s is not None
+                             else self._config.checkpoint_config.preemption_grace_s}
+        self._preempt_event = threading.Event()
+
+        def _on_preempt(signum, frame):
+            # async-signal-safe: a flag and a time; the log comes at the step
+            # boundary, on the training thread
+            self._preempt_at = time.monotonic()
+            self._preempt_event.set()
+
+        for sig in signals:
+            signal.signal(sig, _on_preempt)
+        return self
+
+    @property
+    def preemption_requested(self) -> bool:
+        """True once a preemption signal arrived (the finalizer runs at the
+        next step boundary; a loop with long gaps between steps can poll this
+        and call :meth:`finalize_preemption` itself)."""
+        return self._preempt_event is not None and self._preempt_event.is_set()
+
+    def _maybe_finalize_preemption(self):
+        if self.preemption_requested:
+            self.finalize_preemption()
+
+    def finalize_preemption(self):
+        """The preemption exit (does not return): drain an async save, write
+        the final synchronous checkpoint and the resume marker, raise
+        :class:`TrainingPreempted`."""
+        cfg = self._preempt_cfg or {}
+        grace = cfg.get("grace_s") or self._config.checkpoint_config.preemption_grace_s
+        started = self._preempt_at or time.monotonic()
+        save_dir = cfg.get("save_dir") or self._ckpt_save_dir
+        tag = f"preempt_step{self.global_steps}"
+        logger.warning(f"preemption: draining async saves, final checkpoint {tag} (grace {grace:.0f}s)")
+        if save_dir is not None:
+            # save_engine_state takes the barrier: a commit in flight lands first
+            save_engine_state(self, save_dir, tag, {"preempted": True}, save_latest=True, async_save=False)
+            used = time.monotonic() - started
+            with open(os.path.join(save_dir, PREEMPT_MARKER), "w") as f:
+                json.dump({"tag": tag, "global_steps": self.global_steps, "grace_s": grace, "used_s": round(used, 3),
+                           "resume_dir": save_dir}, f)
+            level = logger.error if used > grace else logger.warning
+            level(f"preemption: final checkpoint {tag} committed in {used:.1f}s (grace budget {grace:.0f}s"
+                  f"{' EXCEEDED' if used > grace else ''})")
+        else:
+            logger.error("preemption: no checkpoint directory known (pass save_dir to install_preemption_handler, "
+                         "or save_checkpoint once first); exiting WITHOUT a final checkpoint")
+        from deepspeed_tpu_torch import telemetry
+        if telemetry.is_active():
+            telemetry.get_registry().counter("train_preemptions_total",
+                                             "Preemption notices turned into a final checkpoint and a clean exit").inc()
+        raise TrainingPreempted(tag if save_dir is not None else None, self.global_steps)
+
+    # ------------------------------------------------------------- checkpoints --
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
+                        exclude_frozen_parameters=False):
+        """Save as ``tag`` (default ``global_step<N>``) under ``save_dir``,
+        sealed by a manifest written last (``runtime/checkpoint_engine``);
+        asynchronous under ``nebula.enabled``."""
+        tag = str(tag) if tag is not None else f"global_step{self.global_steps}"
+        self._checkpoint_tag_validation(tag)
+        save_engine_state(self, save_dir, tag, client_state or {}, save_latest,
+                          async_save=self._config.nebula_config.enabled)
+        # the sentinel's rollback source and the preemption handler's default
+        self._ckpt_save_dir = os.path.abspath(save_dir)
+        return True
+
+    def checkpoint_wait(self):
+        """Wait for an async save in flight (raises if its commit failed)."""
+        checkpoint_barrier(self)
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True, load_optimizer_states=True,
+                        load_lr_scheduler_states=True, load_module_only=False, custom_load_fn=None):
+        """Verified restore; returns ``(path, client_state)``, or ``(None,
+        None)`` where nothing was ever committed. With ``tag=None`` a torn or
+        corrupt tag falls back loudly to the newest verified-good one; an
+        explicit bad tag raises ``CheckpointCorruptionError``."""
+        # deliberately leaves _ckpt_save_dir alone: a load source may be
+        # read-only; only a save marks where the finalizer and rollback write
+        return load_engine_state(self, load_dir, tag, load_optimizer_states=load_optimizer_states,
+                                 load_lr_scheduler_states=load_lr_scheduler_states,
+                                 load_module_only=load_module_only)
+
+    def _checkpoint_tag_validation(self, tag):
+        """All ranks must save the same tag (the reference broadcasts rank 0's
+        tag and compares). With one rank the tag always agrees, so
+        ``checkpoint.tag_validation`` (Warn, Ignore, Fail) has nothing to check
+        until several ranks come with ROADMAP A8."""
+
+    def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin", exclude_frozen_parameters=False):
+        """The weights in the compute dtype as ``<save_filename>.npz``, one
+        array per ``state_dict`` name (bf16 as its raw uint16 bits: numpy has
+        no bf16)."""
+        os.makedirs(save_dir, exist_ok=True)
+        out = {}
+        for name, p in self.params.items():
+            t = p.detach().to(self.compute_dtype).cpu()
+            out[name] = (t.view(torch.uint16) if t.dtype == torch.bfloat16 else t).numpy()
+        np.savez(os.path.join(save_dir, save_filename + ".npz"), **out)
+        return True
+
+    def save_fp16_model(self, save_dir, save_filename="pytorch_model.bin"):
+        return self.save_16bit_model(save_dir, save_filename)
 
 
 def _tree_select(pred, new, old):
     """Per-tensor ``where(pred, new, old)`` over (named) tuples and dicts."""
+    if new is None:
+        return None
     if isinstance(new, dict):
         return {k: torch.where(pred, new[k], old[k]) for k in new}
     if isinstance(new, tuple):

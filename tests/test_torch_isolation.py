@@ -1,5 +1,5 @@
 """The port stands alone: no module of deepspeed_tpu_torch, and nothing that
-chip_smoke.py imports, loads jax, flax, pydantic, ml_dtypes or deepspeed_tpu; and its
+chip_smoke.py imports, loads jax, flax, pydantic, ml_dtypes, orbax or deepspeed_tpu; and its
 entry points refuse to fall back to the CPU when no GPU is present."""
 
 import json
@@ -21,7 +21,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # its imports only: the script runs under __main__
 banned = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "pydantic", "ml_dtypes", "deepspeed_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "pydantic", "ml_dtypes", "orbax", "deepspeed_tpu"))
 print(json.dumps({"imported": names, "banned": banned}))
 """
 
@@ -54,6 +54,10 @@ def test_port_and_chip_smoke_import_no_jax_flax_pydantic_or_reference():
     for name in ("chip_specs", "observed"):
         assert f"deepspeed_tpu_torch.perf.{name}" in result["imported"]
     assert "deepspeed_tpu_torch.inference.v2.tracer" in result["imported"]
+    for name in ("runtime.checkpoint_engine.engine", "runtime.sentinel", "runtime.faults", "env_report",
+                 "ops.lamb.fused_lamb", "ops.lamb.onebit_lamb", "ops.lion.fused_lion", "ops.adagrad.cpu_adagrad",
+                 "ops.sgd.sgd", "ops.adam.onebit_adam", "ops.adam.zero_one_adam"):
+        assert f"deepspeed_tpu_torch.{name}" in result["imported"]
     assert result["banned"] == []
 
 

@@ -361,11 +361,15 @@ def test_batch_triangle_and_config_errors():
         deepspeed_tpu_torch.initialize(model=SimpleModel(), config=cfg._param_dict, device="cpu")
 
 
-@pytest.mark.parametrize("key,value", [("tensor_parallel_size", 2), ("progressive_layer_drop", {"enabled": True}),
-                                       ("zero_optimization", {"stage": 2, "zero_quantized_gradients": True}),
-                                       ("optimizer", {"type": "Lamb", "params": {"lr": 0.1}})])
-def test_unported_features_raise(key, value):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("key,value,error", [
+    ("tensor_parallel_size", 2, NotImplementedError), ("progressive_layer_drop", {"enabled": True}, NotImplementedError),
+    ("zero_optimization", {"stage": 2, "zero_quantized_gradients": True}, NotImplementedError),
+    ("eigenvalue", {"enabled": True}, NotImplementedError),
+    ("optimizer", {"type": "NoSuchOptimizer", "params": {"lr": 0.1}}, ValueError)])
+def test_unported_features_raise(key, value, error):
+    """What is not ported raises NotImplementedError naming its ROADMAP queue
+    item; an unknown optimizer raises the reference's ValueError."""
+    with pytest.raises(error, match=r"\(A[789]\)" if error is NotImplementedError else "Unknown optimizer"):
         deepspeed_tpu_torch.initialize(model=SimpleModel(), config={"train_batch_size": 8, key: value},
                                        device="cpu")
 

@@ -17,6 +17,11 @@ from deepspeed_tpu.models import llama as jllama
 from deepspeed_tpu_torch.models import llama as tllama
 from deepspeed_tpu_torch.models.convert import from_flax_params
 
+# the tests' tensors are tiny and the suite runs in parallel worker
+# processes (each collects every module): one intra-op thread a process
+# keeps the workers from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 def jax_tiny(**kw):
     return jllama.LlamaConfig.tiny(dtype=jnp.float32, **kw)
