@@ -121,7 +121,21 @@ Phases (any failure raises and the script exits non-zero):
    torn. Then every optimizer but AdamW on the model cut to 2 layers (3
    steps on one batch: finite, falling) and its f32 updates of a tiny
    config's tree on the card against the CPU's; save, load and CRC times;
-11. print one JSON line describing every kernel, then the result line.
+11. train features path: on the same model, curriculum learning (each
+   step's sequence length the scheduler's, B2-B4 launched as predicted at
+   each length; the control at full length from the first step, with
+   progressive layer drop's θ held to its formula), an MMapIndexedDataset
+   indexed by DataAnalyzer feeding DeepSpeedDataSampler's batches (every row
+   within its step's difficulty), PrefetchingLoader against train_batch on
+   the same batches (losses bitwise, the same launches, both step times),
+   training telemetry against none (events, gauges, spans, the cost a
+   step), compression training (each transform within 1 ulp of the same
+   transform on the CPU, none before its offset), the curvature probe
+   raising through B2-B4 (C8), and on the model cut to 2 layers in f32 with
+   plain attention: the probe converged, its Hessian-vector product against
+   central differences (a product 10% off and one along another direction,
+   the controls, fail), the eigenvalue gate below and above the probed value;
+12. print one JSON line describing every kernel, then the result line.
 
 The script imports the port only (never jax or deepspeed_tpu), needs one
 GPU, and writes its full record to chiprun_out/chip_smoke.json.
@@ -129,6 +143,7 @@ GPU, and writes its full record to chiprun_out/chip_smoke.json.
 
 import contextlib
 import copy
+import fnmatch
 import gc
 import json
 import math
@@ -144,8 +159,11 @@ import time
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 import deepspeed_tpu_torch
+from deepspeed_tpu_torch import telemetry
+from deepspeed_tpu_torch.compression.compress import init_compression
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine, generate
 from deepspeed_tpu_torch.inference.v2.model_implementations import transformer_base
@@ -154,6 +172,7 @@ from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import DSStateManag
 from deepspeed_tpu_torch.inference.v2.model_implementations.transformer_base import sample_categorical
 from deepspeed_tpu_torch.inference.v2.ragged.prefix_cache import digest_chain
 from deepspeed_tpu_torch.inference.v2.spec import TokenTree
+from deepspeed_tpu_torch.models.convert import reference_names
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, LlamaModel, init_params, param_shapes
 from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops import builder
@@ -161,9 +180,16 @@ from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import paged_attention as pa
 from deepspeed_tpu_torch.ops.aio import aio_available
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention_update, paged_attention_update_plain
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import recompute_disabled
 from deepspeed_tpu_torch.runtime.checkpoint_engine import engine as ckpt
+from deepspeed_tpu_torch.runtime.data_pipeline import CurriculumScheduler, DeepSpeedDataSampler
+from deepspeed_tpu_torch.runtime.data_pipeline.data_sampling import (DataAnalyzer, MMapIndexedDataset,
+                                                                      MMapIndexedDatasetBuilder)
+from deepspeed_tpu_torch.runtime.dataloader import PrefetchingLoader, StagedBatch
+from deepspeed_tpu_torch.runtime.eigenvalue import block_hvp
 from deepspeed_tpu_torch.runtime.engine import TrainingPreempted, _make_optimizer
 from deepspeed_tpu_torch.runtime.faults import TrainFaultConfig, TrainFaultInjector
+from deepspeed_tpu_torch.utils.timer import TRAIN_BATCH_TIMER
 from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig, FixedSparsityConfig, SparseSelfAttention,
                                                       layout_to_dense_mask)
 from deepspeed_tpu_torch.serving import (KVTierConfig, PrefixCacheConfig, ServingConfig, ServingScheduler,
@@ -3941,6 +3967,472 @@ def run_checkpoint_path(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 11 --
+# fixed_linear from a quarter of the sequence (256) to all of it over 4 steps
+FEAT_CURRICULUM = {"enabled": True, "curriculum_type": "seqlen", "min_difficulty": TRAIN_S // 4,
+                   "max_difficulty": TRAIN_S, "schedule_type": "fixed_linear",
+                   "schedule_config": {"total_curriculum_step": 4, "difficulty_step": TRAIN_S // 4}}
+FEAT_CURRICULUM_STEPS = 6
+FEAT_SAMPLER_ROWS, FEAT_SAMPLER_STEPS, FEAT_PAD = 512, 2, 0
+FEAT_PREFETCH_STEPS = 4
+FEAT_TELEMETRY_STEPS = 4
+FEAT_PLD = {"enabled": True, "theta": 0.5, "gamma": 0.001}
+FEAT_COMPRESSION_STEPS = 5
+FEAT_COMPRESSION_MODULES = ["*q_proj*", "*down_proj*"]
+FEAT_COMPRESSION = {
+    "weight_quantization": {"shared_parameters": {"enabled": True, "schedule_offset": 2},
+                            "different_groups": {"wq": {"params": {"target_bits": 8},
+                                                        "modules": FEAT_COMPRESSION_MODULES}}},
+    "sparse_pruning": {"shared_parameters": {"enabled": True, "schedule_offset": 3},
+                       "different_groups": {"sp": {"params": {"dense_ratio": 0.5},
+                                                   "modules": FEAT_COMPRESSION_MODULES}}},
+}
+FEAT_EIG_LAYERS = 2  # the eigenvalue leg's depth cut: the HVP's retained graph
+# the engine's "eigenvalue" block: power iteration to the reference's
+# stopping rule (loss_curvature itself stops after 8 iterations, as there)
+FEAT_EIGENVALUE = {"enabled": True, "max_iter": 100, "tol": 1e-2}
+# the HVP against (g(p + eps v) - g(p - eps v)) / 2 eps, f32 without TF32: the
+# smallest relative L2 error over FEAT_FD_EPS within FEAT_FD_TOL; the controls
+# (the product 10% too large, the product along another direction) exceed it
+FEAT_FD_EPS = (1e-1, 3e-2, 1e-2)
+FEAT_FD_TOL = 0.05
+
+
+def _step_launches(engine, batch):
+    """One timed train_batch: (loss, seconds, B2-B4 launches in it)."""
+    _zero_flash_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(engine.train_batch(batch=batch))
+    torch.cuda.synchronize()
+    return loss, time.perf_counter() - t0, _flash_launches()
+
+
+def _add(total, launches):
+    for k, n in launches.items():
+        total[k] += n
+
+
+def _seq_lengths(engine):
+    """The sequence length of every micro-batch the model sees."""
+    seen = []
+    engine.module.register_forward_pre_hook(lambda m, args: seen.append(int(args[0][0].shape[1])))
+    return seen
+
+
+def _ulps(got, want):
+    """The largest distance of ``got`` from ``want``, in f32 ulps of ``want``."""
+    want = want.float()
+    spacing = torch.nextafter(want.abs(), torch.tensor(float("inf"))) - want.abs()
+    return float(((got.float() - want).abs() / spacing).max())
+
+
+def _curriculum_leg(dev, cfg, batches, total, failures):
+    """Curriculum on from 256 to 1024, then the control without it (and with
+    PLD on, whose θ is checked after the control's steps); then the offline
+    index leg on the control engine."""
+    L, out = cfg.num_hidden_layers, {}
+    for name, extra in (("curriculum", {"curriculum_learning": dict(FEAT_CURRICULUM)}),
+                        ("control", {"progressive_layer_drop": dict(FEAT_PLD)})):
+        engine = _train_engine(cfg, TRAIN_MICRO, TRAIN_GAS, True, dev, extra=extra)
+        seen = _seq_lengths(engine)
+        steps = []
+        for i in range(FEAT_CURRICULUM_STEPS):
+            predicted = engine.curriculum_scheduler.get_difficulty(engine.global_steps + 1) \
+                if engine.curriculum_scheduler is not None else TRAIN_S
+            n_seen = len(seen)
+            loss, secs, launches = _step_launches(engine, batches[i % len(batches)])
+            _add(total, launches)
+            lengths = set(seen[n_seen:])
+            steps.append(dict(seq_len=sorted(lengths), predicted=predicted, loss=loss, seconds=secs,
+                              tokens_per_s=TRAIN_MICRO * TRAIN_GAS * predicted / secs, launches=launches))
+            if lengths != {predicted}:
+                failures.append(f"{name} step {i}: sequence lengths {sorted(lengths)} != predicted {predicted}")
+            if launches != _expected_flash_launches(1, L):
+                failures.append(f"{name} step {i}: B2-B4 launches {launches} != {_expected_flash_launches(1, L)}")
+            if not math.isfinite(loss):
+                failures.append(f"{name} step {i}: loss {loss}")
+        out[name] = steps
+        if name == "control":
+            # where a short step's time goes: the same model at the shortest
+            # curriculum length, profiled (run_training_path profiles the
+            # full length)
+            _zero_flash_launches()
+            prof = _profile_train_batch(engine, tuple(x[:, :FEAT_CURRICULUM["min_difficulty"]] for x in batches[0]))
+            _add(total, _flash_launches())
+            out["profile_shortest"] = {k: prof[k] for k in ("wall_ms", "device_ms", "device_busy_share",
+                                                            "flash_kernels_ms")}
+            theta = engine.get_pld_theta()
+            want = (1.0 - FEAT_PLD["theta"]) * math.exp(-FEAT_PLD["gamma"] * engine.global_steps) + FEAT_PLD["theta"]
+            out["pld"] = dict(steps=engine.global_steps, theta=theta, formula=want)
+            if not abs(theta - want) <= 1e-12:
+                failures.append(f"PLD theta {theta} != {want} after {engine.global_steps} steps")
+            out["sampler"] = _sampler_leg(engine, cfg, total, failures)
+        _free(engine)
+        del engine
+    if [s["predicted"] for s in out["curriculum"]] != [q * TRAIN_S // 4 for q in (1, 2, 3, 4, 4, 4)]:
+        failures.append(f"curriculum lengths {[s['predicted'] for s in out['curriculum']]}")
+    return out
+
+
+def _sampler_leg(engine, cfg, total, failures):
+    """Token rows of seeded lengths (the rest PAD) in an MMapIndexedDataset,
+    DataAnalyzer's non-pad count as the difficulty, DeepSpeedDataSampler's
+    batches into train_batch: every sampled row within the step's
+    difficulty."""
+    root = tempfile.mkdtemp(prefix="dstt_data_")
+    try:
+        rng = np.random.default_rng(12)
+        builder_ = MMapIndexedDatasetBuilder(os.path.join(root, "corpus"), dtype=np.int32)
+        for _ in range(FEAT_SAMPLER_ROWS):
+            row = np.full(TRAIN_S + 1, FEAT_PAD, np.int32)
+            n = int(rng.integers(TRAIN_S // 16, TRAIN_S + 2))
+            row[:n] = rng.integers(1, cfg.vocab_size, size=n)
+            builder_.add_item(row)
+        builder_.finalize()
+        ds = MMapIndexedDataset(os.path.join(root, "corpus"))
+        t0 = time.perf_counter()
+        DataAnalyzer(ds, ["seqlen"], [lambda s: int((s != FEAT_PAD).sum())], save_path=os.path.join(root, "index"),
+                     num_threads=4).run_map_reduce()
+        analyze_s = time.perf_counter() - t0
+        difficulties = DataAnalyzer.load_difficulties(os.path.join(root, "index"), "seqlen")
+        sampler = DeepSpeedDataSampler(difficulties, TRAIN_MICRO * TRAIN_GAS,
+                                       CurriculumScheduler(dict(FEAT_CURRICULUM)), seed=0)
+        steps = []
+        for _ in range(FEAT_SAMPLER_STEPS):
+            idx = sampler.next_batch()
+            limit = sampler.scheduler.get_current_difficulty()
+            rows = np.stack([ds[int(i)] for i in idx])
+            labels = np.where(rows[:, 1:] == FEAT_PAD, -100, rows[:, 1:])
+            batch = tuple(torch.from_numpy(x.astype(np.int32)).to(engine.device) for x in (rows[:, :-1], labels))
+            loss, secs, launches = _step_launches(engine, batch)
+            _add(total, launches)
+            worst = int(difficulties[idx].max())
+            steps.append(dict(difficulty=limit, rows=len(idx), max_row_difficulty=worst, loss=loss, seconds=secs,
+                              launches=launches))
+            if worst > limit or not math.isfinite(loss):
+                failures.append(f"sampler: a row of difficulty {worst} at difficulty {limit}, loss {loss}")
+        return dict(rows=FEAT_SAMPLER_ROWS, eligible_at_first=int((difficulties <= TRAIN_S // 4).sum()),
+                    analyze_s=analyze_s,
+                    steps=steps)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _host_batches(cfg, n, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, cfg.vocab_size, size=(TRAIN_MICRO * TRAIN_GAS, TRAIN_S + 1), dtype=np.int64)
+        out.append(tuple(torch.from_numpy(x.astype(np.int32)) for x in (ids[:, :-1], ids[:, 1:])))
+    return out
+
+
+def _prefetch_and_telemetry_legs(dev, cfg, total, failures):
+    """Prefetch: PrefetchingLoader(depth=2) against train_batch(batch=...) on
+    the same host batches from the same starting state, alternated. Then
+    telemetry: an engine with it on alternated with the direct engine."""
+    host = _host_batches(cfg, FEAT_PREFETCH_STEPS, seed=31)
+    direct = _train_engine(cfg, TRAIN_MICRO, TRAIN_GAS, True, dev)
+    staged = _train_engine(cfg, TRAIN_MICRO, TRAIN_GAS, True, dev)
+    it = iter(PrefetchingLoader(host, staged, depth=2))
+    pf = dict(direct=[], prefetch=[])
+    for i in range(FEAT_PREFETCH_STEPS):
+        pf["direct"].append(_step_launches(direct, host[i]))
+        item = next(it)
+        if not isinstance(item, StagedBatch) or item.event is None:
+            failures.append(f"prefetch step {i}: {type(item).__name__} without a staging event")
+        pf["prefetch"].append(_step_launches(staged, item))
+    for leg in pf.values():
+        for _, _, launches in leg:
+            _add(total, launches)
+    out = {"prefetch": dict(
+        losses_direct=[x[0] for x in pf["direct"]], losses_prefetch=[x[0] for x in pf["prefetch"]],
+        step_s_direct=[x[1] for x in pf["direct"]], step_s_prefetch=[x[1] for x in pf["prefetch"]],
+        launches_direct=[x[2] for x in pf["direct"]], launches_prefetch=[x[2] for x in pf["prefetch"]])}
+    p = out["prefetch"]
+    p["median_s_direct"], p["median_s_prefetch"] = statistics.median(p["step_s_direct"]), statistics.median(
+        p["step_s_prefetch"])
+    p["prefetch_minus_direct_s"] = p["median_s_prefetch"] - p["median_s_direct"]
+    if p["losses_direct"] != p["losses_prefetch"] or p["launches_direct"] != p["launches_prefetch"]:
+        failures.append(f"prefetch differs from direct: {p}")
+    _free(staged)
+    del staged
+
+    root = tempfile.mkdtemp(prefix="dstt_tel_")
+    try:
+        tel_cfg = {"telemetry": {"enabled": True, "jsonl_path": os.path.join(root, "train.jsonl")}}
+        tel = _train_engine(cfg, TRAIN_MICRO, TRAIN_GAS, True, dev, extra=tel_cfg)
+        spans_before = len(telemetry.get_span_recorder().tail(1 << 16))
+        rows = dict(on=[], off=[])
+        batches = _host_batches(cfg, FEAT_TELEMETRY_STEPS, seed=32)
+        for i in range(FEAT_TELEMETRY_STEPS):
+            rows["off"].append(_step_launches(direct, batches[i]))
+            rows["on"].append(_step_launches(tel, batches[i]))
+        for leg in rows.values():
+            for _, _, launches in leg:
+                _add(total, launches)
+        spans = telemetry.get_span_recorder().tail(1 << 16)[spans_before:]
+        snap = telemetry.get_registry().snapshot()
+        tel.destroy()
+        events = [json.loads(line) for line in open(os.path.join(root, "train.jsonl"))]
+        steps = [e for e in events if e.get("event") == "train_step"]
+        losses = [x[0] for x in rows["on"]]
+        t = dict(step_s_on=[x[1] for x in rows["on"]], step_s_off=[x[1] for x in rows["off"]],
+                 train_step_events=len(steps), event_losses=[e["loss"] for e in steps], losses=losses,
+                 train_batch_spans=sum(s["name"] == TRAIN_BATCH_TIMER for s in spans),
+                 gauges={k: snap[k][0][1] for k in ("train_loss", "train_global_steps", "train_lr",
+                                                    "train_grad_norm", "train_samples_per_sec") if k in snap})
+        t["median_s_on"], t["median_s_off"] = statistics.median(t["step_s_on"]), statistics.median(t["step_s_off"])
+        t["cost_per_step_s"] = t["median_s_on"] - t["median_s_off"]
+        out["telemetry"] = t
+        if t["event_losses"] != losses or t["train_batch_spans"] != FEAT_TELEMETRY_STEPS:
+            failures.append(f"telemetry: events {t['event_losses']} against losses {losses}, "
+                            f"{t['train_batch_spans']} train_batch spans")
+        if len(t["gauges"]) != 5 or t["gauges"].get("train_global_steps") != FEAT_TELEMETRY_STEPS or \
+                t["gauges"].get("train_loss") != losses[-1]:
+            failures.append(f"telemetry gauges {t['gauges']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _free(direct, tel)
+    del direct, tel
+    return out
+
+
+def _compression_leg(dev, cfg, batches, total, failures):
+    """Weight quantization at step 2 and sparse pruning at step 3 on the
+    q_proj and down_proj masters: each transform's result on the card
+    against init_compression of a host copy of the masters taken just before
+    it, on the CPU; then the curvature probe on this flash model must raise
+    (C8)."""
+    L = cfg.num_hidden_layers
+    engine = _train_engine(cfg, TRAIN_MICRO, TRAIN_GAS, True, dev,
+                           extra={"compression_training": copy.deepcopy(FEAT_COMPRESSION)})
+    layout = reference_names(engine.module)
+    # the tensors the patterns name (by the JAX package's names): host copies
+    # of these, device copies of the rest
+    named = [k for k, (ref, _) in layout.items() if any(fnmatch.fnmatch(ref, p) for p in FEAT_COMPRESSION_MODULES)]
+    applied, apply = [], engine.apply_compression_transform
+
+    def spy(sub_cfg):
+        host = {k: engine.params[k].detach().cpu() for k in named}
+        rest = {k: v.clone() for k, v in engine.params.items() if k not in host}
+        apply(sub_cfg)
+        t0 = time.perf_counter()
+        want = init_compression(host, sub_cfg, layout=layout)
+        cpu_s = time.perf_counter() - t0
+        changed = [k for k in want if want[k] is not host[k]]
+        ulps = max(_ulps(engine.params[k].cpu(), want[k]) for k in changed)
+        untouched = all(torch.equal(engine.params[k], t) for k, t in rest.items())
+        applied.append(dict(step=engine.global_steps, techniques=sorted(sub_cfg["compression_training"]),
+                            tensors=len(changed), max_ulps=ulps, others_unchanged=untouched, cpu_s=cpu_s))
+
+    engine.apply_compression_transform = spy
+    steps = []
+    for i in range(FEAT_COMPRESSION_STEPS):
+        loss, secs, launches = _step_launches(engine, batches[i % len(batches)])
+        _add(total, launches)
+        q, down = engine.params["layers.0.self_attn.q_proj.weight"], engine.params["layers.0.mlp.down_proj.weight"]
+        steps.append(dict(loss=loss, seconds=secs, launches=launches,
+                          q_proj_levels_col0=int(torch.unique(q[0]).numel()),
+                          down_proj_zero_share=float((down == 0).float().mean())))
+        if launches != _expected_flash_launches(1, L) or not math.isfinite(loss):
+            failures.append(f"compression step {i}: launches {launches}, loss {loss}")
+    out = dict(steps=steps, applied=applied)
+    if [(a["step"], a["techniques"]) for a in applied] != [(2, ["weight_quantization"]), (3, ["sparse_pruning"])]:
+        failures.append(f"compression applied {applied}")
+    for a in applied:
+        if a["tensors"] != 2 * L or not a["max_ulps"] <= 1.0 or not a["others_unchanged"]:
+            failures.append(f"compression at step {a['step']}: {a}")
+    rows = cfg.hidden_size  # q_proj's input features: its values along a column of the flax kernel
+    if steps[0]["q_proj_levels_col0"] != rows or not steps[1]["q_proj_levels_col0"] <= 256:
+        failures.append(f"q_proj levels along a channel, steps 1 and 2: {steps[0]['q_proj_levels_col0']}, "
+                        f"{steps[1]['q_proj_levels_col0']} (all {rows} distinct before the offset, at most 256 after)")
+
+    # C8: a second derivative through B2-B4 raises
+    _zero_flash_launches()
+    try:
+        engine.loss_curvature()
+        failures.append("loss_curvature on the flash model did not raise")
+        out["c8"] = "no raise"
+    except RuntimeError as e:
+        out["c8"] = str(e)[:200]
+        if "once_differentiable" not in str(e):
+            failures.append(f"loss_curvature on the flash model raised another error: {e}")
+    out["c8_launches"] = _flash_launches()
+    _add(total, out["c8_launches"])
+    _free(engine)
+    del engine
+    return out
+
+
+def _fd_hvp(engine, v, eps):
+    """(g(p + eps v) - g(p - eps v)) / 2 eps of the engine's loss at its kept
+    micro-batch, through the masters, recomputation off."""
+    grads = []
+    for sign in (1.0, -1.0):
+        p = {n: (t + sign * eps * v[n]).requires_grad_() for n, t in engine.params.items()}
+        with recompute_disabled():
+            loss = functional_call(engine.module, {n: t.to(engine.compute_dtype) for n, t in p.items()},
+                                   (engine._last_batch, ))
+        grads.append(dict(zip(p, torch.autograd.grad(loss, list(p.values())))))
+    return {n: (grads[0][n] - grads[1][n]) / (2 * eps) for n in engine.params}
+
+
+def _rel_l2(a, b):
+    num = math.sqrt(sum(float(((a[n] - b[n]).double()**2).sum()) for n in b))
+    return num / math.sqrt(sum(float((b[n].double()**2).sum()) for n in b))
+
+
+def _eigenvalue_leg(dev, batches, failures):
+    """loss_curvature on the bench width cut to FEAT_EIG_LAYERS, f32, plain
+    attention: finite, converged; its HVP against a central difference (and
+    the recomputed HVP, the control); the eigenvalue gate below and above the
+    probed value."""
+    cfg = bench_llama(num_hidden_layers=FEAT_EIG_LAYERS, use_flash_attention=False, dtype=torch.float32)
+    one = tuple(x[:TRAIN_MICRO] for x in batches[0])
+    engine = _train_engine(cfg, TRAIN_MICRO, 1, False, dev, extra={"eigenvalue": dict(FEAT_EIGENVALUE)})
+    engine.forward(one)  # keeps the micro-batch the probes use
+    engine.zero_grad()  # and drops the forward's graph
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    curvature = engine.loss_curvature()
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    eig, loss_fn, cache = engine._eig_state
+    out = dict(layers=FEAT_EIG_LAYERS, curvature=curvature, probe_raw=eig.last_raw, probe_iters=eig.last_iters,
+               probe_s=probe_s)
+    # the configured power iteration, on the probe's loss and HVP closures
+    t0 = time.perf_counter()
+    vals = engine.eigenvalue.compute_eigenvalue(loss_fn, engine._eigenvalue_blocks(engine.params), engine._last_batch,
+                                                generator=torch.Generator(dev).manual_seed(1), hvp_cache=cache)
+    torch.cuda.synchronize()
+    ev = engine.eigenvalue
+    out.update(values=vals, raw=ev.last_raw, iters=ev.last_iters, converged=ev.last_converged,
+               max_iter=ev.max_iter, tol=ev.tol, converge_s=time.perf_counter() - t0)
+    if not (curvature is not None and math.isfinite(curvature) and all(map(math.isfinite, eig.last_raw.values()))
+            and all(map(math.isfinite, ev.last_raw.values())) and all(ev.last_converged.values())):
+        failures.append(f"eigenvalue: {out}")
+
+    names = sorted(engine.params)
+    gen = torch.Generator(dev).manual_seed(5)
+    v = {n: torch.randn(engine.params[n].shape, generator=gen, device=dev) for n in names}
+    norm = math.sqrt(sum(float((t.double()**2).sum()) for t in v.values()))
+    v = {n: t / norm for n, t in v.items()}
+    block = {"model": {n: engine.params[n] for n in names}}
+    hv = dict(zip(names, block_hvp(loss_fn, "model")(block, engine._last_batch, [v[n] for n in names])))
+    fd = {eps: _rel_l2(hv, _fd_hvp(engine, v, eps)) for eps in FEAT_FD_EPS}
+    out["hvp_vs_central_difference"] = {str(k): e for k, e in fd.items()}
+    out["hvp_norm"] = math.sqrt(sum(float((t.double()**2).sum()) for t in hv.values()))
+    if not min(fd.values()) <= FEAT_FD_TOL:
+        failures.append(f"HVP against the central difference {fd} > {FEAT_FD_TOL}")
+
+    # the controls, which the check must reject: the product 10% too large,
+    # and the product along another direction
+    best = min(FEAT_FD_EPS, key=fd.get)
+    fd_best = _fd_hvp(engine, v, best)
+    other = [torch.randn(engine.params[n].shape, generator=gen, device=dev) for n in names]
+    other_norm = math.sqrt(sum(float((t.double()**2).sum()) for t in other))
+    hv_other = dict(zip(names, block_hvp(loss_fn, "model")(block, engine._last_batch,
+                                                          [t / other_norm for t in other])))
+    out["controls_vs_central_difference"] = ctl = {
+        "scaled_1.1": _rel_l2({n: 1.1 * t for n, t in hv.items()}, fd_best),
+        "other_direction": _rel_l2(hv_other, fd_best)}
+    if not min(ctl.values()) > FEAT_FD_TOL:
+        failures.append(f"a control passes the HVP check: {ctl}")
+    _free(engine)
+    del engine, hv, hv_other, fd_best, v, block
+
+    # the gate: threshold below the probed value stays off, above it turns on
+    gate = {}
+    for threshold in (0.5 * curvature, 2.0 * curvature):
+        comp = {"weight_quantization": {
+            "shared_parameters": {"enabled": True, "schedule_offset": 1, "eigenvalue_gated": True,
+                                  "eigenvalue_threshold": threshold},
+            "different_groups": {"g": {"params": {"target_bits": 8}, "modules": ["*q_proj*"]}}}}
+        gated = _train_engine(cfg, TRAIN_MICRO, 1, False, dev, extra={"compression_training": comp})
+        loss = float(gated.train_batch(batch=one))
+        t = gated.compression_scheduler.techniques["weight_quantization"]
+        gate[str(threshold)] = dict(active=t["active"], probed=gated.compression_scheduler._last_curvature,
+                                    loss=loss)
+        _free(gated)
+        del gated
+    out["gate"] = gate
+    if [g["active"] for g in gate.values()] != [False, True]:
+        failures.append(f"eigenvalue gate {gate}")
+    return out
+
+
+def run_train_features_path(dev) -> dict:
+    """The rest of training on the bench model (full width and depth; the
+    eigenvalue leg cut to FEAT_EIG_LAYERS), B2-B4 in every train_batch with
+    their launch counts zeroed just before each step and read just after:
+
+    - curriculum: fixed_linear 256 -> 1024 over 4 steps, 6 steps: each step's
+      sequence length is the scheduler's prediction and its launches
+      _expected_flash_launches'; tokens/s at each length; the control without
+      curriculum runs 1024 from the first step (with PLD on: θ after its
+      steps equals the formula to 1e-12);
+    - offline index: seeded token rows in an MMapIndexedDataset, DataAnalyzer's
+      non-pad count, DeepSpeedDataSampler's batches into 2 steps, every row
+      within the step's difficulty;
+    - prefetch: PrefetchingLoader(depth=2) against train_batch on the same
+      host batches from the same state, alternated: losses bitwise, the same
+      launches; both step times;
+    - telemetry: an engine with it on alternated with one without: one
+      train_step event a step carrying the returned loss, the gauges, one
+      train_batch span a step; the cost a step;
+    - compression: 8-bit quantization at step 2, sparse pruning at step 3 of
+      5, each transform on the card within 1 ulp of init_compression on the
+      CPU of a host copy taken just before; loss_curvature on this flash
+      model raises (C8);
+    - eigenvalue (_eigenvalue_leg).
+    """
+    t_phase = time.perf_counter()
+    cfg = bench_llama()
+    batches = _train_batches(cfg, dev)
+    failures = []
+    total = {"fwd": 0, "dkv": 0, "dq": 0}
+    res = dict(layers=cfg.num_hidden_layers, hidden=cfg.hidden_size, seq_len=TRAIN_S, micro_batch=TRAIN_MICRO,
+               gas=TRAIN_GAS)
+    for leg, fn in (("curriculum", lambda: _curriculum_leg(dev, cfg, batches, total, failures)),
+                    ("loaders", lambda: _prefetch_and_telemetry_legs(dev, cfg, total, failures)),
+                    ("compression", lambda: _compression_leg(dev, cfg, batches, total, failures)),
+                    ("eigenvalue", lambda: _eigenvalue_leg(dev, batches, failures))):
+        t0 = time.perf_counter()
+        res[leg] = fn()
+        res[leg + "_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["flash_launches"] = total
+    res["seconds"] = time.perf_counter() - t_phase
+    log("[features] " + json.dumps(res, default=str))
+    cur, ctl = res["curriculum"]["curriculum"], res["curriculum"]["control"]
+    log("[features] curriculum tokens/s by length: " + ", ".join(
+        f"{s['predicted']}: {s['tokens_per_s']:.0f}" for s in cur) + f"; control at {TRAIN_S}: " +
+        ", ".join(f"{s['tokens_per_s']:.0f}" for s in ctl))
+    prof = res["curriculum"]["profile_shortest"]
+    log(f"[features] one step at {FEAT_CURRICULUM['min_difficulty']} profiled: wall {prof['wall_ms']:.1f} ms, "
+        f"device {prof['device_ms']:.1f} ms")
+    log(f"[features] PLD theta {res['curriculum']['pld']['theta']:.15f} after {res['curriculum']['pld']['steps']} "
+        f"steps; sampler rows within difficulty: "
+        f"{[(s['max_row_difficulty'], s['difficulty']) for s in res['curriculum']['sampler']['steps']]}")
+    p, t = res["loaders"]["prefetch"], res["loaders"]["telemetry"]
+    log(f"[features] prefetch: median step {p['median_s_prefetch']:.4f} s against {p['median_s_direct']:.4f} s direct "
+        f"({p['prefetch_minus_direct_s']:+.4f} s); telemetry: {t['median_s_on']:.4f} s on, {t['median_s_off']:.4f} s "
+        f"off ({t['cost_per_step_s']:+.4f} s a step)")
+    c, e = res["compression"], res["eigenvalue"]
+    log(f"[features] compression: {[(a['step'], a['techniques'], a['max_ulps']) for a in c['applied']]}; C8: "
+        f"{c['c8'][:80]}")
+    log(f"[features] eigenvalue: raw {e['raw']} in {e['iters']} iterations ({e['probe_s']:.1f} s); HVP against "
+        f"central differences {e['hvp_vs_central_difference']}, controls {e['controls_vs_central_difference']}; "
+        f"gate {[(k, g['active']) for k, g in e['gate'].items()]}; phase {res['seconds']:.1f} s")
+    log(card_line())
+    if failures:
+        raise AssertionError("train features phase: " + "; ".join(failures))
+    return res
+
+
 # --------------------------------------------------------------------- main --
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3971,6 +4463,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     record["checkpoint_path"] = run_checkpoint_path(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["train_features_path"] = run_train_features_path(dev)
     record["seconds"] = time.perf_counter() - t_start
 
     decode = record["paged_attention"][0]  # the serving path's decode shape
@@ -3993,6 +4488,7 @@ def main() -> int:
                             source="deepspeed_tpu_torch/csrc/flash_attention.cu",
                             replaces=f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
                             launches=record["training_path"]["flash_launches"][kern],
+                            launches_train_features_path=record["train_features_path"]["flash_launches"][kern],
                             max_abs_err=max(r["max_abs_err"][o] for r in record["flash_attention"] for o in outputs),
                             ms=train[kern]["ms"], plain_ms=train[kern]["plain_ms"],
                             bound_ms=train[kern]["bound_ms"], bound_by=train[kern]["bound_by"],

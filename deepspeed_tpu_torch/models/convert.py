@@ -95,3 +95,33 @@ def to_flax_params(state_dict, cfg) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(arr)
     return {"model": root}
+
+
+def reference_names(module) -> dict:
+    """``{state_dict name: (the JAX package's dotted name, transposed)}``
+    for every parameter of ``module``: the name the JAX tree gives the same
+    tensor, and whether the port holds it transposed (a ``Linear.weight``
+    ``[out, in]`` is the flax ``kernel`` ``[in, out]``). As in
+    :func:`to_flax_params`: ``layers.{i}`` is ``layers_{i}``, an embedding's
+    ``weight`` is ``embedding``, and a Llama nests everything under
+    ``model``."""
+    from deepspeed_tpu_torch.models.llama import LlamaModel
+
+    prefix = ["model"] if isinstance(module, LlamaModel) else []
+    out = {}
+    for name, _ in module.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner) if owner else module
+        path = []
+        for part in owner.split(".") if owner else []:
+            if part.isdigit() and path:
+                path[-1] = f"{path[-1]}_{part}"
+            else:
+                path.append(part)
+        transposed = isinstance(sub, torch.nn.Linear) and leaf == "weight"
+        if transposed:
+            leaf = "kernel"
+        elif isinstance(sub, torch.nn.Embedding) and leaf == "weight":
+            leaf = "embedding"
+        out[name] = (".".join(prefix + path + [leaf]), transposed)
+    return out

@@ -34,6 +34,7 @@ import math
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from deepspeed_tpu_torch.ops import builder
 from deepspeed_tpu_torch.ops.flash_attention import HEAD_DIMS, kernel_head_dim, pad_head_dim
@@ -485,6 +486,8 @@ block_sparse_attention_fwd.launches = 0
 
 
 class _BlockSparseAttention(torch.autograd.Function):
+    """The backward reads the kernel's output, which carries no autograd
+    history: ``once_differentiable``, as :class:`ops.flash_attention._FlashAttention`."""
 
     @staticmethod
     def forward(ctx, q, k, v, plan, scale):
@@ -494,6 +497,7 @@ class _BlockSparseAttention(torch.autograd.Function):
         return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
         dq, dk, dv = block_sparse_attention_bwd(q, k, v, out, dout, ctx.plan, ctx.scale)

@@ -29,6 +29,7 @@ in ``.launches``.
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from deepspeed_tpu_torch.ops import builder
 
@@ -265,6 +266,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale, causal):
 
 
 class _FlashAttention(torch.autograd.Function):
+    """The kernels' outputs carry no autograd history, so a derivative of the
+    backward would drop the attention's second-order terms without a word:
+    the backward is ``once_differentiable``, and a second derivative raises,
+    as the JAX package's ``custom_vjp`` does under ``jax.jvp``."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
@@ -274,6 +279,7 @@ class _FlashAttention(torch.autograd.Function):
         return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.scale, ctx.causal)

@@ -14,9 +14,19 @@ its config onto ``jax.checkpoint`` policies; the port keeps the two it uses:
 ``partition_activations`` or ``cpu_checkpointing`` select ``"dots"`` as in the
 JAX module (which saves dot products on the device where its backend cannot
 offload them); the other flags are kept for config parity.
+
+``torch.utils.checkpoint`` does not compose with a second derivative as
+``jax.checkpoint`` composes with ``jax.jvp``: under ``"dots"`` a derivative
+of the backward raises, and the recomputation runs when the backward does,
+outside any ``torch.func.functional_call`` that swapped the parameters in
+(so it sees the module's own). Code that differentiates twice (the engine's
+``loss_curvature``) runs inside :func:`recompute_disabled`, where
+:func:`remat` calls the function as it is.
 """
 
+import contextlib
 import functools
+import threading
 
 import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint as _torch_checkpoint
@@ -26,6 +36,19 @@ POLICIES = ("nothing", "dots")
 _SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 _CONFIG = None
+_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def recompute_disabled():
+    """Within this context (on this thread) :func:`remat` stores the
+    activations instead of recomputing them."""
+    prev = getattr(_LOCAL, "disabled", False)
+    _LOCAL.disabled = True
+    try:
+        yield
+    finally:
+        _LOCAL.disabled = prev
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -37,6 +60,8 @@ def remat(function, *args, policy: str = "nothing"):
     under ``policy`` (see the module doc)."""
     if policy not in POLICIES:
         raise ValueError(f"remat policy {policy!r} not in {POLICIES}")
+    if getattr(_LOCAL, "disabled", False):
+        return function(*args)
     kwargs = {}
     if policy == "dots":
         kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)

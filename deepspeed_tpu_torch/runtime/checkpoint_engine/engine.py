@@ -8,8 +8,9 @@ directory ``<save_dir>/<tag>/`` holding
   flat name -> tensor dicts written with ``torch.save`` (the reference writes
   the same three trees with orbax). An optimizer-state field that is a tensor
   is saved under its field name, a dict of tensors under ``field/name``;
-- ``host_state.pkl``: step counters, the lr schedule, the config and the
-  client state;
+- ``host_state.pkl``: step counters, the lr schedule, the compression
+  scheduler's state (which the reference does not save: ROADMAP C9), the
+  config and the client state;
 - ``MANIFEST.json``, written last by tmp + ``os.replace``: the commit marker.
   It holds a CRC32 of every saved tensor (over its raw bytes, keyed by the
   path the reference's ``jax.tree_util.keystr`` gives the same leaf, so that
@@ -491,6 +492,10 @@ def save_engine_state(engine, save_dir, tag, client_state, save_latest, async_sa
         "skipped_steps": int(engine._overflow_count),
         "current_lr": engine._current_lr,
         "lr_scheduler": engine.lr_scheduler.state_dict() if engine.lr_scheduler is not None else None,
+        # which compression techniques already fired (absent in the JAX
+        # package's checkpoint, whose resume fires a once-only one again)
+        "compression_scheduler": (engine.compression_scheduler.state_dict()
+                                  if getattr(engine, "compression_scheduler", None) is not None else None),
         "ds_config": engine._config._param_dict,
         "client_state": client_state,
     }
@@ -668,5 +673,7 @@ def _restore_into_engine(engine, path, load_optimizer_states, load_lr_scheduler_
                                               device=engine.device)
         if load_lr_scheduler_states and engine.lr_scheduler is not None and host_state["lr_scheduler"]:
             engine.lr_scheduler.load_state_dict(host_state["lr_scheduler"])
+        if getattr(engine, "compression_scheduler", None) is not None and host_state.get("compression_scheduler"):
+            engine.compression_scheduler.load_state_dict(host_state["compression_scheduler"])
     logger.info(f"Loaded checkpoint from {path}")
     return path, host_state.get("client_state", {})

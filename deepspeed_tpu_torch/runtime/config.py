@@ -5,8 +5,11 @@ dict or a JSON path, fills the batch-size triangle
 (``train_batch_size = micro_batch * gradient_accumulation_steps * dp``),
 refuses bf16 together with fp16, and exposes the optimizer, scheduler,
 gradient-clipping, ZeRO, ``data_types.grad_accum_dtype``, ``checkpoint``,
-``nebula`` and ``anomaly_sentinel`` settings under the JAX package's
-attribute names. The port trains on one device, so the
+``nebula``, ``anomaly_sentinel`` and ``telemetry`` settings, the timers'
+``steps_per_print`` and ``wall_clock_breakdown``, and the raw
+``compression_training``, ``data_efficiency``, ``curriculum_learning``,
+``eigenvalue`` and ``progressive_layer_drop`` blocks (their owners parse
+them) under the JAX package's attribute names and defaults. The port trains on one device, so the
 data-parallel size is 1. Keys this port does not read are kept in
 ``_param_dict`` (as the pydantic models keep extra keys); the engine refuses
 the features it does not run.
@@ -22,6 +25,7 @@ from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel, confi
 from deepspeed_tpu_torch.runtime.precision_config import BF16Config, FP16Config
 from deepspeed_tpu_torch.runtime.sentinel import AnomalySentinelConfig
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+from deepspeed_tpu_torch.telemetry.config import TelemetryConfig
 from deepspeed_tpu_torch.utils.logging import logger
 
 
@@ -125,6 +129,8 @@ class DeepSpeedConfig:
         self.train_micro_batch_size_per_gpu = pd.get(C.TRAIN_MICRO_BATCH_SIZE_PER_GPU)
         self.gradient_accumulation_steps = pd.get(C.GRADIENT_ACCUMULATION_STEPS)
         self.gradient_clipping = pd.get(C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT)
+        self.steps_per_print = pd.get(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT)
+        self.wall_clock_breakdown = pd.get(C.WALL_CLOCK_BREAKDOWN, C.WALL_CLOCK_BREAKDOWN_DEFAULT)
 
         self.zero_config = DeepSpeedZeroConfig.from_dict(pd.get(C.ZERO_OPTIMIZATION, {}))
         self.bfloat16_config = BF16Config.from_dict(pd.get(C.BFLOAT16, pd.get(C.BFLOAT16_OLD, {})))
@@ -151,6 +157,17 @@ class DeepSpeedConfig:
         self.checkpoint_tag_validation_fail = self.checkpoint_config.tag_validation == "Fail"
         self.nebula_config = NebulaConfig.from_dict(pd.get(C.NEBULA, {}))
         self.anomaly_sentinel_config = AnomalySentinelConfig.from_dict(pd.get(C.ANOMALY_SENTINEL, {}))
+        self.telemetry_config = TelemetryConfig.from_dict(pd.get(C.TELEMETRY, {}))
+
+        # blocks their owners parse (compression/, runtime/data_pipeline/,
+        # runtime/eigenvalue.py, runtime/progressive_layer_drop.py)
+        self.compression_config = pd.get(C.COMPRESSION_TRAINING, {})
+        self.data_efficiency_config = pd.get(C.DATA_EFFICIENCY, {})
+        self.curriculum_enabled_legacy = bool(pd.get(C.CURRICULUM_LEARNING, {}).get("enabled", False))
+        self.curriculum_params_legacy = pd.get(C.CURRICULUM_LEARNING, {})
+        self.eigenvalue_enabled = bool(pd.get(C.EIGENVALUE, {}).get("enabled", False))
+        self.progressive_layer_drop = pd.get(C.PROGRESSIVE_LAYER_DROP, {})
+        self.pld_enabled = bool(self.progressive_layer_drop.get("enabled", False))
 
         self.pipeline_parallel_size = pd.get(C.PIPELINE_PARALLEL_SIZE, 1)
         self.sequence_parallel_size = pd.get(C.SEQUENCE_PARALLEL_SIZE, 1)

@@ -15,6 +15,12 @@ FP16 = "fp16"
 BFLOAT16 = "bf16"
 BFLOAT16_OLD = "bfloat16"
 
+# logging and timers
+STEPS_PER_PRINT = "steps_per_print"
+STEPS_PER_PRINT_DEFAULT = 10
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
+
 # grads
 GRADIENT_CLIPPING = "gradient_clipping"
 GRADIENT_CLIPPING_DEFAULT = 0.0
@@ -34,3 +40,11 @@ CHECKPOINT = "checkpoint"
 CHECKPOINT_TAG_VALIDATION_DEFAULT = "Warn"
 NEBULA = "nebula"
 ANOMALY_SENTINEL = "anomaly_sentinel"
+
+# the data-efficiency, compression, curvature and layer-drop blocks, and telemetry
+TELEMETRY = "telemetry"
+COMPRESSION_TRAINING = "compression_training"
+DATA_EFFICIENCY = "data_efficiency"
+CURRICULUM_LEARNING = "curriculum_learning"
+EIGENVALUE = "eigenvalue"
+PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"

@@ -22,7 +22,14 @@ GPU. The public API and the arithmetic are the JAX engine's:
   async commit under ``nebula.enabled``), preemption handling
   (``install_preemption_handler``: a final checkpoint, ``PREEMPTED.json``,
   then :class:`TrainingPreempted`), the anomaly sentinel and the training
-  fault injector (``DSTPU_TRAIN_FAULTS``).
+  fault injector (``DSTPU_TRAIN_FAULTS``);
+- progressive layer drop (θ advanced at each boundary), the compression
+  scheduler (its transforms applied to the masters at their offsets, behind
+  the eigenvalue gate where asked), the eigenvalue probe
+  (``loss_curvature``), legacy curriculum learning (sequence truncation),
+  the data-efficiency accessors and random-LTD's scheduler, training
+  telemetry (step gauges and events, a span a ``train_batch``, the timers'
+  spans) and ``stage_train_batch`` for ``runtime.dataloader.PrefetchingLoader``.
 
 The model runs in the compute dtype (bf16, fp16 or f32): its parameters are
 the master weights cast once per optimizer step, and each micro-step's
@@ -31,10 +38,10 @@ the JAX engine's gradient of the loss through the master -> compute cast
 (whose backward casts the cotangent to f32), without a cast per micro-step.
 
 On one device every ZeRO stage runs the same math: nothing is partitioned
-with one rank. What still raises ``NotImplementedError``: progressive layer
-drop, eigenvalue, curriculum learning, compression training and training
-telemetry (ROADMAP A7, second half); ZeRO offload, ZeRO++ (qwZ, qgZ, hpZ,
-MiCS), pipeline, sequence, tensor and expert parallelism (A8).
+with one rank. What still raises ``NotImplementedError`` is ROADMAP A8: ZeRO
+offload, ZeRO++ (qwZ, qgZ, hpZ, MiCS), pipeline, sequence, tensor and expert
+parallelism. The monitor and the flops profiler are A9: where the JAX engine
+calls them, this one does nothing.
 """
 
 import itertools
@@ -46,7 +53,13 @@ import time
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
+from deepspeed_tpu_torch import telemetry
+from deepspeed_tpu_torch.compression.compress import init_compression
+from deepspeed_tpu_torch.compression.scheduler import CompressionScheduler
+from deepspeed_tpu_torch.models.convert import reference_names
+from deepspeed_tpu_torch.models.llama import LlamaModel
 from deepspeed_tpu_torch.ops.adagrad.cpu_adagrad import DeepSpeedCPUAdagrad
 from deepspeed_tpu_torch.ops.adam.fused_adam import DeepSpeedCPUAdam, FusedAdam
 from deepspeed_tpu_torch.ops.adam.onebit_adam import OnebitAdam
@@ -59,15 +72,23 @@ from deepspeed_tpu_torch.runtime import sentinel as _sentinel_mod
 from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import (PREEMPT_MARKER, CheckpointCorruptionError,
                                                                   checkpoint_barrier, close_async_checkpointer,
                                                                   list_tags, load_engine_state, save_engine_state)
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import recompute_disabled
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
-from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+from deepspeed_tpu_torch.runtime.data_pipeline import CurriculumScheduler
+from deepspeed_tpu_torch.runtime.data_pipeline.data_routing import RandomLTDScheduler
+from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader, FusedHostBatch, StagedBatch
+from deepspeed_tpu_torch.runtime.eigenvalue import Eigenvalue
 from deepspeed_tpu_torch.runtime.faults import injector_from_env
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (dynamic_loss_scale_state, static_loss_scale_state,
                                                           update_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule_class
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop
 from deepspeed_tpu_torch.runtime.utils import cast_tree, clip_grads_by_global_norm, global_norm, tree_all_finite
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.logging import logger
+from deepspeed_tpu_torch.utils.timer import (BACKWARD_MICRO_TIMER, FORWARD_MICRO_TIMER, STEP_MICRO_TIMER,
+                                             TRAIN_BATCH_TIMER, NoopTimer, SynchronizedWallClockTimer,
+                                             ThroughputTimer)
 
 _ACCUM_DTYPES = {None: torch.float32, "fp32": torch.float32, "fp16": torch.float16, "bf16": torch.bfloat16}
 
@@ -108,7 +129,7 @@ def _make_optimizer(name, params_cfg):
 def _unsupported(cfg: DeepSpeedConfig):
     """Configured features this engine does not run, each with the ROADMAP
     queue item that ports it."""
-    zc, pd = cfg.zero_config, cfg._param_dict
+    zc = cfg.zero_config
     found = []
     for block in (zc.offload_optimizer, zc.offload_param):
         if block is not None and block.device.value != "none":
@@ -127,12 +148,6 @@ def _unsupported(cfg: DeepSpeedConfig):
                       (cfg.expert_parallel_size, "expert parallelism")):
         if key > 1:
             found.append(f"{what} (A8)")
-    for key, what in (("progressive_layer_drop", "progressive layer drop"), ("eigenvalue", "eigenvalue"),
-                      ("curriculum_learning", "curriculum learning"), ("telemetry", "training telemetry")):
-        if pd.get(key, {}).get("enabled", False):
-            found.append(f"{what} (A7)")
-    if pd.get("compression_training"):
-        found.append("compression training (A7)")
     return found
 
 
@@ -212,6 +227,54 @@ class DeepSpeedEngine:
 
         self.training_dataloader = self.deepspeed_io(training_data) if training_data is not None else None
 
+        # progressive layer drop, the compression scheduler and the
+        # eigenvalue probe (each None unless configured)
+        self.progressive_layer_drop = None
+        if self._config.pld_enabled:
+            pld_cfg = self._config.progressive_layer_drop
+            self.progressive_layer_drop = ProgressiveLayerDrop(theta=pld_cfg.get("theta", 0.5),
+                                                               gamma=pld_cfg.get("gamma", 0.001))
+        self.compression_scheduler = None
+        csched = CompressionScheduler(self._config._param_dict)
+        if csched.enabled:
+            self.compression_scheduler = csched
+        self.eigenvalue = None
+        if self._config.eigenvalue_enabled:
+            ev = dict(self._config._param_dict.get("eigenvalue", {}))
+            ev.pop("enabled", None)
+            self.eigenvalue = Eigenvalue(**ev)
+        self._last_batch = None  # one micro-batch kept for the curvature probes
+        self._eig_state = None
+        self._reference_names = None  # the JAX package's names, for compression patterns
+
+        # telemetry: with a session active the wall-clock timers run (wrapped
+        # so that every fwd/bwd/step start and stop records a span); without
+        # one each instrumented site below is one `is not None` check
+        self.wall_clock_breakdown = self._config.wall_clock_breakdown
+        self._telemetry = None
+        self._tel_metrics = None
+        self._tel_last_step_time = None
+        if self._config.telemetry_config.enabled:
+            self._telemetry = telemetry.configure(self._config.telemetry_config)
+        timed = self.wall_clock_breakdown or self._telemetry is not None
+        self.timers = SynchronizedWallClockTimer(self.device) if timed else NoopTimer()
+        if self._telemetry is not None:
+            self.timers = telemetry.wrap_timers(self.timers)
+        # synchronizing only with real timers: the JAX engine's barrier waits
+        # for no computation, so its throughput timer never holds the host
+        self.tput_timer = ThroughputTimer(config=type("cfg", (), {"enabled": True, "synchronized": timed})(),
+                                          batch_size=self.train_batch_size(),
+                                          steps_per_output=self._config.steps_per_print, device=self.device)
+        # the monitor (ROADMAP A9) is not ported: the JAX engine's
+        # _write_monitor calls have no counterpart here
+
+        # legacy curriculum learning ("curriculum_learning" block)
+        self.curriculum_scheduler = None
+        if self._config.curriculum_enabled_legacy:
+            self.curriculum_scheduler = CurriculumScheduler(self._config.curriculum_params_legacy)
+        self.random_ltd_scheduler = None
+        self._staging_stream = None
+
         # training fault tolerance: the anomaly sentinel (all-precision finite
         # gate, rollback to the last good checkpoint), preemption-safe exit and
         # the training fault injector; disabled, each costs one check a hook
@@ -281,6 +344,93 @@ class DeepSpeedEngine:
     def was_step_applied(self) -> bool:
         return bool(self._last_step_applied)
 
+    # -- progressive layer drop, eigenvalue, curriculum and data efficiency --
+    def get_pld_theta(self):
+        return self.progressive_layer_drop.get_theta() if self.progressive_layer_drop else 1.0
+
+    def pld_enabled(self):
+        return self._config.pld_enabled
+
+    def pld_params(self):
+        return self._config.progressive_layer_drop
+
+    def pld_theta(self):
+        return self.pld_params().get("theta", 0.5)
+
+    def pld_gamma(self):
+        return self.pld_params().get("gamma", 0.001)
+
+    def eigenvalue_enabled(self):
+        return self._config.eigenvalue_enabled
+
+    def eigenvalue_verbose(self):
+        return self.eigenvalue.verbose if self.eigenvalue else False
+
+    def eigenvalue_max_iter(self):
+        return self.eigenvalue.max_iter if self.eigenvalue else 0
+
+    def eigenvalue_tol(self):
+        return self.eigenvalue.tol if self.eigenvalue else 0.0
+
+    def eigenvalue_stability(self):
+        return self.eigenvalue.stability if self.eigenvalue else 0.0
+
+    def eigenvalue_gas_boundary_resolution(self):
+        return self.eigenvalue.gas_boundary_resolution if self.eigenvalue else 1
+
+    def eigenvalue_layer_name(self):
+        return self.eigenvalue.layer_name if self.eigenvalue else ""
+
+    def eigenvalue_layer_num(self):
+        return self.eigenvalue.layer_num if self.eigenvalue else 0
+
+    def curriculum_enabled_legacy(self):
+        return self._config.curriculum_enabled_legacy
+
+    def curriculum_params_legacy(self):
+        return self._config.curriculum_params_legacy
+
+    def curriculum_learning_enabled(self):
+        return self._config.curriculum_enabled_legacy or bool(
+            self.data_sampling_config().get("curriculum_learning", {}).get("enabled", False))
+
+    def curriculum_learning_config(self):
+        return self.data_sampling_config().get("curriculum_learning", {})
+
+    def set_custom_curriculum_learning_schedule(self, schedule_func_dict):
+        if self.curriculum_scheduler is not None:
+            self.curriculum_scheduler.set_custom_get_difficulty(schedule_func_dict.get("get_difficulty"))
+
+    def data_efficiency_enabled(self):
+        return bool(self._config.data_efficiency_config.get("enabled", False))
+
+    def data_efficiency_config(self):
+        return self._config.data_efficiency_config
+
+    def data_sampling_enabled(self):
+        return bool(self.data_sampling_config().get("enabled", False))
+
+    def data_sampling_config(self):
+        return self._config.data_efficiency_config.get("data_sampling", {})
+
+    def random_ltd_enabled(self):
+        return bool(self.random_ltd_config().get("enabled", False))
+
+    def random_ltd_config(self):
+        return self._config.data_efficiency_config.get("data_routing", {}).get("random_ltd", {})
+
+    def random_ltd_initialize(self):
+        c = self.random_ltd_config()
+        sched = c.get("random_ltd_schedule", {})
+        self.random_ltd_scheduler = RandomLTDScheduler(
+            min_value=sched.get("min_value", 128), max_value=sched.get("max_value", 2048),
+            require_steps=sched.get("schedule_config", {}).get("require_steps", 1000),
+            total_layer_num=c.get("total_layer_num", 0), random_ltd_layer_num=c.get("random_ltd_layer_num", 0))
+        return self.random_ltd_scheduler
+
+    def quantize_training(self):
+        return self._config.compression_config
+
     def is_gradient_accumulation_boundary(self):
         return (self.micro_steps + 1) % self.gradient_accumulation_steps() == 0
 
@@ -321,6 +471,11 @@ class DeepSpeedEngine:
             close_async_checkpointer(self)
         except Exception:
             logger.exception("async checkpoint drain at destroy failed (the checkpoint is absent, never torn)")
+        if self._telemetry is not None:
+            self._telemetry.close()  # flushes the Chrome trace and the JSONL sink
+            self._telemetry = None
+        self._eig_state = None
+        self._last_batch = None
         self.zero_grad()
 
     # ------------------------------------------------------------- data path --
@@ -336,12 +491,66 @@ class DeepSpeedEngine:
         return batch
 
     @staticmethod
-    def _tree_map(fn, batch):
+    def _tree_map(fn, batch, *rest):
         if isinstance(batch, (tuple, list)):
-            return type(batch)(DeepSpeedEngine._tree_map(fn, x) for x in batch)
+            return type(batch)(DeepSpeedEngine._tree_map(fn, *xs) for xs in zip(batch, *rest))
         if isinstance(batch, dict):
-            return {k: DeepSpeedEngine._tree_map(fn, x) for k, x in batch.items()}
-        return fn(batch)
+            return {k: DeepSpeedEngine._tree_map(fn, x, *(r[k] for r in rest)) for k, x in batch.items()}
+        return fn(batch, *rest)
+
+    def _apply_curriculum(self, batch):
+        """Truncate the sequence dimension to the curriculum's difficulty at
+        the step about to be taken (the ``seqlen`` type only, as the JAX
+        engine). Tensors are sliced where they are."""
+        if self.curriculum_scheduler is None:
+            return batch
+        if self._config.curriculum_params_legacy.get("curriculum_type", "seqlen") != "seqlen":
+            return batch
+        diff = self.curriculum_scheduler.update_difficulty(self.global_steps + 1)
+
+        def trunc(x):
+            if isinstance(x, (np.ndarray, torch.Tensor)) and x.ndim >= 2 and x.shape[1] > diff:
+                return x[:, :diff]
+            return x
+
+        return self._tree_map(trunc, batch)
+
+    def stage_train_batch(self, data_iter=None, batch=None):
+        """One global batch staged for ``train_batch``: curriculum
+        truncation, the ``[gas, micro, ...]`` stacking and the copy to the
+        device. Safe to call from a background thread (``PrefetchingLoader``
+        does). On a CUDA device the host leaves are pinned and copied on a
+        staging stream; the returned :class:`StagedBatch` holds an event that
+        ``train_batch`` waits on."""
+        gas = self.gradient_accumulation_steps()
+        if batch is None:
+            assert data_iter is not None, "stage_train_batch needs data_iter or batch"
+            micro = list(itertools.islice(data_iter, gas))
+            if len(micro) != gas:
+                raise StopIteration(f"data_iter ran out after {len(micro)} of {gas} micro-batches")
+            micro = [self._apply_curriculum(m) for m in micro]
+            batch = self._tree_map(lambda *xs: torch.stack([torch.as_tensor(x) for x in xs])
+                                   if isinstance(xs[0], torch.Tensor) else np.stack(xs), *micro)
+        else:
+            batch = self._apply_curriculum(batch)
+            batch = self._tree_map(lambda x: x.reshape((gas, -1) + tuple(x.shape[1:])), batch)
+        if self.device.type != "cuda":
+            return StagedBatch(self._to_device(batch))
+        if self._staging_stream is None:
+            self._staging_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._staging_stream):
+            staged = self._tree_map(self._stage_leaf, batch)
+            event = torch.cuda.Event()
+            event.record(self._staging_stream)
+        return StagedBatch(staged, event)
+
+    def _stage_leaf(self, x):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        if not isinstance(x, torch.Tensor) or x.device.type != "cpu":
+            return x
+        return x.pin_memory().to(self.device, non_blocking=True)
+
 
     # ---------------------------------------------------------------- the step --
     def _micro_grads(self, loss):
@@ -407,13 +616,22 @@ class DeepSpeedEngine:
     def forward(self, batch):
         """The loss of one micro-batch. In eval mode a plain pass without
         gradients; in training mode ``backward`` follows."""
+        self.timers(FORWARD_MICRO_TIMER).start()
+        if self.training:
+            batch = self._apply_curriculum(batch)
         batch = self._to_device(batch)
         if not self.training:
             self._cached_loss = None
-            with torch.no_grad():
-                return self.module(batch)
+            try:
+                with torch.no_grad():
+                    return self.module(batch)
+            finally:
+                self.timers(FORWARD_MICRO_TIMER).stop()
+        self._last_batch = batch  # the eigenvalue gate's and the curvature probes' batch
+        # the flops profiler (ROADMAP A9) is not ported
         loss = self.module(batch)
         self._cached_loss = loss
+        self.timers(FORWARD_MICRO_TIMER).stop()
         return loss
 
     __call__ = forward
@@ -422,41 +640,66 @@ class DeepSpeedEngine:
         """Accumulate the gradients of the last ``forward``'s loss."""
         loss = self._cached_loss if loss is None else loss
         assert loss is not None, "backward() must follow forward()"
+        self.timers(BACKWARD_MICRO_TIMER).start()
         self._accumulate(self._micro_grads(loss))
         self._cached_loss = None
         self._last_loss = loss.detach()
+        self.timers(BACKWARD_MICRO_TIMER).stop()
         return loss
 
     def step(self):
         """Optimizer step at gradient-accumulation boundaries."""
+        self.timers(STEP_MICRO_TIMER).start()
         boundary = self.is_gradient_accumulation_boundary()
         if boundary:
             assert self.acc_grads is not None, "step() with no accumulated gradients"
             self._step_lr_scheduler(self._apply())
+            self._boundary_schedules()
+            if self._telemetry is not None:
+                self._write_telemetry(loss=self._last_loss)
         self.micro_steps += 1
         if boundary:
             # after the count, so a preemption checkpoint taken here resumes
             # on the next accumulation window
             self._after_boundary_step(self._last_loss)
+        self.timers(STEP_MICRO_TIMER).stop()
+
+    def _boundary_schedules(self):
+        """Progressive layer drop's θ and the compression scheduler, after an
+        optimizer step (the compression gate probes ``_last_batch``)."""
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
+        if self.compression_scheduler is not None:
+            self.compression_scheduler.step(self)
 
     def train_batch(self, data_iter=None, batch=None):
-        """One global batch (``[gas * micro, ...]`` per leaf, or ``gas``
-        micro-batches from ``data_iter``): accumulate, then one optimizer
-        step. Returns the mean micro-batch loss (0-d tensor on the device)."""
+        """One global batch: accumulate over its ``gas`` micro-batches, then
+        one optimizer step. ``batch`` is ``[gas * micro, ...]`` per leaf, a
+        :class:`StagedBatch` or a :class:`FusedHostBatch`; ``data_iter``
+        yields micro-batches or either of those (``PrefetchingLoader``).
+        Returns the mean micro-batch loss (0-d tensor on the device)."""
         # a preemption notice that arrived between steps exits before paying
         # for another one (one that arrives mid-step finalizes at its end)
         self._maybe_finalize_preemption()
         self._pre_step_fault_hooks()
         gas = self.gradient_accumulation_steps()
-        if batch is None:
-            assert data_iter is not None, "train_batch needs data_iter or batch"
-            micro = [self._to_device(b) for b in itertools.islice(data_iter, gas)]
-            if len(micro) != gas:
-                raise StopIteration(f"data_iter ran out after {len(micro)} of {gas} micro-batches")
+        if isinstance(batch, StagedBatch):
+            staged = batch
+        elif isinstance(batch, FusedHostBatch):
+            staged = self.stage_train_batch(batch=batch.tree)
+        elif data_iter is not None and batch is None:
+            nxt = next(data_iter)
+            if isinstance(nxt, StagedBatch):
+                staged = nxt
+            elif isinstance(nxt, FusedHostBatch):
+                staged = self.stage_train_batch(batch=nxt.tree)
+            else:
+                staged = self.stage_train_batch(data_iter=itertools.chain([nxt], data_iter))
         else:
-            batch = self._to_device(batch)
-            stacked = self._tree_map(lambda x: x.reshape((gas, -1) + tuple(x.shape[1:])), batch)
-            micro = [self._tree_map(lambda x, i=i: x[i], stacked) for i in range(gas)]
+            assert batch is not None, "train_batch needs data_iter or batch"
+            staged = self.stage_train_batch(batch=batch)
+        stacked = staged.wait()
+        micro = [self._tree_map(lambda x, i=i: x[i], stacked) for i in range(gas)]
         poison_loss = False
         if self._train_faults is not None and self._train_faults.fire_step("nan_inject", self.global_steps) is not None:
             logger.error(f"chaos: NaN injected into the batch for step {self.global_steps}")
@@ -465,6 +708,10 @@ class DeepSpeedEngine:
             # step's losses carry the NaN instead
             poison_loss = all(p is mb for p, mb in zip(poisoned, micro))
             micro = poisoned
+        # the flops profiler (ROADMAP A9) is not ported
+        if self._telemetry is not None:
+            tel_t0 = telemetry.now_us()
+        self.tput_timer.start()
         losses = []
         for mb in micro:
             loss = self.module(mb)
@@ -475,8 +722,110 @@ class DeepSpeedEngine:
         self.micro_steps += gas
         self._step_lr_scheduler(self._apply())
         loss = torch.stack(losses).mean()
+        if self.compression_scheduler is not None:
+            self._last_batch = micro[0]  # one micro-batch for the eigenvalue gate's probes
+        self._boundary_schedules()
+        self.tput_timer.stop(global_step=True)
+        if self._telemetry is not None:
+            # the throughput timer synchronized the device (real timers run
+            # under telemetry), so the span is the step's device time too
+            self._telemetry.spans.record(TRAIN_BATCH_TIMER, cat="engine", ts_us=tel_t0,
+                                         dur_us=telemetry.now_us() - tel_t0)
+            self._write_telemetry(loss=loss)
         self._after_boundary_step(loss)
         return loss
+
+    def _write_telemetry(self, loss=None):
+        """Step metrics into the registry (gauges to scrape) and the JSONL
+        event stream: loss, lr, samples/s, gradient norm, skipped steps. The
+        ``float()``/``int()`` reads wait for the device: telemetry, like
+        tracing, is opt-in."""
+        if self._tel_metrics is None:
+            reg = self._telemetry.registry
+            self._tel_metrics = {
+                "loss": reg.gauge("train_loss", "Last boundary-step training loss"),
+                "lr": reg.gauge("train_lr", "Current learning rate"),
+                "sps": reg.gauge("train_samples_per_sec", "Boundary-to-boundary throughput"),
+                "norm": reg.gauge("train_grad_norm", "Global gradient norm at the last step"),
+                "skipped": reg.gauge("train_skipped_steps", "Overflow-skipped optimizer steps"),
+                "steps": reg.gauge("train_global_steps", "Optimizer steps taken"),
+                "samples": reg.counter("train_samples_total", "Samples consumed"),
+            }
+        m = self._tel_metrics
+        now = time.time()
+        sps = self.train_batch_size() / (now - self._tel_last_step_time) \
+            if self._tel_last_step_time is not None and now > self._tel_last_step_time else None
+        self._tel_last_step_time = now
+        norm = self.get_global_grad_norm()
+        skipped = self.skipped_steps
+        m["lr"].set(self._current_lr)
+        m["steps"].set(self.global_steps)
+        m["skipped"].set(skipped)
+        m["samples"].inc(self.train_batch_size())
+        fields = {"step": self.global_steps, "samples": self.global_samples, "lr": self._current_lr,
+                  "skipped_steps": skipped}
+        if loss is not None:
+            fields["loss"] = float(loss)
+            m["loss"].set(fields["loss"])
+        if sps is not None:
+            fields["samples_per_sec"] = sps
+            m["sps"].set(sps)
+        if norm is not None:
+            fields["grad_norm"] = norm
+            m["norm"].set(norm)
+        if self._fp16:
+            fields["loss_scale"] = self.loss_scale
+        self._telemetry.registry.event("train_step", **fields)
+
+    # ----------------------------------------- compression and the curvature --
+    def apply_compression_transform(self, sub_config: dict) -> None:
+        """Apply compression transforms to the live f32 masters (the
+        compression scheduler's hook), each tensor under the JAX package's
+        name and in its layout; the module follows."""
+        if self._reference_names is None:
+            self._reference_names = reference_names(self.module)
+        new = init_compression(self.params, sub_config, layout=self._reference_names)
+        with torch.no_grad():
+            for name, p in self.params.items():
+                if new[name] is not p:
+                    p.copy_(new[name])
+        self._sync_module()
+
+    def _eigenvalue_blocks(self, params):
+        """The masters grouped as the JAX package's top-level tree entries:
+        one ``model`` block for a Llama (the JAX tree nests everything under
+        ``model``), else one block for each first component of a name."""
+        blocks = {}
+        for name, t in params.items():
+            head = "model" if isinstance(self.module, LlamaModel) else name.partition(".")[0]
+            blocks.setdefault(head, {})[name] = t
+        return blocks
+
+    def loss_curvature(self):
+        """Top Hessian eigenvalue of the last kept micro-batch's loss (power
+        iteration, ``runtime/eigenvalue.py``), as the largest of the blocks'
+        values after the reference's scaling (so 1.0 when finite): the
+        compression scheduler's eigenvalue gate. None before any batch.
+
+        The loss is differentiated through the master -> compute-dtype cast,
+        with activation recomputation off (a second derivative does not
+        compose with ``torch.utils.checkpoint``); the ``Eigenvalue`` and its
+        HVP closures are kept across probes."""
+        if self._last_batch is None:
+            return None
+        if self._eig_state is None:
+
+            def loss_fn(blocks, batch):
+                flat = {n: t.to(self.compute_dtype) for block in blocks.values() for n, t in block.items()}
+                with recompute_disabled():
+                    return functional_call(self.module, flat, (batch, ))
+
+            self._eig_state = (Eigenvalue(max_iter=8, tol=1e-2), loss_fn, {})
+        eig, loss_fn, cache = self._eig_state
+        vals = eig.compute_eigenvalue(loss_fn, self._eigenvalue_blocks(self.params), self._last_batch,
+                                      generator=torch.Generator(self.device).manual_seed(0), hvp_cache=cache)
+        return max(vals.values()) if vals else None
+
 
     # ------------------------------------------------------- fault tolerance --
     def _pre_step_fault_hooks(self):

@@ -639,3 +639,65 @@ def test_untraced_decode_put_creates_no_event_and_no_synchronize(cuda_device, mo
         finally:
             monkeypatch.undo()
             engine.close()
+
+
+@pytest.mark.cuda
+def test_flash_second_derivative_raises_on_cuda_tensors(cuda_device):
+    """C8 on the card: the kernels' backward is once_differentiable, so a
+    derivative of it raises instead of dropping the attention's second-order
+    terms (their outputs carry no autograd history)."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    q, k, v, g = _flash_inputs(1, 128, 2, 2, 128, torch.bfloat16, cuda_device, seed=2)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = fa.flash_attention(q, k, v, 0.1, True)
+    # a loss whose gradient at the output depends on the output, as a
+    # second derivative through the attention needs
+    grads = torch.autograd.grad((out.float()**2 * g.float()).sum(), (q, k, v), create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        sum((x.float()**2).sum() for x in grads).backward()
+
+
+@pytest.mark.cuda
+def test_prefetch_stages_on_its_own_stream_and_matches_direct(cuda_device):
+    """PrefetchingLoader on the card: each batch is copied from pinned host
+    memory on the engine's staging stream with an event, train_batch waits
+    on it, and the run equals train_batch on the same host batches, bit for
+    bit."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime.dataloader import PrefetchingLoader, StagedBatch
+
+    def engine():
+        torch.manual_seed(0)
+        model = torch.nn.Sequential(torch.nn.Linear(64, 64), torch.nn.ReLU(), torch.nn.Linear(64, 1))
+
+        class Loss(torch.nn.Module):
+
+            def __init__(self):
+                super().__init__()
+                self.net = model
+
+            def forward(self, batch):
+                x, y = batch
+                return ((self.net(x).squeeze(-1) - y)**2).mean()
+
+        eng, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=Loss(), device=cuda_device,
+            config={"train_micro_batch_size_per_gpu": 256, "gradient_accumulation_steps": 2,
+                    "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}})
+        return eng
+
+    rng = np.random.default_rng(0)
+    batches = [(rng.normal(size=(512, 64)).astype(np.float32), rng.normal(size=(512, )).astype(np.float32))
+               for _ in range(6)]
+    direct_engine, staged_engine = engine(), engine()
+    direct = [direct_engine.train_batch(batch=b).item() for b in batches]
+    staged = []
+    for item in PrefetchingLoader(batches, staged_engine, depth=2):
+        assert isinstance(item, StagedBatch) and item.event is not None
+        assert item.tree[0].is_cuda and item.tree[0].shape == (2, 256, 64)
+        staged.append(staged_engine.train_batch(batch=item).item())
+    assert staged_engine._staging_stream is not None
+    assert staged_engine._staging_stream != torch.cuda.current_stream()
+    assert staged == direct
+    for name, p in direct_engine.params.items():
+        assert torch.equal(p, staged_engine.params[name]), name

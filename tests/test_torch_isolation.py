@@ -58,6 +58,12 @@ def test_port_and_chip_smoke_import_no_jax_flax_pydantic_or_reference():
                  "ops.lamb.fused_lamb", "ops.lamb.onebit_lamb", "ops.lion.fused_lion", "ops.adagrad.cpu_adagrad",
                  "ops.sgd.sgd", "ops.adam.onebit_adam", "ops.adam.zero_one_adam"):
         assert f"deepspeed_tpu_torch.{name}" in result["imported"]
+    for name in ("utils.timer", "runtime.progressive_layer_drop", "runtime.eigenvalue", "runtime.dataloader",
+                 "runtime.data_pipeline.curriculum_scheduler", "runtime.data_pipeline.data_sampler",
+                 "runtime.data_pipeline.data_sampling.indexed_dataset",
+                 "runtime.data_pipeline.data_sampling.data_analyzer", "runtime.data_pipeline.data_routing.random_ltd",
+                 "compression.basic_layer", "compression.compress", "compression.scheduler"):
+        assert f"deepspeed_tpu_torch.{name}" in result["imported"]
     assert result["banned"] == []
 
 

@@ -362,16 +362,38 @@ def test_batch_triangle_and_config_errors():
 
 
 @pytest.mark.parametrize("key,value,error", [
-    ("tensor_parallel_size", 2, NotImplementedError), ("progressive_layer_drop", {"enabled": True}, NotImplementedError),
+    ("tensor_parallel_size", 2, NotImplementedError), ("pipeline_parallel_size", 2, NotImplementedError),
     ("zero_optimization", {"stage": 2, "zero_quantized_gradients": True}, NotImplementedError),
-    ("eigenvalue", {"enabled": True}, NotImplementedError),
+    ("zero_optimization", {"stage": 3, "offload_param": {"device": "cpu"}}, NotImplementedError),
     ("optimizer", {"type": "NoSuchOptimizer", "params": {"lr": 0.1}}, ValueError)])
 def test_unported_features_raise(key, value, error):
     """What is not ported raises NotImplementedError naming its ROADMAP queue
     item; an unknown optimizer raises the reference's ValueError."""
-    with pytest.raises(error, match=r"\(A[789]\)" if error is NotImplementedError else "Unknown optimizer"):
+    with pytest.raises(error, match=r"\(A8\)" if error is NotImplementedError else "Unknown optimizer"):
         deepspeed_tpu_torch.initialize(model=SimpleModel(), config={"train_batch_size": 8, key: value},
                                        device="cpu")
+
+
+@pytest.mark.parametrize("key,value,built", [
+    ("progressive_layer_drop", {"enabled": True, "theta": 0.5, "gamma": 0.001}, "progressive_layer_drop"),
+    ("eigenvalue", {"enabled": True, "max_iter": 10}, "eigenvalue"),
+    ("curriculum_learning", {"enabled": True, "curriculum_type": "seqlen", "min_difficulty": 8,
+                             "max_difficulty": 16, "schedule_type": "fixed_linear",
+                             "schedule_config": {"total_curriculum_step": 4, "difficulty_step": 8}},
+     "curriculum_scheduler"),
+    ("compression_training", {"weight_quantization": {"shared_parameters": {"enabled": True},
+                                                      "different_groups": {"g": {"modules": ["*"]}}}},
+     "compression_scheduler"),
+    ("telemetry", {"enabled": True}, "_telemetry")])
+def test_ported_training_features_initialize(key, value, built):
+    """The five blocks of ROADMAP A7's second half build their part of the
+    engine instead of raising."""
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=SimpleModel(), config={"train_batch_size": 8, key: value},
+                                                     device="cpu")
+    try:
+        assert getattr(engine, built) is not None
+    finally:
+        engine.destroy()
 
 
 def test_activation_checkpointing_api():

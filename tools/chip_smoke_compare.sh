@@ -3,7 +3,7 @@
 # change, change, parent, so that the card's drift between runs shows as a
 # difference within one tree rather than between the trees.
 #
-#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|spec|observe|MODE,MODE...]
+#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|spec|observe|features|MODE,MODE...]
 #
 # Each run's output goes to chiprun_out/smoke_<i>_<tree>.log and its full
 # record to chiprun_out/smoke_<i>_<tree>.json, under the directory the script
@@ -27,7 +27,10 @@
 # (run_observe_path: a traced decode put's per-layer split and tracing
 # overhead, the profiled puts' phases against device time and host wall, the
 # prefill put's observed seconds, the cost plane's totals and the SLO bursts);
-# modes joined by commas run each. The exit code
+# with "features", the train features phase (run_train_features_path:
+# tokens/s at each curriculum length, prefetch and telemetry step times, the
+# compression transforms' ulps, the eigenvalue leg); modes joined by commas
+# run each. The exit code
 # is the last failing run's, else 0.
 set -u
 parent=$(cd "$1" && pwd)
@@ -82,6 +85,15 @@ if "observe" in modes:
                           pricebook_vs_card=r["pricebook_vs_card"],
                           slo={k: {kk: r[k][kk] for kk in ("max_stage", "breached", "itl_p50_s")}
                                for k in ("slo", "slo_control")})))
+if "features" in modes:
+    r = c.run_train_features_path(dev)
+    p, t, e = r["loaders"]["prefetch"], r["loaders"]["telemetry"], r["eigenvalue"]
+    print(json.dumps(dict(curriculum_tokens_per_s=[(s["predicted"], s["tokens_per_s"]) for s in r["curriculum"]["curriculum"]],
+                          control_tokens_per_s=[s["tokens_per_s"] for s in r["curriculum"]["control"]],
+                          prefetch_s=(p["median_s_prefetch"], p["median_s_direct"]),
+                          telemetry_s=(t["median_s_on"], t["median_s_off"]),
+                          compression_ulps=[a["max_ulps"] for a in r["compression"]["applied"]],
+                          eigen_iters=e["iters"], hvp_vs_fd=e["hvp_vs_central_difference"], seconds=r["seconds"])))
 if "sparse" in modes:
     r = c.check_block_sparse_attention(dev)
     keys = ("case", "density", "max_abs_err", "tol_use", "ms", "ms_index_order", "ms_sorted_again", "ms_split_steps",
