@@ -97,7 +97,27 @@ Phases (any failure raises and the script exits non-zero):
    the /v1/stats perf block on the H100 row with each first sight amnestied;
    and an SLO burst: an ITL objective of 1 ms breaches and slo_pressure lifts
    the brownout stage (control: a 10 s objective does not);
-9. training path: train bench.py's headline program (the 530M Llama, full
+9. fleet path: from the same weights, replicas that share them on the card
+   (each its own pool and scheduler thread) behind the FleetRouter over
+   HTTP. (a) One prefill and two decode replicas serve the 8 prompts at once
+   over SSE: prefill and first token on the prefill replica, the KV frame
+   (524,288 bytes a token slot) handed to a decode replica; TTFT, ITL,
+   served tokens/s, export/import GB/s and the router's host ms a request,
+   B1's launches counted per engine (decode puts only on the decode
+   replicas). (f) One request traced: the router's span and both replicas'
+   request spans in one trace. (b) decode-0 is killed after 4 streamed decode
+   tokens: the buffered frame resumes on decode-1, the client sees 32 tokens
+   once each, decode-0's breaker opens. (c) Work stealing between two mixed
+   replicas, one held: a queued request re-granted, a decoding one exported
+   mid-stream, counters exact. (d) A turn pinned to a replica without the
+   1,024-token prefix imports its 16 blocks from the peer that has them; a
+   frame corrupted in transit is refused and the turn served cold. (e)
+   `python -m deepspeed_tpu_torch.bin.dstpu_replica` (the entry point's own
+   tiny model) supervised as a process on the card: ready, a routed
+   request, SIGKILL, restart, a second request, both the tokens of an
+   in-process engine from the same seed. Every served greedy token
+   teacher-forced; each leg with a control that must fail;
+10. training path: train bench.py's headline program (the 530M Llama, full
    width and depth, S=1024, micro-batch 8, GAS 8, AdamW, bf16 over f32
    masters, ZeRO stage 3, remat "dots", flash attention) through
    deepspeed_tpu_torch.initialize + train_batch, with the flash kernels'
@@ -107,7 +127,7 @@ Phases (any failure raises and the script exits non-zero):
    projections' gradients, through the kernels and through plain attention
    in bf16, to the same step in f32, and show that the check rejects the
    kernel step with dq, or dk and dv, zeroed or with attention replaced;
-10. checkpoint path: on the same model and batches, a save into
+11. checkpoint path: on the same model and batches, a save into
    tempfile.mkdtemp() and a resume in a fresh engine, its losses and f32
    masters bitwise those of the run that never stopped (the flash kernels'
    launch counts zeroed just before the resumed steps and read just after);
@@ -121,7 +141,7 @@ Phases (any failure raises and the script exits non-zero):
    torn. Then every optimizer but AdamW on the model cut to 2 layers (3
    steps on one batch: finite, falling) and its f32 updates of a tiny
    config's tree on the card against the CPU's; save, load and CRC times;
-11. train features path: on the same model, curriculum learning (each
+12. train features path: on the same model, curriculum learning (each
    step's sequence length the scheduler's, B2-B4 launched as predicted at
    each length; the control at full length from the first step, with
    progressive layer drop's θ held to its formula), an MMapIndexedDataset
@@ -135,7 +155,7 @@ Phases (any failure raises and the script exits non-zero):
    plain attention: the probe converged, its Hessian-vector product against
    central differences (a product 10% off and one along another direction,
    the controls, fail), the eigenvalue gate below and above the probed value;
-12. print one JSON line describing every kernel, then the result line.
+13. print one JSON line describing every kernel, then the result line.
 
 The script imports the port only (never jax or deepspeed_tpu), needs one
 GPU, and writes its full record to chiprun_out/chip_smoke.json.
@@ -192,6 +212,10 @@ from deepspeed_tpu_torch.runtime.faults import TrainFaultConfig, TrainFaultInjec
 from deepspeed_tpu_torch.utils.timer import TRAIN_BATCH_TIMER
 from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig, FixedSparsityConfig, SparseSelfAttention,
                                                       layout_to_dense_mask)
+from deepspeed_tpu_torch.bin import dstpu_replica
+from deepspeed_tpu_torch.fleet import (FaultConfig, FleetConfig, FleetRouter, ReplicaManager, ReplicaSupervisor,
+                                       SupervisorConfig)
+from deepspeed_tpu_torch.fleet import router as fleet_router
 from deepspeed_tpu_torch.serving import (KVTierConfig, PrefixCacheConfig, ServingConfig, ServingScheduler,
                                          ServingServer, SpeculativeConfig)
 
@@ -3374,6 +3398,644 @@ def run_observe_path(dev, params, main) -> dict:
     return res
 
 
+# ------------------------------------------------------------ fleet phase --
+# the fleet (ROADMAP A6) over Llama-2-7B: every in-process replica is an
+# engine over the main path's weight tensors with its own KV_BYTES pool, each
+# with its own scheduler thread; the router speaks HTTP. A supervised process
+# replica runs the entry point's own model (the reference's tiny Llama).
+FLEET_DEATH_AFTER = 4  # decode tokens decode-0 streams before it dies
+FLEET_STEAL_TOKENS = 16
+FLEET_REPLICA_ARGS = ("--params-seed", "3")  # the process replica's model (its other arguments: the defaults)
+FLEET_REPLICA_PROMPTS = ((1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11), (40, 41, 42, 43, 44))
+FLEET_REPLICA_TOKENS = 12
+FLEET_TIMEOUT_S = 600  # bound on every client exchange and wait of the phase
+
+
+class _FleetGate:
+    """Holds one replica's batches: while shut, its scheduler's ``step`` only
+    services control calls (a steal, a prefix export) and returns False.
+    ``after`` lets a request reach that many tokens first; ``hold_stream``
+    keeps the held tokens off its stream. So a steal or a death happens at a
+    chosen point of a request, never at one that timing picks."""
+
+    def __init__(self, sched, after=0, hold_stream=False):
+        self.open = threading.Event()
+        self.holding = threading.Event()
+        inner_step, inner_push = sched.step, sched._push_token
+
+        def step():
+            if self.open.is_set():
+                return inner_step()
+            if after == 0 or any(len(r.tokens) >= after for r in list(sched._active.values())):
+                self.holding.set()
+                sched._drain_control()
+                return False
+            return inner_step()
+
+        def push(req, tok, record_itl=True):
+            if hold_stream and not self.open.is_set():
+                req.stream.put = lambda t: None
+            return inner_push(req, tok, record_itl)
+
+        sched.step, sched._push_token = step, push
+
+
+def _fleet(params, cfg, dev, roles, **config):
+    """A ReplicaManager over in-process replicas with ids ``<role>-<i>``,
+    built from one engine factory (the main path's weights, a pool of
+    KV_BYTES each), and its router started on 127.0.0.1. The replicas opt out
+    of the idle heartbeat (``LocalReplica``'s default keeps a pool member warm
+    with ``empty_run``: on the port a whole forward of the smallest bucket,
+    B1 included, every 50 ms on each idle replica, competing with the busy
+    ones for the card and the interpreter)."""
+    config.setdefault("probe_ttl_s", 0.0)
+    config.setdefault("read_timeout_s", FLEET_TIMEOUT_S)
+    config.setdefault("request_timeout_s", FLEET_TIMEOUT_S)
+    manager = ReplicaManager(engine_factory=lambda: _engine(params, cfg, None, dev), config=FleetConfig(**config),
+                             serving_config=ServingConfig(queue_capacity=64, heartbeat_enabled=False))
+    counts = {}
+    for role in roles:
+        manager.add_local(role=role, replica_id=f"{role}-{counts.setdefault(role, 0)}")
+        counts[role] += 1
+    return manager, FleetRouter(manager).start()
+
+
+def _close_fleet(manager, router):
+    router.stop(drain=False)
+    manager.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _sse_client(url, body, out, key, headers=None):
+    """One SSE client of the router: its send time and each event with its
+    arrival clock, appended as they come (``out[key]`` exists from the
+    start)."""
+    import urllib.request
+    r = out[key] = dict(sent=time.perf_counter(), events=[], arrivals=[])
+    req = urllib.request.Request(url + "/v1/generate", data=json.dumps(dict(body, stream=True)).encode(),
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=FLEET_TIMEOUT_S) as resp:
+            for line in resp:
+                if line.startswith(b"data: "):
+                    r["events"].append(json.loads(line[len(b"data: "):]))
+                    r["arrivals"].append(time.perf_counter())
+            r["status"] = resp.status
+    except Exception as e:  # reported by the checks
+        r["error"] = repr(e)
+
+
+def _sse_once(url, body, headers=None):
+    out = {}
+    _sse_client(url, body, out, 0, headers)
+    return out[0]
+
+
+def _exactly_once(events, n):
+    """The SSE check: ``n`` token events indexed 0..n-1, then a DONE final
+    document whose tokens are the streamed ones, each once."""
+    if not events or not events[-1].get("done"):
+        return False
+    *toks, final = events
+    return ([e.get("index") for e in toks] == list(range(n)) and [e["token"] for e in toks] == final.get("tokens")
+            and final.get("state") == "DONE")
+
+
+def _legs_of(final):
+    return [(leg["replica"], leg["kind"]) for leg in final.get("legs", [])]
+
+
+def _frame_kv_check(frame, per_token):
+    """A handoff frame's KV against the geometry: its bytes are whole blocks
+    of ``per_token`` bytes a token slot, covering the seen tokens, and the
+    frame ends where they do. Returns (ok, header, KV bytes)."""
+    import struct
+    hlen = struct.unpack_from("<I", frame, 8)[0]
+    header = json.loads(bytes(frame[12:12 + hlen]))
+    shape = header["kv"]["shape"]  # [L, 2, blocks, KVH, block size, D]
+    kv_bytes = math.prod(shape) * 2  # bf16
+    slots = shape[2] * shape[4]
+    ok = (len(frame) == 12 + hlen + kv_bytes and kv_bytes == slots * per_token
+          and slots - shape[4] < header["seen_tokens"] <= slots)
+    return ok, header, kv_bytes
+
+
+def _per_engine_b1(engine, counts, key):
+    """Count B1's launches of one engine: two (insert, attention) for every
+    layer forward its model sends down the kernel branch."""
+    model = engine._model
+    inner = model._use_paged_kernel
+
+    def use(T):
+        on = inner(T)
+        if on and T > 0:  # an empty run (the idle heartbeat) launches nothing
+            counts[key] += 2
+        return on
+
+    model._use_paged_kernel = use
+
+
+def _fleet_disagg(params, cfg, dev, prompts, per_token, failures):
+    """Leg a: one prefill and two decode replicas behind the router over HTTP,
+    the serving mix at once over SSE. Then leg f (one traced request on the
+    same replicas) and leg b (decode-0 dies mid-stream)."""
+    manager, router = _fleet(params, cfg, dev, ("prefill", "decode", "decode"), breaker={"failure_threshold": 1})
+    reps = {r.id: r for r in manager.replicas()}
+    puts, loops, b1 = {rid: [] for rid in reps}, {rid: [] for rid in reps}, {rid: 0 for rid in reps}
+    exports, imports, unpacks = [], [], []
+    local = threading.local()
+    put_s, empty_runs = {rid: [] for rid in reps}, {rid: [] for rid in reps}
+    for rid, rep in reps.items():
+
+        def put(*args, inner=rep.engine.put, rid=rid, **kw):
+            # host seconds of the put: the scheduler waits for its logits
+            # after it returns, so this is the launch side of the forward
+            t0 = time.perf_counter()
+            out = inner(*args, **kw)
+            put_s[rid].append(time.perf_counter() - t0)
+            puts[rid].append(args)
+            return out
+
+        rep.engine.put = put
+        _count_calls(rep.engine, "decode_loop", loops[rid])
+        _count_calls(rep.engine, "empty_run", empty_runs[rid])
+        _per_engine_b1(rep.engine, b1, rid)
+        sched = rep.scheduler
+
+        def export(req, inner=sched._export_handoff):
+            t0 = time.perf_counter()
+            payload = inner(req)
+            secs = time.perf_counter() - t0
+            ok, header, kv_bytes = _frame_kv_check(payload, per_token)
+            exports.append(dict(tokens=header["seen_tokens"], frame_bytes=len(payload), kv_bytes=kv_bytes, s=secs,
+                                kv_ok=ok, kv_shape=header["kv"]["shape"],
+                                control_ok=_frame_kv_check(memoryview(payload)[:-per_token], per_token)[0]))
+            return payload
+
+        def import_(req, inner=sched._import_resume):
+            nbytes = len(req._resume_payload or b"")
+            t0 = time.perf_counter()
+            out = inner(req)
+            torch.cuda.current_stream().synchronize()
+            imports.append(dict(frame_bytes=nbytes, s=time.perf_counter() - t0))
+            return out
+
+        def submit(*args, inner=None, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kw)
+            finally:
+                local.inner = getattr(local, "inner", 0.0) + time.perf_counter() - t0
+
+        def submit_resume(payload, *args, inner=sched.submit_resume, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner(payload, *args, **kw)
+            finally:
+                secs = time.perf_counter() - t0
+                unpacks.append(dict(frame_bytes=len(payload), s=secs))
+                local.inner = getattr(local, "inner", 0.0) + secs
+
+        sched._export_handoff, sched._import_resume = export, import_
+        sched.submit = lambda *a, _inner=sched.submit, **kw: submit(*a, inner=_inner, **kw)
+        sched.submit_resume = submit_resume
+    host = {}  # routed request -> the router's own host seconds in its dispatches
+    inner_dispatch = fleet_router.RoutedRequest._dispatch
+
+    def dispatch(self, *args, **kw):
+        local.inner = 0.0
+        t0 = time.perf_counter()
+        try:
+            return inner_dispatch(self, *args, **kw)
+        finally:
+            host[id(self)] = host.get(id(self), 0.0) + time.perf_counter() - t0 - local.inner
+
+    fleet_router.RoutedRequest._dispatch = dispatch
+    res = {}
+    try:
+        # --- leg a: the serving mix at once
+        out, threads = {}, []
+        pa.paged_attention_update.launches = 0
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            threads.append(threading.Thread(target=_sse_client, args=(router.url, dict(prompt=p, max_new_tokens=NEW_TOKENS),
+                                                                      out, i), daemon=True))
+            threads[-1].start()
+        for t in threads:
+            t.join(timeout=FLEET_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        launches = pa.paged_attention_update.launches
+        fleet_router.RoutedRequest._dispatch = inner_dispatch
+        bad = {k: v.get("error") or v.get("status") for k, v in out.items() if v.get("status") != 200}
+        if bad or len(out) != len(prompts):
+            raise AssertionError(f"fleet burst requests failed: {bad}")
+        finals = [out[i]["events"][-1] for i in range(len(prompts))]
+        served = [(p, f.get("tokens") or []) for p, f in zip(prompts, finals)]
+        ttft = [out[i]["arrivals"][0] - out[i]["sent"] for i in range(len(prompts))]
+        itl = [b - a for i in range(len(prompts)) for a, b in zip(out[i]["arrivals"][:-2], out[i]["arrivals"][1:-1])]
+        n_tokens = sum(len(t) for _, t in served)
+        placement = {rid: dict(puts=len(puts[rid]), fed_tokens=sum(len(t) for args in puts[rid] for t in args[1]),
+                               decode_inputs_of_one_token=all(len(t) == 1 for args in puts[rid] for t in args[1]),
+                               decode_loops=len(loops[rid]), empty_runs=len(empty_runs[rid]), b1_launches=b1[rid],
+                               put_host_ms_p50=1e3 * _percentile(put_s[rid], 50),
+                               put_host_ms_p99=1e3 * _percentile(put_s[rid], 99)) for rid in reps}
+        res["disaggregated"] = dict(
+            requests=len(prompts), served_tokens=n_tokens, wall_s=wall, served_tokens_per_s=n_tokens / wall,
+            ttft_p50_s=_percentile(ttft, 50), ttft_p99_s=_percentile(ttft, 99), itl_p50_s=_percentile(itl, 50),
+            itl_p99_s=_percentile(itl, 99), b1_launches=launches, placement=placement,
+            exports=[{k: v for k, v in e.items() if k != "control_ok"} for e in exports], imports=list(imports),
+            unpacks=list(unpacks), router_host_ms=sorted(1e3 * s for s in host.values()),
+            legs=[_legs_of(f) for f in finals], fleet=router.fleet_stats()["router"])
+        d = res["disaggregated"]
+        for e in d["exports"] + d["imports"] + d["unpacks"]:
+            e["gb_per_s"] = e["frame_bytes"] / e["s"] / 1e9
+        # --- checks of leg a, each with its control
+        if not all(_exactly_once(out[i]["events"], NEW_TOKENS) for i in range(len(prompts))):
+            failures.append("a routed SSE stream differs from its final document or is not 32 tokens")
+        if any(_legs_of(f) != [("prefill-0", "prefill"), (_legs_of(f)[-1][0], "decode")]
+               or not _legs_of(f)[-1][0].startswith("decode-") for f in finals):
+            failures.append(f"a request did not run prefill -> decode: {[_legs_of(f) for f in finals]}")
+
+        def placed(rid, role):
+            p = placement[rid]
+            if p["empty_runs"] or p["decode_loops"]:
+                return False
+            if role == "prefill":  # prompts only: every prompt token fed once, no decode input
+                return p["fed_tokens"] == sum(PROMPT_LENS)
+            return p["decode_inputs_of_one_token"] and p["b1_launches"] == 2 * cfg.num_hidden_layers * p["puts"]
+
+        if not (placed("prefill-0", "prefill") and placed("decode-0", "decode") and placed("decode-1", "decode")):
+            failures.append(f"prefill or decode ran on the wrong replica: {placement}")
+        if placed("decode-0", "prefill") or placed("prefill-0", "decode"):
+            failures.append("control: a decode replica's puts passed the prefill placement check")
+        decode_fed = sum(placement[r]["fed_tokens"] for r in ("decode-0", "decode-1"))
+        if decode_fed != len(prompts) * (NEW_TOKENS - 1):
+            failures.append(f"the decode replicas fed {decode_fed} tokens, not {len(prompts)} x {NEW_TOKENS - 1}")
+        if not (placement["decode-0"]["puts"] and placement["decode-1"]["puts"]):
+            failures.append(f"the decode legs did not spread over both decode replicas: {placement}")
+        if sum(b1.values()) != launches or not launches:
+            failures.append(f"B1's launches by engine {b1} do not add up to the process's {launches}")
+        if len(exports) != len(prompts) or not all(e["kv_ok"] for e in exports):
+            failures.append(f"a handoff frame's KV is not {per_token} bytes a token slot: {exports}")
+        if any(e["control_ok"] for e in exports):
+            failures.append("control: a frame short of one token slot passed the KV bytes check")
+        if len(imports) != len(prompts):
+            failures.append(f"{len(imports)} imports for {len(prompts)} handoffs")
+
+        # --- leg f: one disaggregated request traced across the router and both replicas
+        session = telemetry.configure({"enabled": True})
+        try:
+            traced = FleetRouter(manager)  # a router built in a session has a trace collector
+            doc = traced.route(dict(prompt=prompts[1], max_new_tokens=4)).result()
+            other = traced.route(dict(prompt=prompts[0], max_new_tokens=4)).result()
+            collector = traced.collect_traces()
+            spans = collector.spans_for(doc["trace_id"])
+            res["trace"] = _trace_check(spans, collector.spans_for(other["trace_id"]), doc, failures)
+        finally:
+            session.close()
+        served.append((prompts[1], doc["tokens"]))
+
+        # --- leg b: decode-0 dies after FLEET_DEATH_AFTER streamed decode tokens
+        gate = _FleetGate(reps["decode-0"].scheduler, after=FLEET_DEATH_AFTER)
+        box = {}
+        client = threading.Thread(target=_sse_client, args=(router.url, dict(prompt=prompts[4],
+                                                                             max_new_tokens=NEW_TOKENS), box, 0),
+                                  daemon=True)
+        client.start()
+        deadline = time.perf_counter() + FLEET_TIMEOUT_S
+        while not (gate.holding.is_set() and len(box.get(0, {}).get("events", ())) >= 1 + FLEET_DEATH_AFTER):
+            if time.perf_counter() > deadline:
+                raise AssertionError("decode-0 never reached the death point")
+            time.sleep(0.001)
+        t_death = time.perf_counter()
+        reps["decode-0"].kill("chip smoke: a decode replica dies mid-stream")
+        client.join(timeout=FLEET_TIMEOUT_S)
+        r = box[0]
+        if r.get("status") != 200:
+            raise AssertionError(f"the request whose decode replica died failed: {r}")
+        events, final = r["events"], r["events"][-1]
+        after = [a for a in r["arrivals"][:-1] if a > t_death]
+        streamed = [e["token"] for e in events[:-1]]
+        before = sum(1 for a in r["arrivals"][:-1] if a <= t_death)
+        res["death"] = dict(tokens=len(streamed), tokens_before_death=before,
+                            death_to_next_token_s=after[0] - t_death if after else None,
+                            legs=_legs_of(final), breaker=reps["decode-0"].breaker.describe()["state"],
+                            fleet=router.fleet_stats()["router"])
+        served.append((prompts[4], final.get("tokens") or []))
+        if not _exactly_once(events, NEW_TOKENS):
+            failures.append(f"after the death the client did not see {NEW_TOKENS} tokens once each: "
+                            f"{streamed} / {final.get('tokens')}")
+        if _exactly_once(events[:before] + events[before - 1:-1] + events[-1:], NEW_TOKENS):
+            failures.append("control: a stream with a token repeated passed the exactly-once check")
+        if _legs_of(final) != [("prefill-0", "prefill"), ("decode-1", "decode")] or before != 1 + FLEET_DEATH_AFTER:
+            failures.append(f"the buffered frame was not re-dispatched to decode-1 after {FLEET_DEATH_AFTER} "
+                            f"decode tokens: legs {_legs_of(final)}, {before} tokens before the death")
+        if res["death"]["breaker"] != "OPEN" or reps["decode-1"].breaker.describe()["state"] != "CLOSED":
+            failures.append(f"decode-0's breaker is {res['death']['breaker']}, not OPEN (decode-1's must stay "
+                            f"CLOSED)")
+    finally:
+        fleet_router.RoutedRequest._dispatch = inner_dispatch
+        _close_fleet(manager, router)
+    return res, served
+
+
+def _trace_check(spans, other_spans, doc, failures):
+    """Leg f: the router's span, the prefill replica's request span and the
+    decode replica's share the request's trace id, each replica's request
+    parented under the router's hop to it. Control: the same check over a
+    second request's spans added must fail."""
+
+    def one_trace(spans):
+        ids = {s["args"]["trace_id"] for s in spans}
+        hops = {s["args"]["span_id"]: s["args"].get("replica") for s in spans if s["name"].startswith("dispatch:")}
+        roots = [s for s in spans if s["name"] == "route"]
+        requests = {hops.get(s["args"]["parent_id"]) for s in spans if s["name"] == "request"}
+        return (len(ids) == 1 and len(roots) == 1 and requests >= {"prefill-0"}
+                and any(r and r.startswith("decode-") for r in requests))
+
+    ok = one_trace(spans)
+    control = one_trace(spans + other_spans)
+    if not ok:
+        failures.append(f"the traced request's spans are not one trace over router, prefill and decode: "
+                        f"{[(s['name'], s['args'].get('parent_id')) for s in spans]}")
+    if control:
+        failures.append("control: two requests' spans passed the one-trace check")
+    return dict(trace_id=doc["trace_id"], spans=[dict(name=s["name"], pid=s["pid"], dur_us=s["dur"],
+                                                      replica=s["args"].get("replica")) for s in spans],
+                legs=_legs_of(doc))
+
+
+def _fleet_steal(params, cfg, dev, prompts, failures):
+    """Leg c: two mixed replicas, mixed-0 held (hot) and mixed-1 cold. A
+    request still queued on mixed-0 is stolen and re-granted from scratch; one
+    whose first token is held off its stream is exported mid-decode and
+    resumed on mixed-1. Control: with mixed-0 open, nothing is stolen."""
+    manager, router = _fleet(params, cfg, dev, ("mixed", "mixed"),
+                             steal={"enabled": True, "wait_budget_s": 0.5, "load_ratio": 1.5})
+    victim = manager.get("mixed-0")
+    exports = []
+    _timed(victim.scheduler, "_export_handoff", exports)
+    res, served = {}, []
+    try:
+        for kind, gate_kw, p in (("queued", dict(after=0), prompts[2]),
+                                 ("exported", dict(after=1, hold_stream=True), prompts[3]),
+                                 ("control", None, prompts[1])):
+            gate = _FleetGate(victim.scheduler, **gate_kw) if gate_kw is not None else None
+            r = _sse_once(router.url, dict(prompt=p, max_new_tokens=FLEET_STEAL_TOKENS))
+            if gate is not None:
+                gate.open.set()
+            if r.get("status") != 200:
+                raise AssertionError(f"the {kind} steal request failed: {r}")
+            final = r["events"][-1]
+            res[kind] = dict(stolen=bool(final.get("stolen")), legs=[(leg["replica"], leg["kind"], leg["n_tokens"])
+                                                                     for leg in final["legs"]],
+                             e2e_s=r["arrivals"][-1] - r["sent"], exactly_once=_exactly_once(r["events"],
+                                                                                            FLEET_STEAL_TOKENS))
+            served.append((p, final.get("tokens") or []))
+        stats = router.fleet_stats()
+        res["router"] = {k: stats["router"][k] for k in ("steals", "steal_attempts")}
+        res["scheduler_steals"] = {rid: manager.get(rid).scheduler.stats()["counters"]["steals"]
+                                   for rid in ("mixed-0", "mixed-1")}
+        res["steal_export_ms"] = [1e3 * s for s in exports]
+    finally:
+        _close_fleet(manager, router)
+    q, e, c = res["queued"], res["exported"], res["control"]
+    if not (q["stolen"] and [k for _, k, _ in q["legs"]] == ["steal-victim", "steal"] and q["legs"][0][2] == 0):
+        failures.append(f"the queued request was not re-granted from scratch: {q}")
+    if not (e["stolen"] and [k for _, k, _ in e["legs"]] == ["steal-victim", "steal"] and e["legs"][0][2] == 1
+            and e["legs"][1][2] == FLEET_STEAL_TOKENS - 1):
+        failures.append(f"the decoding request was not exported after its first token: {e}")
+    if not (q["exactly_once"] and e["exactly_once"] and c["exactly_once"]):
+        failures.append("a steal leg's stream differs from its final document")
+    if res["router"] != {"steals": 2, "steal_attempts": 2} or res["scheduler_steals"] != {"mixed-0": 2, "mixed-1": 0}:
+        failures.append(f"steal counters {res['router']} {res['scheduler_steals']}, not 2 / 2 and 2 / 0")
+    if c["stolen"] or [r for r, _, _ in c["legs"]] != ["mixed-0"]:
+        failures.append(f"control: a request on the open mixed-0 was stolen: {c}")
+    return res, served
+
+
+def _pin_session(target, other):
+    """A session key whose rendezvous winner is ``target``."""
+    for i in range(1000):
+        key = f"pin{i}"
+        if fleet_router._rendezvous_score(key, target) > fleet_router._rendezvous_score(key, other):
+            return key
+    raise AssertionError("rendezvous never favoured the target")
+
+
+def _fleet_peer_fetch(params, cfg, dev, failures):
+    """Leg d: replica A serves run_prefix_path's 1,024-token shared prompt;
+    replica B then serves a turn on the same prefix (pinned to B), its 16
+    blocks fetched from A's trie instead of prefilled. Then a frame the
+    fault injector corrupts in transit is refused at import and B serves that
+    turn cold (the control of the exact count)."""
+    rng = np.random.default_rng(8)  # run_prefix_path's draws
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_TOKENS).tolist()
+    lens = rng.integers(PREFIX_SUFFIX[0], PREFIX_SUFFIX[1] + 1, PREFIX_REQUESTS)
+    turns = [prefix + rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+    other_prefix = rng.integers(0, cfg.vocab_size, PREFIX_TOKENS).tolist()
+    other_turns = [other_prefix + rng.integers(0, cfg.vocab_size, 8).tolist() for _ in range(2)]
+    manager, router = _fleet(params, cfg, dev, ("mixed", "mixed"), prefix_cache={"enabled": True},
+                             cache_route={"fetch_timeout_s": 60.0})
+    a, b = manager.get("mixed-0"), manager.get("mixed-1")
+    b_puts, fetches = [], []
+    _count_calls(b.engine, "put", b_puts)
+    _timed(a, "fetch_prefix", fetches)
+    res, served = {}, []
+    key = _pin_session("mixed-1", "mixed-0")
+    try:
+        for name, (warm, turn) in (("clean", turns[:2]), ("corrupt", other_turns)):
+            if name == "corrupt":
+                router.set_faults(FaultConfig(enabled=True, seed=5, peer_fetch_corrupt_p=1.0))
+            w = _sse_once(router.url, dict(prompt=warm, max_new_tokens=NEW_TOKENS))
+            before = dict(b.scheduler.stats()["counters"])
+            n_puts = len(b_puts)
+            r = _sse_once(router.url, dict(prompt=turn, max_new_tokens=NEW_TOKENS, routing="hash", session=key))
+            if w.get("status") != 200 or r.get("status") != 200:
+                raise AssertionError(f"a peer-fetch request failed: {w} {r}")
+            counters = b.scheduler.stats()["counters"]
+            final = r["events"][-1]
+            fed = sum(len(args[1][args[0].index(final["uid"])]) for args in b_puts[n_puts:] if final["uid"] in args[0])
+            res[name] = dict(warm_legs=_legs_of(w["events"][-1]), legs=_legs_of(final),
+                             cached_tokens=final["cached_tokens"], prompt_tokens=len(turn), fed_tokens=fed,
+                             ttft_s=r["arrivals"][0] - r["sent"], warm_ttft_s=w["arrivals"][0] - w["sent"],
+                             **{k: counters[k] - before[k] for k in ("peer_fetch_hits", "peer_fetch_blocks",
+                                                                    "peer_fetch_rejects", "prefix_tokens_saved")})
+            served += [(warm, w["events"][-1].get("tokens") or []), (turn, final.get("tokens") or [])]
+        res["fetch_ms"] = [1e3 * s for s in fetches]
+    finally:
+        _close_fleet(manager, router)
+    clean, bad = res["clean"], res["corrupt"]
+
+    def imported(leg):  # exactly the prefix's 16 blocks, and only the rest of the prompt prefilled
+        return (leg["legs"] == [("mixed-1", "serve")] and leg["warm_legs"] == [("mixed-0", "serve")]
+                and leg["cached_tokens"] == PREFIX_TOKENS and leg["peer_fetch_hits"] == 1
+                and leg["peer_fetch_blocks"] == PREFIX_TOKENS // BLOCK
+                and leg["fed_tokens"] == leg["prompt_tokens"] - PREFIX_TOKENS + NEW_TOKENS - 1)
+
+    if not imported(clean):
+        failures.append(f"the turn on mixed-1 did not import exactly the prefix's blocks from mixed-0: {clean}")
+    if imported(bad) or bad["peer_fetch_rejects"] != 1 or bad["cached_tokens"] != 0:
+        failures.append(f"control: the corrupted frame was not refused at import and served cold: {bad}")
+    return res, served
+
+
+def _fleet_process_replica(failures):
+    """Leg e: ``python -m deepspeed_tpu_torch.bin.dstpu_replica`` on the card
+    under the supervisor: readiness, registration, a routed request, SIGKILL,
+    detection, a restart with backoff, re-registration and a second request;
+    both requests' tokens are an in-process engine's from the same
+    ``--params-seed`` (control: another seed's differ). Every child is killed
+    in the ``finally``."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    libs_before = sorted(p.name for p in builder.BUILD_DIR.glob("*.so"))
+    cmd = [sys.executable, "-m", "deepspeed_tpu_torch.bin.dstpu_replica", "--port-file", "{port_file}",
+           *FLEET_REPLICA_ARGS]
+    manager = ReplicaManager(config=FleetConfig(probe_ttl_s=0.0, read_timeout_s=120.0, request_timeout_s=300.0))
+    supervisor = ReplicaSupervisor(manager, SupervisorConfig(poll_interval_s=0.1, ready_timeout_s=240.0,
+                                                             restart_backoff_base_s=0.5, restart_backoff_cap_s=2.0,
+                                                             restart_jitter_frac=0.0, max_crashes=3,
+                                                             crash_window_s=600.0))
+    slot = supervisor.add_process(cmd, role="mixed", cwd=repo, env={"PYTHONPATH": repo})
+    router = None
+    procs, res, served = [], {}, []
+    try:
+        t0 = time.perf_counter()
+        supervisor.start()
+        if not supervisor.wait_ready(timeout=300):
+            raise AssertionError(f"the process replica never became ready: {slot.describe()}")
+        res["spawn_to_ready_s"] = time.perf_counter() - t0
+        procs.append(slot.replica.proc)
+        router = FleetRouter(manager).start()
+        body = lambda p: dict(prompt=list(p), max_new_tokens=FLEET_REPLICA_TOKENS)
+        first = _sse_once(router.url, body(FLEET_REPLICA_PROMPTS[0]))
+        t_kill = time.perf_counter()
+        os.kill(procs[0].pid, signal.SIGKILL)
+        deadline = t_kill + 300
+        while slot.state.name == "READY" and slot.restarts == 0:
+            if time.perf_counter() > deadline:
+                raise AssertionError("the supervisor never saw the SIGKILL")
+            time.sleep(0.01)
+        res["detect_s"] = time.perf_counter() - t_kill
+        while not (slot.restarts >= 1 and slot.state.name == "READY"):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"the process replica was not restarted: {slot.describe()}")
+            time.sleep(0.01)
+        res["kill_to_ready_s"] = time.perf_counter() - t_kill
+        procs.append(slot.replica.proc)
+        second = _sse_once(router.url, body(FLEET_REPLICA_PROMPTS[1]))
+        res["slot"] = slot.describe()
+    finally:
+        if router is not None:
+            router.stop(drain=False)
+        supervisor.stop()
+        for proc in procs + ([slot.replica.proc] if slot.replica is not None else []):
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
+    res["children_alive_after_stop"] = sum(1 for p in procs if p.poll() is None)
+    got = [r["events"][-1].get("tokens") if r.get("status") == 200 else r for r in (first, second)]
+    want = {}
+    for seed in (FLEET_REPLICA_ARGS[1], "4"):
+        args = dstpu_replica.parser().parse_args([*FLEET_REPLICA_ARGS, "--params-seed", seed])
+        engine = dstpu_replica.build_engine_from_args(args)
+        want[seed] = [generate(engine, [list(p)], max_new_tokens=FLEET_REPLICA_TOKENS,
+                               decode_chunk=args.decode_chunk)[0] for p in FLEET_REPLICA_PROMPTS]
+        engine.close()
+        del engine
+    res.update(tokens=got, in_process_tokens=want[FLEET_REPLICA_ARGS[1]],
+               libraries_built_by_children=sorted(set(p.name for p in builder.BUILD_DIR.glob("*.so"))
+                                                  - set(libs_before)))
+    if got != want[FLEET_REPLICA_ARGS[1]] or not all(_exactly_once(r["events"], FLEET_REPLICA_TOKENS)
+                                                    for r in (first, second)):
+        failures.append(f"the process replica's tokens {got} are not the in-process engine's "
+                        f"{want[FLEET_REPLICA_ARGS[1]]}")
+    if got == want["4"]:
+        failures.append("control: another --params-seed's tokens passed the equality check")
+    if res["children_alive_after_stop"] or res["libraries_built_by_children"]:
+        failures.append(f"{res['children_alive_after_stop']} children outlived the supervisor, or they built "
+                        f"{res['libraries_built_by_children']}")
+    if res["slot"]["restarts"] != 1 or procs[0].pid == procs[-1].pid:
+        failures.append(f"the killed process replica was not restarted once: {res['slot']}")
+    return res
+
+
+def run_fleet_path(dev, params, main) -> dict:
+    """The fleet (ROADMAP A6) on Llama-2-7B, on replicas that share the main
+    path's weights on the card: a disaggregated burst through the router over
+    HTTP (a), a decode replica's death mid-stream (b), work stealing (c), a
+    peer prefix fetch and a corrupted one (d), a supervised process replica
+    of the entry point (e), one trace across the router and both replicas
+    (f). Every served greedy token is held to the dense f32 model; every leg
+    has a control that fails its check."""
+    t_start = time.perf_counter()
+    cfg = LlamaConfig.llama2_7b()
+    rng = np.random.default_rng(0)  # run_serving_path's prompts
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+    per_token = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads * (cfg.hidden_size // cfg.num_attention_heads) * 2
+    failures, parts, served = [], {}, []
+    pa.paged_attention_update.launches = 0
+    t0 = time.perf_counter()
+    res, more = _fleet_disagg(params, cfg, dev, prompts, per_token, failures)
+    served += more
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["disaggregated_trace_death"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["steal"], more = _fleet_steal(params, cfg, dev, prompts, failures)
+    served += more
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["steal"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["peer_fetch"], more = _fleet_peer_fetch(params, cfg, dev, failures)
+    served += more
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["peer_fetch"] = time.perf_counter() - t0
+    res["b1_launches"] = pa.paged_attention_update.launches  # the process replica's launches are its own
+    t0 = time.perf_counter()
+    res["process_replica"] = _fleet_process_replica(failures)
+    parts["process_replica"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # --- every served greedy token against the dense f32 model
+    tol = TF_SLACK * max(main["logits_max_abs_err_kernel_vs_f32"], main["logits_max_abs_err_gather_vs_f32"])
+    model = _dense_f32(params, cfg)
+    gaps = _teacher_forced(model, dev, served)
+    shifted = _teacher_forced(model, dev, [(p, t[1:] + t[:1]) for p, t in served[:4]])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["teacher_forced"] = dict(tolerance=tol, sequences=len(served), tokens=int(gaps.numel()),
+                                 max_gap=gaps.max().item(), max_gap_over_tol=gaps.max().item() / tol,
+                                 control_max_gap=shifted.max().item())
+    if any(len(t) == 0 for _, t in served):
+        failures.append("a fleet request served no tokens")
+    if not gaps.max().item() <= tol:
+        failures.append(f"a served token's f32 logit trails its row's maximum by {gaps.max().item()} > {tol}")
+    if not shifted.max().item() > tol:
+        failures.append("control: the shifted tokens passed the teacher-forced check")
+    parts["teacher_forced"] = time.perf_counter() - t0
+    res["seconds_by_part"] = parts
+    res["seconds"] = time.perf_counter() - t_start
+    res["failures"] = failures
+    d, x, s, p, e = (res["disaggregated"], res["death"], res["steal"], res["peer_fetch"], res["process_replica"])
+    log("[fleet] " + json.dumps(res, default=str))
+    log(f"[fleet] disaggregated burst: TTFT p50 {d['ttft_p50_s'] * 1e3:.1f} ms p99 {d['ttft_p99_s'] * 1e3:.1f} ms, "
+        f"ITL p50 {d['itl_p50_s'] * 1e3:.2f} ms p99 {d['itl_p99_s'] * 1e3:.2f} ms, served "
+        f"{d['served_tokens_per_s']:.1f} tokens/s; frames {sum(x_['frame_bytes'] for x_ in d['exports']) / 2**30:.2f}"
+        f" GiB; router host ms {d['router_host_ms']}")
+    log(f"[fleet] death -> next token {x['death_to_next_token_s']} s; steals {s['router']}; peer fetch "
+        f"{p['clean']['cached_tokens']} tokens in {p['fetch_ms']} ms; process replica ready in "
+        f"{e['spawn_to_ready_s']:.1f} s, restarted in {e['kill_to_ready_s']:.1f} s; B1 {res['b1_launches']}")
+    log(card_line())
+    if failures:
+        raise AssertionError("fleet phase: " + "; ".join(failures))
+    return res
+
+
 # ----------------------------------------------------------------- phase 9 --
 def bench_llama(**kw) -> LlamaConfig:
     """bench.py's headline model: the 530M Llama (``_llama_530m``) with
@@ -4456,6 +5118,9 @@ def main() -> int:
     record["prefix_path"] = run_prefix_path(dev, params, record["main_path"])
     record["spec_path"] = run_spec_path(dev, params, record["main_path"])
     record["observe_path"] = run_observe_path(dev, params, record["main_path"])
+    record["fleet_path"] = run_fleet_path(dev, params, record["main_path"])
+    record["fleet_path"]["single_replica"] = {k: record["serving_path"][k] for k in (
+        "ttft_p50_s", "ttft_p99_s", "itl_p50_s", "itl_p99_s", "served_tokens_per_s")}
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4476,6 +5141,7 @@ def main() -> int:
                     launches_prefix_path=record["prefix_path"]["b1_launches"],
                     launches_spec_path=record["spec_path"]["b1_launches"],
                     launches_observe_path=record["observe_path"]["b1_launches"],
+                    launches_fleet_path=record["fleet_path"]["b1_launches"],
                     max_abs_err=max(r["max_abs_err"] for r in record["paged_attention"]),
                     ms=decode["ms"], plain_ms=decode["plain_ms"], bound_ms=decode["bound_ms"],
                     bound_by=decode["bound_by"], library_ms=decode["library_ms"],

@@ -23,6 +23,7 @@ place and the same tensor is returned.
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -244,18 +245,25 @@ def _raise_on(lib, code, what):
 
 
 _WORKSPACES = {}  # (device, stream) -> (counters int32, partials f32), grown as needed
+_WORKSPACES_LOCK = threading.Lock()  # also makes the launch count's increments whole
 
 
 def _workspace(device, stream, n_items, n_part):
     """Per-stream split counters (zero between launches: the last block of
     each item resets its own) and f32 partials. Launches on one stream run
-    in order, so they share one workspace."""
-    counters, partials = _WORKSPACES.get((device, stream), (None, None))
-    if counters is None or counters.numel() < n_items:
-        counters = torch.zeros(n_items, dtype=torch.int32, device=device)
-    if partials is None or partials.numel() < n_part:
-        partials = torch.empty(n_part, dtype=torch.float32, device=device)
-    _WORKSPACES[(device, stream)] = (counters, partials)
+    in order, so they share one workspace, whichever host thread enqueues
+    them: several serving schedulers in one process (the fleet's in-process
+    replicas) all launch on their threads' default stream. The lock makes
+    the look-up-and-grow one step; a launch keeps the tensors it was given
+    alive until it returns, and the caching allocator reuses a replaced
+    buffer only for later work on the same stream."""
+    with _WORKSPACES_LOCK:
+        counters, partials = _WORKSPACES.get((device, stream), (None, None))
+        if counters is None or counters.numel() < n_items:
+            counters = torch.zeros(n_items, dtype=torch.int32, device=device)
+        if partials is None or partials.numel() < n_part:
+            partials = torch.empty(n_part, dtype=torch.float32, device=device)
+        _WORKSPACES[(device, stream)] = (counters, partials)
     return counters, partials
 
 
@@ -306,12 +314,14 @@ def paged_attention_update(q, k_new, v_new, cache, layer_idx, block_table, token
         rc = lib.dstt_paged_kv_insert(k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(), code, *meta, T,
                                       layer_idx, NB, KVH, bs, D, S, MB, stream)
         _raise_on(lib, rc, "paged KV insert")
-        paged_attention_update.launches += 1
+        with _WORKSPACES_LOCK:
+            paged_attention_update.launches += 1
         rc = lib.dstt_paged_attention(q.data_ptr(), cache.data_ptr(), out.data_ptr(), code, partials.data_ptr(),
                                       counters.data_ptr(), *meta, T, H, layer_idx, NB, KVH, bs, D, S, MB, n_split,
                                       span, 1.0 / math.sqrt(D), stream)
         _raise_on(lib, rc, "paged attention")
-        paged_attention_update.launches += 1
+        with _WORKSPACES_LOCK:
+            paged_attention_update.launches += 1
     return out, cache
 
 

@@ -53,8 +53,9 @@ joins each dispatch's observed seconds against the roofline price (the
 stats document's ``perf`` block); ``overload.slo_pressure`` floors the
 brownout pressure with the SLO engine's breach signal.
 
-Not ported yet, and refused with ``NotImplementedError``: fleet work
-stealing (ROADMAP A6).
+``request_steal`` moves a request the fleet router claims back off this
+replica: re-granted from scratch while queued, or exported mid-decode as a
+handoff frame.
 """
 
 import itertools
@@ -98,8 +99,7 @@ KILLED_ERROR_PREFIX = "replica killed"
 
 _DRAFTER_PINS = ("prompt_lookup", "learned", "auto")
 
-# scheduler counters, named and ordered as the reference's; the steal counter
-# stays 0 (fleet work stealing is ROADMAP A6)
+# scheduler counters, named and ordered as the reference's
 _COUNTERS = ("submitted", "rejected", "completed", "cancelled",
              "timed_out", "failed", "evictions", "batches", "heartbeats",
              "prefix_hits", "prefix_tokens_saved", "prefix_evictions",
@@ -114,10 +114,6 @@ _COUNTERS = ("submitted", "rejected", "completed", "cancelled",
              "peer_fetch_blocks", "steals",
              "tier_demotions", "brownout_demotions",
              "parks", "rehydrates", "fair_share_shed")
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to deepspeed_tpu_torch yet (see ROADMAP.md {item})")
 
 
 def _validate_drafter_pin(drafter) -> Optional[str]:
@@ -551,9 +547,76 @@ class ServingScheduler:
                     req._spec_ewmas[str(name)] = float(val)
         return self._enqueue(req, trace_id, parent_span_id, handoff)
 
+    def _find_by_handle(self, handle: str) -> Optional[Request]:
+        with self._not_full:
+            for req in self._queue:
+                if req.handle == handle:
+                    return req
+        for req in list(self._active.values()):
+            if req.handle == handle:
+                return req
+        return None
+
     def request_steal(self, handle: str, timeout: float = 5.0) -> dict:
-        """Fleet work stealing: ROADMAP A6."""
-        raise _unported("request_steal (fleet work stealing)", "A6")
+        """Fleet work-stealing entry (any thread): move the request addressed
+        by ``handle`` off this replica so the router can re-grant it to a
+        cold one. Runs on the scheduler loop; outcomes:
+
+        - ``{"status": "queued"}`` — the request had consumed no decode state
+          (still QUEUED, or prefilling with nothing streamed): finalized here
+          with a ``stolen:`` error; the router re-dispatches the original
+          request from scratch (token-identical trivially — same prompt,
+          same seed);
+        - ``{"status": "exported", "payload": .., "sent": n}`` — early
+          decode: the live sequence is exported token-identically (the same
+          frame as a prefill→decode handoff) and finalized here; the router
+          resumes it on the peer and skips the ``n`` tokens already streamed;
+        - ``{"status": "finished"}`` — the victim won the race (request
+          already terminal, unknown, or not exportable): exactly-once
+          completion, the router keeps consuming the original leg.
+        """
+        def _do():
+            req = self._find_by_handle(handle)
+            if req is None or req.finished:
+                return {"status": "finished"}
+            with self._not_full:
+                try:
+                    self._queue.remove(req)
+                    queued = True
+                    self._not_full.notify()
+                except ValueError:
+                    queued = False
+            if queued or req.state is RequestState.PREFILL or not req.tokens:
+                # no decode state worth moving: a restart on the cold peer
+                # beats shipping a partial prefill's KV (and a PREFILL
+                # sequence has no next-input token to export yet)
+                self._counters["steals"] += 1
+                self._finalize(req, RequestState.CANCELLED,
+                               error="stolen: re-granted to a peer replica")
+                return {"status": "queued"}
+            if (req.state is not RequestState.DECODE or req._next is None
+                    or self._engine._state_manager.get_sequence(req.uid) is None):
+                return {"status": "finished"}  # not exportable: let it finish here
+            sent = len(req.tokens)
+            # the continuable-export shape: _export_handoff ships next_token
+            # only for a "length" finish, and mid-steal the invariant is the
+            # same — the last kept token is the next decode input
+            req.finish_reason = "length"
+            try:
+                payload = self._export_handoff(req)
+            except Exception as e:
+                req.finish_reason = None
+                logger.warning(f"serving: steal export failed for uid "
+                               f"{req.uid}: {e}")
+                return {"status": "finished"}
+            req.finish_reason = None
+            if self._ledger is not None and req.cost is not None:
+                self._ledger.charge_wire(req.cost, "steal", len(payload))
+            self._counters["steals"] += 1
+            self._finalize(req, RequestState.CANCELLED,
+                           error="stolen: exported to a peer replica")
+            return {"status": "exported", "payload": payload, "sent": sent}
+        return self._call_on_loop(_do, timeout=timeout)
 
     def _enqueue(self, req: Request, trace_id: Optional[str],
                  parent_span_id: Optional[int], handoff: bool) -> Request:

@@ -1,10 +1,8 @@
 """Stdlib HTTP front-end for the serving scheduler.
 
 Port of ``deepspeed_tpu/serving/server.py``: the same routes, status codes,
-headers and body shapes. ``POST /v1/steal`` (fleet work stealing, ROADMAP A6)
-is not ported and answers 400 with ``{"error": ...}`` naming the item — the
-status and body the reference gives a request it refuses (an unknown
-priority, drafter or malformed field).
+headers and body shapes, ``POST /v1/steal`` (the fleet's work stealing)
+included.
 
 In the style of ``telemetry/exporter.py`` (daemon ``ThreadingHTTPServer``,
 ephemeral-port support), serving the request lifecycle instead of metrics:
@@ -104,14 +102,15 @@ PRIORITY_HEADER = "X-DSTPU-Priority"
 # field wins when both are present (same precedence as priority)
 TENANT_HEADER = "X-DSTPU-Tenant"
 # fleet data motion: the request's steal handle (sent up-front on SSE
-# responses so the router can address a live request; the stealing itself is
-# ROADMAP A6), the generation params
+# responses so the router can address a live request), the generation params
 # riding a binary-transport resume POST, the client's handoff-return
 # negotiation ("ref" = stash the frame server-side, return a claim-once
-# handoff_ref instead of base64-in-JSON)
+# handoff_ref instead of base64-in-JSON), and the already-streamed token
+# count on an exported-steal response
 HANDLE_HEADER = "X-DSTPU-Request-Handle"
 PARAMS_HEADER = "X-DSTPU-Params"
 HANDOFF_TRANSPORT_HEADER = "X-DSTPU-Handoff-Transport"
+STEAL_SENT_HEADER = "X-DSTPU-Steal-Sent"
 
 
 def request_priority(handler, doc: dict) -> Optional[str]:
@@ -460,17 +459,30 @@ class ServingServer:
                     raise ValueError("body must be a JSON object")
                 return doc
 
-            def _refuse(self, what, item):
-                """A route whose engine feature is not ported: the
-                reference's refusal (400, ``{"error": ...}``), naming the
-                ROADMAP item. A small body is read first, so the client sees
-                the answer rather than a reset socket."""
-                length = int(self.headers.get("Content-Length") or 0)
-                if 0 < length <= _MAX_BODY_BYTES:
-                    self.rfile.read(length)
-                self._send_json(400, {"error": f"{what} is not ported to "
-                                               f"deepspeed_tpu_torch yet (see "
-                                               f"ROADMAP.md {item})"})
+            def _steal(self):
+                """Fleet work-stealing victim side: move the addressed
+                request off this replica. An exported continuation goes out
+                as the raw binary frame (zero-copy), with the count of
+                already-streamed tokens in a header."""
+                try:
+                    doc = self._small_json_body()
+                    handle = doc["handle"]
+                    if not isinstance(handle, str):
+                        raise ValueError("'handle' must be a string")
+                except (KeyError, ValueError, TypeError) as e:
+                    self._send_json(400, {"error": str(e)})
+                    return
+                try:
+                    out = scheduler.request_steal(handle)
+                except (SchedulerStopped, TimeoutError) as e:
+                    self._send_json(503, {"error": str(e)})
+                    return
+                if out["status"] == "exported":
+                    self._send_bytes(200, out["payload"],
+                                     headers=((STEAL_SENT_HEADER,
+                                               str(out["sent"])),))
+                else:
+                    self._send_json(200, {"status": out["status"]})
 
             def _prefix_export(self):
                 """Peer prefix-fetch donor side: the deepest cached KV run
@@ -500,7 +512,7 @@ class ServingServer:
                 # steal + prefix export stay routable while draining: they
                 # move state OUT of this replica, admitting nothing
                 if path == "/v1/steal":
-                    self._refuse("fleet work stealing (POST /v1/steal)", "A6")
+                    self._steal()
                     return
                 if path == "/v1/prefix/export":
                     self._prefix_export()

@@ -12,9 +12,8 @@ own API calls so tests can enforce this.
 
 Port of ``deepspeed_tpu/telemetry/__init__.py``, with the metric time-series
 store (``timeseries.py``) and the SLO engine (``slo.py``), which a session
-builds from ``timeseries``/``slo`` and stops at close. The fleet trace
-collector is ROADMAP A6: its name resolves lazily and raises
-``NotImplementedError``.
+builds from ``timeseries``/``slo`` and stops at close, and the fleet trace
+collector (``collector.py``).
 
 Usage::
 
@@ -27,6 +26,7 @@ Usage::
 import threading
 
 from deepspeed_tpu_torch.telemetry import compile_watch as compile_watch
+from deepspeed_tpu_torch.telemetry.collector import TraceCollector
 from deepspeed_tpu_torch.telemetry.config import (FlightRecorderConfig, SLOConfig,
                                                   SLOObjectiveConfig, TelemetryConfig,
                                                   TelemetryHTTPConfig, TimeSeriesConfig)
@@ -45,7 +45,7 @@ from deepspeed_tpu_torch.utils.logging import logger
 __all__ = [
     "TelemetryConfig", "TelemetryHTTPConfig", "FlightRecorderConfig", "MetricsRegistry",
     "TimeSeriesConfig", "SLOConfig", "SLOObjectiveConfig", "TimeSeriesStore",
-    "SLOEngine",
+    "SLOEngine", "TraceCollector",
     "Counter", "Gauge", "Histogram", "SpanRecorder", "Span", "TracingTimers",
     "TelemetryHTTPServer", "TelemetrySession", "FlightRecorder", "configure",
     "shutdown", "get_registry", "get_span_recorder", "get_flight_recorder",
@@ -54,18 +54,6 @@ __all__ = [
     "parse_prometheus_text", "state", "now_us", "new_trace_id", "new_span_id",
     "trace_context", "current_trace", "compile_watch",
 ]
-
-# the fleet trace collector (telemetry/collector.py of the JAX package; its
-# only consumer is the fleet router) comes with ROADMAP A6
-_A6_NAMES = ("TraceCollector", )
-
-
-def __getattr__(name):
-    if name in _A6_NAMES:
-        raise NotImplementedError(f"telemetry.{name} is not ported to deepspeed_tpu_torch yet "
-                                  f"(see ROADMAP.md A6)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
 
 # comm-op latencies live well under the default buckets' top decades; bytes
 # need their own scale

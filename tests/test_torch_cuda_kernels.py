@@ -427,6 +427,63 @@ def test_serving_scheduler_launches_the_paged_kernel_from_its_thread(cuda_device
 
 
 @pytest.mark.cuda
+def test_concurrent_schedulers_share_the_paged_workspace_safely(cuda_device):
+    """Three serving schedulers on one card and one set of weights (the
+    fleet's in-process replicas), each on its own thread: B1's per-stream
+    workspace is shared by all three threads' default stream, and every
+    replica's greedy tokens, served concurrently, are the ones it serves
+    alone; the launch count loses no increment and the split counters end
+    at zero."""
+    import threading
+
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_params
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.serving import ServingConfig, ServingScheduler
+
+    cfg = LlamaConfig.tiny(dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device,
+                         dtype=torch.bfloat16)
+    engines = []
+    for _ in range(3):
+        mgr = mc.DSStateManagerConfig(memory_config=mc.MemoryConfig(mode=mc.AllocationMode.ALLOCATE, size=64),
+                                      max_context=512)
+        engines.append(build_engine(params, cfg, RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=16),
+                                    device=cuda_device))
+    prompts = [[list(np.random.default_rng(10 * e + i).integers(0, cfg.vocab_size, n)) for i, n in
+                enumerate((5, 19, 40, 70))] for e in range(3)]
+
+    def drive(engine, ps, out, key):
+        # submit everything, then step: the same batches alone and together
+        sched = ServingScheduler(engine, ServingConfig(), start=False)
+        reqs = [sched.submit(p, max_new_tokens=24) for p in ps]
+        while not all(r.finished for r in reqs):
+            sched.step()
+        sched.stop(drain=False)
+        out[key] = [list(r.tokens) for r in reqs]
+
+    alone, launches = {}, 0
+    for e, engine in enumerate(engines):
+        before = pa.paged_attention_update.launches
+        drive(engine, prompts[e], alone, e)
+        launches += pa.paged_attention_update.launches - before
+    together = {}
+    before = pa.paged_attention_update.launches
+    threads = [threading.Thread(target=drive, args=(engine, prompts[e], together, e))
+               for e, engine in enumerate(engines)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    after = pa.paged_attention_update.launches
+    torch.cuda.synchronize()
+    assert together == alone
+    assert after - before == launches > 0
+    for counters, _ in pa._WORKSPACES.values():
+        assert int(counters.abs().sum()) == 0
+    assert all(engine.free_blocks == 64 for engine in engines)
+
+
+@pytest.mark.cuda
 def test_hot_suffix_over_shared_blocks_launches_the_paged_kernel(cuda_device):
     """The prefix cache on the card: a publisher's two full blocks, then two
     prompts over them whose suffixes (with the running decode) make puts of

@@ -64,11 +64,16 @@ def test_port_and_chip_smoke_import_no_jax_flax_pydantic_or_reference():
                  "runtime.data_pipeline.data_sampling.data_analyzer", "runtime.data_pipeline.data_routing.random_ltd",
                  "compression.basic_layer", "compression.compress", "compression.scheduler"):
         assert f"deepspeed_tpu_torch.{name}" in result["imported"]
+    for name in ("fleet", "fleet.breaker", "fleet.config", "fleet.faults", "fleet.metrics", "fleet.global_queue",
+                 "fleet.park_store", "fleet.replica", "fleet.manager", "fleet.supervisor", "fleet.policy",
+                 "fleet.router", "elasticity.elasticity", "telemetry.collector", "bin.dstpu_replica"):
+        assert f"deepspeed_tpu_torch.{name}" in result["imported"]
     assert result["banned"] == []
 
 
 def test_entry_points_refuse_the_cpu_without_being_asked(monkeypatch):
     import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.bin import dstpu_replica
     from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
     from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
     from deepspeed_tpu_torch.utils.device import resolve_device
@@ -78,8 +83,11 @@ def test_entry_points_refuse_the_cpu_without_being_asked(monkeypatch):
     train_cfg = {"train_batch_size": 2, "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
     train = lambda **kw: deepspeed_tpu_torch.initialize(model=LlamaForCausalLM(cfg), config=train_cfg, **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for call in (lambda: resolve_device(None), lambda: init_params(cfg), lambda: build_engine(params, cfg), train):
+    replica = lambda *argv: dstpu_replica.build_engine_from_args(dstpu_replica.parser().parse_args(list(argv)))
+    for call in (lambda: resolve_device(None), lambda: init_params(cfg), lambda: build_engine(params, cfg), train,
+                 replica):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert build_engine(params, cfg, device="cpu").device.type == "cpu"
     assert train(device="cpu")[0].device.type == "cpu"
+    assert replica("--device", "cpu").device.type == "cpu"

@@ -17,9 +17,8 @@ The HTTP servers get the same bodies on ephemeral ports; their JSON and SSE
 bytes must be equal with only ``MASKED`` fields replaced (and SSE keepalive
 comments, which only timing decides, dropped). The rest mirrors
 ``tests/unit/serving/test_{request,scheduler,server,overload}.py`` on the
-port's engine (one test per ported path; repeats are parametrised), and
-checks that every path still unported (A6) raises, naming its queue
-item (the cost plane and the SLO engine are held to the reference in
+port's engine (one test per ported path; repeats are parametrised),
+including fleet work stealing (the cost plane and the SLO engine are held to the reference in
 ``tests/test_torch_cost.py`` and ``tests/test_torch_slo.py``). The handoff, park, resume and prefix-export routes are held to
 the reference's bytes too, with frames compared by header. Every wait on a
 thread has a timeout.
@@ -1166,21 +1165,51 @@ def test_sampled_decode_loop_runs_beside_a_scheduler(make_engine):
     sched.stop(drain=False)
 
 
-def test_unported_scheduler_calls_are_refused(make_engine):
-    engine = make_engine()
-    sched = ServingScheduler(engine, ServingConfig(), start=False)
-    with pytest.raises(NotImplementedError, match="A6"):
-        sched.request_steal("r0")
-    assert sched.queue_depth == 0 and engine._state_manager.n_tracked_sequences == 0
-    sched.stop(drain=False)
+def test_unported_scheduler_calls_are_refused(setup, make_engine):
+    """Fleet work stealing (refused until ROADMAP A6 was ported):
+    ``request_steal`` on a hand-stepped scheduler gives the reference's three
+    outcomes side by side with the JAX scheduler: an unknown handle is
+    ``finished``, a queued request is finalized ``stolen:`` and re-granted
+    (``queued``), a decoding one is exported with its streamed count, and the
+    frame continues on another engine with the tokens the request would have
+    made."""
+    prompts = _prompts(5, (9, 14))
+    runs = []
+    for sched, other in ((ServingScheduler(make_engine(), ServingConfig(), start=False),
+                          ServingScheduler(make_engine(), ServingConfig(), start=False)),
+                         (jserving.ServingScheduler(_jax_engine(setup), jserving.ServingConfig(), start=False),
+                          jserving.ServingScheduler(_jax_engine(setup), jserving.ServingConfig(), start=False))):
+        out = [sched.request_steal("no-such-handle")]
+        queued = sched.submit(prompts[0], max_new_tokens=6)
+        out.append((sched.request_steal(queued.handle), queued.state.name, queued.error))
+        live = sched.submit(prompts[1], max_new_tokens=6)
+        _run_until(sched, lambda: len(live.tokens) >= 2)
+        steal = sched.request_steal(live.handle)
+        resumed = other.submit_resume(steal["payload"], max_new_tokens=6 - steal["sent"])
+        _run_until(other, lambda: resumed.finished)
+        out.append((steal["status"], steal["sent"], live.state.name, live.error, live.tokens + resumed.tokens))
+        out.append((sched.stats()["counters"]["steals"], sched.queue_depth,
+                    sched._engine._state_manager.n_tracked_sequences))
+        runs.append(out)
+        for s in (sched, other):
+            s.stop(drain=False)
+    assert runs[0] == runs[1]
+    assert runs[0][0] == {"status": "finished"} and runs[0][1][0] == {"status": "queued"}
+    assert runs[0][2][0] == "exported" and runs[0][2][4] == _greedy(setup, prompts[1], 6)
+    assert runs[0][3] == (2, 0, 0)
 
 
 @pytest.mark.parametrize("method,path,body,item", [
-    ("POST", "/v1/steal", {"handle": "r0"}, "A6"),
+    ("POST", "/v1/steal", {"handle": 7}, "A6"),
 ], ids=["steal"])
 def test_unported_routes_answer_400_naming_the_item(server, method, path, body, item):
+    """``POST /v1/steal`` (refused until ROADMAP A6 was ported) answers a
+    malformed body 400 with the reference's error document, and an unknown
+    handle 200 ``finished`` (the victim keeps nothing to give), admitting
+    nothing either way."""
     srv, _ = server
     status, ctype, doc = _exchange(srv.url, method, path, body)
     assert status == 400 and ctype == "application/json"
-    assert list(json.loads(doc)) == ["error"] and f"ROADMAP.md {item}" in json.loads(doc)["error"]
+    assert json.loads(doc) == {"error": "'handle' must be a string"}
+    assert _exchange(srv.url, method, path, {"handle": "r0"})[::2] == (200, json.dumps({"status": "finished"}))
     assert srv.scheduler.stats()["counters"]["submitted"] == 0

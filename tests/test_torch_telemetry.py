@@ -4,8 +4,8 @@ The same sequence of counter, gauge and histogram operations on both
 registries must render identical Prometheus text; spans, Chrome traces,
 JSONL events, the HTTP exporter's responses and flight-recorder dumps must
 carry the reference's fields. The port's engine records the reference's
-``inference_*`` families and ``put``/``decode_loop`` spans. What belongs to
-ROADMAP A6 (the fleet trace collector) raises.
+``inference_*`` families and ``put``/``decode_loop`` spans; the fleet trace
+collector drains a session's span ring.
 """
 
 import json
@@ -248,11 +248,16 @@ def test_process_index_is_zero_without_torch_distributed():
 
 
 def test_a6_pieces_are_refused():
-    """The fleet trace collector is ROADMAP A6; the time-series store and the
-    SLO engine (A6 until they were ported with the cost plane) build from a
-    config and stop with their session."""
-    with pytest.raises(NotImplementedError, match="A6"):
-        ttel.TraceCollector
+    """The fleet trace collector (refused until ROADMAP A6 was ported) drains
+    a session's span ring; the time-series store and the SLO engine build
+    from a config and stop with their session."""
+    assert ttel.TraceCollector.__module__ == "deepspeed_tpu_torch.telemetry.collector"
+    session = ttel.configure({"enabled": True})
+    ttel.get_span_recorder().record("route", cat="fleet", trace_id="t1", span_id=5)
+    collector = ttel.TraceCollector()
+    collector.collect(recorder=ttel.get_span_recorder())
+    assert collector.trace_ids() == ["t1"] and collector.spans_for("t1")[0]["args"]["span_id"] == 5
+    session.close()
     assert ttel.TimeSeriesStore.__module__ == "deepspeed_tpu_torch.telemetry.timeseries"
     assert ttel.SLOEngine.__module__ == "deepspeed_tpu_torch.telemetry.slo"
     for block in ("timeseries", "slo"):

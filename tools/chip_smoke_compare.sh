@@ -3,7 +3,7 @@
 # change, change, parent, so that the card's drift between runs shows as a
 # difference within one tree rather than between the trees.
 #
-#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|spec|observe|features|MODE,MODE...]
+#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|spec|observe|fleet|features|MODE,MODE...]
 #
 # Each run's output goes to chiprun_out/smoke_<i>_<tree>.log and its full
 # record to chiprun_out/smoke_<i>_<tree>.json, under the directory the script
@@ -27,7 +27,11 @@
 # (run_observe_path: a traced decode put's per-layer split and tracing
 # overhead, the profiled puts' phases against device time and host wall, the
 # prefill put's observed seconds, the cost plane's totals and the SLO bursts);
-# with "features", the train features phase (run_train_features_path:
+# with "fleet", the main path and the fleet phase (run_fleet_path: the
+# disaggregated burst's TTFT, ITL, served tokens/s, frame bytes and export /
+# import GB/s, the router's host ms a request, the time from a decode
+# replica's death to the next token, the steals, the peer fetch, the process
+# replica's spawn and restart seconds); with "features", the train features phase (run_train_features_path:
 # tokens/s at each curriculum length, prefetch and telemetry step times, the
 # compression transforms' ulps, the eigenvalue leg); modes joined by commas
 # run each. The exit code
@@ -52,7 +56,7 @@ if "flash" in modes:
     r = c.check_flash_attention(dev)
     print(json.dumps([dict(case=x["case"], err=x["max_abs_err"], **{k: x[k]["ms"] for k in ("fwd", "dkv", "dq")})
                       for x in r]))
-if modes & {"main", "prefix", "spec", "observe"}:
+if modes & {"main", "prefix", "spec", "observe", "fleet"}:
     params = c.main_params(dev)
     main = c.run_main_path(dev, params)
 if "main" in modes:
@@ -85,6 +89,18 @@ if "observe" in modes:
                           pricebook_vs_card=r["pricebook_vs_card"],
                           slo={k: {kk: r[k][kk] for kk in ("max_stage", "breached", "itl_p50_s")}
                                for k in ("slo", "slo_control")})))
+if "fleet" in modes:
+    r = c.run_fleet_path(dev, params, main)
+    d, e = r["disaggregated"], r["process_replica"]
+    print(json.dumps(dict({k: d[k] for k in ("ttft_p50_s", "ttft_p99_s", "itl_p50_s", "itl_p99_s",
+                                             "served_tokens_per_s", "router_host_ms", "b1_launches")},
+                          frame_bytes=sum(x["frame_bytes"] for x in d["exports"]),
+                          export_gb_per_s=[x["gb_per_s"] for x in d["exports"]],
+                          import_gb_per_s=[x["gb_per_s"] for x in d["imports"]],
+                          death_to_next_token_s=r["death"]["death_to_next_token_s"],
+                          steal=r["steal"]["router"], peer_fetch_ms=r["peer_fetch"]["fetch_ms"],
+                          spawn_to_ready_s=e["spawn_to_ready_s"], kill_to_ready_s=e["kill_to_ready_s"],
+                          seconds=r["seconds"])))
 if "features" in modes:
     r = c.run_train_features_path(dev)
     p, t, e = r["loaders"]["prefetch"], r["loaders"]["telemetry"], r["eigenvalue"]
