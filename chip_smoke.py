@@ -3414,14 +3414,20 @@ FLEET_TIMEOUT_S = 600  # bound on every client exchange and wait of the phase
 class _FleetGate:
     """Holds one replica's batches: while shut, its scheduler's ``step`` only
     services control calls (a steal, a prefix export) and returns False.
-    ``after`` lets a request reach that many tokens first; ``hold_stream``
-    keeps the held tokens off its stream. So a steal or a death happens at a
-    chosen point of a request, never at one that timing picks."""
+    ``after`` lets a request reach that many tokens first, and until it has
+    them the scheduler services no control call at all (a steal the router
+    sends meanwhile waits in the queue); ``hold_stream`` keeps the held
+    tokens off its stream. So a steal or a death happens at a chosen point of
+    a request, never at one that timing picks."""
 
     def __init__(self, sched, after=0, hold_stream=False):
         self.open = threading.Event()
         self.holding = threading.Event()
-        inner_step, inner_push = sched.step, sched._push_token
+        inner_step, inner_push, inner_drain = sched.step, sched._push_token, sched._drain_control
+
+        def drain():
+            if self.open.is_set() or self.holding.is_set():
+                inner_drain()
 
         def step():
             if self.open.is_set():
@@ -3437,7 +3443,7 @@ class _FleetGate:
                 req.stream.put = lambda t: None
             return inner_push(req, tok, record_itl)
 
-        sched.step, sched._push_token = step, push
+        sched.step, sched._push_token, sched._drain_control = step, push, drain
 
 
 def _fleet(params, cfg, dev, roles, **config):
@@ -5095,11 +5101,448 @@ def run_train_features_path(dev) -> dict:
     return res
 
 
+# ------------------------------------------------------------ zero phase --
+# data-parallel ZeRO training across ranks (ROADMAP A8, first half). The
+# card is one H100: NCCL runs at world 1, and two ranks share the card over
+# gloo, named explicitly (NCCL refuses two ranks on one device; leg b records
+# its error). No multi-GPU speed is measured.
+ZERO_STEPS = 3  # train_batch steps of each leg (a) and (b) run
+ZERO_B = 8  # the global batch: 8 rows of TRAIN_S tokens, 4 + 4 over two ranks
+ZERO_CUT_LAYERS = 2  # legs (b) and (c): bench.py's width at a cut depth
+ZERO_GANG_STEPS = 4  # leg (c): the gang trains to this global step
+ZERO_TIMEOUT_S = 400  # bound on every process the phase starts
+# bf16 compute over f32 masters, AdamW at TRAIN_LR: each step moves a weight
+# by about one lr either way. Two ranks each run the model on 4 of the 8 rows
+# and their gradients are summed over gloo, where one process runs all 8 and
+# sums in its matmuls, so bf16 rounds at other places: the losses agree to
+# ~1e-3 relative, and where a gradient is near zero its sign may flip, which
+# moves the weight by up to two lr against the other run, at each step.
+# Held: the losses within ZERO_LOSS_REL_TOL, 99% of each tensor's weights
+# within a third of an lr step, every weight within two lr a step. (An H100
+# read 0.99852 and 3.19 lr against a first limit of ZERO_STEPS lr, which
+# forgot the flip's factor 2.) The same program at
+# world 1 over NCCL is the single-device engine's arithmetic: held to it
+# bit for bit.
+ZERO_LOSS_REL_TOL = 1e-2
+ZERO_STATE_RATIO = 0.55  # stage 3: a rank's params + grads + optimizer bytes against world 1's
+
+
+def _zero_batches(cfg, dev, seed=0):
+    """ZERO_STEPS global batches of ZERO_B rows, np.random.default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(ZERO_STEPS):
+        ids = rng.integers(0, cfg.vocab_size, size=(ZERO_B, TRAIN_S + 1), dtype=np.int64)
+        out.append(tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (ids[:, :-1], ids[:, 1:])))
+    return out
+
+
+def _zero_engine(cfg, stage, dev, optimizer=None, extra=None):
+    """initialize() on ``cfg``: weights drawn on the card from seed 0, the
+    global batch ZERO_B (the micro-batch is ZERO_B over the data-parallel
+    ranks), bf16 over f32 masters, ZeRO ``stage``."""
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.float32)
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    config = {"train_batch_size": ZERO_B, "gradient_accumulation_steps": 1,
+              "optimizer": optimizer or {"type": "AdamW", "params": {"lr": TRAIN_LR}},
+              "zero_optimization": {"stage": stage}, "bf16": {"enabled": True}, **(extra or {})}
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params, config=config, device=dev)
+    return engine
+
+
+def _zero_train(engine, batches):
+    """The steps, B2-B4's launches zeroed just before and read just after."""
+    torch.cuda.synchronize()
+    _zero_flash_launches()
+    t0 = time.perf_counter()
+    losses = [float(engine.train_batch(batch=b)) for b in batches]
+    torch.cuda.synchronize()
+    return losses, _flash_launches(), time.perf_counter() - t0
+
+
+def _masters_close(got, want):
+    """{name: (share within a third of an lr step, max abs diff)} and the
+    names outside ZERO's bf16 tolerance."""
+    stats, bad = {}, []
+    for name, w in want.items():
+        d = (got[name].float().to(w.device) - w).abs()
+        share, top = float((d <= TRAIN_LR / 3).float().mean()), float(d.max())
+        stats[name] = (share, top)
+        if not (share >= 0.99 and top <= 2 * ZERO_STEPS * TRAIN_LR):
+            bad.append(name)
+    return stats, bad
+
+
+def _start(cmd, env=None):
+    """A process group of its own, so a timeout stops every process it starts."""
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True,
+                            env=dict(os.environ, **(env or {})))
+
+
+def _finish(proc, timeout=ZERO_TIMEOUT_S):
+    """(exit code, stdout, stderr); at ``timeout`` the whole group is killed
+    and the exit code is None."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        return None, out, err
+    return proc.returncode, out, err
+
+
+def _ranks_cmd(args, world=2):
+    """``chip_smoke.py`` as ``world`` ranks through the port's launcher
+    (``launcher/launch.py``: one child a slot, the environment contract)."""
+    from deepspeed_tpu_torch.launcher.launch import encode_world_info
+    return [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch", "--world_info",
+            encode_world_info({"localhost": list(range(world))}), "--master_port", str(_free_port()),
+            os.path.abspath(__file__)] + list(args)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _zero_nccl_world1(dev, failures) -> dict:
+    """Leg (a): the comm layer over NCCL at world 1, then ZERO_STEPS ZeRO-3
+    steps of the 530M bench model through it, against the single-device
+    engine (no process group) on the same batches."""
+    from deepspeed_tpu_torch import comm
+    cfg = bench_llama()
+    batches = _zero_batches(cfg, dev)
+    comm.destroy_process_group()
+    ref = _zero_engine(cfg, 3, dev)
+    ref_losses, _, _ = _zero_train(ref, batches)
+    want = {k: v.clone() for k, v in ref.params.items()}
+    _free(ref)
+
+    comm.destroy_process_group()  # the engine joined a world of one without a process group
+    comm.init_distributed(dist_backend="nccl", verbose=False)
+    res = {"backend": torch.distributed.get_backend(), "world": comm.get_world_size()}
+    comm.configure(enabled=True)
+    trips = {}
+    for dtype in (torch.float32, torch.int32):
+        x = torch.arange(4096, device=dev).reshape(64, 64).to(dtype) - 1000
+        for op, fn in (("all_reduce", lambda t: comm.all_reduce(t.clone())),
+                       ("all_gather_into_tensor", comm.all_gather_into_tensor),
+                       ("reduce_scatter_tensor", comm.reduce_scatter_tensor),
+                       ("broadcast", lambda t: comm.broadcast(t.clone(), src=0))):
+            got = fn(x)
+            trips[f"{op}_{str(dtype).removeprefix('torch.')}"] = bool(got.is_cuda and torch.equal(got, x))
+    res["round_trips"] = trips
+    res["comms_logged"] = sorted(comm.comm.comms_logger.comms_dict)
+    comm.configure(enabled=False)
+    comm.comm.comms_logger.comms_dict.clear()
+    if res["backend"] != "nccl" or not all(trips.values()):
+        failures.append(f"zero (a): NCCL round trips at world 1: backend {res['backend']}, {trips}")
+    engine = _zero_engine(cfg, 3, dev)
+    losses, launches, secs = _zero_train(engine, batches)
+    diff = _masters_diff(engine, want)
+    res.update(losses=losses, single_device_losses=ref_losses, masters_differing=diff, flash_launches=launches,
+               steps_s=secs, params=sum(p.numel() for p in engine.params.values()))
+    _free(engine)
+    del want
+    comm.destroy_process_group()
+    L = cfg.num_hidden_layers
+    expected = {k: v // TRAIN_GAS for k, v in _expected_flash_launches(ZERO_STEPS, L).items()}
+    if losses != ref_losses or diff:
+        failures.append(f"zero (a): the NCCL world-1 engine is not the single-device engine: losses {losses} vs "
+                        f"{ref_losses}, {len(diff)} masters differ")
+    if launches != expected:
+        failures.append(f"zero (a): flash launches {launches} != predicted {expected}")
+    return res
+
+
+def _zero_two_ranks(dev, failures) -> dict:
+    """Leg (b): two ranks on the card. NCCL first (its refusal recorded),
+    then gloo, named, through the launcher: stages 1, 2 and 3 for ZERO_STEPS
+    steps each at the cut depth, held to a world-1 run of the same program."""
+    res = {}
+    nccl = _start(_ranks_cmd(["--zero-rank-child", "nccl"]))  # beside the world-1 run below
+    cfg = bench_llama(num_hidden_layers=ZERO_CUT_LAYERS)
+    work = tempfile.mkdtemp(prefix="zero_b_")
+    try:
+        ref = _zero_engine(cfg, 3, dev)
+        batches = _zero_batches(cfg, dev)
+        torch.cuda.reset_peak_memory_stats()
+        ref_losses, ref_launches, _ = _zero_train(ref, batches)
+        res["world1"] = dict(losses=ref_losses, state_bytes=ref.state_bytes(), flash_launches=ref_launches,
+                             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        torch.save({k: v.cpu() for k, v in ref.params.items()}, os.path.join(work, "world1_masters.pt"))
+        with open(os.path.join(work, "world1.json"), "w") as f:
+            json.dump(res["world1"], f)
+        _free(ref)
+        rc, out, err = _finish(nccl, timeout=120)
+        lines = [ln for ln in (out + err).splitlines() if "ZERO_NCCL" in ln or "Duplicate GPU" in ln]
+        res["nccl_two_ranks"] = {"exit_code": rc, "lines": lines[-6:]}
+        log(f"[zero] NCCL with two ranks on one card: exit {rc}; " + " | ".join(lines[-3:])[:600])
+        t0 = time.perf_counter()
+        rc, out, err = _finish(_start(_ranks_cmd(["--zero-rank-child", "gloo", work])))
+        res["gloo_s"] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"zero (b): the gloo ranks failed (exit {rc}): {err[-3000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        res["ranks"] = ranks
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    w1 = res["world1"]
+    expected = {k: v // TRAIN_GAS for k, v in _expected_flash_launches(ZERO_STEPS, ZERO_CUT_LAYERS).items()}
+    for r in res["ranks"]:
+        for stage, s in r["stages"].items():
+            rel = max(abs(a - b) / abs(b) for a, b in zip(s["losses"], w1["losses"]))
+            s["loss_rel_err"] = rel
+            if rel > ZERO_LOSS_REL_TOL:
+                failures.append(f"zero (b) rank {r['rank']} stage {stage}: losses {s['losses']} vs world 1 "
+                                f"{w1['losses']}")
+            if s["masters_outside"]:
+                failures.append(f"zero (b) rank {r['rank']} stage {stage}: masters outside the bf16 tolerance: "
+                                f"{s['masters_outside'][:4]}")
+            if s["flash_launches"] != expected:
+                failures.append(f"zero (b) rank {r['rank']} stage {stage}: flash launches {s['flash_launches']} != "
+                                f"{expected}")
+        s3 = r["stages"]["3"]["state_bytes"]
+        ratio = sum(s3.values()) / sum(w1["state_bytes"].values())
+        r["stage3_state_ratio"] = ratio
+        if ratio > ZERO_STATE_RATIO:
+            failures.append(f"zero (b) rank {r['rank']}: stage-3 state {ratio:.3f} of world 1's > {ZERO_STATE_RATIO}")
+    return res
+
+
+def _zero_gang_env(ckdir, faults, total=ZERO_GANG_STEPS, **extra):
+    env = {"DSTPU_PORT_BASE": str(_free_port()), "DSTPU_GANG_CKPT": ckdir, "DSTPU_TOTAL_STEPS": str(total),
+           "DSTPU_TRAIN_FAULTS": json.dumps(faults)}
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _dstpu_train(args, env):
+    """``python -m deepspeed_tpu_torch.bin.dstpu_train ARGS -- chip_smoke.py
+    --zero-gang-child``, started (see _finish)."""
+    return _start([sys.executable, "-m", "deepspeed_tpu_torch.bin.dstpu_train"] + args +
+                  ["--", sys.executable, os.path.abspath(__file__), "--zero-gang-child"], env)
+
+
+def _zero_gang_engine(dev):
+    return _zero_engine(bench_llama(num_hidden_layers=ZERO_CUT_LAYERS), 3, dev,
+                        optimizer={"type": "SGD", "params": {"lr": 0.05}},
+                        extra={"checkpoint": {"gang_seal_timeout_s": 60.0}})
+
+
+def _zero_gang_batch(step, dev):
+    """The gang's batch for a global step: a pure function of the step."""
+    rng = np.random.default_rng(1000 + step)
+    ids = rng.integers(0, bench_llama().vocab_size, size=(ZERO_B, TRAIN_S + 1), dtype=np.int64)
+    return tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (ids[:, :-1], ids[:, 1:]))
+
+
+def zero_gang_child() -> int:
+    """One rank of leg (c)'s gang (started by dstpu_train's elastic agent):
+    resume from the newest good tag, train to DSTPU_TOTAL_STEPS, save a tag
+    a step; rank 0 writes the final masters where DSTPU_FINAL_PARAMS says."""
+    from deepspeed_tpu_torch import comm
+    nproc = int(os.environ.get("DSTPU_NUM_PROCESSES", "1") or 1)
+    if nproc > 1:
+        life = int(os.environ.get("DSTPU_ELASTIC_RESTART", "0") or 0)
+        os.environ["DSTPU_COORDINATOR"] = f"127.0.0.1:{int(os.environ['DSTPU_PORT_BASE']) + life}"
+    dev = torch.device(os.environ.get("DSTPU_DEVICE", "cuda"))
+    comm.init_distributed(dist_backend="gloo", device=dev, verbose=False)  # two ranks share the card
+    engine = _zero_gang_engine(dev)
+    ckdir = os.environ["DSTPU_GANG_CKPT"]
+    path, _ = engine.load_checkpoint(ckdir)
+    print(f"GANG life={os.environ.get('DSTPU_RESTART_COUNT', '0')} world={comm.get_world_size()} "
+          f"resumed_step={engine.global_steps} from={'fresh' if path is None else path}", flush=True)
+    while engine.global_steps < int(os.environ["DSTPU_TOTAL_STEPS"]):
+        engine.train_batch(batch=_zero_gang_batch(engine.global_steps, dev))
+        engine.save_checkpoint(ckdir)
+    full = engine.full_params()
+    out = os.environ.get("DSTPU_FINAL_PARAMS")
+    if out and comm.get_rank() == 0:
+        torch.save({k: v.cpu() for k, v in full.items()}, out)
+    engine.destroy()
+    return 0
+
+
+def _zero_gang(dev, failures) -> dict:
+    """Leg (c): two gangs under dstpu_train's elastic agent, at the cut
+    depth, side by side on the card. In one, rank 1 is killed inside step 3:
+    the crash spends the budget (``--max-crashes 1``) and the agent relaunches
+    at world 1, which finishes; its final masters bitwise those of the same
+    run with no kill and the same world sizes (world 1 from the same last
+    sealed tag). In the other, rank 1 dies during its second save: a torn
+    tag, which a resume without `latest` skips loudly."""
+    import logging
+    res = {}
+    work = tempfile.mkdtemp(prefix="zero_c_")
+    try:
+        ckdir, final, ckdir2 = os.path.join(work, "ck"), os.path.join(work, "final.pt"), os.path.join(work, "ck2")
+        t0 = time.perf_counter()
+        dying = _dstpu_train(["--procs", "2", "--max-crashes", "0", "--gang-dir", os.path.join(work, "gang2"),
+                              "--term-grace", "10"],
+                             _zero_gang_env(ckdir2, {"enabled": True, "die_during_save_at": [1],
+                                                     "die_during_save_rank": 1}))
+        env = _zero_gang_env(ckdir, {"enabled": True, "kill_rank_at_steps": [3], "kill_rank": 1},
+                             DSTPU_FINAL_PARAMS=final)
+        rc, out, err = _finish(_dstpu_train(["--procs", "2", "--max-crashes", "1", "--backoff-base", "0",
+                                             "--gang-dir", os.path.join(work, "gang"), "--term-grace", "10"], env))
+        res["kill_s"] = time.perf_counter() - t0
+        res["kill_exit"] = [ln for ln in out.splitlines() if ln.startswith(("dstpu_train:", "GANG"))]
+        log("[zero] gang under the agent: " + " | ".join(res["kill_exit"]))
+        if rc != 0 or "dstpu_train: exit rc=0 restarts=1 world=1" not in out:
+            raise AssertionError(f"zero (c): the killed gang did not shrink and finish (exit {rc}): {err[-3000:]}")
+        with open(os.path.join(work, "gang", "gang_state.json")) as f:
+            kinds = [ev["kind"] for ev in json.load(f)["events"]]
+        res["events"] = kinds
+        if kinds != ["crash", "shrink", "done"]:
+            failures.append(f"zero (c): agent events {kinds}")
+        # the same run with no kill: world 1 from the same last sealed tag
+        ctrl = os.path.join(work, "ctrl")
+        os.makedirs(ctrl)
+        shutil.copytree(os.path.join(ckdir, "global_step2"), os.path.join(ctrl, "global_step2"))
+        with open(os.path.join(ctrl, "latest"), "w") as f:
+            f.write("global_step2")
+        from deepspeed_tpu_torch import comm
+        comm.destroy_process_group()
+        engine = _zero_gang_engine(dev)
+        engine.load_checkpoint(ctrl)
+        resumed = engine.global_steps
+        while engine.global_steps < ZERO_GANG_STEPS:
+            engine.train_batch(batch=_zero_gang_batch(engine.global_steps, dev))
+        got = torch.load(final, weights_only=True)
+        diff = [k for k, v in engine.params.items() if not torch.equal(v.cpu(), got[k])]
+        res.update(control_resumed_step=resumed, masters_differing=diff)
+        _free(engine)
+        if resumed != 2 or diff:
+            failures.append(f"zero (c): the shrunk gang's masters are not the uninterrupted run's (resumed at "
+                            f"{resumed}, {len(diff)} differ)")
+
+        rc, out, err = _finish(dying)
+        res["both_s"] = time.perf_counter() - t0
+        torn = os.path.join(ckdir2, "global_step2")
+        res["die_exit"] = rc
+        res["torn"] = dict(dir=os.path.isdir(torn), manifest=os.path.isfile(os.path.join(torn, "MANIFEST.json")),
+                           rank1_seal=os.path.isfile(os.path.join(torn, ".seals", "rank1.sealed")),
+                           previous_sealed=os.path.isfile(os.path.join(ckdir2, "global_step1", "MANIFEST.json")))
+        if rc == 0 or res["torn"] != dict(dir=True, manifest=False, rank1_seal=False, previous_sealed=True):
+            failures.append(f"zero (c): death during save: exit {rc}, {res['torn']}")
+        os.unlink(os.path.join(ckdir2, "latest"))
+        records = []
+
+        class Grab(logging.Handler):
+
+            def emit(self, record):
+                records.append(record.getMessage())
+
+        from deepspeed_tpu_torch.utils.logging import logger as port_logger
+        grab = Grab()
+        port_logger.addHandler(grab)
+        try:
+            engine = _zero_gang_engine(dev)
+            path, _ = engine.load_checkpoint(ckdir2)
+        finally:
+            port_logger.removeHandler(grab)
+        res["resume_after_torn"] = dict(path=path, step=engine.global_steps,
+                                        loud=[m[:160] for m in records if "TORN" in m])
+        _free(engine)
+        if not (path and path.endswith("global_step1") and res["resume_after_torn"]["loud"]):
+            failures.append(f"zero (c): the resume did not skip the torn tag loudly: {res['resume_after_torn']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+def zero_rank_child(mode, work=None, device="cuda:0") -> int:
+    """One rank of leg (b), started by the launcher: ``nccl`` tries NCCL
+    with two ranks on the card (its error printed); ``gloo`` trains stages
+    1-3 over gloo, named, both ranks on cuda:0, and writes its readings."""
+    from deepspeed_tpu_torch import comm
+    rank = int(os.environ["DSTPU_PROCESS_ID"])
+    if mode == "nccl":
+        try:
+            comm.init_distributed(dist_backend="nccl", verbose=False)
+            x = torch.ones(4, device="cuda")
+            comm.all_reduce(x)
+            torch.cuda.synchronize()
+            print(f"ZERO_NCCL rank {rank}: all_reduce returned {x.tolist()}", flush=True)
+        except BaseException as e:  # the refusal is what this records
+            print(f"ZERO_NCCL error rank {rank}: {type(e).__name__}: {str(e)[:400]}", flush=True)
+        return 0
+    dev = torch.device(device)
+    comm.init_distributed(dist_backend="gloo", device=dev, verbose=False)
+    cfg = bench_llama(num_hidden_layers=ZERO_CUT_LAYERS)
+    want = torch.load(os.path.join(work, "world1_masters.pt"), weights_only=True)
+    out = {"rank": rank, "stages": {}}
+    for stage in (1, 2, 3):
+        engine = _zero_engine(cfg, stage, dev)
+        batches = _zero_batches(cfg, dev)
+        comm.comm.comms_logger.host_staged.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, launches, secs = _zero_train(engine, batches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stats, bad = _masters_close(engine.full_params(), {k: v.to(dev) for k, v in want.items()})
+        out["stages"][str(stage)] = dict(
+            losses=losses, flash_launches=launches, steps_s=secs, state_bytes=engine.state_bytes(),
+            max_memory_allocated_gib=peak, masters_outside=bad,
+            masters_worst=min(stats.values()) if stats else None,
+            host_staged={op: list(v) for op, v in comm.comm.comms_logger.host_staged.items()})
+        _free(engine)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    comm.destroy_process_group()
+    return 0
+
+
+def run_zero_path(dev) -> dict:
+    """Data-parallel ZeRO training across ranks (legs a-c above)."""
+    t_phase = time.perf_counter()
+    failures = []
+    res = {}
+    for leg, fn in (("nccl_world1", lambda: _zero_nccl_world1(dev, failures)),
+                    ("two_ranks", lambda: _zero_two_ranks(dev, failures)),
+                    ("gang", lambda: _zero_gang(dev, failures))):
+        t0 = time.perf_counter()
+        res[leg] = fn()
+        res[leg + "_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    ranks = res["two_ranks"]["ranks"]
+    res["flash_launches"] = {k: res["nccl_world1"]["flash_launches"][k] +
+                             sum(s["flash_launches"][k] for r in ranks for s in r["stages"].values())
+                             for k in ("fwd", "dkv", "dq")}
+    log("[zero] " + json.dumps(res, default=str)[:4000])
+    for r in ranks:
+        log(f"[zero] rank {r['rank']}: " + "; ".join(
+            f"stage {st}: loss rel err {s['loss_rel_err']:.2e}, state {sum(s['state_bytes'].values()) / 2**30:.3f} "
+            f"GiB, peak {s['max_memory_allocated_gib']:.2f} GiB, launches {s['flash_launches']}, "
+            f"{s['steps_s']:.1f} s" for st, s in r["stages"].items()) + f"; stage-3 ratio {r['stage3_state_ratio']:.3f}")
+    log(f"[zero] world 1: state {sum(res['two_ranks']['world1']['state_bytes'].values()) / 2**30:.3f} GiB, peak "
+        f"{res['two_ranks']['world1']['peak_memory_gib']:.2f} GiB; legs {res['nccl_world1_s']:.1f} / "
+        f"{res['two_ranks_s']:.1f} / {res['gang_s']:.1f} s; phase {res['seconds']:.1f} s")
+    log(card_line())
+    if failures:
+        raise AssertionError("zero phase: " + "; ".join(failures))
+    return res
+
+
 # --------------------------------------------------------------------- main --
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA GPU; torch.cuda.is_available() is false", file=sys.stderr)
         return 2
+    # the zero phase's ranks (legs b and c) are this script, started again
+    if sys.argv[1:2] == ["--zero-rank-child"]:
+        return zero_rank_child(*sys.argv[2:])
+    if sys.argv[1:2] == ["--zero-gang-child"]:
+        return zero_gang_child()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5131,6 +5574,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     record["train_features_path"] = run_train_features_path(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["zero_path"] = run_zero_path(dev)
     record["seconds"] = time.perf_counter() - t_start
 
     decode = record["paged_attention"][0]  # the serving path's decode shape
@@ -5155,6 +5601,7 @@ def main() -> int:
                             replaces=f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
                             launches=record["training_path"]["flash_launches"][kern],
                             launches_train_features_path=record["train_features_path"]["flash_launches"][kern],
+                            launches_zero_path=record["zero_path"]["flash_launches"][kern],
                             max_abs_err=max(r["max_abs_err"][o] for r in record["flash_attention"] for o in outputs),
                             ms=train[kern]["ms"], plain_ms=train[kern]["plain_ms"],
                             bound_ms=train[kern]["bound_ms"], bound_by=train[kern]["bound_by"],

@@ -19,6 +19,8 @@ class AdagradState(NamedTuple):
 
 class DeepSpeedCPUAdagrad(TorchOptimizer):
 
+    elementwise = True  # each element's update reads only that element
+
     def __init__(self, lr=1e-2, eps=1e-10, weight_decay=0.0):
         super().__init__(lr=lr, weight_decay=weight_decay)
         self.eps = eps

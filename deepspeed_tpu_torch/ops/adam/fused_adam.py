@@ -23,6 +23,8 @@ class AdamState(NamedTuple):
 
 class FusedAdam(TorchOptimizer):
 
+    elementwise = True  # each element's update reads only that element
+
     def __init__(self, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, adam_w_mode=True,
                  bias_correction=True, amsgrad=False, set_grad_none=True):
         super().__init__(lr=lr, weight_decay=weight_decay)

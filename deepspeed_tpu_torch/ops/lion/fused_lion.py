@@ -18,6 +18,8 @@ class LionState(NamedTuple):
 
 class FusedLion(TorchOptimizer):
 
+    elementwise = True  # each element's update reads only that element
+
     def __init__(self, lr=1e-4, betas=(0.9, 0.99), weight_decay=0.0):
         super().__init__(lr=lr, weight_decay=weight_decay)
         self.betas = tuple(betas)

@@ -13,7 +13,11 @@ import torch
 
 
 class TorchOptimizer:
-    """Functional optimizer protocol; subclasses implement init/update."""
+    """Functional optimizer protocol; subclasses implement init/update.
+    ``elementwise`` says an update reads each element alone, so it runs on a
+    rank's chunk of a partitioned state as on the whole."""
+
+    elementwise = False
 
     def __init__(self, lr=1e-3, weight_decay=0.0):
         self.lr = lr

@@ -18,6 +18,8 @@ class SGDState(NamedTuple):
 
 class SGD(TorchOptimizer):
 
+    elementwise = True  # each element's update reads only that element
+
     def __init__(self, lr=1e-2, momentum=0.0, weight_decay=0.0, nesterov=False):
         super().__init__(lr=lr, weight_decay=weight_decay)
         self.momentum = momentum

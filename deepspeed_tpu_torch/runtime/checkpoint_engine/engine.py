@@ -27,10 +27,18 @@ tag. An async save (``nebula.enabled``) snapshots the tensors to the host
 synchronously, then a non-daemon thread writes and commits them; a failure
 surfaces at the next :func:`checkpoint_barrier`.
 
-With one process, the reference's gang commit reduces to
-:func:`_commit_host_side`. The per-rank shard seals, ``_await_gang_seals``,
-``_maybe_die_during_save`` and ``GangHeartbeat`` need several processes and
-come with ROADMAP A8.
+A gang of several ranks commits as the reference's does
+(``_gang_commit``): after a barrier (so no seal of an earlier save of the
+tag survives), every rank writes its own state under ``state/rank<r>/``
+(its chunks of the partitioned tensors; rank 0 also the whole ones) and
+then its seal (``.seals/rank<r>.sealed``, carrying its per-array CRCs); rank 0 waits
+for every seal, then writes ``state/partition.json`` (the world and the
+dimension each flat entry is chunked on), ``host_state.pkl`` and the
+manifest. A rank that dies mid-save never seals, so the tag stays torn,
+and a load skips it loudly. A load at any world size reads every rank's
+files, puts each tensor back together along its dimension, and hands each
+rank its own part under the current partitioning: a save at world N loads
+at world M, bit for bit. A world of one keeps the single-process layout.
 """
 
 import atexit
@@ -374,6 +382,23 @@ def _flatten(tree):
     return flat
 
 
+def _chunked_part(trees, layout):
+    """What a rank other than 0 writes: only its chunks of partitioned
+    entries (rank 0 writes the whole ones, once)."""
+    out = {}
+    for name, tree in trees.items():
+        dims, part = layout[name], {}
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                sub = {n: t for n, t in value.items() if dims.get(f"{key}/{n}") is not None}
+                if sub:
+                    part[key] = sub
+            elif value is not None and dims.get(key) is not None:
+                part[key] = value
+        out[name] = part
+    return out
+
+
 def _host_snapshot(trees):
     """Host copies of every tensor, taken now: later steps replace the
     engine's tensors but never touch these."""
@@ -399,9 +424,101 @@ def _write_state(snapshot, state_dir):
 
 
 def _world_meta(engine):
+    from deepspeed_tpu_torch import comm as dist
     dev = engine.device
-    return {"process_count": 1, "device": str(dev),
-            "device_count": torch.cuda.device_count() if dev.type == "cuda" else 1}
+    return {"process_count": dist.get_world_size(), "device": str(dev),
+            "device_count": torch.cuda.device_count() if dev.type == "cuda" else 1,
+            "mesh": {str(k): int(v) for k, v in engine.mesh.shape.items()},
+            "zero_stage": engine.zero_optimization_stage()}
+
+
+# -------------------------------------------------------------- gang seals --
+SEAL_DIR = ".seals"
+PARTITION_FILE = "partition.json"
+
+
+def _seal_path(path, rank):
+    return os.path.join(path, SEAL_DIR, f"rank{int(rank)}.sealed")
+
+
+def _clear_rank_seal(path, rank):
+    """Drop this rank's seal from an earlier save of the same tag: while the
+    state is rewritten, a stale seal must not satisfy rank 0's check."""
+    try:
+        os.unlink(_seal_path(path, rank))
+    except OSError:
+        pass
+
+
+def _write_rank_seal(path, rank, arrays=None):
+    """This rank's files are durable: written atomically after them and
+    before rank 0 may write the manifest. It carries the rank's per-array
+    CRCs for the manifest."""
+    from deepspeed_tpu_torch.elasticity.gang import atomic_write_json
+    os.makedirs(os.path.join(path, SEAL_DIR), exist_ok=True)
+    atomic_write_json(_seal_path(path, rank), {"rank": int(rank), "pid": os.getpid(), "unix": time.time(),
+                                               "arrays": arrays})
+
+
+def _await_gang_seals(path, process_count, timeout_s, poll_s=0.05):
+    """Rank 0's half of the gang commit: wait until every rank's seal
+    exists and return them by rank. A rank that died mid-save never seals;
+    at the deadline this raises naming the absent ranks, and the tag stays
+    torn (no manifest)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        absent = [r for r in range(process_count) if not os.path.isfile(_seal_path(path, r))]
+        if not absent:
+            break
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"gang checkpoint commit: ranks {absent} never sealed their shards within "
+                               f"{timeout_s:.1f}s, leaving {path} torn (no manifest); a peer likely died mid-save")
+        time.sleep(poll_s)
+    seals = {}
+    for r in range(process_count):
+        with open(_seal_path(path, r)) as f:
+            seals[r] = json.load(f)
+    return seals
+
+
+def _maybe_die_during_save(engine, path):
+    """``die_during_save`` chaos point (runtime/faults.py): the targeted
+    rank SIGKILLs itself between writing its files and its seal, the
+    mid-save death whose only acceptable outcome is a torn tag."""
+    inj = getattr(engine, "_train_faults", None)
+    if inj is None:
+        return
+    rank = engine._gang_rank
+    n = inj.fire_rank("die_during_save", rank)
+    if n is not None:
+        import signal
+        logger.error(f"chaos: rank {rank} dying during save #{n} of {path} (its files written, its seal withheld)")
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def _gang_commit(engine, path, save_dir, tag, host_state, save_latest, manifest_meta, keep_last_k, world,
+                 rank_arrays):
+    """Every rank seals its files; rank 0 waits for all the seals, then
+    writes the partition map, host_state.pkl and the manifest (last). One
+    rank seals and commits at once."""
+    rank = engine._gang_rank
+    _maybe_die_during_save(engine, path)
+    _write_rank_seal(path, rank, rank_arrays if world > 1 else None)
+    if rank != 0:
+        return
+    if world > 1:
+        timeout_s = float(engine._config.checkpoint_config.gang_seal_timeout_s or 60.0)
+        seals = _await_gang_seals(path, world, timeout_s)
+        if manifest_meta.get("arrays") is not None:
+            merged = {}
+            for r in range(world):
+                merged.update(seals[r].get("arrays") or {})
+            manifest_meta["arrays"] = merged
+        with open(os.path.join(path, STATE_DIR, PARTITION_FILE), "w") as f:
+            json.dump({"world": world, "dims": engine._checkpoint_layout()}, f, sort_keys=True)
+            f.flush()
+            os.fsync(f.fileno())
+    _commit_host_side(engine, path, save_dir, tag, host_state, save_latest, manifest_meta, keep_last_k)
 
 
 def _manifest_meta(engine, tag, host_state, scale_state, arrays_crc, keep_last_k):
@@ -473,18 +590,34 @@ def save_engine_state(engine, save_dir, tag, client_state, save_latest, async_sa
     on (a crash mid-commit leaves a torn tag and the previous one current),
     and :func:`checkpoint_barrier` (taken by the next save or load, by
     ``destroy`` and at exit) bounds the saves in flight to one."""
+    from deepspeed_tpu_torch import comm as dist
     path = _ckpt_path(save_dir, tag)
     save_dir = os.path.abspath(save_dir)
     os.makedirs(save_dir, exist_ok=True)
     checkpoint_barrier(engine)  # the previous save in flight lands first
+    world, rank = dist.get_world_size(), engine._gang_rank
 
     # re-saving a tag (steps replayed after a rollback): drop its manifest
-    # first, so that while the files are rewritten the tag reads as torn
+    # first, so that while the files are rewritten the tag reads as torn;
+    # rank 0 drops every seal, each other rank its own, and the barrier
+    # orders that before any rank seals this save
     stale_manifest = os.path.join(path, MANIFEST_FILE)
-    if os.path.isfile(stale_manifest):
-        os.unlink(stale_manifest)
+    if rank == 0:
+        if os.path.isfile(stale_manifest):
+            os.unlink(stale_manifest)
+        shutil.rmtree(os.path.join(path, SEAL_DIR), ignore_errors=True)
+    else:
+        _clear_rank_seal(path, rank)
+    if world > 1:
+        dist.barrier()
+    hb = getattr(engine, "_gang_hb", None)
+    if hb is not None:
+        hb.beat(step=engine.global_steps, phase="save")
 
-    snapshot = _host_snapshot(_state_trees(engine))
+    trees = _state_trees(engine)
+    if world > 1 and rank != 0:
+        trees = _chunked_part(trees, engine._checkpoint_layout())
+    snapshot = _host_snapshot(trees)
     host_state = {
         "global_steps": engine.global_steps,
         "global_samples": engine.global_samples,
@@ -501,13 +634,22 @@ def save_engine_state(engine, save_dir, tag, client_state, save_latest, async_sa
     }
     ck_cfg = engine._config.checkpoint_config
     keep_last_k = int(ck_cfg.keep_last_k or 0)
-    arrays_crc = array_checksums(snapshot) if ck_cfg.array_checksums else None
+    arrays_crc = None
+    if ck_cfg.array_checksums:
+        arrays_crc = array_checksums({f"rank{rank}": snapshot} if world > 1 else snapshot)
+    # over several ranks rank 0 replaces the arrays with every rank's seal's
     manifest_meta = _manifest_meta(engine, tag, host_state, snapshot["scale_state"], arrays_crc, keep_last_k)
     state_dir = os.path.join(path, STATE_DIR)
+    if world > 1:
+        state_dir = os.path.join(state_dir, f"rank{rank}")
+
+    def commit():
+        _write_state(snapshot, state_dir)
+        _gang_commit(engine, path, save_dir, tag, host_state, save_latest, manifest_meta, keep_last_k, world,
+                     arrays_crc)
 
     if not async_save:
-        _write_state(snapshot, state_dir)
-        _commit_host_side(engine, path, save_dir, tag, host_state, save_latest, manifest_meta, keep_last_k)
+        commit()
         logger.info(f"Saved checkpoint to {path}")
         return True
 
@@ -520,8 +662,7 @@ def save_engine_state(engine, save_dir, tag, client_state, save_latest, async_sa
 
     def finalize():
         try:
-            _write_state(snapshot, state_dir)
-            _commit_host_side(engine, path, save_dir, tag, host_state, save_latest, manifest_meta, keep_last_k)
+            commit()
             logger.info(f"Async checkpoint committed to {path}")
         except BaseException as e:  # surfaced at the next checkpoint_barrier
             st["error"] = (tag, e)
@@ -642,19 +783,67 @@ def _unflatten_like(flat, template, what):
     return type(template)(**fields)
 
 
+def _nest(flat):
+    """A flat ``field/name`` dict back into nested dicts (the layout the
+    per-array CRC paths were taken over)."""
+    out = {}
+    for key, t in flat.items():
+        head, sep, name = key.partition("/")
+        if sep:
+            out.setdefault(head, {})[name] = t
+        else:
+            out[key] = t
+    return out
+
+
+def read_state(path, verify_arrays=True):
+    """The checkpoint's three state trees as whole flat dicts: one file
+    each for a save at world 1; else every rank's files put back together
+    along the dimension each entry was chunked on (``partition.json``).
+    Each file is checked against the manifest's per-array CRCs first."""
+    state_dir = os.path.join(path, STATE_DIR)
+    want = (read_manifest(path) or {}).get("arrays") if verify_arrays else None
+    part_file = os.path.join(state_dir, PARTITION_FILE)
+    load = lambda d, name: torch.load(os.path.join(d, f"{name}.pt"), weights_only=True, map_location="cpu")
+    if not os.path.isfile(part_file):
+        flat = {name: load(state_dir, name) for name in STATE_TREES}
+        ranks = [("", flat)]
+        dims, world = None, 1
+    else:
+        with open(part_file) as f:
+            layout = json.load(f)
+        world, dims = int(layout["world"]), layout["dims"]
+        ranks = [(f"rank{r}", {name: load(os.path.join(state_dir, f"rank{r}"), name) for name in STATE_TREES})
+                 for r in range(world)]
+    if want is not None:
+        for prefix, flat in ranks:
+            tree = {name: _nest(flat[name]) for name in STATE_TREES}
+            got = array_checksums({prefix: tree} if prefix else tree)
+            bad = [p for p, info in got.items() if p not in want or want[p]["crc32"] != info["crc32"]]
+            if bad:
+                raise CheckpointCorruptionError(f"checkpoint {path}: restored arrays fail the manifest's per-array "
+                                                f"CRC32 ({bad[:4]}{'...' if len(bad) > 4 else ''})")
+    if dims is None:
+        return ranks[0][1]
+    full = {}
+    for name in STATE_TREES:
+        full[name] = {}
+        for key, t0 in ranks[0][1][name].items():
+            dim = dims.get(name, {}).get(key)
+            full[name][key] = t0 if dim is None else torch.cat([flat[name][key] for _, flat in ranks], dim=dim)
+    return full
+
+
 def _restore_into_engine(engine, path, load_optimizer_states, load_lr_scheduler_states, load_module_only,
                          verify_arrays):
-    state_dir = os.path.join(path, STATE_DIR)
+    full = read_state(path, verify_arrays)
+    layout = engine._checkpoint_layout()
     templates = {"params": engine.params, "opt_state": engine.opt_state, "scale_state": engine.scale_state}
-    restored = {name: _unflatten_like(torch.load(os.path.join(state_dir, f"{name}.pt"), weights_only=True,
-                                                 map_location=engine.device), templates[name], name)
-                for name in STATE_TREES}
-    if verify_arrays:
-        manifest = read_manifest(path) or {}
-        bad = _verify_array_checksums(restored, manifest.get("arrays"))
-        if bad:
-            raise CheckpointCorruptionError(f"checkpoint {path}: restored arrays fail the manifest's per-array "
-                                            f"CRC32 ({bad[:4]}{'...' if len(bad) > 4 else ''})")
+    restored = {}
+    for name in STATE_TREES:
+        dims = layout[name]
+        local = {k: engine._zero.shard(t, dims.get(k)).to(engine.device) for k, t in full[name].items()}
+        restored[name] = _unflatten_like(local, templates[name], name)
 
     with open(os.path.join(path, "host_state.pkl"), "rb") as f:
         host_state = pickle.load(f)

@@ -2,15 +2,18 @@
 
 Port of ``deepspeed_tpu/runtime/config.py``: ``DeepSpeedConfig`` parses a
 dict or a JSON path, fills the batch-size triangle
-(``train_batch_size = micro_batch * gradient_accumulation_steps * dp``),
+(``train_batch_size = micro_batch * gradient_accumulation_steps * dp``, dp
+the data-parallel ranks),
 refuses bf16 together with fp16, and exposes the optimizer, scheduler,
 gradient-clipping, ZeRO, ``data_types.grad_accum_dtype``, ``checkpoint``,
 ``nebula``, ``anomaly_sentinel`` and ``telemetry`` settings, the timers'
 ``steps_per_print`` and ``wall_clock_breakdown``, and the raw
 ``compression_training``, ``data_efficiency``, ``curriculum_learning``,
 ``eigenvalue`` and ``progressive_layer_drop`` blocks (their owners parse
-them) under the JAX package's attribute names and defaults. The port trains on one device, so the
-data-parallel size is 1. Keys this port does not read are kept in
+them) and the ``comms_logger`` block under the JAX package's attribute names
+and defaults. The data-parallel size is the rank mesh's
+(``utils/groups.py``), or the process group's before the engine builds the
+mesh, or 1 without one. Keys this port does not read are kept in
 ``_param_dict`` (as the pydantic models keep extra keys); the engine refuses
 the features it does not run.
 """
@@ -20,6 +23,7 @@ import os
 from dataclasses import dataclass, field
 from typing import Optional, Union
 
+from deepspeed_tpu_torch.comm.config import CommsConfig
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel, config_field
 from deepspeed_tpu_torch.runtime.precision_config import BF16Config, FP16Config
@@ -158,6 +162,7 @@ class DeepSpeedConfig:
         self.nebula_config = NebulaConfig.from_dict(pd.get(C.NEBULA, {}))
         self.anomaly_sentinel_config = AnomalySentinelConfig.from_dict(pd.get(C.ANOMALY_SENTINEL, {}))
         self.telemetry_config = TelemetryConfig.from_dict(pd.get(C.TELEMETRY, {}))
+        self.comms_config = CommsConfig.from_dict(pd.get("comms_logger", {}))
 
         # blocks their owners parse (compression/, runtime/data_pipeline/,
         # runtime/eigenvalue.py, runtime/progressive_layer_drop.py)
@@ -174,11 +179,22 @@ class DeepSpeedConfig:
         self.tensor_parallel_size = pd.get(C.TENSOR_PARALLEL_SIZE, 1)
         self.expert_parallel_size = pd.get(C.EXPERT_PARALLEL_SIZE, 1)
 
+    def _data_parallel_size(self):
+        """The data-parallel degree: the rank mesh's when it exists, else the
+        world's ranks over the model-parallel degrees (the reference's
+        ``_data_parallel_size``, with ranks for devices)."""
+        from deepspeed_tpu_torch.utils import groups
+        if groups.mesh_is_initialized():
+            return groups.get_data_parallel_world_size()
+        import torch.distributed as tdist
+        n = tdist.get_world_size() if tdist.is_available() and tdist.is_initialized() else 1
+        return max(1, n // (self.tensor_parallel_size * self.pipeline_parallel_size * self.sequence_parallel_size))
+
     def _configure_train_batch_size(self):
         train_batch = self.train_batch_size
         micro_batch = self.train_micro_batch_size_per_gpu
         grad_acc = self.gradient_accumulation_steps
-        dp = 1  # one device
+        dp = self._data_parallel_size()
 
         if all(v is not None for v in (train_batch, micro_batch, grad_acc)):
             pass
@@ -204,11 +220,12 @@ class DeepSpeedConfig:
     def _do_sanity_check(self):
         train_batch, micro_batch, grad_acc = (self.train_batch_size, self.train_micro_batch_size_per_gpu,
                                               self.gradient_accumulation_steps)
+        dp = self._data_parallel_size()
         assert train_batch > 0, f"Train batch size: {train_batch} has to be greater than 0"
         assert micro_batch > 0, f"Micro batch size per gpu: {micro_batch} has to be greater than 0"
         assert grad_acc > 0, f"Gradient accumulation steps: {grad_acc} has to be greater than 0"
-        assert train_batch == micro_batch * grad_acc, (
+        assert train_batch == micro_batch * grad_acc * dp, (
             f"Check batch related parameters. train_batch_size is not equal to micro_batch_per_gpu * "
-            f"gradient_acc_step * world_size {train_batch} != {micro_batch} * {grad_acc} * 1")
+            f"gradient_acc_step * world_size {train_batch} != {micro_batch} * {grad_acc} * {dp}")
         if self.zero_config.stage > 0 and not (self.fp16_config.enabled or self.bfloat16_config.enabled):
             logger.warning("ZeRO enabled without fp16/bf16; running f32 state")

@@ -1,7 +1,8 @@
-"""The training engine, on one device.
+"""The training engine.
 
-Port of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``) for one
-GPU. The public API and the arithmetic are the JAX engine's:
+Port of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``), on one
+GPU or over data-parallel ranks (below). The public API and the arithmetic
+are the JAX engine's:
 
 - f32 master weights (``engine.params``, a name -> tensor dict), an
   optimizer state, a loss-scale state and the lr schedule, set up as
@@ -37,11 +38,23 @@ gradients with respect to them are cast to the accumulation dtype. That is
 the JAX engine's gradient of the loss through the master -> compute cast
 (whose backward casts the cotangent to f32), without a cast per micro-step.
 
-On one device every ZeRO stage runs the same math: nothing is partitioned
-with one rank. What still raises ``NotImplementedError`` is ROADMAP A8: ZeRO
-offload, ZeRO++ (qwZ, qgZ, hpZ, MiCS), pipeline, sequence, tensor and expert
-parallelism. The monitor and the flops profiler are A9: where the JAX engine
-calls them, this one does nothing.
+Data parallelism: the engine joins the gang (``comm.init_distributed``,
+from the launcher's environment), lays the ranks out as the rank mesh
+(``utils/groups.py``), and takes the global batch, as the reference does:
+each data rank trains on its contiguous dim-0 chunk of every micro-batch
+(where ``_batch_sharding`` places it there), the gradients are averaged over
+the ranks, and the reported loss and the clipping norm are the gang's. The
+ZeRO stages partition the state over the ranks by the reference's placement
+rule (``runtime/zero/policy.py``), moved by hand over ``comm``'s collectives
+(``runtime/zero/partition_parameters.py``): stage 1 the optimizer state,
+stage 2 also the gradient-accumulation buffer (reduce-scattered each
+micro-step), stage 3 also the parameters (gathered layer by layer). With one
+rank nothing is partitioned and every stage runs the same math.
+
+What still raises ``NotImplementedError`` is the second half of ROADMAP A8:
+ZeRO offload, ZeRO++ (qwZ, qgZ, hpZ, MiCS), pipeline, sequence, tensor and
+expert parallelism. The monitor and the flops profiler are A9: where the
+JAX engine calls them, this one does nothing.
 """
 
 import itertools
@@ -55,7 +68,9 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from deepspeed_tpu_torch import comm as dist
 from deepspeed_tpu_torch import telemetry
+from deepspeed_tpu_torch.comm.reduce_op import ReduceOp
 from deepspeed_tpu_torch.compression.compress import init_compression
 from deepspeed_tpu_torch.compression.scheduler import CompressionScheduler
 from deepspeed_tpu_torch.models.convert import reference_names
@@ -77,13 +92,16 @@ from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.data_pipeline import CurriculumScheduler
 from deepspeed_tpu_torch.runtime.data_pipeline.data_routing import RandomLTDScheduler
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader, FusedHostBatch, StagedBatch
-from deepspeed_tpu_torch.runtime.eigenvalue import Eigenvalue
+from deepspeed_tpu_torch.runtime.eigenvalue import Eigenvalue, block_hvp
 from deepspeed_tpu_torch.runtime.faults import injector_from_env
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (dynamic_loss_scale_state, static_loss_scale_state,
                                                           update_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule_class
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop
-from deepspeed_tpu_torch.runtime.utils import cast_tree, clip_grads_by_global_norm, global_norm, tree_all_finite
+from deepspeed_tpu_torch.runtime.utils import cast_tree, clip_grads_by_global_norm, tree_all_finite
+from deepspeed_tpu_torch.runtime.zero.partition_parameters import ZeroPartitioner, snapshot_and_clear_init_demand
+from deepspeed_tpu_torch.elasticity.gang import GangHeartbeat
+from deepspeed_tpu_torch.utils import groups
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.timer import (BACKWARD_MICRO_TIMER, FORWARD_MICRO_TIMER, STEP_MICRO_TIMER,
@@ -128,7 +146,7 @@ def _make_optimizer(name, params_cfg):
 
 def _unsupported(cfg: DeepSpeedConfig):
     """Configured features this engine does not run, each with the ROADMAP
-    queue item that ports it."""
+    queue item that ports it (the second half of A8)."""
     zc = cfg.zero_config
     found = []
     for block in (zc.offload_optimizer, zc.offload_param):
@@ -152,17 +170,30 @@ def _unsupported(cfg: DeepSpeedConfig):
 
 
 class DeepSpeedEngine:
-    """Config-driven training engine for one device (see the module doc)."""
+    """Config-driven training engine (see the module doc)."""
 
     def __init__(self, model, model_parameters=None, optimizer=None, training_data=None, lr_scheduler=None,
                  collate_fn=None, config=None, device=None):
         if model is None or not isinstance(model, torch.nn.Module):
             raise ValueError("model must be a torch.nn.Module whose forward(batch) returns the loss")
+        # the zero.Init demand governs this engine only
+        zero_init_demanded = snapshot_and_clear_init_demand()
         self.device = resolve_device(device)
+        # join the gang the launcher described (a world of one without one)
+        dist.init_distributed(device=self.device)
         self._config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
         missing = _unsupported(self._config)
         if missing:
             raise NotImplementedError(f"not ported yet, each with the ROADMAP item that ports it: {', '.join(missing)}")
+        # the rank mesh: every rank a data-parallel rank (the second half of
+        # A8 brings the other axes)
+        if not groups.mesh_is_initialized() or groups.get_mesh().size != dist.get_world_size():
+            groups.initialize_mesh(force=True)
+        self.mesh = groups.get_mesh()
+        self._dp_group = groups.get_group(groups.get_data_parallel_axes())
+        if zero_init_demanded:
+            logger.info("zero.Init was requested: the engine partitions the parameters of the module it was given")
+        dist.configure(self._config)
 
         self.global_steps = 0
         self.global_samples = 0
@@ -197,14 +228,21 @@ class DeepSpeedEngine:
         self.params = {n: p.detach().to(self.master_dtype, copy=True) for n, p in self.module.named_parameters()}
         self.module.to(self.compute_dtype)
         self._module_params = dict(self.module.named_parameters())
+        # ZeRO placement: the masters this rank holds (its chunks at stage 3)
+        zc = self._config.zero_config
+        self._zero = ZeroPartitioner(self.module, zc.stage,
+                                     persistence_threshold=zc.param_persistence_threshold if zc.stage >= 3 else 0)
+        self._partition_params = self._zero.partitioned and zc.stage >= 3
+        if self._partition_params:
+            self.params = {n: self._zero.shard(p, self._zero.param_dim[n]) for n, p in self.params.items()}
         self._sync_module()
 
-        # optimizer and its state
+        # optimizer and its state (over this rank's part at stages 1-3)
         if optimizer is not None:
             self.optimizer = optimizer
         else:
             self.optimizer = _make_optimizer(self._config.optimizer_name, self._config.optimizer_params)
-        self.opt_state = self.optimizer.init(self.params)
+        self.opt_state = self.optimizer.init(self._opt_view(self.params))
 
         # loss scaling state, on the device
         fp16_cfg = self._config.fp16_config
@@ -282,6 +320,10 @@ class DeepSpeedEngine:
         self._anomaly_guard = sent_cfg.enabled
         self._sentinel = _sentinel_mod.LossAnomalySentinel(sent_cfg) if sent_cfg.enabled else None
         self._train_faults = injector_from_env(os.environ.get("DSTPU_TRAIN_FAULTS"))
+        # gang liveness: under the elastic agent's watchdog (DSTPU_GANG_DIR)
+        # every rank heartbeats from the train loop; unarmed, one env read
+        self._gang_rank = dist.get_rank()
+        self._gang_hb = GangHeartbeat.from_env(rank=self._gang_rank)
         self._ckpt_save_dir = None
         self._sentinel_good_step = None
         self._preempt_event = None
@@ -299,14 +341,98 @@ class DeepSpeedEngine:
         return None
 
     def _sync_module(self):
-        """The module's parameters become the masters cast to the compute dtype."""
+        """The module's parameters become the masters cast to the compute
+        dtype (at stage 3 over several ranks: the chunks the units gather)."""
+        if self._partition_params:
+            self._zero.set_leaves(self.params, self.compute_dtype)
         with torch.no_grad():
             for name, p in self._module_params.items():
-                p.copy_(self.params[name])
+                if not (self._partition_params and name in self._zero.leaves):
+                    p.copy_(self.params[name])
 
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None):
-        return DeepSpeedDataLoader(dataset, batch_size=batch_size or self.train_micro_batch_size_per_gpu(),
+        """A loader of global micro-batches (``micro * dp`` rows each, as the
+        reference sizes them); each rank trains on its chunk."""
+        return DeepSpeedDataLoader(dataset,
+                                   batch_size=batch_size or self.train_micro_batch_size_per_gpu() * self.dp_world_size,
                                    collate_fn=collate_fn or self.collate_fn, drop_last=True)
+
+    # ------------------------------------------------------------- the ranks --
+    @property
+    def dp_world_size(self):
+        return self._dp_group.size
+
+    @property
+    def dp_rank(self):
+        return self._dp_group.rank
+
+    def _opt_view(self, params):
+        """What this rank's optimizer state covers: each tensor's chunk where
+        the rule shards its optimizer state, else the whole (stage 3's
+        masters are chunks already)."""
+        if self._partition_params:
+            return dict(params)
+        return {n: self._zero.shard(p, self._zero.opt_dim[n]) for n, p in params.items()}
+
+    def full_params(self):
+        """The whole f32 masters (gathered from every rank at stage 3: a
+        collective, every rank calls it)."""
+        if not self._partition_params:
+            return dict(self.params)
+        return {n: self._zero.gather(p, self._zero.param_dim[n]) for n, p in self.params.items()}
+
+    def _localize_params(self, full):
+        """Whole masters to what this rank holds."""
+        if not self._partition_params:
+            return dict(full)
+        return {n: self._zero.shard(p, self._zero.param_dim[n]) for n, p in full.items()}
+
+    def state_bytes(self):
+        """Bytes this rank holds of the training state: ``params`` (the f32
+        masters and the compute-dtype copy the module or the units use),
+        ``grads`` (the gradient-accumulation buffer as a step allocates it)
+        and ``optimizer`` (the optimizer state)."""
+        z = self._zero
+        comp = torch.finfo(self.compute_dtype).bits // 8
+        acc = torch.finfo(self._grad_accum_dtype).bits // 8
+        masters = sum(p.numel() * p.element_size() for p in self.params.values())
+        compute = sum(z.local_numel(n, z.param_dim) * comp for n in self.params)
+        grads = sum(z.local_numel(n, z.grad_dim) * acc for n in self.params)
+        opt = sum(t.numel() * t.element_size() for t in _tensors(self.opt_state))
+        return {"params": masters + compute, "grads": grads, "optimizer": opt}
+
+    def _checkpoint_layout(self):
+        """For each flat entry of the saved state trees, the dimension this
+        engine chunks it on over the ranks (None: whole on every rank)."""
+        z = self._zero
+        opt = {}
+        for field, value in (self.opt_state._asdict() if hasattr(self.opt_state, "_asdict")
+                             else dict(self.opt_state or {})).items():
+            if isinstance(value, dict):
+                opt.update({f"{field}/{n}": z.opt_dim[n] for n in value})
+            elif value is not None:
+                opt[field] = None
+        return {"params": dict(z.param_dim), "opt_state": opt,
+                "scale_state": {k: None for k in self.scale_state._asdict()}}
+
+    def _dp_chunk(self, x, dim=0):
+        """This rank's contiguous chunk of a global batch leaf along ``dim``
+        (a leaf whose size there the ranks do not divide stays whole, as the
+        reference replicates it)."""
+        n = self.dp_world_size
+        if n == 1 or not isinstance(x, (np.ndarray, torch.Tensor)) or x.ndim <= dim or x.shape[dim] % n:
+            return x
+        k = x.shape[dim] // n
+        sl = [slice(None)] * x.ndim
+        sl[dim] = slice(self.dp_rank * k, (self.dp_rank + 1) * k)
+        return x[tuple(sl)]
+
+    def _global_mean(self, value):
+        """The gang's mean of a per-rank scalar (each rank's loss over its
+        chunk)."""
+        if self.dp_world_size == 1:
+            return value
+        return dist.all_reduce(value.detach().float().clone(), op=ReduceOp.AVG, group=self._dp_group)
 
     # ------------------------------------------------------- config accessors --
     def train_batch_size(self):
@@ -442,8 +568,9 @@ class DeepSpeedEngine:
         self.train(False)
 
     def module_state_dict(self, exclude_frozen_parameters=False):
-        """Host copy of the f32 master weights."""
-        return {k: v.detach().cpu() for k, v in self.params.items()}
+        """Host copy of the whole f32 master weights (a collective at
+        stage 3 over several ranks)."""
+        return {k: v.detach().cpu() for k, v in self.full_params().items()}
 
     def load_module_state_dict(self, state_dict, strict=True, custom_load_fn=None):
         """The masters become ``state_dict`` (cast to f32, on the device), and
@@ -457,6 +584,7 @@ class DeepSpeedEngine:
             raise KeyError(f"state_dict does not fit the model: missing {sorted(set(self.params) - set(state_dict))}, "
                            f"unexpected {sorted(set(state_dict) - set(self.params))}")
         new = cast_tree({k: torch.as_tensor(v).to(self.device) for k, v in state_dict.items()}, self.master_dtype)
+        new = self._localize_params({k: v for k, v in new.items() if k in self.params})
         self.params = {k: new.get(k, p) for k, p in self.params.items()}
         self._sync_module()
 
@@ -477,6 +605,7 @@ class DeepSpeedEngine:
         self._eig_state = None
         self._last_batch = None
         self.zero_grad()
+        self._zero.detach()  # the module's units get their own forward back
 
     # ------------------------------------------------------------- data path --
     def _to_device(self, batch):
@@ -534,6 +663,8 @@ class DeepSpeedEngine:
         else:
             batch = self._apply_curriculum(batch)
             batch = self._tree_map(lambda x: x.reshape((gas, -1) + tuple(x.shape[1:])), batch)
+        # [gas, micro * dp, ...] global micro-batches: this rank's rows
+        batch = self._tree_map(lambda x: self._dp_chunk(x, dim=1), batch)
         if self.device.type != "cuda":
             return StagedBatch(self._to_device(batch))
         if self._staging_stream is None:
@@ -553,14 +684,32 @@ class DeepSpeedEngine:
 
 
     # ---------------------------------------------------------------- the step --
+    def _forward_module(self, batch):
+        """The module's loss on this rank's chunk. At stage 3 over several
+        ranks the units gather and recompute per layer, which stands in for
+        ``remat``'s recomputation, so ``remat`` stores instead."""
+        if self._partition_params:
+            with recompute_disabled():
+                return self.module(batch)
+        return self.module(batch)
+
     def _micro_grads(self, loss):
-        """Gradients of ``loss * scale`` with respect to the module's
-        parameters, in the accumulation dtype."""
+        """Gradients of ``loss * scale`` with respect to what this rank
+        differentiates (the module's parameters; at stage 3 over several
+        ranks each unit parameter's chunk, its gradient already
+        reduce-scattered), in the accumulation dtype. At stage 2 the sharded
+        gradients are reduce-scattered here, each micro-step, into the
+        partitioned accumulation buffer."""
         scaled = loss.float() * self.scale_state.cur_scale
         names = list(self._module_params)
-        grads = torch.autograd.grad(scaled, [self._module_params[n] for n in names], allow_unused=True,
-                                    materialize_grads=True)
-        return {n: g.to(self._grad_accum_dtype) for n, g in zip(names, grads)}
+        leaves = self._zero.leaves if self._partition_params else {}
+        grads = torch.autograd.grad(scaled, [leaves.get(n, self._module_params[n]) for n in names],
+                                    allow_unused=True, materialize_grads=True)
+        out = {n: g.to(self._grad_accum_dtype) for n, g in zip(names, grads)}
+        if self._zero.partitioned and self._zero.stage == 2:
+            out = {n: g if self._zero.grad_dim[n] is None else self._zero.reduce_scatter(g, self._zero.grad_dim[n])
+                   for n, g in out.items()}
+        return out
 
     def _accumulate(self, grads):
         if self.acc_grads is None:
@@ -569,25 +718,84 @@ class DeepSpeedEngine:
             for name, g in grads.items():
                 self.acc_grads[name].add_(g)
 
+    def _reduced(self, name):
+        """Whether ``name``'s accumulated gradient already is the sum over
+        the ranks (a reduce-scattered chunk)."""
+        z = self._zero
+        if not z.partitioned:
+            return True
+        if self._partition_params:
+            return z.param_dim[name] is not None
+        return z.stage == 2 and z.grad_dim[name] is not None
+
+    def _boundary_grads(self):
+        """The accumulated gradients summed over the ranks, over what this
+        rank's optimizer state covers (``_opt_view``), in f32."""
+        z = self._zero
+        out = {}
+        for name, g in self.acc_grads.items():
+            g = g.float()
+            if not self._reduced(name):
+                g = z.all_reduce(g)
+                if not self._partition_params:
+                    g = z.shard(g, z.opt_dim[name])
+            out[name] = g
+        return out
+
+    def _gang_norm(self, grads):
+        """The global L2 norm of the gradients (over ``_opt_view``): chunked
+        ones summed over the ranks, whole ones counted once."""
+        dims = self._zero.opt_dim
+        whole = [g.float().square().sum() for n, g in grads.items() if dims[n] is None]
+        chunked = [g.float().square().sum() for n, g in grads.items() if dims[n] is not None]
+        total = torch.stack(whole).sum() if whole else torch.zeros([], device=self.device)
+        if chunked:
+            total = total + self._zero.all_reduce(torch.stack(chunked).sum())
+        return total.sqrt()
+
+    def _optimizer_update(self, grads, params):
+        """The optimizer over this rank's part. An optimizer whose update
+        reads whole tensors (LAMB's trust ratio, the 1-bit family's scales)
+        runs on the gathered tensors when the state is partitioned, and its
+        results are cut back to this rank's part."""
+        z = self._zero
+        if not z.partitioned or getattr(self.optimizer, "elementwise", False):
+            return self.optimizer.update(grads, self.opt_state, params, self._current_lr)
+        gather = lambda tree: {n: z.gather(t, z.opt_dim[n]) for n, t in tree.items()}
+        shard = lambda tree: {n: z.shard(t, z.opt_dim[n]) for n, t in tree.items()}
+        full_state = _map_state(self.opt_state, params, gather)
+        new_p, new_state = self.optimizer.update(gather(grads), full_state, gather(params), self._current_lr)
+        return shard(new_p), _map_state(new_state, new_p, shard)
+
     def _apply(self):
         """One optimizer step over the accumulated gradients; returns the
-        overflow flag (0-d bool tensor)."""
+        overflow flag (0-d bool tensor). Over several ranks the gradients are
+        averaged over them, the finite check, the norm and the clip are the
+        gang's, and each rank updates its part of the state (then, at stages
+        1 and 2, the updated parameters are all-gathered)."""
         gas = float(self.gradient_accumulation_steps())
-        inv = 1.0 / (self.scale_state.cur_scale * gas)
-        grads = {k: g.float() * inv for k, g in self.acc_grads.items()}
+        inv = 1.0 / (self.scale_state.cur_scale * gas * self.dp_world_size)
+        grads = {k: g * inv for k, g in self._boundary_grads().items()}
         self.acc_grads = None
         # fp16 always gates on finite gradients (overflow skip); the anomaly
         # sentinel arms the same gate in every precision (skip-step)
-        finite = tree_all_finite(grads).to(self.device) if self._fp16 or self._anomaly_guard else None
-        norm = global_norm(grads)
+        finite = None
+        if self._fp16 or self._anomaly_guard:
+            finite = tree_all_finite(grads).to(self.device)
+            if self._zero.partitioned:
+                finite = self._zero.all_reduce(finite.float(), op=ReduceOp.MIN) > 0
+        norm = self._gang_norm(grads)
         clip = self._config.gradient_clipping
         if clip > 0.0:
             grads, norm = clip_grads_by_global_norm(grads, clip, norm=norm)
-        new_params, new_opt = self.optimizer.update(grads, self.opt_state, self.params, self._current_lr)
+        view = self._opt_view(self.params)
+        new_view, new_opt = self._optimizer_update(grads, view)
         if finite is not None:
-            new_params = {k: torch.where(finite, new_params[k], p) for k, p in self.params.items()}
+            new_view = {k: torch.where(finite, new_view[k], p) for k, p in view.items()}
             new_opt = _tree_select(finite, new_opt, self.opt_state)
-        self.params, self.opt_state = new_params, new_opt
+        if self._zero.partitioned and not self._partition_params:
+            new_view = {n: self._zero.gather(p, self._zero.opt_dim[n]) for n, p in new_view.items()}
+        self.params, self.opt_state = new_view, new_opt
         self._sync_module()
         overflow = ~finite if finite is not None else torch.zeros([], dtype=torch.bool, device=self.device)
         if self._fp16:
@@ -614,22 +822,24 @@ class DeepSpeedEngine:
 
     # --------------------------------------------------------- train-step API --
     def forward(self, batch):
-        """The loss of one micro-batch. In eval mode a plain pass without
-        gradients; in training mode ``backward`` follows."""
+        """The loss of one global micro-batch. In eval mode a plain pass
+        without gradients, returning the gang's mean loss; in training mode
+        ``backward`` follows, and the loss returned is this rank's (its
+        chunk's), the one its gradients come from."""
         self.timers(FORWARD_MICRO_TIMER).start()
         if self.training:
             batch = self._apply_curriculum(batch)
-        batch = self._to_device(batch)
+        batch = self._to_device(self._tree_map(self._dp_chunk, batch))
         if not self.training:
             self._cached_loss = None
             try:
                 with torch.no_grad():
-                    return self.module(batch)
+                    return self._global_mean(self._forward_module(batch))
             finally:
                 self.timers(FORWARD_MICRO_TIMER).stop()
         self._last_batch = batch  # the eigenvalue gate's and the curvature probes' batch
         # the flops profiler (ROADMAP A9) is not ported
-        loss = self.module(batch)
+        loss = self._forward_module(batch)
         self._cached_loss = loss
         self.timers(FORWARD_MICRO_TIMER).stop()
         return loss
@@ -674,10 +884,11 @@ class DeepSpeedEngine:
 
     def train_batch(self, data_iter=None, batch=None):
         """One global batch: accumulate over its ``gas`` micro-batches, then
-        one optimizer step. ``batch`` is ``[gas * micro, ...]`` per leaf, a
-        :class:`StagedBatch` or a :class:`FusedHostBatch`; ``data_iter``
-        yields micro-batches or either of those (``PrefetchingLoader``).
-        Returns the mean micro-batch loss (0-d tensor on the device)."""
+        one optimizer step. ``batch`` is the global ``[gas * micro * dp, ...]``
+        per leaf, a :class:`StagedBatch` or a :class:`FusedHostBatch`;
+        ``data_iter`` yields global micro-batches or either of those
+        (``PrefetchingLoader``). Returns the gang's mean micro-batch loss
+        (0-d tensor on the device)."""
         # a preemption notice that arrived between steps exits before paying
         # for another one (one that arrives mid-step finalizes at its end)
         self._maybe_finalize_preemption()
@@ -714,14 +925,14 @@ class DeepSpeedEngine:
         self.tput_timer.start()
         losses = []
         for mb in micro:
-            loss = self.module(mb)
+            loss = self._forward_module(mb)
             if poison_loss:
                 loss = loss * float("nan")
             self._accumulate(self._micro_grads(loss))
             losses.append(loss.detach().float())
         self.micro_steps += gas
         self._step_lr_scheduler(self._apply())
-        loss = torch.stack(losses).mean()
+        loss = self._global_mean(torch.stack(losses).mean())
         if self.compression_scheduler is not None:
             self._last_batch = micro[0]  # one micro-batch for the eigenvalue gate's probes
         self._boundary_schedules()
@@ -784,7 +995,8 @@ class DeepSpeedEngine:
         name and in its layout; the module follows."""
         if self._reference_names is None:
             self._reference_names = reference_names(self.module)
-        new = init_compression(self.params, sub_config, layout=self._reference_names)
+        full = self.full_params()  # a transform reads whole tensors
+        new = self._localize_params(init_compression(full, sub_config, layout=self._reference_names))
         with torch.no_grad():
             for name, p in self.params.items():
                 if new[name] is not p:
@@ -806,6 +1018,9 @@ class DeepSpeedEngine:
         iteration, ``runtime/eigenvalue.py``), as the largest of the blocks'
         values after the reference's scaling (so 1.0 when finite): the
         compression scheduler's eigenvalue gate. None before any batch.
+        Over several ranks each Hessian product is averaged over them (each
+        holds its chunk of the batch), so every rank finds the global
+        batch's value.
 
         The loss is differentiated through the master -> compute-dtype cast,
         with activation recomputation off (a second derivative does not
@@ -817,30 +1032,44 @@ class DeepSpeedEngine:
 
             def loss_fn(blocks, batch):
                 flat = {n: t.to(self.compute_dtype) for block in blocks.values() for n, t in block.items()}
-                with recompute_disabled():
+                with recompute_disabled(), self._zero.gathered_module(flat):
                     return functional_call(self.module, flat, (batch, ))
 
             self._eig_state = (Eigenvalue(max_iter=8, tol=1e-2), loss_fn, {})
         eig, loss_fn, cache = self._eig_state
-        vals = eig.compute_eigenvalue(loss_fn, self._eigenvalue_blocks(self.params), self._last_batch,
+        blocks = self._eigenvalue_blocks(self.full_params())
+        if self.dp_world_size > 1:
+            # each rank's chunk gives its own Hessian product: the gang's
+            # average is the global batch's, so every rank iterates alike
+            for name in blocks:
+                if name not in cache:
+                    cache[name] = _gang_mean_hvp(block_hvp(loss_fn, name), self._dp_group)
+        vals = eig.compute_eigenvalue(loss_fn, blocks, self._last_batch,
                                       generator=torch.Generator(self.device).manual_seed(0), hvp_cache=cache)
         return max(vals.values()) if vals else None
 
 
     # ------------------------------------------------------- fault tolerance --
     def _pre_step_fault_hooks(self):
-        """Step entry: the ``hang_rank_at_step`` chaos point, a sleep inside
-        the step (a wedged collective's shape; the one process is rank 0).
-        The gang heartbeat beside it comes with ROADMAP A8."""
+        """Step entry: the gang heartbeat (this rank is alive and making
+        progress), then the ``hang_rank_at_step`` chaos point, a sleep
+        inside the step: the wedged collective's shape, a live process whose
+        heartbeat goes stale while its peers block."""
+        if self._gang_hb is not None:
+            self._gang_hb.beat(step=self.global_steps, phase="step")
         inj = self._train_faults
-        if inj is not None and inj.fire_step_rank("hang_rank_at_step", self.global_steps) is not None:
-            logger.error(f"chaos: rank 0 hanging {inj.config.hang_seconds:.0f}s at step {self.global_steps}")
+        if inj is not None and inj.fire_step_rank("hang_rank_at_step", self.global_steps,
+                                                  self._gang_rank) is not None:
+            logger.error(f"chaos: rank {self._gang_rank} hanging {inj.config.hang_seconds:.0f}s at step "
+                         f"{self.global_steps}")
             time.sleep(inj.config.hang_seconds)
 
     def _after_boundary_step(self, loss):
         """At a completed optimizer step: the sentinel's observation
         (anomaly count, rollback), the chaos SIGTERM and SIGKILL points, and
         the preemption finalizer: the step finishes, then the engine acts."""
+        if self._gang_hb is not None:
+            self._gang_hb.beat(step=self.global_steps, phase="idle")
         if self._sentinel is not None and loss is not None:
             self._observe_loss(loss)
         inj = self._train_faults
@@ -851,8 +1080,8 @@ class DeepSpeedEngine:
             if inj.fire_step("kill_at_step", self.global_steps) is not None:
                 logger.error(f"chaos: SIGKILL at step {self.global_steps}")
                 os.kill(os.getpid(), signal.SIGKILL)
-            if inj.fire_step_rank("kill_rank_at_step", self.global_steps) is not None:
-                logger.error(f"chaos: SIGKILL rank 0 at step {self.global_steps}")
+            if inj.fire_step_rank("kill_rank_at_step", self.global_steps, self._gang_rank) is not None:
+                logger.error(f"chaos: SIGKILL rank {self._gang_rank} at step {self.global_steps}")
                 os.kill(os.getpid(), signal.SIGKILL)
         self._maybe_finalize_preemption()
 
@@ -991,18 +1220,32 @@ class DeepSpeedEngine:
                                  load_module_only=load_module_only)
 
     def _checkpoint_tag_validation(self, tag):
-        """All ranks must save the same tag (the reference broadcasts rank 0's
-        tag and compares). With one rank the tag always agrees, so
-        ``checkpoint.tag_validation`` (Warn, Ignore, Fail) has nothing to check
-        until several ranks come with ROADMAP A8."""
+        """Every rank must save the same tag (reference ``engine.py:3035``):
+        rank 0's tag hash is broadcast to the world and compared;
+        ``checkpoint.tag_validation`` says what a mismatch does (Warn logs,
+        Fail raises, Ignore skips the check)."""
+        if not self._config.checkpoint_tag_validation_enabled or dist.get_world_size() == 1:
+            return
+        import zlib
+        h = zlib.crc32(str(tag).encode()) & 0x7FFFFFFF
+        mine = torch.tensor([h], dtype=torch.int64, device=self.device)
+        agreed = int(dist.broadcast(mine.clone(), src=0, group=groups.world_group()).item())
+        if agreed != h:
+            msg = f"checkpoint tag {tag!r} is not consistent across all ranks"
+            if self._config.checkpoint_tag_validation_fail:
+                raise RuntimeError(msg)
+            logger.warning(msg)
 
     def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin", exclude_frozen_parameters=False):
-        """The weights in the compute dtype as ``<save_filename>.npz``, one
-        array per ``state_dict`` name (bf16 as its raw uint16 bits: numpy has
-        no bf16)."""
+        """The whole weights in the compute dtype as ``<save_filename>.npz``,
+        one array per ``state_dict`` name (bf16 as its raw uint16 bits: numpy
+        has no bf16), written by rank 0 (every rank calls it)."""
+        full = self.full_params()
+        if dist.get_rank() != 0:
+            return True
         os.makedirs(save_dir, exist_ok=True)
         out = {}
-        for name, p in self.params.items():
+        for name, p in full.items():
             t = p.detach().to(self.compute_dtype).cpu()
             out[name] = (t.view(torch.uint16) if t.dtype == torch.bfloat16 else t).numpy()
         np.savez(os.path.join(save_dir, save_filename + ".npz"), **out)
@@ -1010,6 +1253,41 @@ class DeepSpeedEngine:
 
     def save_fp16_model(self, save_dir, save_filename="pytorch_model.bin"):
         return self.save_16bit_model(save_dir, save_filename)
+
+
+def _gang_mean_hvp(hvp, group):
+    """``hvp`` averaged over the ranks of ``group``."""
+
+    def mean_hvp(params, batch, v):
+        return [dist.all_reduce(t.detach().clone(), op=ReduceOp.AVG, group=group) for t in hvp(params, batch, v)]
+
+    return mean_hvp
+
+
+def _tensors(tree):
+    """Every tensor of an optimizer state (tensors, dicts, NamedTuples)."""
+    if tree is None:
+        return
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def _map_state(state, params, fn):
+    """``fn`` over the parameter-keyed dicts of an optimizer state (its
+    per-parameter fields); other fields (a step count) are left as they are."""
+    if state is None:
+        return None
+    if isinstance(state, dict):
+        return fn(state) if set(state) == set(params) else state
+    if isinstance(state, tuple):
+        return type(state)(*(_map_state(v, params, fn) for v in state))
+    return state
 
 
 def _tree_select(pred, new, old):

@@ -26,10 +26,11 @@ Armed only by the ``DSTPU_TRAIN_FAULTS`` variable (a JSON
 :class:`TrainFaultConfig`); disarmed costs one ``is None`` check a hook.
 
 The step points consult ``would_fire(point, global_step)``; the checkpoint
-points consume one event a save. Of the rank-scoped points (the gang
-vocabulary), ``kill_rank_at_step`` and ``hang_rank_at_step`` fire on the
-one process, rank 0; ``die_during_save`` needs the gang commit's shard
-seals, which come with several processes (ROADMAP A8).
+points consume one event a save. The rank-scoped points (the gang
+vocabulary: ``kill_rank_at_step``, ``hang_rank_at_step``,
+``die_during_save``) keep the same seed-derived schedule on every rank; the
+rank is a scope, so only the targeted rank fires, and a schedule aimed at a
+rank that a shrunk world no longer has goes quiet.
 """
 
 import hashlib
@@ -171,13 +172,32 @@ class TrainFaultInjector:
                 "die_during_save": self.config.die_during_save_rank}[point]
 
     def fire_step_rank(self, point: str, step: int, rank: int = 0) -> Optional[int]:
-        """:meth:`fire_step` for the targeted rank only (the one process is
-        rank 0)."""
+        """:meth:`fire_step` for the targeted rank only: every other rank
+        (and a rank a shrunk world no longer has) sees None."""
         if point not in RANK_POINTS:
             raise ValueError(f"{point!r} is not rank-scoped (know {RANK_POINTS})")
         if int(rank) != self.target_rank(point):
             return None
         return self.fire_step(point, step)
+
+    def fire_rank(self, point: str, rank: int) -> Optional[int]:
+        """Rank-scoped sequential firing (``die_during_save``: one event a
+        save). Every rank consumes the event index, since the schedule is the
+        gang's, but only the targeted rank fires; lethal points only on the
+        first life."""
+        if point not in RANK_POINTS:
+            raise ValueError(f"{point!r} is not rank-scoped (know {RANK_POINTS})")
+        if point in ONE_SHOT_POINTS and self.config.only_first_life and not first_life():
+            return None
+        with self._lock:
+            n = self._counters.get(point, 0)
+            self._counters[point] = n + 1
+            if int(rank) != self.target_rank(point):
+                return None
+            if self.would_fire(point, n):
+                self._record(point, n)
+                return n
+        return None
 
     def _record(self, point, n):
         # the caller holds the lock

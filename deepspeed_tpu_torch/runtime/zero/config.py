@@ -2,9 +2,11 @@
 
 Port of ``deepspeed_tpu/runtime/zero/config.py`` (``DeepSpeedZeroConfig`` and
 the offload blocks) as dataclasses, with the same field names, defaults and
-aliases. On one GPU the engine runs every stage with the same math: there is
-one rank, so nothing is partitioned. Offload and the ZeRO++ knobs (qwZ, qgZ,
-hpZ, MiCS) are parsed here and refused by the engine.
+aliases. The engine partitions stages 1-3 over the data-parallel ranks
+(``runtime/zero/policy.py``, ``partition_parameters.py``); with one rank
+every stage runs the same math. Offload and the ZeRO++ knobs (qwZ, qgZ,
+hpZ, MiCS) are parsed here and refused by the engine (ROADMAP A8, second
+half).
 """
 
 import enum

@@ -1,0 +1,384 @@
+"""Parameter partitioning over the data-parallel ranks, and the
+``zero.Init`` / ``GatheredParameters`` surface.
+
+Port of ``deepspeed_tpu/runtime/zero/partition_parameters.py``. The
+reference's engine states placements and lets XLA move the data; the port
+moves it by hand, over ``comm``'s collectives (later slices change those
+collectives: qwZ, qgZ, hpZ, offload), never through
+``torch.distributed.fsdp`` or ``DistributedDataParallel``.
+
+:class:`ZeroPartitioner` holds, for each parameter of a module, the
+dimension the ZeRO rule (``runtime/zero/policy.py``) shards its parameter,
+its gradient-accumulation buffer and its optimizer state on, in the port's
+layout, and this rank's index in the ZeRO group. A sharded tensor is cut
+into ``degree`` contiguous chunks along that dimension; rank ``i`` holds
+chunk ``i``, as device ``i`` holds it in the reference. ``shard``,
+``gather`` and ``reduce_scatter`` move a tensor between its whole and its
+chunk along any dimension.
+
+At stage 3 the partitioner also owns the forward. The modules that hold the
+parameters are grouped into *units*: each member of a ``ModuleList`` (a
+transformer block) and each other module that owns parameters itself (the
+embedding, the final norm, the unembedding). A unit's forward becomes
+:class:`_GatheredUnit`: it gathers the unit's parameters from their shards,
+runs the unit without autograd, and releases them; its backward gathers
+them again, reruns the unit's forward with autograd (the recomputation that
+activation checkpointing would do; ``remat`` is off inside), takes the
+gradients, and reduce-scatters those of the sharded parameters, so each
+rank receives only its chunk's gradient summed over the ranks. The tensors
+the engine differentiates are then the chunks (``leaves``), and a unit's
+parameters hold no storage outside its forward and backward.
+
+``register_external_parameter(module, p)`` adds ``p`` to the parameters
+``module``'s unit gathers (a parameter used outside its owner): register
+before the engine is built.
+"""
+
+import contextlib
+from typing import Any, Dict, Optional
+
+import torch
+
+from deepspeed_tpu_torch import comm as dist
+from deepspeed_tpu_torch.comm.reduce_op import ReduceOp
+from deepspeed_tpu_torch.runtime.zero.policy import ZeroShardingPolicy, port_dim, reference_shape
+from deepspeed_tpu_torch.utils import groups
+from deepspeed_tpu_torch.utils.logging import logger
+
+_INIT_CONTEXT = {"active": False, "config": None, "demanded": False}
+
+
+# --------------------------------------------------------------- partitioner --
+class ZeroPartitioner:
+    """Placement and data movement of one engine's parameters over its
+    ZeRO group (see the module doc)."""
+
+    def __init__(self, module: torch.nn.Module, stage: int, persistence_threshold: int = 0):
+        from deepspeed_tpu_torch.models.convert import reference_names
+
+        self.stage = stage
+        self.policy = ZeroShardingPolicy(stage, mesh=groups.get_mesh(), persistence_threshold=persistence_threshold)
+        self.group = groups.get_group(self.policy.zero_axes) if self.policy.zero_axes else groups.world_group()
+        self.degree = self.policy.zero_size
+        self.rank = self.group.rank if self.degree > 1 else 0
+        names = reference_names(module)
+        # at stage 3 the three placements agree (one rule, one threshold),
+        # which the engine relies on: the optimizer covers the masters' chunks
+        self.param_dim, self.grad_dim, self.opt_dim, self.shapes = {}, {}, {}, {}
+        for name, p in module.named_parameters():
+            transposed = names[name][1]
+            ref = reference_shape(p.shape, transposed)
+            self.shapes[name] = tuple(p.shape)
+            self.param_dim[name] = port_dim(self.policy.param_dim(ref), p.ndim, transposed)
+            self.grad_dim[name] = port_dim(self.policy.grad_dim(ref), p.ndim, transposed)
+            self.opt_dim[name] = port_dim(self.policy.opt_dim(ref), p.ndim, transposed)
+        self.units = []
+        self.unowned = set()
+        self.leaves: Dict[str, torch.Tensor] = {}
+        self.bypass = False
+        if stage >= 3 and self.degree > 1:
+            self._build_units(module)
+
+    @property
+    def partitioned(self) -> bool:
+        return self.degree > 1
+
+    # -- moving tensors ------------------------------------------------------
+    def shard(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This rank's chunk of ``t`` along ``dim`` (``t`` itself when None)."""
+        if dim is None or self.degree == 1:
+            return t
+        n = t.shape[dim] // self.degree
+        return t.narrow(dim, self.rank * n, n).clone()
+
+    def gather(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """The whole tensor from every rank's chunk along ``dim``."""
+        if dim is None or self.degree == 1:
+            return t
+        moved = t.movedim(dim, 0).contiguous()
+        full = dist.all_gather_into_tensor(moved, group=self.group)
+        return full.movedim(0, dim).contiguous()
+
+    def reduce_scatter(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This rank's chunk along ``dim`` of the sum of every rank's ``t``."""
+        moved = t.movedim(dim, 0).contiguous()
+        part = dist.reduce_scatter_tensor(moved, op=ReduceOp.SUM, group=self.group)
+        return part.movedim(0, dim).contiguous()
+
+    def all_reduce(self, t: torch.Tensor, op=ReduceOp.SUM) -> torch.Tensor:
+        return dist.all_reduce(t, op=op, group=self.group) if self.degree > 1 else t
+
+    # -- what each rank holds --------------------------------------------------
+    def local_numel(self, name: str, dim_of) -> int:
+        """Elements this rank holds of ``name`` under a placement
+        (``self.param_dim``, ``self.grad_dim`` or ``self.opt_dim``)."""
+        n = 1
+        for s in self.shapes[name]:
+            n *= s
+        return n // self.degree if dim_of[name] is not None else n
+
+    # -- stage 3: the units ----------------------------------------------------
+    def _build_units(self, module):
+        owner = {id(p): n for n, p in module.named_parameters()}
+        taken = set()
+        chosen = []
+        for mod_name, mod in module.named_modules():
+            if any(mod_name == t or mod_name.startswith(t + ".") for t in taken):
+                continue
+            if isinstance(mod, torch.nn.ModuleList):
+                for i, child in enumerate(mod):
+                    chosen.append(child)
+                    taken.add(f"{mod_name}.{i}" if mod_name else str(i))
+            elif mod_name and any(True for _ in mod.parameters(recurse=False)):
+                chosen.append(mod)
+                taken.add(mod_name)
+        self.unowned = set(owner.values())
+        for mod in chosen:
+            params = list(mod.parameters())
+            params += [p for p in getattr(mod, "_dstpu_external_params", []) if id(p) in owner
+                       and all(p is not q for q in params)]
+            if not params:
+                continue
+            unit = _Unit(self, mod, [owner[id(p)] for p in params], params)
+            self.units.append(unit)
+            self.unowned -= set(unit.names)
+        # a parameter the root module owns directly runs in no unit: it stays whole
+        for name in self.unowned:
+            self.param_dim[name] = self.grad_dim[name] = self.opt_dim[name] = None
+        logger.info(f"ZeRO-3 over {self.degree} ranks: {len(self.units)} units gather their parameters "
+                    f"layer by layer; {len(self.unowned)} parameter(s) outside any unit stay whole")
+
+    def set_leaves(self, masters: Dict[str, torch.Tensor], dtype):
+        """The tensors the engine differentiates at stage 3: each unit
+        parameter's chunk (or whole, if replicated) in the compute dtype,
+        from the f32 masters this rank holds."""
+        for unit in self.units:
+            for name in unit.names:
+                self.leaves[name] = masters[name].detach().to(dtype).requires_grad_(True)
+            unit.release()
+
+    @contextlib.contextmanager
+    def gathered_module(self, full_params: Dict[str, torch.Tensor]):
+        """Within the context the units' parameters hold ``full_params``
+        (whole tensors, e.g. in the compute dtype) and the units run their
+        modules' own forward: for code that needs the whole model, such as
+        ``torch.func.functional_call``."""
+        if not self.units:
+            yield
+            return
+        for unit in self.units:
+            unit.install([full_params[n] for n in unit.names])
+        self.bypass = True
+        try:
+            yield
+        finally:
+            self.bypass = False
+            for unit in self.units:
+                unit.release()
+
+    def detach(self):
+        """Give every unit's module its own forward back."""
+        for unit in self.units:
+            unit.restore()
+        self.units = []
+
+
+class _Unit:
+    """One module whose parameters are gathered for its forward and
+    backward (see the module doc)."""
+
+    def __init__(self, part: ZeroPartitioner, module, names, params):
+        self.part = part
+        self.module = module
+        self.names = names
+        self.params = params
+        self.dims = [part.param_dim[n] for n in names]
+        self.inner = module.forward
+        module.forward = self.forward
+
+    def restore(self):
+        self.module.forward = self.inner
+
+    def forward(self, *args, **kwargs):
+        if self.part.bypass:
+            return self.inner(*args, **kwargs)
+        if kwargs:
+            raise TypeError("a ZeRO-3 unit's forward takes positional arguments only")
+        leaves = [self.part.leaves[n] for n in self.names]
+        return _GatheredUnit.apply(self, len(args), *args, *leaves)
+
+    def gather(self, leaves):
+        return [self.part.gather(leaf.detach(), d) for leaf, d in zip(leaves, self.dims)]
+
+    def install(self, fulls):
+        for p, full in zip(self.params, fulls):
+            p.data = full
+
+    def release(self):
+        for p in self.params:
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+
+
+class _GatheredUnit(torch.autograd.Function):
+    """A unit's forward over its gathered parameters (see the module doc)."""
+
+    @staticmethod
+    def forward(ctx, unit, n_args, *inputs):
+        args, leaves = inputs[:n_args], inputs[n_args:]
+        ctx.unit = unit
+        ctx.n_args = n_args
+        ctx.arg_is_tensor = [isinstance(a, torch.Tensor) for a in args]
+        ctx.plain_args = [None if t else a for a, t in zip(args, ctx.arg_is_tensor)]
+        ctx.save_for_backward(*[a for a in args if isinstance(a, torch.Tensor)], *leaves)
+        unit.install(unit.gather(leaves))
+        try:
+            out = unit.inner(*args)
+        finally:
+            unit.release()
+        if not isinstance(out, torch.Tensor):
+            raise TypeError(f"a ZeRO-3 unit must return one tensor, got {type(out).__name__}")
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import recompute_disabled
+
+        unit = ctx.unit
+        saved = ctx.saved_tensors
+        n_tensor_args = sum(ctx.arg_is_tensor)
+        tensor_args, leaves = saved[:n_tensor_args], saved[n_tensor_args:]
+        it = iter(tensor_args)
+        args = []
+        for is_tensor, plain in zip(ctx.arg_is_tensor, ctx.plain_args):
+            if not is_tensor:
+                args.append(plain)
+                continue
+            a = next(it).detach()
+            args.append(a.requires_grad_(True) if a.is_floating_point() else a)
+        unit.install(unit.gather(leaves))
+        try:
+            with torch.enable_grad(), recompute_disabled():
+                out = unit.inner(*args)
+            wrt = [a for a in args if isinstance(a, torch.Tensor) and a.requires_grad] + list(unit.params)
+            grads = torch.autograd.grad(out, wrt, grad_out, allow_unused=True)
+        finally:
+            unit.release()
+        n_wrt_args = len(wrt) - len(unit.params)
+        arg_grads = iter(grads[:n_wrt_args])
+        out_args = []
+        for a in args:
+            out_args.append(next(arg_grads) if isinstance(a, torch.Tensor) and a.requires_grad else None)
+        out_leaves = []
+        for g, leaf, dim in zip(grads[n_wrt_args:], leaves, unit.dims):
+            if g is None:
+                out_leaves.append(torch.zeros_like(leaf))
+            elif dim is None:
+                out_leaves.append(g)  # a replicated parameter: reduced at the boundary
+            else:
+                out_leaves.append(unit.part.reduce_scatter(g, dim))
+        return (None, None, *out_args, *out_leaves)
+
+
+# ------------------------------------------------------------- zero.Init ------
+class Init:
+    """``with zero.Init(config_dict_or_path=...):`` around model
+    construction. As in the reference it is a declaration: it records that
+    the user asked for construction-time partitioning, and the next engine
+    consumes the demand. The port's modules are built whole on the host and
+    partitioned by the engine (``ZeroPartitioner``), which says so."""
+
+    def __init__(self, module=None, data_parallel_group=None, mem_efficient_linear=True, remote_device=None,
+                 pin_memory=False, config_dict_or_path=None, config=None, enabled=True, dtype=None, mpu=None,
+                 zero_param_parallel_group=None, zero_quantized_weights=False,
+                 zero_quantized_nontrainable_weights=False, sequence_data_parallel_group=None, param_swapper=None):
+        self.enabled = enabled
+        self.config = config_dict_or_path if config_dict_or_path is not None else config
+
+    def __enter__(self):
+        if self.enabled:
+            _INIT_CONTEXT["active"] = True
+            _INIT_CONTEXT["demanded"] = True
+            _INIT_CONTEXT["config"] = self.config
+            logger.info("zero.Init: the engine partitions the parameters when it is built")
+        return self
+
+    def __exit__(self, *exc):
+        _INIT_CONTEXT["active"] = False
+        _INIT_CONTEXT["config"] = None
+        return False
+
+
+def init_context_active() -> bool:
+    return _INIT_CONTEXT["active"]
+
+
+def init_context_demanded() -> bool:
+    return _INIT_CONTEXT["active"] or _INIT_CONTEXT["demanded"]
+
+
+def consume_init_context():
+    _INIT_CONTEXT["demanded"] = False
+
+
+def snapshot_and_clear_init_demand() -> bool:
+    """Consume the demand at engine-init entry: it applies to exactly the
+    next engine built in this process."""
+    demanded = init_context_demanded()
+    consume_init_context()
+    return demanded
+
+
+_SAVED = {"state": None}
+
+
+def shutdown_init_context():
+    _SAVED["state"] = dict(_INIT_CONTEXT)
+    _INIT_CONTEXT["active"] = False
+
+
+def restore_init_context():
+    if _SAVED["state"] is not None:
+        saved = _SAVED["state"]
+        _SAVED["state"] = None
+        saved["demanded"] = _INIT_CONTEXT["demanded"]
+        _INIT_CONTEXT.update(saved)
+
+
+class GatheredParameters:
+    """``with GatheredParameters(engine) as g:``: whole host copies of the
+    (possibly partitioned) f32 masters in ``g.params``, gathered from every
+    rank (a collective: every rank enters it). Edit them and call
+    ``g.update(engine)`` to write them back through the partitioning;
+    leaving without ``update`` discards the edits (the reference's
+    ``modifier_rank=None``). A plain dict of tensors is copied as it is."""
+
+    def __init__(self, params, modifier_rank: Optional[int] = None, fwd_module=None, enabled: bool = True):
+        self._src = params
+        self.modifier_rank = modifier_rank
+        self.enabled = enabled
+        self.params: Any = None
+
+    def __enter__(self):
+        if self.enabled:
+            src = self._src.full_params() if hasattr(self._src, "full_params") else self._src
+            self.params = {k: v.detach().cpu().clone() for k, v in src.items()}
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def update(self, engine):
+        engine.load_module_state_dict(self.params)
+
+
+def register_external_parameter(module, parameter):
+    """``parameter`` is used in ``module``'s forward though another module
+    owns it: at stage 3 ``module``'s unit gathers it too."""
+    ext = module.__dict__.setdefault("_dstpu_external_params", [])
+    if all(parameter is not p for p in ext):
+        ext.append(parameter)
+
+
+def unregister_external_parameter(module, parameter):
+    ext = module.__dict__.get("_dstpu_external_params", [])
+    module.__dict__["_dstpu_external_params"] = [p for p in ext if p is not parameter]

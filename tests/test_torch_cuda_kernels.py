@@ -758,3 +758,43 @@ def test_prefetch_stages_on_its_own_stream_and_matches_direct(cuda_device):
     assert staged == direct
     for name, p in direct_engine.params.items():
         assert torch.equal(p, staged_engine.params[name]), name
+
+
+# --------------------------------------------------------- comm on the card --
+@pytest.mark.cuda
+def test_nccl_world1_round_trips_equal_the_host(cuda_device):
+    """NCCL at world 1 through the port's comm layer: every collective on a
+    CUDA tensor returns what it returns on the host at world 1, the rank's
+    own tensor, exactly."""
+    from tests import torch_gang_scenarios as sc
+    from tests.torch_gang import Gang
+    gang = Gang(1, backend="nccl")
+    try:
+        (out, staged, backend), = gang.run(sc.cuda_collectives, False)
+    finally:
+        gang.close()
+    assert backend == "nccl" and staged == {}
+    for name in ("f32", "i32"):
+        for op, got in out[(name, "cuda")].items():
+            assert np.array_equal(got, out[(name, "input")]), (name, op)
+
+
+@pytest.mark.cuda
+def test_gloo_on_cuda_stages_through_the_host_and_equals_it(cuda_device):
+    """Two ranks on the card over gloo, named: all_reduce and broadcast run
+    on the CUDA tensors, the other collectives are copied to the host and
+    back (and counted), and every result equals the host collective's."""
+    from tests import torch_gang_scenarios as sc
+    from tests.torch_gang import Gang
+    gang = Gang(2, backend="gloo")
+    try:
+        res = gang.run(sc.cuda_collectives)
+    finally:
+        gang.close()
+    for out, staged, backend in res:
+        assert backend == "gloo"
+        assert set(staged) == {"all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_single"}
+        assert all(count == 2 and to_host > 0 and from_host > 0 for count, to_host, from_host in staged.values())
+        for name in ("f32", "i32"):
+            for op, got in out[(name, "cuda")].items():
+                assert np.array_equal(got, out[(name, "cpu")][op]), (name, op)

@@ -1,6 +1,8 @@
 """The port stands alone: no module of deepspeed_tpu_torch, and nothing that
 chip_smoke.py imports, loads jax, flax, pydantic, ml_dtypes, orbax or deepspeed_tpu; and its
-entry points refuse to fall back to the CPU when no GPU is present."""
+entry points (the engine, the ragged engine, the replica, ``dstpu_train``, the
+comm layer's backend choice) refuse to fall back to the CPU when no GPU is
+present."""
 
 import json
 import os
@@ -68,12 +70,20 @@ def test_port_and_chip_smoke_import_no_jax_flax_pydantic_or_reference():
                  "fleet.park_store", "fleet.replica", "fleet.manager", "fleet.supervisor", "fleet.policy",
                  "fleet.router", "elasticity.elasticity", "telemetry.collector", "bin.dstpu_replica"):
         assert f"deepspeed_tpu_torch.{name}" in result["imported"]
+    for name in ("accelerator.abstract_accelerator", "accelerator.real_accelerator", "accelerator.cpu_accelerator",
+                 "accelerator.cuda_accelerator", "comm.reduce_op", "comm.constants", "comm.config", "comm.backend",
+                 "comm.comm", "utils.comms_logging", "utils.groups", "runtime.pipe.topology", "runtime.zero.policy",
+                 "runtime.zero.partition_parameters", "utils.tensor_fragment", "utils.zero_to_fp32",
+                 "elasticity.gang", "elasticity.elastic_agent", "elasticity.train_supervisor", "launcher.launch",
+                 "launcher.runner", "launcher.multinode_runner", "bin.dstpu_train", "bin.dstpu_elastic"):
+        assert f"deepspeed_tpu_torch.{name}" in result["imported"]
     assert result["banned"] == []
 
 
 def test_entry_points_refuse_the_cpu_without_being_asked(monkeypatch):
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.bin import dstpu_replica
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.bin import dstpu_replica, dstpu_train
     from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
     from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
     from deepspeed_tpu_torch.utils.device import resolve_device
@@ -84,10 +94,13 @@ def test_entry_points_refuse_the_cpu_without_being_asked(monkeypatch):
     train = lambda **kw: deepspeed_tpu_torch.initialize(model=LlamaForCausalLM(cfg), config=train_cfg, **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     replica = lambda *argv: dstpu_replica.build_engine_from_args(dstpu_replica.parser().parse_args(list(argv)))
+    supervise = lambda *argv: dstpu_train.main(list(argv) + ["--", sys.executable, "-c", "pass"])
+    monkeypatch.setattr(comm.comm, "cdb", None)
     for call in (lambda: resolve_device(None), lambda: init_params(cfg), lambda: build_engine(params, cfg), train,
-                 replica):
+                 replica, supervise, comm.init_distributed):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert build_engine(params, cfg, device="cpu").device.type == "cpu"
     assert train(device="cpu")[0].device.type == "cpu"
     assert replica("--device", "cpu").device.type == "cpu"
+    assert supervise("--device", "cpu", "--max-crashes", "1") == 0

@@ -3,7 +3,7 @@
 # change, change, parent, so that the card's drift between runs shows as a
 # difference within one tree rather than between the trees.
 #
-#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|spec|observe|fleet|features|MODE,MODE...]
+#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|spec|observe|fleet|features|zero|MODE,MODE...]
 #
 # Each run's output goes to chiprun_out/smoke_<i>_<tree>.log and its full
 # record to chiprun_out/smoke_<i>_<tree>.json, under the directory the script
@@ -33,7 +33,9 @@
 # replica's death to the next token, the steals, the peer fetch, the process
 # replica's spawn and restart seconds); with "features", the train features phase (run_train_features_path:
 # tokens/s at each curriculum length, prefetch and telemetry step times, the
-# compression transforms' ulps, the eigenvalue leg); modes joined by commas
+# compression transforms' ulps, the eigenvalue leg); with "zero", the zero
+# phase (run_zero_path: each leg's seconds, the gloo ranks' step seconds,
+# state bytes and peak memory by stage); modes joined by commas
 # run each. The exit code
 # is the last failing run's, else 0.
 set -u
@@ -110,6 +112,12 @@ if "features" in modes:
                           telemetry_s=(t["median_s_on"], t["median_s_off"]),
                           compression_ulps=[a["max_ulps"] for a in r["compression"]["applied"]],
                           eigen_iters=e["iters"], hvp_vs_fd=e["hvp_vs_central_difference"], seconds=r["seconds"])))
+if "zero" in modes:
+    r = c.run_zero_path(dev)
+    print(json.dumps(dict(legs_s=[r[k] for k in ("nccl_world1_s", "two_ranks_s", "gang_s")], seconds=r["seconds"],
+                          ranks=[{st: dict(steps_s=s["steps_s"], state_bytes=s["state_bytes"],
+                                           peak_gib=s["max_memory_allocated_gib"]) for st, s in x["stages"].items()}
+                                 for x in r["two_ranks"]["ranks"]])))
 if "sparse" in modes:
     r = c.check_block_sparse_attention(dev)
     keys = ("case", "density", "max_abs_err", "tol_use", "ms", "ms_index_order", "ms_sorted_again", "ms_split_steps",
