@@ -17,16 +17,21 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     scalar loss; ``model_parameters``, when given, is a ``state_dict`` loaded
     into it first. ``device`` defaults to ``cuda`` and raises without a GPU
     unless ``"cpu"`` is passed. Returns the reference's 4-tuple
-    ``(engine, optimizer, dataloader, lr_scheduler)``.
+    ``(engine, optimizer, dataloader, lr_scheduler)``. A
+    ``PipelineModule`` gets the pipeline engine (reference
+    ``deepspeed_tpu/__init__.py:92-99``), one process a stage.
     """
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine
+    from deepspeed_tpu_torch.runtime.pipe.module import PipelineModule
 
     if config is None:
         config = config_params
     if config is None and getattr(args, "deepspeed_config", None):
         config = args.deepspeed_config
     assert config is not None, "DeepSpeed requires --deepspeed_config to specify configuration file"
-    engine = DeepSpeedEngine(model=model, model_parameters=model_parameters, optimizer=optimizer,
-                             training_data=training_data, lr_scheduler=lr_scheduler, collate_fn=collate_fn,
-                             config=config, device=device)
+    engine_cls = PipelineEngine if isinstance(model, PipelineModule) else DeepSpeedEngine
+    engine = engine_cls(model=model, model_parameters=model_parameters, optimizer=optimizer,
+                        training_data=training_data, lr_scheduler=lr_scheduler, collate_fn=collate_fn,
+                        config=config, device=device)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler

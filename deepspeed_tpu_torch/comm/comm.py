@@ -35,10 +35,21 @@ a process group (one process, none asked for) every collective is that of
 a group of one (a process group of one rank, such as NCCL at world 1, is
 still called).
 
-Point-to-point ``send``/``recv`` raise as the reference's do until the
-pipeline slice (ROADMAP A8, second half).
+Point-to-point ``send``/``recv``/``isend``/``irecv`` (the pipeline engine's
+neighbour exchange) take global ranks, as ``torch.distributed``'s do. The
+reference raises there (one SPMD program has no point-to-point; its
+pipeline moves activations with ``ppermute``): this is a deliberate
+departure, since the port runs one process a pipeline stage. Gloo has no
+CUDA point-to-point, so a CUDA tensor goes through the host and is counted
+in ``comms_logger.host_staged`` like the staged collectives.
+
+The process group is destroyed at interpreter exit, as the reference's
+``jax.distributed`` client is shut down at exit: a gloo group left to the
+interpreter's teardown can abort the process ("terminate called without an
+active exception") after its work finished.
 """
 
+import atexit
 import datetime
 import functools
 import os
@@ -147,6 +158,7 @@ def init_distributed(dist_backend=None,
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", proc_id)) % torch.cuda.device_count())
         tdist.init_process_group(backend=dist_backend, init_method=init_method, world_size=nproc, rank=proc_id,
                                  **kwargs)
+        atexit.register(_destroy_at_exit)
         if verbose:
             logger.info(f"torch.distributed initialized: rank {proc_id}/{nproc} over {dist_backend} "
                         f"({init_method})")
@@ -162,6 +174,16 @@ def init_distributed(dist_backend=None,
 
 
 _init_done_unix = None  # set by init_distributed
+
+
+def _destroy_at_exit():
+    """The group's teardown before the interpreter's (registered by
+    ``init_distributed`` for the group it makes)."""
+    if tdist.is_available() and tdist.is_initialized():
+        try:
+            tdist.destroy_process_group()
+        except Exception as e:  # exiting anyway: say why the teardown failed
+            logger.warning(f"process group teardown at exit failed: {e}")
 
 
 def destroy_process_group(group=None):
@@ -417,25 +439,92 @@ def scatter(tensor, src=0, group=None, async_op=False, log_name=None):
     return full[g.rank * chunk:(g.rank + 1) * chunk].clone()
 
 
-# -- point-to-point: as the reference until the pipeline slice ------------------------
+# -- point-to-point (a departure from the reference, which has none) ------------
+def _p2p_via_host(tensor):
+    """Whether a point-to-point transfer of ``tensor`` goes through the host
+    (gloo has no CUDA send/recv)."""
+    return cdb is not None and cdb.name == GLOO_BACKEND and tensor.is_cuda
+
+
+def _p2p_ready():
+    if not _has_pg():
+        raise RuntimeError("point-to-point send/recv needs a process group of several ranks (init_distributed)")
+
+
+class _StagedWork:
+    """An ``isend``/``irecv`` whose CUDA tensor goes through a host copy:
+    ``wait`` completes the transfer (and, for a receive, copies the host
+    buffer into the tensor)."""
+
+    def __init__(self, work, host, into=None):
+        self._work = work
+        self._host = host
+        self._into = into
+
+    def wait(self):
+        self._work.wait()
+        if self._into is not None:
+            self._into.copy_(self._host)
+            self._into = None
+        return True
+
+    def is_completed(self):
+        return self._work.is_completed()
+
+
+def _host_copy(tensor, op):
+    host = tensor.detach().contiguous().cpu()
+    comms_logger.record_host_staging(op, host.numel() * host.element_size(), 0)
+    return host
+
+
+def _host_buffer(tensor, op):
+    comms_logger.record_host_staging(op, 0, tensor.numel() * tensor.element_size())
+    return torch.empty(tensor.shape, dtype=tensor.dtype)
+
+
+@timed_op
 def send(tensor, dst, group=None, tag=0):
-    raise NotImplementedError("point-to-point send/recv does not exist under "
-                              "single-program SPMD; express neighbor exchange with "
-                              "jax.lax.ppermute inside shard_map (see runtime/pipe); in the port, "
-                              "p2p comes with the pipeline engine (ROADMAP A8, second half)")
+    """Send ``tensor`` to global rank ``dst`` (blocking)."""
+    _p2p_ready()
+    if _p2p_via_host(tensor):
+        tdist.send(_host_copy(tensor, "send"), int(dst), tag=tag)
+    else:
+        tdist.send(tensor.contiguous(), int(dst), tag=tag)
 
 
+@timed_op
 def recv(tensor, src, group=None, tag=0):
-    raise NotImplementedError("see send(): use jax.lax.ppermute inside shard_map; in the port, "
-                              "p2p comes with the pipeline engine (ROADMAP A8, second half)")
+    """Receive into ``tensor`` from global rank ``src`` (blocking);
+    returns ``tensor``."""
+    _p2p_ready()
+    if _p2p_via_host(tensor):
+        host = _host_buffer(tensor, "recv")
+        tdist.recv(host, int(src), tag=tag)
+        tensor.copy_(host)
+    else:
+        tdist.recv(tensor, int(src), tag=tag)
+    return tensor
 
 
 def isend(tensor, dst, group=None, tag=0):
-    return send(tensor, dst, group, tag)
+    """Start sending ``tensor`` to global rank ``dst``; the returned work's
+    ``wait()`` completes it. The tensor must not change before then."""
+    _p2p_ready()
+    if _p2p_via_host(tensor):
+        host = _host_copy(tensor, "send")
+        return _StagedWork(tdist.isend(host, int(dst), tag=tag), host)
+    return tdist.isend(tensor.contiguous(), int(dst), tag=tag)
 
 
 def irecv(tensor, src, group=None, tag=0):
-    return recv(tensor, src, group, tag)
+    """Start receiving into ``tensor`` from global rank ``src``; it holds
+    the data once the returned work's ``wait()`` returns."""
+    _p2p_ready()
+    if _p2p_via_host(tensor):
+        host = _host_buffer(tensor, "recv")
+        return _StagedWork(tdist.irecv(host, int(src), tag=tag), host, into=tensor)
+    return tdist.irecv(tensor, int(src), tag=tag)
 
 
 # -- groups / ranks -------------------------------------------------------------------

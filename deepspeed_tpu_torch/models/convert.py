@@ -12,6 +12,15 @@ weights (see ``models/llama.py``):
 
 ``to_flax_params`` is the inverse: a ``state_dict`` back to the
 ``LlamaForCausalLM`` tree ``{"model": ...}`` of f32 numpy arrays.
+
+The pipeline layouts: ``pipeline_params_from_flax`` / ``_to_flax`` carry
+the reference ``PipelineEngine``'s ``{"pre", "stack", "post"}`` params
+(its homogeneous middle layers stacked on a leading axis) to the port's
+``PipelineEngine`` names (``layers.<i>.<name>``, ``tied.<key>.<name>``),
+and ``pipeline_state_from_llama`` / ``llama_state_from_pipeline`` move a
+``LlamaModel`` state to ``llama_pipeline_module``'s layout and back.
+``tiled_linear_from_flax`` / ``_to_flax`` carry ``TiledLinear``'s tile
+grid.
 """
 
 from collections.abc import Mapping
@@ -125,3 +134,134 @@ def reference_names(module) -> dict:
             leaf = "embedding"
         out[name] = (".".join(prefix + path + [leaf]), transposed)
     return out
+
+
+# ---------------------------------------------------------- pipeline layouts --
+def pipeline_state_from_llama(state_dict, cfg) -> dict:
+    """A ``LlamaModel`` ``state_dict`` in the layout of
+    ``models.llama.llama_pipeline_module(cfg, ...)``: layer 0 the embedding,
+    layers 1..L the blocks, layer L + 1 the final norm and the head."""
+    L = cfg.num_hidden_layers
+    out = {}
+    for name, t in state_dict.items():
+        if name.startswith("embed_tokens."):
+            out[f"layers.0.{name}"] = t
+        elif name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            out[f"layers.{int(i) + 1}.block.{rest}"] = t
+        else:
+            out[f"layers.{L + 1}.{name}"] = t
+    return out
+
+
+def llama_state_from_pipeline(state, cfg) -> dict:
+    """The inverse of :func:`pipeline_state_from_llama`."""
+    L = cfg.num_hidden_layers
+    out = {}
+    for name, t in state.items():
+        _, i, rest = name.split(".", 2)
+        i = int(i)
+        if i == 0:
+            out[rest] = t
+        elif i <= L:
+            out[f"layers.{i - 1}.{rest[len('block.'):]}"] = t
+        else:
+            out[rest] = t
+    return out
+
+
+def _meta_layers(module):
+    """Every layer of a ``PipelineModule`` built on the meta device (shapes
+    without memory)."""
+    from deepspeed_tpu_torch.runtime.pipe.module import LayerSpec
+    with torch.device("meta"):
+        return [spec.build() if isinstance(spec, LayerSpec) else spec for spec in module._layer_specs]
+
+
+def pipeline_stack_span(layers):
+    """``(lo, hi)``: the reference ``PipelineEngine``'s stack, the longest run
+    of layers of one type with the same parameter shapes (its ``pre`` are
+    the layers before, its ``post`` those after)."""
+    sig = [(type(m), tuple((n, tuple(p.shape)) for n, p in m.named_parameters())) for m in layers]
+    best, lo = (0, 1), 0
+    for hi in range(1, len(layers) + 1):
+        if hi == len(layers) or sig[hi] != sig[lo]:
+            if hi - lo > best[1] - best[0]:
+                best = (lo, hi)
+            lo = hi
+    return best
+
+
+def _port_name(module, index, name):
+    from deepspeed_tpu_torch.runtime.pipe.module import TiedLayerSpec
+    spec = module._layer_specs[index]
+    return f"tied.{spec.key}.{name}" if isinstance(spec, TiedLayerSpec) else f"layers.{index}.{name}"
+
+
+def pipeline_params_from_flax(tree, module) -> dict:
+    """The reference ``PipelineEngine``'s params ``{"pre": {"<i>": ...},
+    "stack": <stacked>, "post": {"<i>": ...}}`` (numpy) as the state dict of
+    the port's pipeline engine for ``module`` (a ``PipelineModule`` whose
+    layers name their submodules as the flax ones are named): a ``Linear``
+    weight is the flax kernel transposed."""
+    layers = _meta_layers(module)
+    lo, hi = pipeline_stack_span(layers)
+    out = {}
+    for i, layer in enumerate(layers):
+        if i < lo:
+            sub, pick = tree["pre"][str(i)], None
+        elif i < hi:
+            sub, pick = tree["stack"], i - lo
+        else:
+            sub, pick = tree["post"][str(i - hi)], None
+        flat = {".".join(path): value for path, value in _flatten(sub)}
+        for name, (jname, transposed) in reference_names(layer).items():
+            arr = np.asarray(flat[jname], dtype=np.float32)
+            if pick is not None:
+                arr = arr[pick]
+            key = _port_name(module, i, name)
+            if key not in out:
+                out[key] = torch.tensor(arr.T if transposed else arr)
+    return out
+
+
+def pipeline_params_to_flax(state, module) -> dict:
+    """The inverse of :func:`pipeline_params_from_flax`: the reference's
+    ``{"pre", "stack", "post"}`` tree of f32 numpy arrays."""
+    layers = _meta_layers(module)
+    lo, hi = pipeline_stack_span(layers)
+    out = {"pre": {}, "stack": {}, "post": {}}
+    stack = {}
+    for i, layer in enumerate(layers):
+        for name, (jname, transposed) in reference_names(layer).items():
+            arr = state[_port_name(module, i, name)].detach().float().cpu().numpy()
+            arr = np.ascontiguousarray(arr.T if transposed else arr)
+            if lo <= i < hi:
+                stack.setdefault(jname, []).append(arr)
+                continue
+            node = out["pre"].setdefault(str(i), {}) if i < lo else out["post"].setdefault(str(i - hi), {})
+            *path, leaf = jname.split(".")
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = arr
+    for jname, arrs in stack.items():
+        node = out["stack"]
+        *path, leaf = jname.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.stack(arrs)
+    return out
+
+
+# ------------------------------------------------------------- TiledLinear --
+def tiled_linear_from_flax(tree) -> dict:
+    """The reference ``TiledLinear``'s params as the port's state dict: the
+    port keeps its tile grid in the reference's layout (``kernel``
+    ``[in_splits, out_splits, in/t, out/t]``, ``bias`` ``[out_splits,
+    out/t]``), so they are the same arrays."""
+    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in tree.items()}
+
+
+def tiled_linear_to_flax(state) -> dict:
+    """The inverse of :func:`tiled_linear_from_flax`."""
+    return {k: v.detach().float().cpu().numpy() for k, v in state.items()}

@@ -209,6 +209,58 @@ class LlamaForCausalLM(LlamaModel):
         return cross_entropy_loss(super().forward(input_ids), labels)
 
 
+class LlamaEmbedPipe(nn.Module):
+    """The pipeline's first layer: token ids -> hidden states."""
+
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+
+    def forward(self, input_ids):
+        return self.embed_tokens(input_ids)
+
+
+class LlamaBlockPipe(nn.Module):
+    """One decoder block as a pipeline layer (its rotary tables made from
+    the sequence length it is given; recomputed as ``LlamaModel`` does)."""
+
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.block = LlamaBlock(cfg)
+
+    def forward(self, x):
+        cfg = self.cfg
+        cos, sin = rotary_embedding(x.shape[1], cfg.head_dim, cfg.rope_theta, device=x.device)
+        if cfg.remat and torch.is_grad_enabled():
+            return remat(self.block, x, cos, sin, policy=cfg.remat_policy)
+        return self.block(x, cos, sin)
+
+
+class LlamaHeadPipe(nn.Module):
+    """The pipeline's last layer: the final norm and the unembedding."""
+
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+
+    def forward(self, x):
+        return self.lm_head(self.norm(x))
+
+
+def llama_pipeline_module(cfg: LlamaConfig, num_stages: int):
+    """:class:`LlamaForCausalLM` as a ``PipelineModule``: the embedding, the
+    blocks and the head as layers, the loss ``cross_entropy_loss`` on the
+    last stage (``models/convert.pipeline_state_from_llama`` carries a
+    ``LlamaModel`` state across)."""
+    from deepspeed_tpu_torch.runtime.pipe.module import LayerSpec, PipelineModule
+
+    layers = [LayerSpec(LlamaEmbedPipe, cfg)] + [LayerSpec(LlamaBlockPipe, cfg)
+                                                  for _ in range(cfg.num_hidden_layers)] + [LayerSpec(LlamaHeadPipe, cfg)]
+    return PipelineModule(layers=layers, num_stages=num_stages, loss_fn=cross_entropy_loss)
+
+
 def cross_entropy_loss(logits, labels, ignore_index=-100):
     """Mean negative log-likelihood over the labels that are not
     ``ignore_index``, in f32; 0 when every label is ignored."""

@@ -60,9 +60,12 @@ class FusedAdam(TorchOptimizer):
 
 class DeepSpeedCPUAdam(FusedAdam):
     """Reference ``DeepSpeedCPUAdam``: FusedAdam's numerics under the
-    reference's argument names. The reference keeps its moments in host
-    memory between steps (ZeRO offload, ROADMAP A8); here they stay on the
-    engine's device."""
+    reference's argument names. ``offload = True`` tells the engine to keep
+    its moments in host memory between steps and run its update on the host
+    (``runtime/zero/offload.py``), as configuring ``offload_optimizer``
+    does."""
+
+    offload = True
 
     def __init__(self, *args, adamw_mode=True, fp32_optimizer_states=True, **kwargs):
         kwargs.pop("adam_w_mode", None)

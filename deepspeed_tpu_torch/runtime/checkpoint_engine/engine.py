@@ -366,8 +366,10 @@ def _named_opt_state(opt_state):
 
 
 def _state_trees(engine):
-    return {"params": engine.params, "opt_state": _named_opt_state(engine.opt_state),
-            "scale_state": engine.scale_state._asdict()}
+    """The trees a save writes; an offloaded optimizer state as its plan
+    hands it over (swapped-in host tensors under NVMe offload)."""
+    opt = engine._offload.checkpoint_view(engine.opt_state)
+    return {"params": engine.params, "opt_state": _named_opt_state(opt), "scale_state": engine.scale_state._asdict()}
 
 
 def _flatten(tree):
@@ -838,7 +840,9 @@ def _restore_into_engine(engine, path, load_optimizer_states, load_lr_scheduler_
                          verify_arrays):
     full = read_state(path, verify_arrays)
     layout = engine._checkpoint_layout()
-    templates = {"params": engine.params, "opt_state": engine.opt_state, "scale_state": engine.scale_state}
+    offload = engine._offload
+    templates = {"params": engine.params, "opt_state": offload.restore_template(engine.opt_state),
+                 "scale_state": engine.scale_state}
     restored = {}
     for name in STATE_TREES:
         dims = layout[name]
@@ -850,7 +854,7 @@ def _restore_into_engine(engine, path, load_optimizer_states, load_lr_scheduler_
 
     engine.params = restored["params"]
     if load_optimizer_states and not load_module_only:
-        engine.opt_state = restored["opt_state"]
+        engine.opt_state = offload.accept_restored(restored["opt_state"])
         engine.scale_state = restored["scale_state"]
     engine._sync_module()  # the compute-dtype module holds the restored masters
     if not load_module_only:

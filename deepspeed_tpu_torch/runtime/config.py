@@ -102,6 +102,17 @@ class DataTypesConfig(DeepSpeedConfigModel):
     grad_accum_dtype: Optional[str] = None
 
 
+@dataclass
+class AioConfig(DeepSpeedConfigModel):
+    """``aio`` block: the native async-IO engine that NVMe offload swaps
+    through (``ops/aio``)."""
+    block_size: int = 1048576
+    queue_depth: int = 8
+    thread_count: int = 1
+    single_submit: bool = False
+    overlap_events: bool = True
+
+
 def _no_duplicate_keys(pairs):
     d = {}
     for k, v in pairs:
@@ -163,6 +174,7 @@ class DeepSpeedConfig:
         self.anomaly_sentinel_config = AnomalySentinelConfig.from_dict(pd.get(C.ANOMALY_SENTINEL, {}))
         self.telemetry_config = TelemetryConfig.from_dict(pd.get(C.TELEMETRY, {}))
         self.comms_config = CommsConfig.from_dict(pd.get("comms_logger", {}))
+        self.aio_config = AioConfig.from_dict(pd.get("aio", {}))
 
         # blocks their owners parse (compression/, runtime/data_pipeline/,
         # runtime/eigenvalue.py, runtime/progressive_layer_drop.py)

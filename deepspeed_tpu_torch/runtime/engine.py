@@ -51,10 +51,20 @@ stage 2 also the gradient-accumulation buffer (reduce-scattered each
 micro-step), stage 3 also the parameters (gathered layer by layer). With one
 rank nothing is partitioned and every stage runs the same math.
 
-What still raises ``NotImplementedError`` is the second half of ROADMAP A8:
-ZeRO offload, ZeRO++ (qwZ, qgZ, hpZ, MiCS), pipeline, sequence, tensor and
-expert parallelism. The monitor and the flops profiler are A9: where the
-JAX engine calls them, this one does nothing.
+ZeRO-Offload (``zero_optimization.offload_optimizer``, or the
+``cpuadam`` optimizer): the optimizer state rests in pinned host memory or
+on a local disk between steps and its update runs on the host
+(``runtime/zero/offload.py``, ``runtime/swap_tensor``); ``stage_in`` and
+``stage_out`` wrap every update. ZeRO++: qgZ reduces each micro-step's
+gradients as int8 blocks (``runtime/comm/quantized_grads.py``), qwZ
+all-gathers stage-3 weights as int8 or int4 (``runtime/zero/qwz.py``), and
+hpZ / MiCS split the data dimension into ``(data, hpz)`` and partition
+within the secondary group (``utils/groups.py``). Pipeline parallelism is
+``runtime/pipe/engine.py``'s ``PipelineEngine``, one process a stage.
+
+What still raises ``NotImplementedError`` is the rest of ROADMAP A8:
+sequence, tensor and expert parallelism. The monitor and the flops
+profiler are A9: where the JAX engine calls them, this one does nothing.
 """
 
 import itertools
@@ -99,7 +109,10 @@ from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (dynamic_loss_scale_sta
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule_class
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop
 from deepspeed_tpu_torch.runtime.utils import cast_tree, clip_grads_by_global_norm, tree_all_finite
+from deepspeed_tpu_torch.runtime.comm.quantized_grads import QuantizedGradReducer, qgz_supported
+from deepspeed_tpu_torch.runtime.zero.offload import NvmeOffloadPlan, OptimizerOffloadPlan
 from deepspeed_tpu_torch.runtime.zero.partition_parameters import ZeroPartitioner, snapshot_and_clear_init_demand
+from deepspeed_tpu_torch.runtime.zero.qwz import QuantizedWeightGather, qwz_supported
 from deepspeed_tpu_torch.elasticity.gang import GangHeartbeat
 from deepspeed_tpu_torch.utils import groups
 from deepspeed_tpu_torch.utils.device import resolve_device
@@ -144,29 +157,31 @@ def _make_optimizer(name, params_cfg):
     return classes[name](**cfg)
 
 
-def _unsupported(cfg: DeepSpeedConfig):
+def _unsupported(cfg: DeepSpeedConfig, stages: int):
     """Configured features this engine does not run, each with the ROADMAP
-    queue item that ports it (the second half of A8)."""
-    zc = cfg.zero_config
+    queue item that ports it (the rest of A8). ``stages`` is the engine's
+    pipeline stage count: a ``pipeline_parallel_size`` above 1 runs only as
+    a ``PipelineModule``'s stages (the reference also replicates a plain
+    module over its mesh's pipe axis; the port does not)."""
     found = []
-    for block in (zc.offload_optimizer, zc.offload_param):
-        if block is not None and block.device.value != "none":
-            found.append(f"ZeRO offload to {block.device.value} (A8)")
-    if zc.cpu_offload or zc.cpu_offload_param:
-        found.append("ZeRO CPU offload (A8)")
-    if zc.zero_quantized_weights or zc.zero_quantized_nontrainable_weights:
-        found.append("qwZ (zero_quantized_weights) (A8)")
-    if zc.zero_quantized_gradients:
-        found.append("qgZ (zero_quantized_gradients) (A8)")
-    if zc.zero_hpz_partition_size > 1 or zc.mics_shard_size > 0:
-        found.append("hpZ/MiCS secondary partitioning (A8)")
-    for key, what in ((cfg.pipeline_parallel_size, "pipeline parallelism"),
-                      (cfg.sequence_parallel_size, "sequence parallelism"),
+    for key, what in ((cfg.sequence_parallel_size, "sequence parallelism"),
                       (cfg.tensor_parallel_size, "tensor parallelism"),
                       (cfg.expert_parallel_size, "expert parallelism")):
         if key > 1:
             found.append(f"{what} (A8)")
+    if cfg.pipeline_parallel_size > 1 and stages == 1:
+        found.append(f"pipeline_parallel_size {cfg.pipeline_parallel_size} on a module that is not a PipelineModule "
+                     "(A8)")
     return found
+
+
+def _secondary_partition_size(zc) -> int:
+    """hpZ's or MiCS's secondary group size (1: no secondary partition)."""
+    if zc.zero_hpz_partition_size > 1:
+        return zc.zero_hpz_partition_size
+    if zc.mics_shard_size > 0:
+        return zc.mics_shard_size
+    return 1
 
 
 class DeepSpeedEngine:
@@ -182,14 +197,23 @@ class DeepSpeedEngine:
         # join the gang the launcher described (a world of one without one)
         dist.init_distributed(device=self.device)
         self._config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
-        missing = _unsupported(self._config)
+        missing = _unsupported(self._config, self._pipeline_stages())
         if missing:
             raise NotImplementedError(f"not ported yet, each with the ROADMAP item that ports it: {', '.join(missing)}")
-        # the rank mesh: every rank a data-parallel rank (the second half of
-        # A8 brings the other axes)
-        if not groups.mesh_is_initialized() or groups.get_mesh().size != dist.get_world_size():
-            groups.initialize_mesh(force=True)
+        # the rank mesh: the pipeline stages (PipelineEngine), then the data
+        # ranks, split into (data, hpz) for hpZ / MiCS (reference
+        # engine.py:166-190)
+        zc = self._config.zero_config
+        secondary = _secondary_partition_size(zc)
+        pipe = self._pipeline_stages()
+        mesh = groups.get_mesh() if groups.mesh_is_initialized() else None
+        if mesh is None or mesh.size != dist.get_world_size() or mesh.shape.get(groups.PIPE_AXIS, 1) != pipe or \
+                (secondary > 1 and mesh.shape.get(groups.HPZ_AXIS, 1) != secondary):
+            groups.initialize_mesh(pipe_parallel_size=pipe, secondary_partition_size=secondary, force=True)
         self.mesh = groups.get_mesh()
+        if secondary > 1 and self.mesh.shape.get(groups.HPZ_AXIS, 1) != secondary:
+            raise groups.TopologyError(f"hpZ/MiCS partition size {secondary} requires a mesh with an 'hpz' axis of "
+                                       f"that size (got {dict(self.mesh.shape)})")
         self._dp_group = groups.get_group(groups.get_data_parallel_axes())
         if zero_init_demanded:
             logger.info("zero.Init was requested: the engine partitions the parameters of the module it was given")
@@ -228,13 +252,47 @@ class DeepSpeedEngine:
         self.params = {n: p.detach().to(self.master_dtype, copy=True) for n, p in self.module.named_parameters()}
         self.module.to(self.compute_dtype)
         self._module_params = dict(self.module.named_parameters())
-        # ZeRO placement: the masters this rank holds (its chunks at stage 3)
-        zc = self._config.zero_config
+        # ZeRO placement: the masters this rank holds (its chunks at stage 3).
+        # hpZ shards the parameters over the secondary group only; MiCS
+        # shards everything within it (reference engine.py:202-216)
+        part_kw = {}
+        if zc.mics_shard_size > 0:
+            part_kw["zero_axes"] = groups.SECONDARY_PARTITION_AXES
+        elif zc.zero_hpz_partition_size > 1:
+            part_kw["param_axes"] = groups.SECONDARY_PARTITION_AXES
         self._zero = ZeroPartitioner(self.module, zc.stage,
-                                     persistence_threshold=zc.param_persistence_threshold if zc.stage >= 3 else 0)
-        self._partition_params = self._zero.partitioned and zc.stage >= 3
+                                     persistence_threshold=zc.param_persistence_threshold if zc.stage >= 3 else 0,
+                                     **part_kw)
+        self._partition_params = self._zero.params_partitioned
         if self._partition_params:
-            self.params = {n: self._zero.shard(p, self._zero.param_dim[n]) for n, p in self.params.items()}
+            self.params = {n: self._zero.shard_param(p, n) for n, p in self.params.items()}
+        # qwZ: stage-3 weight gathers move int8 or int4 (reference
+        # engine.py:218-234); unsupported combinations raise
+        self._qwz = False
+        if zc.zero_quantized_weights:
+            if not qwz_supported(zc.stage):
+                raise ValueError("zero_quantized_weights (qwZ) requires ZeRO stage 3 (parameters are not sharded at "
+                                 f"stage {zc.stage}, so there is no weight all-gather to quantize)")
+            self._zero.qwz = QuantizedWeightGather(self._zero, self.compute_dtype,
+                                                   bits=zc.zero_quantized_weights_bits)
+            self._qwz = True
+            logger.info("qwZ enabled: ZeRO-3 weight all-gathers move int8")
+        if zc.zero_quantized_nontrainable_weights:
+            raise NotImplementedError("zero_quantized_nontrainable_weights: the engine has no frozen-parameter tier "
+                                      "to keep quantized at rest; use inference/v2 weight quantization for frozen "
+                                      "deployments, or zero_quantized_weights for the comm path")
+        # qgZ: int8 gradient reduction (reference engine.py:236-246)
+        self._qgz = None
+        if zc.zero_quantized_gradients:
+            if qgz_supported(self.mesh, zc.stage):
+                self._qgz = QuantizedGradReducer(self.module, self._dp_group)
+                logger.info("qgZ enabled: data-parallel gradients reduce as int8 blocks")
+            else:
+                logger.warning("zero_quantized_gradients requested but unsupported on this mesh/stage (needs "
+                               "ZeRO<=2 and a pure-DP mesh); using exact psum")
+        if zc.offload_param is not None and zc.offload_param.device.value != "none":
+            logger.warning("offload_param: the parameters stay on the device (the reference reads the block and "
+                           "offloads only the optimizer state)")
         self._sync_module()
 
         # optimizer and its state (over this rank's part at stages 1-3)
@@ -242,7 +300,21 @@ class DeepSpeedEngine:
             self.optimizer = optimizer
         else:
             self.optimizer = _make_optimizer(self._config.optimizer_name, self._config.optimizer_params)
-        self.opt_state = self.optimizer.init(self._opt_view(self.params))
+        # ZeRO-Offload: the optimizer state at rest off the card (reference
+        # engine.py:324-340; the cpuadam optimizer implies it)
+        offload_cfg = zc.offload_optimizer
+        offload_enabled = getattr(self.optimizer, "offload", False)
+        if offload_cfg is not None and offload_cfg.device.value != "none":
+            offload_enabled = True
+        if offload_cfg is not None and offload_cfg.device.value == "nvme":
+            self._offload = NvmeOffloadPlan(self.device, offload_cfg.nvme_path, aio_config=self._config.aio_config,
+                                            buffer_count=offload_cfg.buffer_count, rank=dist.get_rank())
+        else:
+            # an optimizer that reads whole tensors gathers its partitioned
+            # state over the ranks: on the device (the choreography path)
+            host = getattr(self.optimizer, "elementwise", False) or not self._zero.partitioned
+            self._offload = OptimizerOffloadPlan(offload_enabled, self.device, host_compute=host)
+        self.opt_state = self._offload.stage_out(self.optimizer.init(self._opt_view(self.params)))
 
         # loss scaling state, on the device
         fp16_cfg = self._config.fp16_config
@@ -371,7 +443,9 @@ class DeepSpeedEngine:
         the rule shards its optimizer state, else the whole (stage 3's
         masters are chunks already)."""
         if self._partition_params:
-            return dict(params)
+            if not self._zero.relayout:
+                return dict(params)
+            return {n: self._zero.param_to_opt(p, n) for n, p in params.items()}
         return {n: self._zero.shard(p, self._zero.opt_dim[n]) for n, p in params.items()}
 
     def full_params(self):
@@ -379,13 +453,13 @@ class DeepSpeedEngine:
         collective, every rank calls it)."""
         if not self._partition_params:
             return dict(self.params)
-        return {n: self._zero.gather(p, self._zero.param_dim[n]) for n, p in self.params.items()}
+        return {n: self._zero.gather_param(p, n) for n, p in self.params.items()}
 
     def _localize_params(self, full):
         """Whole masters to what this rank holds."""
         if not self._partition_params:
             return dict(full)
-        return {n: self._zero.shard(p, self._zero.param_dim[n]) for n, p in full.items()}
+        return {n: self._zero.shard_param(p, n) for n, p in full.items()}
 
     def state_bytes(self):
         """Bytes this rank holds of the training state: ``params`` (the f32
@@ -398,8 +472,18 @@ class DeepSpeedEngine:
         masters = sum(p.numel() * p.element_size() for p in self.params.values())
         compute = sum(z.local_numel(n, z.param_dim) * comp for n in self.params)
         grads = sum(z.local_numel(n, z.grad_dim) * acc for n in self.params)
-        opt = sum(t.numel() * t.element_size() for t in _tensors(self.opt_state))
+        # wherever the state rests: on the card, on the host (of which
+        # "pinned" is a part) or in its files on disk
+        opt = sum(v for k, v in self._offload.resting_bytes(self.opt_state).items() if k != "pinned")
         return {"params": masters + compute, "grads": grads, "optimizer": opt}
+
+    def _pipeline_stages(self) -> int:
+        """The pipeline's stage count (``PipelineEngine`` overrides)."""
+        return 1
+
+    def _dp_all_reduce(self, t):
+        """``t`` summed over the data-parallel ranks."""
+        return dist.all_reduce(t, group=self._dp_group) if self.dp_world_size > 1 else t
 
     def _checkpoint_layout(self):
         """For each flat entry of the saved state trees, the dimension this
@@ -446,6 +530,47 @@ class DeepSpeedEngine:
 
     def zero_optimization_stage(self):
         return self._config.zero_config.stage
+
+    # -- offload and ZeRO++ (reference engine.py:1439, :1647-1663, :1728) --
+    def swap_tensor_config(self):
+        return self._config.aio_config
+
+    def aio_config(self):
+        return self._config.aio_config
+
+    def zero_use_cpu_optimizer(self):
+        return self._offload.enabled
+
+    def zero_cpu_offload(self):
+        return self._offload.enabled and not hasattr(self._offload, "swapper")
+
+    def zero_has_nvme_offload(self):
+        return hasattr(self._offload, "swapper")
+
+    def zero_partial_offload(self):
+        zc = self._config.zero_config
+        return zc.offload_optimizer.ratio if zc.offload_optimizer else 1.0
+
+    def zero_offload_optimizer(self):
+        return self._config.zero_config.offload_optimizer
+
+    def zero_offload_param(self):
+        return self._config.zero_config.offload_param
+
+    def zero_hpz_partition_size(self):
+        return self._config.zero_config.zero_hpz_partition_size
+
+    def mics_shard_size(self):
+        return self._config.zero_config.mics_shard_size
+
+    def zero_quantized_weights(self):
+        return self._config.zero_config.zero_quantized_weights
+
+    def zero_quantized_gradients(self):
+        return self._config.zero_config.zero_quantized_gradients
+
+    def communication_data_type(self):
+        return torch.int8 if self._qgz is not None else self._grad_accum_dtype
 
     def gradient_clipping(self):
         return self._config.gradient_clipping
@@ -606,6 +731,7 @@ class DeepSpeedEngine:
         self._last_batch = None
         self.zero_grad()
         self._zero.detach()  # the module's units get their own forward back
+        self._offload.close()  # the NVMe swapper's last writes land (reference engine.py:1278)
 
     # ------------------------------------------------------------- data path --
     def _to_device(self, batch):
@@ -705,10 +831,21 @@ class DeepSpeedEngine:
         leaves = self._zero.leaves if self._partition_params else {}
         grads = torch.autograd.grad(scaled, [leaves.get(n, self._module_params[n]) for n in names],
                                     allow_unused=True, materialize_grads=True)
-        out = {n: g.to(self._grad_accum_dtype) for n, g in zip(names, grads)}
-        if self._zero.partitioned and self._zero.stage == 2:
-            out = {n: g if self._zero.grad_dim[n] is None else self._zero.reduce_scatter(g, self._zero.grad_dim[n])
-                   for n, g in out.items()}
+        return self._reduce_micro(dict(zip(names, grads)))
+
+    def _reduce_micro(self, grads):
+        """One micro-step's gradients as the accumulation buffer holds them:
+        in the accumulation dtype, reduce-scattered at stage 2, and under
+        qgZ summed over the ranks as int8 blocks."""
+        z = self._zero
+        if self._qgz is not None:
+            # at stage 2 this rank keeps its chunks of the qgZ sum
+            summed = self._qgz.reduce(grads)
+            return {n: (z.shard(g, z.grad_dim[n]) if z.stage == 2 else g).to(self._grad_accum_dtype)
+                    for n, g in summed.items()}
+        out = {n: g.to(self._grad_accum_dtype) for n, g in grads.items()}
+        if z.partitioned and z.stage == 2:
+            out = {n: g if z.grad_dim[n] is None else z.reduce_scatter(g, z.grad_dim[n]) for n, g in out.items()}
         return out
 
     def _accumulate(self, grads):
@@ -722,7 +859,7 @@ class DeepSpeedEngine:
         """Whether ``name``'s accumulated gradient already is the sum over
         the ranks (a reduce-scattered chunk)."""
         z = self._zero
-        if not z.partitioned:
+        if not z.partitioned or self._qgz is not None:
             return True
         if self._partition_params:
             return z.param_dim[name] is not None
@@ -730,17 +867,33 @@ class DeepSpeedEngine:
 
     def _boundary_grads(self):
         """The accumulated gradients summed over the ranks, over what this
-        rank's optimizer state covers (``_opt_view``), in f32."""
+        rank's optimizer state covers (``_opt_view``), in f32. A chunk
+        reduced within its group is summed across the groups that repeat
+        it (MiCS, hpZ), and hpZ's parameter chunks become optimizer
+        chunks."""
         z = self._zero
         out = {}
         for name, g in self.acc_grads.items():
             g = g.float()
-            if not self._reduced(name):
-                g = z.all_reduce(g)
-                if not self._partition_params:
-                    g = z.shard(g, z.opt_dim[name])
+            if self._partition_params and z.param_dim[name] is not None:
+                g = z.replica_all_reduce(g, param=True)
+                if z.relayout:
+                    g = z.param_to_opt(g, name)
+            elif z.partitioned and z.stage == 2 and z.grad_dim[name] is not None:  # a reduce-scattered chunk
+                if self._qgz is None:
+                    g = z.replica_all_reduce(g)
+            else:
+                if self._qgz is None:
+                    g = self._dp_all_reduce(g)
+                g = z.shard(g, z.opt_dim[name])
             out[name] = g
         return out
+
+    def _gang_finite(self, finite):
+        """Whether every rank's gradients are finite (a 0-d bool tensor)."""
+        if self._zero.partitioned:
+            finite = self._zero.all_reduce(finite.float(), op=ReduceOp.MIN) > 0
+        return finite
 
     def _gang_norm(self, grads):
         """The global L2 norm of the gradients (over ``_opt_view``): chunked
@@ -753,17 +906,17 @@ class DeepSpeedEngine:
             total = total + self._zero.all_reduce(torch.stack(chunked).sum())
         return total.sqrt()
 
-    def _optimizer_update(self, grads, params):
+    def _optimizer_update(self, grads, opt_state, params):
         """The optimizer over this rank's part. An optimizer whose update
         reads whole tensors (LAMB's trust ratio, the 1-bit family's scales)
         runs on the gathered tensors when the state is partitioned, and its
         results are cut back to this rank's part."""
         z = self._zero
         if not z.partitioned or getattr(self.optimizer, "elementwise", False):
-            return self.optimizer.update(grads, self.opt_state, params, self._current_lr)
+            return self.optimizer.update(grads, opt_state, params, self._current_lr)
         gather = lambda tree: {n: z.gather(t, z.opt_dim[n]) for n, t in tree.items()}
         shard = lambda tree: {n: z.shard(t, z.opt_dim[n]) for n, t in tree.items()}
-        full_state = _map_state(self.opt_state, params, gather)
+        full_state = _map_state(opt_state, params, gather)
         new_p, new_state = self.optimizer.update(gather(grads), full_state, gather(params), self._current_lr)
         return shard(new_p), _map_state(new_state, new_p, shard)
 
@@ -781,21 +934,23 @@ class DeepSpeedEngine:
         # sentinel arms the same gate in every precision (skip-step)
         finite = None
         if self._fp16 or self._anomaly_guard:
-            finite = tree_all_finite(grads).to(self.device)
-            if self._zero.partitioned:
-                finite = self._zero.all_reduce(finite.float(), op=ReduceOp.MIN) > 0
+            finite = self._gang_finite(tree_all_finite(grads).to(self.device))
         norm = self._gang_norm(grads)
         clip = self._config.gradient_clipping
         if clip > 0.0:
             grads, norm = clip_grads_by_global_norm(grads, clip, norm=norm)
         view = self._opt_view(self.params)
-        new_view, new_opt = self._optimizer_update(grads, view)
-        if finite is not None:
-            new_view = {k: torch.where(finite, new_view[k], p) for k, p in view.items()}
-            new_opt = _tree_select(finite, new_opt, self.opt_state)
-        if self._zero.partitioned and not self._partition_params:
-            new_view = {n: self._zero.gather(p, self._zero.opt_dim[n]) for n, p in new_view.items()}
-        self.params, self.opt_state = new_view, new_opt
+        # offload: the state comes in from its resting place, the update runs
+        # where the plan says (the host), and the state goes back to rest
+        opt_in = self._offload.stage_in(self.opt_state)
+        new_view, new_opt = self._offload.run_update(self._optimizer_update, grads, opt_in, view, finite)
+        self.opt_state = self._offload.stage_out(new_opt)
+        z = self._zero
+        if z.partitioned and not self._partition_params:
+            new_view = {n: z.gather(p, z.opt_dim[n]) for n, p in new_view.items()}
+        elif self._partition_params and z.relayout:
+            new_view = {n: z.opt_to_param(p, n) for n, p in new_view.items()}
+        self.params = new_view
         self._sync_module()
         overflow = ~finite if finite is not None else torch.zeros([], dtype=torch.bool, device=self.device)
         if self._fp16:
@@ -1196,6 +1351,7 @@ class DeepSpeedEngine:
         sealed by a manifest written last (``runtime/checkpoint_engine``);
         asynchronous under ``nebula.enabled``."""
         tag = str(tag) if tag is not None else f"global_step{self.global_steps}"
+        self._check_checkpointable()
         self._checkpoint_tag_validation(tag)
         save_engine_state(self, save_dir, tag, client_state or {}, save_latest,
                           async_save=self._config.nebula_config.enabled)
@@ -1215,9 +1371,19 @@ class DeepSpeedEngine:
         explicit bad tag raises ``CheckpointCorruptionError``."""
         # deliberately leaves _ckpt_save_dir alone: a load source may be
         # read-only; only a save marks where the finalizer and rollback write
+        self._check_checkpointable()
         return load_engine_state(self, load_dir, tag, load_optimizer_states=load_optimizer_states,
                                  load_lr_scheduler_states=load_lr_scheduler_states,
                                  load_module_only=load_module_only)
+
+    def _check_checkpointable(self):
+        """The gang checkpoint puts the ranks' chunks back together in rank
+        order; chunks that repeat across groups (hpZ's parameters, MiCS) or
+        differ by pipeline stage have no such layout yet (ROADMAP A8)."""
+        z = self._zero
+        if z.zrep is not None or z.prep is not None or self._pipeline_stages() > 1:
+            raise NotImplementedError("checkpoints of hpZ/MiCS partitions and of pipeline stages are not ported "
+                                      "yet (A8)")
 
     def _checkpoint_tag_validation(self, tag):
         """Every rank must save the same tag (reference ``engine.py:3035``):
@@ -1264,20 +1430,6 @@ def _gang_mean_hvp(hvp, group):
     return mean_hvp
 
 
-def _tensors(tree):
-    """Every tensor of an optimizer state (tensors, dicts, NamedTuples)."""
-    if tree is None:
-        return
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, tuple):
-        for v in tree:
-            yield from _tensors(v)
-
-
 def _map_state(state, params, fn):
     """``fn`` over the parameter-keyed dicts of an optimizer state (its
     per-parameter fields); other fields (a step count) are left as they are."""
@@ -1288,14 +1440,3 @@ def _map_state(state, params, fn):
     if isinstance(state, tuple):
         return type(state)(*(_map_state(v, params, fn) for v in state))
     return state
-
-
-def _tree_select(pred, new, old):
-    """Per-tensor ``where(pred, new, old)`` over (named) tuples and dicts."""
-    if new is None:
-        return None
-    if isinstance(new, dict):
-        return {k: torch.where(pred, new[k], old[k]) for k in new}
-    if isinstance(new, tuple):
-        return type(new)(*(_tree_select(pred, a, b) for a, b in zip(new, old)))
-    return torch.where(pred, new, old)

@@ -4,9 +4,11 @@ Port of ``deepspeed_tpu/runtime/zero/config.py`` (``DeepSpeedZeroConfig`` and
 the offload blocks) as dataclasses, with the same field names, defaults and
 aliases. The engine partitions stages 1-3 over the data-parallel ranks
 (``runtime/zero/policy.py``, ``partition_parameters.py``); with one rank
-every stage runs the same math. Offload and the ZeRO++ knobs (qwZ, qgZ,
-hpZ, MiCS) are parsed here and refused by the engine (ROADMAP A8, second
-half).
+every stage runs the same math. ``offload_optimizer`` (``runtime/zero/
+offload.py``) and the ZeRO++ knobs (qwZ, qgZ, hpZ, MiCS) are read as the
+reference reads them: ``ratio`` lies in [0, 1], and the deprecated
+``cpu_offload`` / ``cpu_offload_param`` only warn (the reference's
+``set_new_param`` is False for both: they set nothing).
 """
 
 import enum
@@ -41,7 +43,7 @@ class DeepSpeedZeroOffloadOptimizerConfig(DeepSpeedConfigModel):
     pipeline_read: bool = False
     pipeline_write: bool = False
     fast_init: bool = False
-    ratio: float = config_field(1.0, ge=0.0)
+    ratio: float = config_field(1.0, ge=0.0, le=1.0)
 
 
 @dataclass
@@ -93,6 +95,11 @@ class DeepSpeedZeroConfig(DeepSpeedConfigModel):
 
     def __post_init__(self):
         super().__post_init__()
+        from deepspeed_tpu_torch.utils.logging import logger
+        for old, new in (("cpu_offload", "offload_optimizer"), ("cpu_offload_param", "offload_param"),
+                         ("cpu_offload_use_pin_memory", None)):
+            if getattr(self, old) is not None:
+                logger.warning(f"Config parameter {old} is deprecated" + (f" use {new} instead" if new else ""))
         if self.stage > 3:
             raise ValueError(f"DeepSpeedZeroConfig.stage={self.stage} must be <= 3")
         if self.overlap_comm is None:

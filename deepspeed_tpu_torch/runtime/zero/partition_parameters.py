@@ -3,8 +3,8 @@
 
 Port of ``deepspeed_tpu/runtime/zero/partition_parameters.py``. The
 reference's engine states placements and lets XLA move the data; the port
-moves it by hand, over ``comm``'s collectives (later slices change those
-collectives: qwZ, qgZ, hpZ, offload), never through
+moves it by hand, over ``comm``'s collectives (qwZ changes what they move,
+hpZ and MiCS over which ranks: :class:`ZeroPartitioner`), never through
 ``torch.distributed.fsdp`` or ``DistributedDataParallel``.
 
 :class:`ZeroPartitioner` holds, for each parameter of a module, the
@@ -51,24 +51,53 @@ _INIT_CONTEXT = {"active": False, "config": None, "demanded": False}
 # --------------------------------------------------------------- partitioner --
 class ZeroPartitioner:
     """Placement and data movement of one engine's parameters over its
-    ZeRO group (see the module doc)."""
+    ZeRO group (see the module doc).
 
-    def __init__(self, module: torch.nn.Module, stage: int, persistence_threshold: int = 0):
+    ZeRO++'s secondary partitions (reference ``engine.py:166-216``) give the
+    parameters a group of their own: hpZ (``param_axes``) shards the stage-3
+    parameters over the secondary (``hpz``) group only, while the gradients
+    and the optimizer state keep the whole ZeRO group; MiCS (``zero_axes``)
+    shards all three within the secondary group and replicates them across
+    the groups. ``shard``/``gather``/``reduce_scatter`` take ``param=True``
+    for the parameters' group; ``replica_all_reduce`` sums a chunk over the
+    data-parallel ranks that hold the same chunk (the cross-group gradient
+    sync of MiCS and hpZ; nothing without a secondary partition). With qwZ
+    the engine sets ``qwz`` (``runtime/zero/qwz.py``), which changes what a
+    unit's gather moves: int8 (or packed int4) payloads and their scales,
+    taken from the f32 masters, instead of the compute-dtype chunks."""
+
+    def __init__(self, module: torch.nn.Module, stage: int, persistence_threshold: int = 0, zero_axes=None,
+                 param_axes=None):
         from deepspeed_tpu_torch.models.convert import reference_names
 
         self.stage = stage
-        self.policy = ZeroShardingPolicy(stage, mesh=groups.get_mesh(), persistence_threshold=persistence_threshold)
+        mesh = groups.get_mesh()
+        self.policy = ZeroShardingPolicy(stage, mesh=mesh, persistence_threshold=persistence_threshold,
+                                         zero_axes=zero_axes, param_axes=param_axes)
         self.group = groups.get_group(self.policy.zero_axes) if self.policy.zero_axes else groups.world_group()
         self.degree = self.policy.zero_size
         self.rank = self.group.rank if self.degree > 1 else 0
+        pax = self.policy.param_axes if self.policy.param_axes is not None else self.policy.zero_axes
+        self.pgroup = groups.get_group(pax) if pax else self.group
+        self.pdegree = self.pgroup.size if pax else 1
+        self.prank = self.pgroup.rank if self.pdegree > 1 else 0
+        dp_axes = [ax for ax in groups.get_data_parallel_axes() if mesh.shape.get(ax, 1) > 1]
+        rep = tuple(ax for ax in dp_axes if ax not in self.policy.zero_axes)
+        prep = tuple(ax for ax in dp_axes if ax not in pax)
+        self.zrep = groups.get_group(rep) if rep else None
+        self.prep = groups.get_group(prep) if prep else None
+        self.qwz = None
+        self.masters: Dict[str, torch.Tensor] = {}
         names = reference_names(module)
-        # at stage 3 the three placements agree (one rule, one threshold),
-        # which the engine relies on: the optimizer covers the masters' chunks
-        self.param_dim, self.grad_dim, self.opt_dim, self.shapes = {}, {}, {}, {}
+        # without a secondary partition the three placements agree at stage
+        # 3 (one rule, one threshold), which the engine relies on: the
+        # optimizer covers the masters' chunks (hpZ relays them: ``relayout``)
+        self.param_dim, self.grad_dim, self.opt_dim, self.shapes, self.transposed = {}, {}, {}, {}, {}
         for name, p in module.named_parameters():
             transposed = names[name][1]
             ref = reference_shape(p.shape, transposed)
             self.shapes[name] = tuple(p.shape)
+            self.transposed[name] = transposed
             self.param_dim[name] = port_dim(self.policy.param_dim(ref), p.ndim, transposed)
             self.grad_dim[name] = port_dim(self.policy.grad_dim(ref), p.ndim, transposed)
             self.opt_dim[name] = port_dim(self.policy.opt_dim(ref), p.ndim, transposed)
@@ -76,37 +105,74 @@ class ZeroPartitioner:
         self.unowned = set()
         self.leaves: Dict[str, torch.Tensor] = {}
         self.bypass = False
-        if stage >= 3 and self.degree > 1:
+        if stage >= 3 and self.pdegree > 1:
             self._build_units(module)
 
     @property
     def partitioned(self) -> bool:
         return self.degree > 1
 
-    # -- moving tensors ------------------------------------------------------
-    def shard(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        """This rank's chunk of ``t`` along ``dim`` (``t`` itself when None)."""
-        if dim is None or self.degree == 1:
-            return t
-        n = t.shape[dim] // self.degree
-        return t.narrow(dim, self.rank * n, n).clone()
+    @property
+    def params_partitioned(self) -> bool:
+        """Whether stage 3 partitions the parameters (over ``pgroup``)."""
+        return self.stage >= 3 and self.pdegree > 1
 
-    def gather(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+    @property
+    def relayout(self) -> bool:
+        """Whether the optimizer's chunks differ from the parameters' (hpZ
+        at stage 3: the masters move between the two layouts each step)."""
+        return self.params_partitioned and (self.pgroup.ranks != self.group.ranks or self.param_dim != self.opt_dim)
+
+    def _of(self, param):
+        return (self.pgroup, self.pdegree, self.prank) if param else (self.group, self.degree, self.rank)
+
+    # -- moving tensors ------------------------------------------------------
+    def shard(self, t: torch.Tensor, dim: Optional[int], param: bool = False) -> torch.Tensor:
+        """This rank's chunk of ``t`` along ``dim`` (``t`` itself when None)."""
+        _, degree, rank = self._of(param)
+        if dim is None or degree == 1:
+            return t
+        n = t.shape[dim] // degree
+        return t.narrow(dim, rank * n, n).clone()
+
+    def gather(self, t: torch.Tensor, dim: Optional[int], param: bool = False) -> torch.Tensor:
         """The whole tensor from every rank's chunk along ``dim``."""
-        if dim is None or self.degree == 1:
+        group, degree, _ = self._of(param)
+        if dim is None or degree == 1:
             return t
         moved = t.movedim(dim, 0).contiguous()
-        full = dist.all_gather_into_tensor(moved, group=self.group)
+        full = dist.all_gather_into_tensor(moved, group=group)
         return full.movedim(0, dim).contiguous()
 
-    def reduce_scatter(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+    def reduce_scatter(self, t: torch.Tensor, dim: Optional[int], param: bool = False) -> torch.Tensor:
         """This rank's chunk along ``dim`` of the sum of every rank's ``t``."""
+        group, _, _ = self._of(param)
         moved = t.movedim(dim, 0).contiguous()
-        part = dist.reduce_scatter_tensor(moved, op=ReduceOp.SUM, group=self.group)
+        part = dist.reduce_scatter_tensor(moved, op=ReduceOp.SUM, group=group)
         return part.movedim(0, dim).contiguous()
 
     def all_reduce(self, t: torch.Tensor, op=ReduceOp.SUM) -> torch.Tensor:
         return dist.all_reduce(t, op=op, group=self.group) if self.degree > 1 else t
+
+    def replica_all_reduce(self, t: torch.Tensor, param: bool = False) -> torch.Tensor:
+        """``t`` (a chunk reduced within its group) summed over the ranks
+        that hold the same chunk."""
+        rep = self.prep if param else self.zrep
+        return dist.all_reduce(t, group=rep) if rep is not None else t
+
+    def shard_param(self, t, name):
+        return self.shard(t, self.param_dim[name], param=True) if self.params_partitioned else t
+
+    def gather_param(self, t, name):
+        return self.gather(t, self.param_dim[name], param=True) if self.params_partitioned else t
+
+    def param_to_opt(self, t, name):
+        """A parameter-layout chunk as this rank's optimizer chunk."""
+        return self.shard(self.gather_param(t, name), self.opt_dim[name])
+
+    def opt_to_param(self, t, name):
+        """An optimizer-layout chunk as this rank's parameter chunk."""
+        return self.shard_param(self.gather(t, self.opt_dim[name]), name)
 
     # -- what each rank holds --------------------------------------------------
     def local_numel(self, name: str, dim_of) -> int:
@@ -115,7 +181,8 @@ class ZeroPartitioner:
         n = 1
         for s in self.shapes[name]:
             n *= s
-        return n // self.degree if dim_of[name] is not None else n
+        degree = self.pdegree if dim_of is self.param_dim else self.degree
+        return n // degree if dim_of[name] is not None else n
 
     # -- stage 3: the units ----------------------------------------------------
     def _build_units(self, module):
@@ -145,13 +212,14 @@ class ZeroPartitioner:
         # a parameter the root module owns directly runs in no unit: it stays whole
         for name in self.unowned:
             self.param_dim[name] = self.grad_dim[name] = self.opt_dim[name] = None
-        logger.info(f"ZeRO-3 over {self.degree} ranks: {len(self.units)} units gather their parameters "
+        logger.info(f"ZeRO-3 over {self.pdegree} ranks: {len(self.units)} units gather their parameters "
                     f"layer by layer; {len(self.unowned)} parameter(s) outside any unit stay whole")
 
     def set_leaves(self, masters: Dict[str, torch.Tensor], dtype):
         """The tensors the engine differentiates at stage 3: each unit
         parameter's chunk (or whole, if replicated) in the compute dtype,
         from the f32 masters this rank holds."""
+        self.masters = masters
         for unit in self.units:
             for name in unit.names:
                 self.leaves[name] = masters[name].detach().to(dtype).requires_grad_(True)
@@ -208,7 +276,14 @@ class _Unit:
         return _GatheredUnit.apply(self, len(args), *args, *leaves)
 
     def gather(self, leaves):
-        return [self.part.gather(leaf.detach(), d) for leaf, d in zip(leaves, self.dims)]
+        part = self.part
+        out = []
+        for name, leaf, d in zip(self.names, leaves, self.dims):
+            if part.qwz is not None and part.qwz.applies(name, d):
+                out.append(part.qwz.gather(name, part.masters[name], d))
+            else:
+                out.append(part.gather(leaf.detach(), d, param=True))
+        return out
 
     def install(self, fulls):
         for p, full in zip(self.params, fulls):
@@ -275,7 +350,7 @@ class _GatheredUnit(torch.autograd.Function):
             elif dim is None:
                 out_leaves.append(g)  # a replicated parameter: reduced at the boundary
             else:
-                out_leaves.append(unit.part.reduce_scatter(g, dim))
+                out_leaves.append(unit.part.reduce_scatter(g, dim, param=True))
         return (None, None, *out_args, *out_leaves)
 
 

@@ -133,6 +133,27 @@ class RankMesh:
         self._groups[axes] = g
         return g
 
+    def subgroup(self, axes: Tuple[str, ...], positions) -> Optional[RankGroup]:
+        """This rank's group of the members at ``positions`` of each slice
+        along ``axes`` (the stages that hold one tied layer, say), made by
+        every rank at once like :meth:`group`; None when this rank is not
+        among them."""
+        axes, positions = tuple(axes), tuple(positions)
+        slices = self._slices(axes)
+        if positions == tuple(range(len(slices[0]))):
+            return self.group(axes)
+        key = (axes, positions)
+        if key not in self._groups:
+            import torch.distributed as tdist
+            mine = None
+            for s in slices:
+                ranks = [s[i] for i in positions]
+                made = tdist.new_group(ranks)
+                if self.rank in ranks:
+                    mine = RankGroup(axes=axes, ranks=ranks, rank=ranks.index(self.rank), pg=made)
+            self._groups[key] = mine
+        return self._groups[key]
+
 
 def initialize_mesh(
     *,

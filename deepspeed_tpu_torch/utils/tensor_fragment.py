@@ -22,10 +22,6 @@ def _check(engine, name):
         raise KeyError(f"no parameter {name!r} (available: {sorted(engine.params)[:8]}...)")
 
 
-def _param_dim(engine, name):
-    return engine._zero.param_dim[name] if engine._partition_params else None
-
-
 def _opt_dim(engine, name):
     return engine._zero.opt_dim[name]
 
@@ -33,7 +29,7 @@ def _opt_dim(engine, name):
 def safe_get_full_fp32_param(engine, name):
     """The whole f32 master of ``name`` (a numpy array)."""
     _check(engine, name)
-    return engine._zero.gather(engine.params[name], _param_dim(engine, name)).detach().cpu().numpy()
+    return engine._zero.gather_param(engine.params[name], name).detach().cpu().numpy()
 
 
 def safe_set_full_fp32_param(engine, name, value) -> None:
@@ -44,7 +40,7 @@ def safe_set_full_fp32_param(engine, name, value) -> None:
     if tuple(t.shape) != engine._zero.shapes[name]:
         raise ValueError(f"value shape {tuple(t.shape)} != param shape {engine._zero.shapes[name]}")
     engine.params = dict(engine.params)
-    engine.params[name] = engine._zero.shard(t, _param_dim(engine, name))
+    engine.params[name] = engine._zero.shard_param(t, name)
     engine._sync_module()
 
 
@@ -90,7 +86,7 @@ def safe_get_full_grad(engine, name):
     if not engine._reduced(name):
         g = z.all_reduce(g.clone())
     elif z.partitioned:
-        g = z.gather(g, z.param_dim[name] if engine._partition_params else z.grad_dim[name])
+        g = z.gather_param(g, name) if engine._partition_params else z.gather(g, z.grad_dim[name])
     return (g / engine.dp_world_size).cpu().numpy()
 
 

@@ -169,6 +169,25 @@ def test_group_ranks_equal_the_device_ids_along_each_mesh_axis(gangs, G, shape):
             assert sorted(pg_ranks) == sorted(line) and index == line.index(rank)
 
 
+@pytest.mark.parametrize("mesh_kw,axes,positions,want", [
+    ({"pipe_parallel_size": 4}, ("pipe", ), (0, 3), {0: [0, 3], 3: [0, 3]}),
+    ({"pipe_parallel_size": 4}, ("pipe", ), (0, 1, 2, 3), {r: [0, 1, 2, 3] for r in range(4)}),
+    ({"pipe_parallel_size": 2}, ("pipe", ), (1, ), {2: [2], 3: [3]}),
+    ({"pipe_parallel_size": 2}, ("pipe", "data"), (0, 3), {0: [0, 3], 3: [0, 3]})], ids=str)
+def test_mesh_subgroups_are_positions_of_each_slice(gangs, mesh_kw, axes, positions, want):
+    """``RankMesh.subgroup`` (the pipeline's tied-layer groups): each
+    slice's members at ``positions``, one process group each; a member's
+    all-reduce sums over exactly those ranks, and the other ranks get
+    None."""
+    for rank, out in gangs[4].run(sc.mesh_subgroup, mesh_kw, axes, positions):
+        if rank not in want:
+            assert out is None, rank
+            continue
+        ranks, index, total = out
+        assert ranks == want[rank] and index == ranks.index(rank)
+        assert total == sum(r + 1 for r in ranks)
+
+
 def test_topology_errors_match_the_reference():
     """The reference's TopologyError cases, in a world of one process."""
     from deepspeed_tpu_torch.runtime.pipe.topology import PipeModelDataParallelTopology, PipelineParallelGrid
@@ -247,13 +266,32 @@ def test_monitored_barrier_single_process_passes():
 
 # -------------------------------------------------------------- the surface --
 def test_p2p_raises_as_the_reference():
-    for call in (lambda: dist.send(torch.zeros(4), dst=1), lambda: dist.recv(torch.zeros(4), src=0),
-                 lambda: dist.isend(torch.zeros(4), dst=1), lambda: dist.irecv(torch.zeros(4), src=0)):
-        with pytest.raises(NotImplementedError, match="ppermute"):
-            call()
+    """The reference has no point-to-point (SPMD: ``ppermute`` instead) and
+    raises; the port's send/recv/isend/irecv are the pipeline engine's
+    neighbour exchange: without a process group they raise, over a gang
+    they move the tensors (blocking and not)."""
     for call in (lambda: jdist.send(np.zeros(4), dst=1), lambda: jdist.recv(np.zeros(4), src=0)):
         with pytest.raises(NotImplementedError, match="ppermute"):
             call()
+    for call in (lambda: dist.send(torch.zeros(4), dst=1), lambda: dist.recv(torch.zeros(4), src=0),
+                 lambda: dist.isend(torch.zeros(4), dst=1), lambda: dist.irecv(torch.zeros(4), src=0)):
+        with pytest.raises(RuntimeError, match="process group"):
+            call()
+
+
+def test_p2p_moves_tensors_between_ranks(gangs):
+    """Over a gang of 2: a blocking exchange (rank 0 sends, rank 1 receives
+    and answers) and a non-blocking one in both directions at once, each
+    bit for bit, in f32, int64 and bf16."""
+    res = gangs[2].run(sc.p2p_exchange)
+    for rank, got in enumerate(res):
+        peer = 1 - rank
+        for dtype, blocking, nonblocking in got:
+            np.testing.assert_array_equal(nonblocking, sc.p2p_payload(peer, dtype))
+            if rank == 1:
+                np.testing.assert_array_equal(blocking, sc.p2p_payload(0, dtype))
+            else:
+                np.testing.assert_array_equal(blocking, sc.p2p_payload(1, dtype) * 2)
 
 
 def test_comms_logger_records_over_a_gang(gangs):
@@ -343,3 +381,47 @@ def test_accelerator_surface(monkeypatch):
     monkeypatch.delenv("DS_ACCELERATOR")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert ra.get_accelerator().communication_backend_name() == "gloo"
+
+
+_EXIT_SCRIPT = r"""
+import atexit, os, sys
+import torch
+import torch.distributed as tdist
+# registered before the port's hook, so it runs after it (atexit is LIFO)
+atexit.register(lambda: print(f"at_exit_initialized={tdist.is_initialized()}", flush=True))
+from deepspeed_tpu_torch import comm
+comm.init_distributed(dist_backend="gloo", verbose=False)
+t = torch.ones(3)
+comm.all_reduce(t)
+print(f"sum={t.tolist()}", flush=True)
+"""
+
+
+def test_c12_the_process_group_is_torn_down_at_exit(tmp_path):
+    """C12: the reference's ``jax.distributed`` client is shut down at
+    interpreter exit (jax's ``atexit`` clean-up); the port destroys its
+    process group the same way, so a gloo group is never left to the
+    interpreter's teardown (which aborted ranks that had finished: exit -6,
+    "terminate called without an active exception"). Two ranks of a gang
+    run a collective and exit: both exit 0, with no group alive after the
+    port's hook."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    script = tmp_path / "exit.py"
+    script.write_text(_EXIT_SCRIPT)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=repo, DSTPU_COORDINATOR=f"127.0.0.1:{port}", DSTPU_NUM_PROCESSES="2",
+                   DSTPU_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen([sys.executable, str(script)], env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    for p in procs:
+        out, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err[-2000:]
+        assert "sum=[2.0, 2.0, 2.0]" in out and "at_exit_initialized=False" in out, out

@@ -77,6 +77,11 @@ def test_port_and_chip_smoke_import_no_jax_flax_pydantic_or_reference():
                  "elasticity.gang", "elasticity.elastic_agent", "elasticity.train_supervisor", "launcher.launch",
                  "launcher.runner", "launcher.multinode_runner", "bin.dstpu_train", "bin.dstpu_elastic"):
         assert f"deepspeed_tpu_torch.{name}" in result["imported"]
+    for name in ("runtime.zero.offload", "runtime.zero.qwz", "runtime.zero.tiling", "runtime.swap_tensor",
+                 "runtime.swap_tensor.partitioned_optimizer_swapper", "runtime.comm.compressed",
+                 "runtime.comm.quantized_grads", "runtime.pipe.module", "runtime.pipe.schedule",
+                 "runtime.pipe.executor", "runtime.pipe.engine"):
+        assert f"deepspeed_tpu_torch.{name}" in result["imported"]
     assert result["banned"] == []
 
 

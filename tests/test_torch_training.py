@@ -357,19 +357,31 @@ def test_batch_triangle_and_config_errors():
     cfg = DeepSpeedConfig({"train_batch_size": 8, "zero_optimization": {
         "stage": 3, "stage3_param_persistence_threshold": 0, "offload_optimizer": {"device": "cpu"}}})
     assert cfg.zero_config.param_persistence_threshold == 0 and cfg.zero_config.overlap_comm
-    with pytest.raises(NotImplementedError, match="offload"):
-        deepspeed_tpu_torch.initialize(model=SimpleModel(), config=cfg._param_dict, device="cpu")
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=SimpleModel(), config=cfg._param_dict, device="cpu")
+    try:
+        assert engine.zero_cpu_offload() and not engine.zero_has_nvme_offload()
+        assert engine.zero_partial_offload() == 1.0
+    finally:
+        engine.destroy()
+    with pytest.raises(ValueError, match="ratio"):
+        DeepSpeedConfig({"train_batch_size": 8, "zero_optimization": {"offload_optimizer": {"device": "cpu",
+                                                                                           "ratio": 1.5}}})
 
 
 @pytest.mark.parametrize("key,value,error", [
     ("tensor_parallel_size", 2, NotImplementedError), ("pipeline_parallel_size", 2, NotImplementedError),
-    ("zero_optimization", {"stage": 2, "zero_quantized_gradients": True}, NotImplementedError),
-    ("zero_optimization", {"stage": 3, "offload_param": {"device": "cpu"}}, NotImplementedError),
-    ("optimizer", {"type": "NoSuchOptimizer", "params": {"lr": 0.1}}, ValueError)])
+    ("zero_optimization", {"stage": 2, "zero_quantized_weights": True}, ValueError),
+    ("sequence_parallel_size", 2, NotImplementedError),
+    ("optimizer", {"type": "NoSuchOptimizer", "params": {"lr": 0.1}}, ValueError),
+    ("expert_parallel_size", 2, NotImplementedError)])
 def test_unported_features_raise(key, value, error):
     """What is not ported raises NotImplementedError naming its ROADMAP queue
-    item; an unknown optimizer raises the reference's ValueError."""
-    with pytest.raises(error, match=r"\(A8\)" if error is NotImplementedError else "Unknown optimizer"):
+    item (sequence, tensor and expert parallelism, and a pipeline size on a
+    module that is not a PipelineModule: the rest of A8); an
+    unknown optimizer raises the reference's ValueError, and so does a ZeRO
+    stage the quantized-weight knobs cannot serve."""
+    match = {NotImplementedError: r"\(A8\)", ValueError: "Unknown optimizer|qwZ|stage 3"}[error]
+    with pytest.raises(error, match=match):
         deepspeed_tpu_torch.initialize(model=SimpleModel(), config={"train_batch_size": 8, key: value},
                                        device="cpu")
 

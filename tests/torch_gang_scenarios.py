@@ -19,6 +19,36 @@ def _tensor(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
+def p2p_payload(rank, dtype):
+    """What rank ``rank`` sends in ``p2p_exchange`` (as f32 numpy)."""
+    return (np.arange(12, dtype=np.float32).reshape(3, 4) + 100 * rank).astype(np.float32)
+
+
+def p2p_exchange():
+    """Rank 0 sends, rank 1 receives and sends back twice the payload it
+    was given, blocking; then both post ``irecv`` and ``isend`` at once. The
+    results as f32 numpy, for f32, int64 and bf16 tensors."""
+    rank = dist.get_rank()
+    peer = 1 - rank
+    out = []
+    for dtype in (torch.float32, torch.int64, torch.bfloat16):
+        mine = torch.from_numpy(p2p_payload(rank, dtype)).to(dtype)
+        buf = torch.zeros_like(mine)
+        if rank == 0:
+            dist.send(mine, dst=1)
+            dist.recv(buf, src=1)
+        else:
+            dist.recv(buf, src=0)
+            dist.send(torch.from_numpy(p2p_payload(1, dtype) * 2).to(dtype), dst=0)
+        blocking = buf.float().numpy()
+        got = torch.zeros_like(mine)
+        works = [dist.irecv(got, src=peer), dist.isend(mine, dst=peer)]
+        for w in works:
+            w.wait()
+        out.append((str(dtype), blocking, got.float().numpy()))
+    return out
+
+
 def comm_ops(mesh_kw, group, cases):
     """Each case ``(op, kwargs, x)`` on this rank's ``x[i]``, ``i`` its index
     in ``group`` over the mesh ``mesh_kw``; the results as numpy."""
@@ -227,6 +257,20 @@ def group_membership(mesh_kw):
     return dist.get_rank(), out
 
 
+def mesh_subgroup(mesh_kw, axes, positions):
+    """This rank's group of the members at ``positions`` of each slice along
+    ``axes`` (``RankMesh.subgroup``): its ranks, this rank's index and the
+    sum over it of rank + 1 (None where this rank is not a member)."""
+    mesh = groups.initialize_mesh(force=True, **mesh_kw)
+    g = mesh.subgroup(axes, positions)
+    out = None
+    if g is not None:
+        total = dist.all_reduce(torch.tensor([float(dist.get_rank() + 1)]), group=g)
+        out = (g.ranks, g.rank, float(total[0]))
+    groups.destroy_mesh()
+    return dist.get_rank(), out
+
+
 def barrier_with_absent(absent, timeout_s, name):
     """``monitored_barrier`` that rank ``absent`` never enters: the others'
     errors (naming the absent rank)."""
@@ -391,3 +435,187 @@ def curvature(stage, batch):
     engine.destroy()
     groups.destroy_mesh()
     return raw
+
+
+# ------------------------------------------------- offload and ZeRO++ (A8) --
+def train_llama_plus(cfg_fields, state, ds_config, batches):
+    """``train_llama`` for the offload and ZeRO++ configurations: the same
+    results (the optimizer state swapped in where it rests on disk) plus
+    where the state rests, the offload and qwZ counters, and the comms
+    logger's bytes by op."""
+    from deepspeed_tpu_torch.comm import comm as comm_mod
+    engine = _llama_engine(cfg_fields, state, ds_config)
+    comm_mod.comms_logger.comms_dict.clear()
+    dist.configure(enabled=True, prof_all=True)  # after the engine's own configure
+    losses, norms = [], []
+    for b in batches:
+        losses.append(float(engine.train_batch(batch=tuple(_tensor(x) for x in b))))
+        norms.append(engine.get_global_grad_norm())
+    dist.configure(enabled=False)
+    comm_bytes = {op: sum(size * vals[0] for size, vals in sizes.items())
+                  for op, sizes in comm_mod.comms_logger.comms_dict.items()}
+    opt_state = engine._offload.checkpoint_view(engine.opt_state)
+    rest = engine._offload.resting_bytes(engine.opt_state)
+    z = engine._zero
+    out = dict(losses=losses, norms=norms, full={k: v.numpy() for k, v in engine.full_params().items()},
+               local={k: v.detach().numpy() for k, v in engine.params.items()},
+               opt={f"{f}/{n}": t.detach().numpy() for f, v in opt_state._asdict().items() if isinstance(v, dict)
+                    for n, t in v.items()},
+               bytes=engine.state_bytes(), rest=rest, param_dim=dict(z.param_dim), opt_dim=dict(z.opt_dim),
+               param_group=list(z.pgroup.ranks) if z.pdegree > 1 else [dist.get_rank()],
+               zero_group=list(z.group.ranks) if z.degree > 1 else [dist.get_rank()], rank=dist.get_rank(),
+               qwz_gathers=z.qwz.gathers if z.qwz is not None else 0, qgz=engine._qgz is not None,
+               cpu_offload=engine.zero_cpu_offload(), nvme=engine.zero_has_nvme_offload(), comm_bytes=comm_bytes,
+               host_compute=engine._offload.host_compute)
+    engine.destroy()
+    groups.destroy_mesh()
+    return out
+
+
+def quantized_reduce_scatter_case(xs, block):
+    """This rank's ``quantized_reduce_scatter`` of ``xs[rank]``."""
+    from deepspeed_tpu_torch.runtime.comm.compressed import quantized_reduce_scatter
+    return quantized_reduce_scatter(_tensor(xs[dist.get_rank()]), block=block).numpy()
+
+
+def compressed_allreduce_case(x, worker_errors, server_errors, rounds):
+    """``rounds`` calls of the 1-bit all-reduce of the same ``x`` on every
+    rank, each rank with its own error feedback; the last output and the
+    errors."""
+    from deepspeed_tpu_torch.runtime.comm.compressed import compressed_allreduce
+    r = dist.get_rank()
+    we, se = _tensor(worker_errors[r]).clone(), _tensor(server_errors[r]).clone()
+    for _ in range(rounds):
+        out, we, se = compressed_allreduce(_tensor(x), we, se)
+    return out.numpy(), we.numpy(), se.numpy()
+
+
+# -------------------------------------------------------------- pipeline --
+class InProj(torch.nn.Module):
+    """The reference tests' ``InProj`` (flax ``Dense(HIDDEN)``)."""
+
+    def __init__(self, d_in, hidden):
+        super().__init__()
+        self.Dense_0 = torch.nn.Linear(d_in, hidden)
+
+    def forward(self, x):
+        return self.Dense_0(x)
+
+
+class Block(torch.nn.Module):
+    """``x + tanh(Dense(x))``."""
+
+    def __init__(self, hidden):
+        super().__init__()
+        self.Dense_0 = torch.nn.Linear(hidden, hidden)
+
+    def forward(self, x):
+        return x + torch.tanh(self.Dense_0(x))
+
+
+class OutProj(torch.nn.Module):
+
+    def __init__(self, hidden):
+        super().__init__()
+        self.Dense_0 = torch.nn.Linear(hidden, 1)
+
+    def forward(self, x):
+        return self.Dense_0(x)
+
+
+class TiedProj(torch.nn.Module):
+    """A bias-free square weight used twice (in and, transposed, out)."""
+
+    def __init__(self, hidden):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.zeros(hidden, hidden))
+
+    def forward(self, x):
+        return x @ self.w
+
+
+class Middle(torch.nn.Module):
+
+    def __init__(self, hidden):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.zeros(hidden, hidden))
+
+    def forward(self, x):
+        return torch.tanh(x @ self.w)
+
+
+def mse(out, labels):
+    return torch.mean((out.squeeze(-1) - labels)**2)
+
+
+def mse_full(out, labels):
+    return torch.mean((out - labels)**2)
+
+
+def _unembed(module, x):
+    return x @ module.w.t()
+
+
+def pipeline_module(kind, stages, hidden, n_blocks=4):
+    from deepspeed_tpu_torch.runtime.pipe import LayerSpec, PipelineModule, TiedLayerSpec
+    if kind == "mlp":
+        layers = [LayerSpec(InProj, hidden, hidden)] + [LayerSpec(Block, hidden) for _ in range(n_blocks)] + \
+            [LayerSpec(OutProj, hidden)]
+        return PipelineModule(layers=layers, num_stages=stages, loss_fn=mse)
+    layers = [TiedLayerSpec("emb", TiedProj, hidden), LayerSpec(Middle, hidden),
+              TiedLayerSpec("emb", TiedProj, hidden, forward_fn=_unembed)]
+    return PipelineModule(layers=layers, num_stages=stages, loss_fn=mse_full)
+
+
+def pipe_train(kind, stages, hidden, state, ds_config, batches, evaluate=False):
+    """The port's ``PipelineEngine`` over this gang (one rank a stage):
+    per-step losses and norms, this stage's masters, the send/recv counts,
+    and (``evaluate``) an ``eval_batch`` of the first batch."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine, PipelineError
+    groups.destroy_mesh()
+    module = pipeline_module(kind, stages, hidden)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=module, config=ds_config, device="cpu",
+                                                     model_parameters={k: _tensor(v) for k, v in state.items()})
+    assert isinstance(engine, PipelineEngine)
+    losses, norms = [], []
+    for b in batches:
+        losses.append(float(engine.train_batch(batch=tuple(_tensor(x) for x in b))))
+        norms.append(engine.get_global_grad_norm())
+    raised = []
+    for call in (lambda: engine.forward(batches[0]), engine.backward, engine.step):
+        try:
+            call()
+        except PipelineError:
+            raised.append(True)
+    out = dict(losses=losses, norms=norms, params={k: v.detach().numpy() for k, v in engine.params.items()},
+               stage=engine.stage_id, sends=engine._executor.sends, recvs=engine._executor.recvs, raised=raised,
+               boundary=engine.is_gradient_accumulation_boundary())
+    if evaluate:
+        out["eval"] = float(engine.eval_batch(batch=tuple(_tensor(x) for x in batches[0])))
+    engine.destroy()
+    groups.destroy_mesh()
+    return out
+
+
+def cuda_p2p_exchange():
+    """``p2p_exchange`` on CUDA tensors (gloo stages them through the host);
+    the results and the host-staging tally."""
+    from deepspeed_tpu_torch.comm import comm as comm_mod
+    comm_mod.comms_logger.host_staged.clear()
+    rank, peer = dist.get_rank(), 1 - dist.get_rank()
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        mine = torch.from_numpy(p2p_payload(rank, dtype)).to("cuda", dtype)
+        got = torch.zeros_like(mine)
+        if rank == 0:
+            dist.send(mine, dst=1)
+            dist.recv(got, src=1)
+        else:
+            dist.recv(got, src=0)
+            dist.send(mine, dst=0)
+        nb = torch.zeros_like(mine)
+        for w in [dist.irecv(nb, src=peer), dist.isend(mine, dst=peer)]:
+            w.wait()
+        out.append((got.float().cpu().numpy(), nb.float().cpu().numpy(), got.device.type))
+    return out, {op: list(v) for op, v in comm_mod.comms_logger.host_staged.items()}

@@ -3,7 +3,7 @@
 # change, change, parent, so that the card's drift between runs shows as a
 # difference within one tree rather than between the trees.
 #
-#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|spec|observe|fleet|features|zero|MODE,MODE...]
+#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|spec|observe|fleet|features|zero|zeroplus|MODE,MODE...]
 #
 # Each run's output goes to chiprun_out/smoke_<i>_<tree>.log and its full
 # record to chiprun_out/smoke_<i>_<tree>.json, under the directory the script
@@ -35,7 +35,9 @@
 # tokens/s at each curriculum length, prefetch and telemetry step times, the
 # compression transforms' ulps, the eigenvalue leg); with "zero", the zero
 # phase (run_zero_path: each leg's seconds, the gloo ranks' step seconds,
-# state bytes and peak memory by stage); modes joined by commas
+# state bytes and peak memory by stage); with "zeroplus", the offload,
+# ZeRO++ and pipeline phase (run_zero_plus_path: each leg's seconds, the
+# offloaded, on-card and NVMe step seconds); modes joined by commas
 # run each. The exit code
 # is the last failing run's, else 0.
 set -u
@@ -118,6 +120,12 @@ if "zero" in modes:
                           ranks=[{st: dict(steps_s=s["steps_s"], state_bytes=s["state_bytes"],
                                            peak_gib=s["max_memory_allocated_gib"]) for st, s in x["stages"].items()}
                                  for x in r["two_ranks"]["ranks"]])))
+if "zeroplus" in modes:
+    r = c.run_zero_plus_path(dev)
+    print(json.dumps(dict(legs_s=[r[k] for k in ("cpu_offload_s", "nvme_s", "ranks_s", "pipeline_s")],
+                          seconds=r["seconds"], card_step_s=r["cpu_offload"]["device"]["step_s"],
+                          offload_step_s=r["cpu_offload"]["offload"]["step_s"],
+                          nvme_step_s=r["nvme"]["nvme"]["step_s"])))
 if "sparse" in modes:
     r = c.check_block_sparse_attention(dev)
     keys = ("case", "density", "max_abs_err", "tol_use", "ms", "ms_index_order", "ms_sorted_again", "ms_split_steps",
