@@ -117,7 +117,29 @@ Phases (any failure raises and the script exits non-zero):
    request, SIGKILL, restart, a second request, both the tokens of an
    in-process engine from the same seed. Every served greedy token
    teacher-forced; each leg with a control that must fail;
-10. training path: train bench.py's headline program (the 530M Llama, full
+10. MoE path (run_moe_path): Mixtral-8x7B's widths at 8 of its 32 layers
+   (random bf16 weights from seed 0). (a) 8 requests of 125-850 prompt
+   tokens through build_engine + generate on one rank, 32 greedy new tokens
+   at capacity factor 4.0 (no assignment dropped), B1's launch count zeroed
+   just before and read just after; rates, each layer's expert counts, one
+   traced decode put (attn against moe_ffn); the first decode step's logits
+   and every served token held to Mixtral's function in f32 (no capacity;
+   the bf16 weights upcast a layer at a time), each check with a control it
+   must reject (experts 0 and 1 swapped; the tokens shifted by one). (b) The
+   same prompts under simulated gating at temperature 0.5: each layer's
+   first choices over the decoded tokens within 4 sigma of
+   simulated_expert_probs (control: the next layer's distribution). (c)
+   Expert parallelism over two ranks of this script (--moe-rank-child, gloo
+   on the one card, each rank holding half the experts), started before (a)
+   so their imports overlap it: the requests split across them, no drop,
+   each request's tokens against (a)'s or teacher-forced, the all-to-all
+   bytes exactly the count from C, E, M and the layers, the rank done first
+   running empty forwards, and the control (rank 1's experts swapped) failing
+   the teacher-forced check. (d) MixtralForCausalLM at 1 layer (cut: depth; 2
+   ran out of memory in the out-of-place AdamW) through
+   initialize + train_batch at ZeRO 3, B 1, S 1024, three steps: the first
+   step's loss and gradient norm against the same step in f32;
+11. training path: train bench.py's headline program (the 530M Llama, full
    width and depth, S=1024, micro-batch 8, GAS 8, AdamW, bf16 over f32
    masters, ZeRO stage 3, remat "dots", flash attention) through
    deepspeed_tpu_torch.initialize + train_batch, with the flash kernels'
@@ -127,7 +149,8 @@ Phases (any failure raises and the script exits non-zero):
    projections' gradients, through the kernels and through plain attention
    in bf16, to the same step in f32, and show that the check rejects the
    kernel step with dq, or dk and dv, zeroed or with attention replaced;
-11. checkpoint path: on the same model and batches, a save into
+12. checkpoint path: on the same model cut to 2 layers (cut: depth, so the
+   whole script stays inside its time) and the same batches, a save into
    tempfile.mkdtemp() and a resume in a fresh engine, its losses and f32
    masters bitwise those of the run that never stopped (the flash kernels'
    launch counts zeroed just before the resumed steps and read just after);
@@ -141,7 +164,7 @@ Phases (any failure raises and the script exits non-zero):
    torn. Then every optimizer but AdamW on the model cut to 2 layers (3
    steps on one batch: finite, falling) and its f32 updates of a tiny
    config's tree on the card against the CPU's; save, load and CRC times;
-12. train features path: on the same model, curriculum learning (each
+13. train features path: on the same model, curriculum learning (each
    step's sequence length the scheduler's, B2-B4 launched as predicted at
    each length; the control at full length from the first step, with
    progressive layer drop's θ held to its formula), an MMapIndexedDataset
@@ -155,16 +178,16 @@ Phases (any failure raises and the script exits non-zero):
    plain attention: the probe converged, its Hessian-vector product against
    central differences (a product 10% off and one along another direction,
    the controls, fail), the eigenvalue gate below and above the probed value;
-13. zero path (run_zero_path): ZeRO across ranks, NCCL at world 1 and two
+14. zero path (run_zero_path): ZeRO across ranks, NCCL at world 1 and two
    ranks sharing the card over gloo at stages 1-3, and dstpu_train with a
    killed rank;
-14. zero+ path (run_zero_plus_path): the optimizer offloaded to pinned host
+15. zero+ path (run_zero_plus_path): the optimizer offloaded to pinned host
    memory beside the same steps on the card; NVMe offload into a directory
    under TMPDIR, bitwise CPU offload's; qwZ and qgZ over two gloo ranks held
    to their exact runs (losses, the first reduced gradients, masters, the
    bytes a rank sends), hpZ and MiCS over four held to world 1 and the
    placement rule; the pipeline engine over two stages, bitwise one rank;
-15. print one JSON line describing every kernel, then the result line.
+16. print one JSON line describing every kernel, then the result line.
 
 The script imports the port only (never jax or deepspeed_tpu), needs one
 GPU, and writes its full record to chiprun_out/chip_smoke.json.
@@ -188,6 +211,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.func import functional_call
 
 import deepspeed_tpu_torch
@@ -202,7 +226,15 @@ from deepspeed_tpu_torch.inference.v2.model_implementations.transformer_base imp
 from deepspeed_tpu_torch.inference.v2.ragged.prefix_cache import digest_chain
 from deepspeed_tpu_torch.inference.v2.spec import TokenTree
 from deepspeed_tpu_torch.models.convert import reference_names
-from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, LlamaModel, init_params, param_shapes
+from deepspeed_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM, LlamaModel, apply_rotary,
+                                              causal_attention, init_params, param_shapes, rms_norm, rotary_embedding)
+from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM
+from deepspeed_tpu_torch.models.mixtral import init_params as mixtral_init_params
+from deepspeed_tpu_torch.moe import sharded_moe
+from deepspeed_tpu_torch.moe.layer import MoE
+from deepspeed_tpu_torch.inference.v2.config_v2 import DeepSpeedEPConfig
+from deepspeed_tpu_torch.inference.v2.modules.moe import RaggedMoE, disable_simulated_gating, simulated_expert_probs
+from deepspeed_tpu_torch.inference.v2.tracer import RECORD_NAMES
 from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops import builder
 from deepspeed_tpu_torch.ops import flash_attention as fa
@@ -487,6 +519,9 @@ def check_paged_attention(dev) -> list:
         # padding rows
         _paged_case("llama2_7b_mix", 32, 32, BLOCK, long_mix, gen, cpu_gen),
         _paged_case("gqa_mix", 32, 8, 16, long_mix, gen, cpu_gen),
+        # the MoE phase's first decode step: Mixtral's 32 heads over 8 KV
+        # heads, 64-token blocks, one token at each of its prompts' ends
+        _paged_case("mixtral_decode", 32, 8, BLOCK, [[n] for n in MOE_PROMPT_LENS], gen, cpu_gen),
         # decode near the end of the 4096-position context: a bound of about
         # 0.16 ms of bytes, so the kernel's share of the bandwidth reads
         _paged_case("llama2_7b_decode_long", 32, 32, BLOCK, [[3960 + 5 * i] for i in range(8)], gen, cpu_gen),
@@ -4051,6 +4086,689 @@ def run_fleet_path(dev, params, main) -> dict:
     return res
 
 
+# ------------------------------------------------------------- MoE phase --
+# Mixtral-8x7B's widths (hidden 4096, FFN 14336, 32 heads and 8 KV heads of
+# 128, 8 experts, top-2, vocab 32000, rope theta 1e6), bf16, random weights
+# from seed 0, 8 of its 32 layers (cut: depth; 11.87B parameters, 23.7 GB).
+MOE_LAYERS = 8
+# leg d's depth cut: 1 layer, 1.71B parameters. At 2 (3.16B) the engine's
+# out-of-place AdamW, which holds the old and the new state at once
+# (ops/adam/fused_adam.py), ran out of the card's 80 GB (76.55 GiB allocated
+# when it asked for 3.5 more; NVIDIA H100 80GB HBM3, 700.00 W)
+MOE_TRAIN_LAYERS = 1
+# 8 requests of 32-1024 prompt tokens (seeded), 32 greedy new tokens each
+MOE_PROMPT_LENS = tuple(int(n) for n in np.random.default_rng(16).integers(32, 1025, 8))
+MOE_NEW_TOKENS = 32
+# capacity factor 4.0 = E / k: C is at least every token of the batch, so no
+# assignment is ever dropped and the served function is Mixtral's (the
+# reference's default 2.0 drops where a batch's routing is skewed)
+MOE_CAPACITY = 4.0
+MOE_KV_BYTES = 2 * 2**30
+MOE_SIM_TEMPERATURE = 0.5
+# the simulated router's first choices over the 8 x 32 decoded tokens, held to
+# simulated_expert_probs a layer: each expert's share within MOE_SIM_SIGMAS
+# binomial standard deviations (plus one token) of its probability
+MOE_SIM_SIGMAS = 4.0
+# a served route (the experts the bf16 engine chose) may differ from the f32
+# router's only where the two nearly tie: the served pick's f32 logit lies
+# below the f32 second best by at most what two logits' errors cover. The
+# router and the head have the same weight scale (0.02 x sqrt(4096): logits
+# of standard deviation 1.28) over the same drifting hidden state, so each
+# router logit's error is taken as the largest error of the first decode
+# step's logits against f32 (along the served routes), and a route's
+# deficit is held to MOE_ROUTE_SLACK = 2 of them. Control: every route moved
+# to the next expert.
+MOE_ROUTE_SLACK = 2.0
+MOE_CONTROL_TOKENS = 4  # leg c's control: new tokens a request with rank 1's experts swapped
+MOE_TRAIN_S = 1024
+MOE_TRAIN_STEPS = 3
+MOE_TIMEOUT_S = 600  # bound on leg c's ranks
+MOE_PREDICTED_S = 150.0  # the phase's predicted seconds, printed before it runs
+
+
+def mixtral_config(layers=MOE_LAYERS, **kw) -> MixtralConfig:
+    return MixtralConfig.mixtral_8x7b(num_hidden_layers=layers, max_position_embeddings=MAX_CONTEXT, **kw)
+
+
+def _moe_params(cfg, dev, experts=None, dtype=torch.bfloat16) -> dict:
+    """The Mixtral weights from seed 0 (``experts=(lo, hi)``: a rank's slice
+    of the same draws)."""
+    return mixtral_init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=dtype,
+                               experts=experts)
+
+
+def _moe_engine(params, cfg, dev, ep=1, **kw):
+    mgr = DSStateManagerConfig(max_context=MAX_CONTEXT, memory_config=MemoryConfig(size=MOE_KV_BYTES))
+    ep_cfg = DeepSpeedEPConfig(enabled=ep > 1, replica_num=ep, capacity_factor=MOE_CAPACITY)
+    return build_engine(params, cfg, RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=BLOCK,
+                                                                 expert_parallel=ep_cfg, **kw), device=dev)
+
+
+def _moe_prompts(cfg):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, n).tolist() for n in MOE_PROMPT_LENS]
+
+
+def _moe_stats(engine) -> dict:
+    """The routing statistics of every layer since their last reset."""
+    moes = engine.model.moes
+    return dict(expert_counts=[m.expert_counts.tolist() for m in moes],
+                first_choice_counts=[m.first_choice_counts.tolist() for m in moes],
+                dropped=sum(int(m.dropped) for m in moes))
+
+
+class _RoutingLog:
+    """The experts the served engine chose: ``routes[(uid, position)][layer]
+    = [first, second]`` for every token fed while it is open, recorded from
+    each layer's ``RaggedMoE._top_k`` and the forward's batch (a host read a
+    layer: for check runs, not timed ones). Routing is discontinuous: a
+    token whose two best experts nearly tie can pick another one in bf16
+    than in f32, which changes its output (and, through the KV, its
+    sequence's) by far more than rounding; the f32 reference follows these
+    routes, and the router's part is held apart (:func:`_mixtral_f32`)."""
+
+    def __init__(self, engine):
+        self.routes = {}
+        self._model = model = engine.model
+        keys = []
+        begin = model._begin_forward
+
+        def begin_forward(batch):
+            n = batch["n_tokens"]
+            uids = [d.tracking_id for d in engine._batch._seq_descs]
+            keys[:] = [(uids[q], p) for q, p in zip(batch["token_seq"][:n].tolist(), batch["token_pos"][:n].tolist())]
+            begin(batch)
+
+        model._begin_forward = begin_forward
+        for li, moe in enumerate(model.moes):
+
+            def top_k(probs, li=li, inner=moe._top_k):
+                w, e = inner(probs)
+                for key, pick in zip(keys, e[:len(keys)].tolist()):
+                    self.routes.setdefault(key, {})[li] = pick
+                return w, e
+
+            moe._top_k = top_k
+
+    def close(self):
+        del self._model._begin_forward
+        for moe in self._model.moes:
+            del moe._top_k
+
+    def of(self, uid, length, layers):
+        """``[length, layers, 2]`` experts of positions ``0..length-1``."""
+        return [[self.routes[(uid, p)][li] for li in range(layers)] for p in range(length)]
+
+
+def _mixtral_f32(params, cfg, sequences, starts, routes=None, swap=False):
+    """The plain reference: Mixtral's function in f32 on the bf16 weights,
+    upcast a layer at a time (the 8 layers in f32 would take 47 GB). Causal
+    attention over each whole sequence, each token's top-2 experts with the
+    router's f32 weights renormalised over the two, every expert run on the
+    tokens routed to it: no capacity, no drop. The experts are the f32
+    router's own, or ``routes[i]`` (``[len, layers, 2]``, the served ones:
+    :class:`_RoutingLog`); then each served pick is held to the f32 router
+    by its deficit, how far its f32 logit falls below the f32 second best
+    (0 where the two agree). Returns per sequence the f32 logits of its
+    positions from ``starts[i]`` on, and the largest deficit and the count of
+    token-layers routed otherwise than the f32 router would. ``swap``
+    exchanges experts 0 and 1 in every layer (a control)."""
+    dev = params["embed_tokens.weight"].device
+    H, KVH, D, E = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, cfg.num_local_experts
+    cos, sin = rotary_embedding(max(len(s) for s in sequences), D, cfg.rope_theta, device=dev)
+    xs = [params["embed_tokens.weight"][torch.tensor(s, device=dev)].float() for s in sequences]
+    forced = None if routes is None else [torch.tensor(r, device=dev)[:len(s)] for r, s in zip(routes, sequences)]
+    deficit, disagree = 0.0, 0
+    with torch.no_grad():
+        for li in range(cfg.num_hidden_layers):
+            p = f"layers.{li}."
+            w = {n: params[p + n].float() for n in ("input_layernorm.weight", "self_attn.q_proj.weight",
+                                                     "self_attn.k_proj.weight", "self_attn.v_proj.weight",
+                                                     "self_attn.o_proj.weight", "post_attention_layernorm.weight",
+                                                     "block_sparse_moe.gate")}
+            wi, wo = params[p + "block_sparse_moe.experts.wi"], params[p + "block_sparse_moe.experts.wo"]
+            for i, x in enumerate(xs):
+                S = x.shape[0]
+                h = rms_norm(x, w["input_layernorm.weight"], cfg.rms_norm_eps)
+                q = apply_rotary((h @ w["self_attn.q_proj.weight"].T).view(1, S, H, D), cos[:S], sin[:S])
+                k = apply_rotary((h @ w["self_attn.k_proj.weight"].T).view(1, S, KVH, D), cos[:S], sin[:S])
+                v = (h @ w["self_attn.v_proj.weight"].T).view(1, S, KVH, D)
+                attn = causal_attention(q, k, v, scale=D**-0.5)[0].reshape(S, H * D)
+                x = x + attn @ w["self_attn.o_proj.weight"].T
+                h = rms_norm(x, w["post_attention_layernorm.weight"], cfg.rms_norm_eps)
+                logits = h @ w["block_sparse_moe.gate"]
+                probs = torch.softmax(logits, dim=-1)
+                top_e = probs.topk(2, dim=-1).indices
+                if forced is not None:
+                    served = forced[i][:, li]
+                    second = logits.topk(2, dim=-1).values[:, 1]
+                    short = (second - logits.gather(1, served).min(-1).values).clamp(min=0)
+                    deficit = max(deficit, short.max().item())
+                    disagree += int((served.sort(-1).values != top_e.sort(-1).values).any(-1).sum())
+                    top_e = served
+                top_w = probs.gather(1, top_e)
+                top_w = top_w / top_w.sum(-1, keepdim=True)
+                y = torch.zeros_like(x)
+                for e in range(E):
+                    rows, slot = (top_e == e).nonzero(as_tuple=True)
+                    if rows.numel():
+                        src = (1 - e if e < 2 else e) if swap else e
+                        gate, up = (h[rows] @ wi[src].float()).chunk(2, dim=-1)
+                        y.index_add_(0, rows, (F.silu(gate) * up) @ wo[src].float() * top_w[rows, slot, None])
+                xs[i] = x + y
+        norm, head = params["norm.weight"].float(), params["lm_head.weight"].float()
+        rows = [rms_norm(x[s0:], norm, cfg.rms_norm_eps) @ head.T for x, s0 in zip(xs, starts)]
+    return rows, deficit, disagree
+
+
+def _moe_gaps(rows, tokens):
+    """Per served token, the f32 row's maximum less the token's logit."""
+    return torch.cat([(r.max(-1).values - r[torch.arange(len(t), device=r.device), torch.tensor(t, device=r.device)])
+                      .cpu() for r, t in zip(rows, tokens)])
+
+
+def _moe_teacher_forced(params, cfg, prompts, tokens, routes):
+    """Every served token through the f32 reference along its served routes,
+    one pass a request: the f32 rows of the generated positions, the
+    routes' deficit and disagreements (:func:`_mixtral_f32`)."""
+    return _mixtral_f32(params, cfg, [list(p) + list(t[:-1]) for p, t in zip(prompts, tokens)],
+                        [len(p) - 1 for p in prompts], routes=routes)
+
+
+def _moe_leg_a(params, cfg, dev, prompts, start_ranks, failures) -> dict:
+    """One rank through generate: rates, B1's launches, the routing, a traced
+    decode put, and the served logits and tokens against the f32 reference,
+    each check with its control. ``start_ranks()`` is called once the timed
+    part is done."""
+    engine = _moe_engine(params, cfg, dev)
+    generate(engine, [prompts[0], prompts[1]], max_new_tokens=4, decode_chunk=4)  # warm-up, not counted
+    torch.cuda.synchronize()
+    times = {"put": [], "decode_loop": []}
+    _timed(engine, "put", times["put"], _put_tokens)
+    _timed(engine, "decode_loop", times["decode_loop"], _loop_steps)
+    for m in engine.model.moes:
+        m.reset_stats()
+    paged_attention_update.launches = 0
+    t0 = time.perf_counter()
+    tokens = generate(engine, prompts, max_new_tokens=MOE_NEW_TOKENS, decode_chunk=MOE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = paged_attention_update.launches
+    del engine.put, engine.decode_loop
+    steps = sum(n for _, (_, n) in times["decode_loop"])
+    small_puts = sum(1 for _, n in times["put"] if n <= 32)
+    res = dict(layers=cfg.num_hidden_layers, requests=len(prompts), prompt_tokens=sum(MOE_PROMPT_LENS),
+               new_tokens=MOE_NEW_TOKENS, capacity_factor=MOE_CAPACITY, wall_s=wall, b1_launches=launches,
+               b1_expected=2 * cfg.num_hidden_layers * (steps + small_puts), puts=[n for _, n in times["put"]],
+               decode_loops=[list(w) for _, w in times["decode_loop"]],
+               prefill_tokens_per_s=sum(MOE_PROMPT_LENS) / sum(s for s, _ in times["put"]),
+               decode_tokens_per_s=sum(a * b for _, (a, b) in times["decode_loop"]) /
+               sum(s for s, _ in times["decode_loop"]),
+               ms_per_decode_step=1e3 * sum(s for s, _ in times["decode_loop"]) / max(steps, 1),
+               **_moe_stats(engine))
+    if launches <= 0 or launches != res["b1_expected"]:
+        failures.append(f"a: B1 launched {launches} times, expected {res['b1_expected']}")
+    if res["dropped"]:
+        failures.append(f"a: {res['dropped']} assignments dropped at capacity factor {MOE_CAPACITY}")
+    if [len(t) for t in tokens] != [MOE_NEW_TOKENS] * len(prompts):
+        failures.append(f"a: generate returned {[len(t) for t in tokens]} tokens")
+    first = [t[0] for t in tokens]
+    # one traced decode put: attn against moe_ffn
+    traced = _moe_engine(params, cfg, dev, trace_enabled=True)
+    _prefill(traced, prompts)
+    traced.tracer.drain_summaries()
+    before = paged_attention_update.launches
+    traced.put(list(range(len(prompts))), [[t] for t in first])
+    summary = [s for s in traced.tracer.drain_summaries() if not s.is_empty_run][-1]
+    attn = [row[RECORD_NAMES.index("attn")] for row in summary.record_exec_times]
+    moe_ffn = [row[RECORD_NAMES.index("moe_ffn")] for row in summary.record_exec_times]
+    res["traced_decode_put"] = dict(attn_us=sum(attn), moe_ffn_us=sum(moe_ffn), attn_us_per_layer=attn,
+                                    moe_ffn_us_per_layer=moe_ffn, embed_us=summary.embed, unembed_us=summary.unembed,
+                                    b1_launches=paged_attention_update.launches - before)
+    traced.close()
+    del traced
+    torch.cuda.empty_cache()
+
+    # the timed part is over: leg c's ranks may start (their imports load
+    # the host's cores)
+    start_ranks()
+    # greedy generate again with the routes recorded (untimed), then the
+    # first decode step of the 8 requests in one put through B1 (a served
+    # second token may come from a put that also carried other requests'
+    # prompt chunks, the gather branch), its routes recorded too
+    log_gen = _RoutingLog(engine)
+    again = generate(engine, prompts, max_new_tokens=MOE_NEW_TOKENS, decode_chunk=MOE_NEW_TOKENS)
+    log_gen.close()
+    if again != tokens:
+        failures.append("a: greedy generate is not repeatable")
+    log_fd = _RoutingLog(engine)
+    served = _first_decode_logits(engine, prompts, first)
+    log_fd.close()
+    res["first_decode_argmax_equal_served"] = sum(a == t[1] for a, t in zip(served.argmax(-1).tolist(), tokens))
+    del engine
+    torch.cuda.empty_cache()
+
+    # the first decode step against the f32 reference along the served
+    # routes; each served route held to the f32 router (MOE_ROUTE_SLACK)
+    L = cfg.num_hidden_layers
+    fed = [p + [f] for p, f in zip(prompts, first)]
+    routes_fd = [log_fd.of(i, len(s), L) for i, s in enumerate(fed)]
+    rows, deficit, disagree = _mixtral_f32(params, cfg, fed, [len(p) for p in prompts], routes=routes_fd)
+    ref = torch.cat(rows)
+    res["logits_l2_rel_err_vs_f32"] = _l2_rel(served, ref)
+    res["logits_max_abs_err_vs_f32"] = (served - ref).abs().max().item()
+    res["argmax_agree_vs_f32"] = int((served.argmax(-1) == ref.argmax(-1)).sum())
+    route_limit = MOE_ROUTE_SLACK * res["logits_max_abs_err_vs_f32"]
+    res["routes"] = dict(token_layers=sum(len(s) for s in fed) * L, disagree=disagree, max_deficit=deficit,
+                         limit=route_limit)
+    if not res["logits_l2_rel_err_vs_f32"] <= LOGITS_L2_TOL:
+        failures.append(f"a: logits {res['logits_l2_rel_err_vs_f32']} from f32 (L2) > {LOGITS_L2_TOL}")
+    if not deficit <= route_limit:
+        failures.append(f"a: a served route falls {deficit} below the f32 router's second expert > {route_limit}")
+    own, _, _ = _mixtral_f32(params, cfg, fed, [len(p) for p in prompts])
+    res["logits_l2_rel_err_vs_f32_own_routes"] = _l2_rel(served, torch.cat(own))
+    wrong, _, _ = _mixtral_f32(params, cfg, fed, [len(p) for p in prompts], routes=routes_fd, swap=True)
+    res["control_swapped_experts_l2_rel_err"] = _l2_rel(served, torch.cat(wrong))
+    if res["control_swapped_experts_l2_rel_err"] <= LOGITS_L2_TOL:
+        failures.append("a: the logits check passes the f32 reference with experts 0 and 1 swapped")
+    off_by_one = [[[[(e + 1) % cfg.num_local_experts for e in pick] for pick in pos] for pos in r] for r in routes_fd]
+    _, res["routes"]["control_next_expert_deficit"], _ = _mixtral_f32(params, cfg, fed, [len(p) for p in prompts],
+                                                                        routes=off_by_one)
+    if res["routes"]["control_next_expert_deficit"] <= route_limit:
+        failures.append("a: the route check passes every route moved to the next expert")
+
+    # every served token teacher-forced along its served routes
+    limit = TF_SLACK * res["logits_max_abs_err_vs_f32"]
+    rows, deficit, disagree = _moe_teacher_forced(
+        params, cfg, prompts, tokens, [log_gen.of(i, len(p) + len(t) - 1, L)
+                                       for i, (p, t) in enumerate(zip(prompts, tokens))])
+    gaps = _moe_gaps(rows, tokens)
+    shifted = _moe_gaps(rows, [t[1:] + t[:1] for t in tokens])
+    res["teacher_forced"] = dict(limit=limit, max_gap=gaps.max().item(), tokens=gaps.numel(),
+                                 exact=int((gaps == 0).sum()), routes_disagree=disagree, routes_max_deficit=deficit,
+                                 control_shifted_max_gap=shifted.max().item())
+    if not gaps.max().item() <= limit:
+        failures.append(f"a: a served token trails the f32 maximum by {gaps.max().item()} > {limit}")
+    if not deficit <= route_limit:
+        failures.append(f"a: a generated route falls {deficit} below the f32 router's second expert > {route_limit}")
+    if shifted.max().item() <= limit:
+        failures.append("a: the teacher-forced check passes the served tokens shifted by one")
+    return res, tokens
+
+
+def _moe_leg_b(params, cfg, dev, prompts, tokens_a, failures) -> dict:
+    """Simulated gating at MOE_SIM_TEMPERATURE on leg a's prompts: prefill,
+    then a decode loop whose first choices (8 x 32 tokens a layer) must follow
+    ``simulated_expert_probs``; the control holds each layer to the next
+    layer's distribution."""
+    engine = _moe_engine(params, cfg, dev, simulated_gating=True, simulated_gating_temperature=MOE_SIM_TEMPERATURE)
+    try:
+        _prefill(engine, prompts)
+        first = engine.put(list(range(len(prompts))), [[t[0]] for t in tokens_a]).argmax(-1).tolist()
+        for m in engine.model.moes:
+            m.reset_stats()
+        t0 = time.perf_counter()
+        loop = engine.decode_loop(list(range(len(prompts))), [[t] for t in first], MOE_NEW_TOKENS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        stats = _moe_stats(engine)
+    finally:
+        disable_simulated_gating()
+        del engine
+        torch.cuda.empty_cache()
+    L, E, n = cfg.num_hidden_layers, cfg.num_local_experts, len(prompts) * MOE_NEW_TOKENS
+    probs = [simulated_expert_probs(li, E, MOE_SIM_TEMPERATURE).double() for li in range(L)]
+
+    def off(counts, p):
+        share = torch.tensor(counts, dtype=torch.float64) / n
+        return ((share - p).abs() - MOE_SIM_SIGMAS * (p * (1 - p) / n).sqrt() - 1 / n).max().item()
+
+    worst = [off(c, probs[li]) for li, c in enumerate(stats["first_choice_counts"])]
+    control = [off(c, probs[(li + 1) % L]) for li, c in enumerate(stats["first_choice_counts"])]
+    sim_tokens = [[f] + row.tolist() for f, row in zip(first, loop)]
+    res = dict(temperature=MOE_SIM_TEMPERATURE, decoded_tokens=n, decode_loop_s=secs, excess_over_bound=worst,
+               control_next_layer_excess=control, probs=[p.tolist() for p in probs],
+               tokens_differ_from_a=sum(a[1:] != s[:MOE_NEW_TOKENS - 1] for a, s in zip(tokens_a, sim_tokens)),
+               **stats)
+    if max(worst) > 0:
+        failures.append(f"b: a layer's first choices leave simulated_expert_probs: excess {worst}")
+    if max(control) <= 0:
+        failures.append("b: the histogram check passes every layer against the next layer's distribution")
+    if res["tokens_differ_from_a"] == 0:
+        failures.append("b: simulated gating served leg a's tokens: the routing did not change")
+    return res
+
+
+def moe_rank_child(work, device="cuda:0") -> int:
+    """One rank of leg c, started through the launcher: joins the gloo group,
+    waits for the parent's plan, draws its experts of the seed-0 weights,
+    serves its requests through generate on an EP engine, leaves the group,
+    then serves again for MOE_CONTROL_TOKENS with rank 1's experts swapped
+    (the control); writes its readings."""
+    from deepspeed_tpu_torch import comm
+    dev = torch.device(device)
+    comm.init_distributed(dist_backend="gloo", device=dev, verbose=False)
+    rank, world = comm.get_rank(), comm.get_world_size()
+    deadline = time.monotonic() + MOE_TIMEOUT_S
+    while not os.path.exists(os.path.join(work, "go")):
+        if time.monotonic() > deadline:
+            raise TimeoutError("leg c: no plan from the parent")
+        time.sleep(0.2)
+    with open(os.path.join(work, "go")) as f:
+        plan = json.load(f)
+    cfg = mixtral_config()
+    per = cfg.num_local_experts // world
+    t0 = time.perf_counter()
+    params = _moe_params(cfg, dev, experts=(rank * per, (rank + 1) * per))
+    torch.cuda.synchronize()
+    out = dict(rank=rank, params=sum(p.numel() for p in params.values()), init_s=time.perf_counter() - t0)
+    comm.configure(enabled=True)
+    runs = {}
+    for run, new_tokens in (("main", MOE_NEW_TOKENS), ("control", MOE_CONTROL_TOKENS)):
+        if run == "control" and rank == 1:
+            for li in range(cfg.num_hidden_layers):
+                for bank in ("wi", "wo"):
+                    t = params[f"layers.{li}.block_sparse_moe.experts.{bank}"]
+                    t.copy_(t.flip(0))
+        engine = _moe_engine(params, cfg, dev, ep=world)
+        exchanged = []
+        inner = engine.model.ep_sync.exchange
+        engine.model.ep_sync.exchange = lambda n, inner=inner: exchanged.append(inner(n)) or exchanged[-1]
+        comm.comm.comms_logger.comms_dict.clear()
+        for m in engine.model.moes:
+            m.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        routing = _RoutingLog(engine)
+        tokens = generate(engine, plan["prompts"][rank], max_new_tokens=new_tokens, decode_chunk=new_tokens)
+        routing.close()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        empty_runs = engine.leave_expert_group()
+        a2a = comm.comm.comms_logger.comms_dict.get("all_to_all_single", {})
+        runs[run] = dict(tokens=tokens, routes=[[u, p, li, *e] for (u, p), layers in routing.routes.items()
+                                                for li, e in layers.items()],
+                         serve_s=serve_s, empty_runs=empty_runs, forwards=len(exchanged),
+                         exchanged=exchanged, a2a_count=sum(v[0] for v in a2a.values()),
+                         a2a_bytes=sum(size * v[0] for size, v in a2a.items()),
+                         a2a_ms=sum(sum(v[1]) for v in a2a.values()),
+                         host_staged={op: list(v) for op, v in comm.comm.comms_logger.host_staged.items()},
+                         **_moe_stats(engine))
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+    out["runs"] = runs
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    comm.destroy_process_group()
+    return 0
+
+
+def _moe_predicted_a2a_bytes(cfg, exchanged) -> int:
+    """What a rank's two all-to-alls a MoE layer move, over its forwards:
+    ``[E, C, M]`` bf16 each, C from each forward's exchanged token count."""
+    moe = RaggedMoE(num_experts=cfg.num_local_experts, top_k=cfg.num_experts_per_tok, capacity_factor=MOE_CAPACITY)
+    return sum(2 * cfg.num_hidden_layers * cfg.num_local_experts * moe.capacity(t) * cfg.hidden_size * 2
+               for t in exchanged)
+
+
+def _moe_leg_c(params, cfg, prompts, tokens_a, limit, route_limit, proc, work, failures) -> dict:
+    """EP over two ranks (started before leg a, waiting on the plan): leg a's
+    requests split across them; each request's greedy tokens held to leg a's
+    or, where they differ (the ranks' batches, and so bf16's rounding and a
+    near-tie route, differ from leg a's), teacher-forced through f32 along
+    the ranks' routes within ``limit`` (each route within ``route_limit`` of
+    the f32 router's choice); no assignment dropped, the
+    all-to-all bytes to the count predicted from C, E, M and the layers, the
+    rank done first seen running more than one empty forward; the control
+    (rank 1's experts swapped) must fail the teacher-forced check."""
+    split = [[i for i in range(len(prompts)) if i % 3 == 0], [i for i in range(len(prompts)) if i % 3 != 0]]
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "go.tmp"), "w") as f:
+        json.dump({"prompts": [[prompts[i] for i in idx] for idx in split]}, f)
+    os.rename(os.path.join(work, "go.tmp"), os.path.join(work, "go"))
+    rc, out, err = _finish(proc, timeout=MOE_TIMEOUT_S)
+    if rc != 0:
+        raise AssertionError(f"moe c: the ranks failed (exit {rc}): {err[-3000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    res = dict(wall_s=time.perf_counter() - t0, split=split, ranks=ranks)
+
+    def by_request(run):
+        """Each request's tokens and served routes ``[len, layers, 2]`` (rank
+        r's uid j is its j-th request: a fresh scheduler counts from 0)."""
+        tokens, routes = [None] * len(prompts), [None] * len(prompts)
+        for idx, r in zip(split, ranks):
+            got = r["runs"][run]
+            table = {(u, p, li): e for u, p, li, *e in got.pop("routes")}
+            for j, (i, t) in enumerate(zip(idx, got["tokens"])):
+                tokens[i] = t
+                routes[i] = [[table[(j, p, li)] for li in range(cfg.num_hidden_layers)]
+                             for p in range(len(prompts[i]) + len(t) - 1)]
+        return tokens, routes
+
+    main = [r["runs"]["main"] for r in ranks]
+    for r, run in enumerate(main):
+        if run["dropped"]:
+            failures.append(f"c: rank {r} dropped {run['dropped']} assignments")
+        run["a2a_bytes_predicted"] = _moe_predicted_a2a_bytes(cfg, run["exchanged"])
+        run["a2a_count_predicted"] = 2 * cfg.num_hidden_layers * run["forwards"]
+        if (run["a2a_bytes"], run["a2a_count"]) != (run["a2a_bytes_predicted"], run["a2a_count_predicted"]):
+            failures.append(f"c: rank {r} moved {run['a2a_bytes']} bytes in {run['a2a_count']} all-to-alls, "
+                            f"predicted {run['a2a_bytes_predicted']} in {run['a2a_count_predicted']}")
+    if main[0]["exchanged"] != main[1]["exchanged"]:
+        failures.append("c: the ranks ran different forwards")
+    if max(run["empty_runs"] for run in main) <= 1:
+        failures.append(f"c: the rank done first ran {[run['empty_runs'] for run in main]} empty forwards")
+    served, routes = by_request("main")
+    control, control_routes = by_request("control")
+    res["tokens_equal_a"] = sum(s == a for s, a in zip(served, tokens_a))
+    differ = [i for i in range(len(prompts)) if served[i] != tokens_a[i]]
+    res["differ"] = differ
+    if differ:
+        rows, deficit, disagree = _moe_teacher_forced(params, cfg, [prompts[i] for i in differ],
+                                                      [served[i] for i in differ], [routes[i] for i in differ])
+        gaps = _moe_gaps(rows, [served[i] for i in differ])
+        res["teacher_forced"] = dict(max_gap=gaps.max().item(), tokens=gaps.numel(), routes_disagree=disagree,
+                                     routes_max_deficit=deficit)
+        if not gaps.max().item() <= limit:
+            failures.append(f"c: a served token trails the f32 maximum by {gaps.max().item()} > {limit}")
+        if not deficit <= route_limit:
+            failures.append(f"c: a served route falls {deficit} below the f32 router's second expert > "
+                            f"{route_limit}")
+    rows, deficit, _ = _moe_teacher_forced(params, cfg, prompts, control, control_routes)
+    res["control_max_gap"] = _moe_gaps(rows, control).max().item()
+    res["control_routes_max_deficit"] = deficit
+    if res["control_max_gap"] <= limit:
+        failures.append("c: the teacher-forced check passes the tokens served with rank 1's experts swapped")
+    return res
+
+
+@contextlib.contextmanager
+def _gate_routes(num_experts, record=None, replay=None):
+    """The training gates' expert choices: each one-hot of ``num_experts``
+    classes that ``moe/sharded_moe.py`` makes (a gate's first and second
+    experts, before capacity) appended to ``record`` as it is made, or,
+    with ``replay``, those of a recorded run handed out in their place, in
+    order."""
+    inner = sharded_moe._one_hot
+    handed = iter(replay or ())
+
+    def one_hot(indices, num_classes):
+        if num_classes != num_experts:
+            return inner(indices, num_classes)
+        if replay is not None:
+            return next(handed)
+        out = inner(indices, num_classes)
+        record.append(out)
+        return out
+
+    sharded_moe._one_hot = one_hot
+    try:
+        yield
+    finally:
+        sharded_moe._one_hot = inner
+
+
+def _moe_f32_step(cfg, dev, batch, replay=None, seeds=False):
+    """One forward (and, replaying routes, backward) of the f32 model from
+    the seed-0 weights: the loss and gradient norm along ``replay``'s
+    routes, or with ``seeds`` the routes its own gates take under the
+    engine's first noise seeds (returned recorded, no backward)."""
+    with torch.device("meta"):
+        model = MixtralForCausalLM(cfg)
+    model.load_state_dict(_moe_params(cfg, dev, dtype=torch.float32), assign=True)
+    ids = tuple(t.long() for t in batch)
+    if replay is None:
+        for i, m in enumerate(m for m in model.modules() if isinstance(m, MoE)):
+            m.gating_seed = i if seeds else None
+        own = []
+        with torch.no_grad(), _gate_routes(cfg.num_local_experts, record=own):
+            model(ids)
+        return own
+    with _gate_routes(cfg.num_local_experts, replay=replay):
+        loss = model(ids)
+        loss.backward()
+    out = dict(loss=loss.item(), grad_norm=torch.sqrt(sum(p.grad.float().pow(2).sum()
+                                                          for p in model.parameters())).item())
+    del model, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_leg_d(dev, failures) -> dict:
+    """Training: MixtralForCausalLM at the same widths cut to
+    MOE_TRAIN_LAYERS, through initialize and train_batch at ZeRO 3 on one
+    rank (B 1, S MOE_TRAIN_S, AdamW, bf16 over f32 masters), its gates'
+    noise on. The first step's loss and gradient norm held to the same step
+    in f32 within the training phase's limits, along the routes the bf16
+    step's gates took (recorded; the f32 gates' own, under the same noise,
+    are counted where they differ); every loss finite."""
+    cfg = mixtral_config(MOE_TRAIN_LAYERS)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, size=(MOE_TRAIN_STEPS, 1, MOE_TRAIN_S + 1), dtype=np.int64)
+    batches = [tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (b[:, :-1], b[:, 1:])) for b in ids]
+    params = _moe_params(cfg, dev, dtype=torch.float32)
+    res = dict(layers=cfg.num_hidden_layers, params=sum(p.numel() for p in params.values()), S=MOE_TRAIN_S,
+               steps=MOE_TRAIN_STEPS)
+    with torch.device("meta"):
+        model = MixtralForCausalLM(cfg)
+    config = {"train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "AdamW", "params": {"lr": TRAIN_LR}}, "zero_optimization": {"stage": 3},
+              "bf16": {"enabled": True}}
+    t0 = time.perf_counter()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params, config=config, device=dev)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, norms = [], [], []
+    routes = []
+    for step, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _gate_routes(cfg.num_local_experts, record=routes) if step == 0 else contextlib.nullcontext():
+            losses.append(engine.train_batch(batch=b).item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        norms.append(engine.get_global_grad_norm())
+        if step == 0:
+            res["max_memory_allocated_gib_step1"] = torch.cuda.max_memory_allocated() / 2**30
+            # the same step in f32, between the engine's steps (its state
+            # rests at about 25 GB then)
+            ref = _moe_f32_step(cfg, dev, b, replay=routes)
+            own = _moe_f32_step(cfg, dev, b, seeds=True)
+            first = len(own)  # the forward's one-hots (then remat's replay of them)
+            res["routes_disagree_f32_own"] = int(sum((a != o).any(-1).sum() for a, o in zip(routes[:first], own)))
+            del own
+    res.update(losses=losses, step_s=secs, grad_norms=norms, f32_first_step=ref,
+               ms_per_step=1e3 * statistics.median(secs[1:]), tokens_per_s=MOE_TRAIN_S / statistics.median(secs[1:]),
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               loss_rel_err=_rel(losses[0], ref["loss"]), grad_norm_rel_err=_rel(norms[0], ref["grad_norm"]))
+    _free(engine)
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"d: losses {losses}")
+    if not res["loss_rel_err"] <= LOSS_REL_TOL:
+        failures.append(f"d: the first loss is {res['loss_rel_err']} from f32 > {LOSS_REL_TOL}")
+    if not res["grad_norm_rel_err"] <= GRAD_NORM_REL_TOL:
+        failures.append(f"d: the first gradient norm is {res['grad_norm_rel_err']} from f32 > {GRAD_NORM_REL_TOL}")
+    return res
+
+
+def run_moe_path(dev) -> dict:
+    """Mixtral served and trained (legs a-d above). Leg c's two ranks start
+    as soon as leg a's timed part is done, so that their imports overlap the
+    rest of legs a and b."""
+    t_phase = time.perf_counter()
+    log(f"[moe] predicted: {MOE_PREDICTED_S:.0f} s for the phase")
+    failures = []
+    work = tempfile.mkdtemp(prefix="moe_ep_")
+    procs = []
+
+    def start_ranks():
+        procs.append(_start(_ranks_cmd(["--moe-rank-child", work], world=2)))
+
+    try:
+        cfg = mixtral_config()
+        t0 = time.perf_counter()
+        params = _moe_params(cfg, dev)
+        torch.cuda.synchronize()
+        res = dict(layers=cfg.num_hidden_layers, params=sum(p.numel() for p in params.values()),
+                   init_s=time.perf_counter() - t0, prompt_lens=list(MOE_PROMPT_LENS))
+        prompts = _moe_prompts(cfg)
+        t0 = time.perf_counter()
+        res["a"], tokens = _moe_leg_a(params, cfg, dev, prompts, start_ranks, failures)
+        res["a"]["seconds"] = time.perf_counter() - t0
+        log("[moe] a: " + json.dumps(res["a"]))
+        t0 = time.perf_counter()
+        res["b"] = _moe_leg_b(params, cfg, dev, prompts, tokens, failures)
+        res["b"]["seconds"] = time.perf_counter() - t0
+        log("[moe] b: " + json.dumps(res["b"]))
+        t0 = time.perf_counter()
+        res["c"] = _moe_leg_c(params, cfg, prompts, tokens, res["a"]["teacher_forced"]["limit"],
+                              res["a"]["routes"]["limit"], procs[0], work, failures)
+        res["c"]["seconds"] = time.perf_counter() - t0
+        log("[moe] c: " + json.dumps({k: v for k, v in res["c"].items() if k != "ranks"}) + " ranks: " +
+            json.dumps([{k: v for k, v in r["runs"]["main"].items() if k not in ("tokens", "exchanged")}
+                        for r in res["c"]["ranks"]]))
+        log(f"[moe] failures so far: {failures}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["d"] = _moe_leg_d(dev, failures)
+    res["d"]["seconds"] = time.perf_counter() - t0
+    log("[moe] d: " + json.dumps(res["d"]))
+    res["b1_launches"] = res["a"]["b1_launches"]
+    res["seconds"] = time.perf_counter() - t_phase
+    res["failures"] = failures
+    a, c, d = res["a"], res["c"], res["d"]
+    log(f"[moe] a: prefill {a['prefill_tokens_per_s']:.1f} tokens/s, decode {a['decode_tokens_per_s']:.1f} tokens/s, "
+        f"B1 {a['b1_launches']} launches; traced decode put attn {a['traced_decode_put']['attn_us']} us, moe_ffn "
+        f"{a['traced_decode_put']['moe_ffn_us']} us; logits {a['logits_l2_rel_err_vs_f32']:.4f} from f32")
+    log(f"[moe] expert counts per layer: {a['expert_counts']}")
+    log(f"[moe] c: tokens equal leg a's for {c['tokens_equal_a']} of {len(MOE_PROMPT_LENS)}; all-to-all bytes "
+        f"{[r['runs']['main']['a2a_bytes'] for r in c['ranks']]}; empty forwards "
+        f"{[r['runs']['main']['empty_runs'] for r in c['ranks']]}")
+    log(f"[moe] d: {d['ms_per_step']:.1f} ms a step, {d['tokens_per_s']:.1f} tokens/s, losses {d['losses']}")
+    log(f"[moe] {res['seconds']:.1f} s (predicted {MOE_PREDICTED_S:.0f})")
+    log(card_line())
+    if failures:
+        raise AssertionError("moe phase: " + "; ".join(failures))
+    return res
+
+
 # ----------------------------------------------------------------- phase 9 --
 def bench_llama(**kw) -> LlamaConfig:
     """bench.py's headline model: the 530M Llama (``_llama_530m``) with
@@ -4271,6 +4989,10 @@ CONTROLS = (
 
 
 # ---------------------------------------------------------------- phase 10 --
+# the checkpoint legs' depth cut: the bench model's width at 2 of its 8
+# layers (a 2.77 GB tag where 8 layers write 6.35 GB onto the 9p disk), so
+# that the whole script, with the MoE phase, stays well inside its 1200 s
+CKPT_LAYERS = 2
 CKPT_STEPS = 2  # steps after TRAIN_WARMUP before the save, and while the async commit runs
 CKPT_RESUME = 3  # steps after the save, in run A and in the resumed run B
 OPT_LAYERS = 2  # the optimizer leg's depth cut
@@ -4595,7 +5317,7 @@ def _optimizer_legs(dev, batches, res):
 
 def run_checkpoint_path(dev) -> dict:
     """Checkpoints, the sentinel, preemption and the optimizers on the bench
-    model (full width and depth; the optimizer leg cut to OPT_LAYERS):
+    model (full width, cut to CKPT_LAYERS; the optimizer leg to OPT_LAYERS):
 
     - resume: run A trains TRAIN_WARMUP + CKPT_STEPS steps, saves (sync) and
       trains CKPT_RESUME more; a fresh engine B loads with tag=None and trains
@@ -4617,7 +5339,7 @@ def run_checkpoint_path(dev) -> dict:
     - the optimizer legs (_optimizer_legs).
     """
     t_phase = time.perf_counter()
-    cfg = bench_llama()
+    cfg = bench_llama(num_hidden_layers=CKPT_LAYERS)
     batches = _train_batches(cfg, dev)
     root = tempfile.mkdtemp(prefix="dstt_ckpt_")
     res = dict(layers=cfg.num_hidden_layers, hidden=cfg.hidden_size, seq_len=TRAIN_S, micro_batch=TRAIN_MICRO,
@@ -6034,6 +6756,8 @@ def main() -> int:
         return zero_gang_child()
     if sys.argv[1:2] == ["--zero-plus-child"]:
         return zero_plus_child(*sys.argv[2:])
+    if sys.argv[1:2] == ["--moe-rank-child"]:
+        return moe_rank_child(*sys.argv[2:])
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6056,6 +6780,9 @@ def main() -> int:
     record["fleet_path"]["single_replica"] = {k: record["serving_path"][k] for k in (
         "ttft_p50_s", "ttft_p99_s", "itl_p50_s", "itl_p99_s", "served_tokens_per_s")}
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["moe_path"] = run_moe_path(dev)
     gc.collect()
     torch.cuda.empty_cache()
     record["training_path"] = run_training_path(dev)
@@ -6082,6 +6809,7 @@ def main() -> int:
                     launches_spec_path=record["spec_path"]["b1_launches"],
                     launches_observe_path=record["observe_path"]["b1_launches"],
                     launches_fleet_path=record["fleet_path"]["b1_launches"],
+                    launches_moe_path=record["moe_path"]["b1_launches"],
                     max_abs_err=max(r["max_abs_err"] for r in record["paged_attention"]),
                     ms=decode["ms"], plain_ms=decode["plain_ms"], bound_ms=decode["bound_ms"],
                     bound_by=decode["bound_by"], library_ms=decode["library_ms"],

@@ -10,8 +10,10 @@ in that one place.
 from typing import List, Optional, Sequence
 
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
-from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
+from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2, expert_group
 from deepspeed_tpu_torch.inference.v2.model_implementations.registry import model_cls_for
+from deepspeed_tpu_torch.models.convert import expert_slice
+from deepspeed_tpu_torch.models.mixtral import MixtralConfig, is_expert_bank
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 
@@ -19,10 +21,17 @@ def build_engine(params, model_config, engine_config: Optional[RaggedInferenceEn
                  device=None) -> InferenceEngineV2:
     """Build an InferenceEngineV2 for a weight dict + model config, on
     ``device`` (default ``cuda``; raises without a GPU unless ``"cpu"`` is
-    passed). The model class resolves through the policy registry."""
+    passed). The model class resolves through the policy registry. Under
+    expert parallelism a rank holds only its experts: whole expert banks
+    are sliced to them here (``models/convert.py::expert_slice``)."""
     device = resolve_device(device)
     if engine_config is None:
         engine_config = RaggedInferenceEngineConfig()
+    group = expert_group(engine_config, device)
+    if group is not None and isinstance(model_config, MixtralConfig):
+        banks = [t for name, t in params.items() if is_expert_bank(name)]
+        if banks and banks[0].shape[0] == model_config.num_local_experts:
+            params = expert_slice(params, group.rank, group.size)
     model = model_cls_for(model_config)(params, model_config, engine_config, device)
     return InferenceEngineV2(model, engine_config)
 

@@ -25,8 +25,18 @@ the card); ``decode_loop`` stays untraced, as in the JAX package. With a
 ``dispatch_observer`` installed (the serving scheduler's cost plane) each
 dispatch's end time is taken after its device work has finished.
 
-Not ported yet, and refused with ``NotImplementedError``: tensor and expert
-parallelism, weight quantization and simulated gating (ROADMAP.md A8, A9).
+Expert parallelism (``expert_parallel``): one process is one EP rank, and
+the expert axis is the comm world (:func:`expert_group`; ``replica_num``
+must equal its size). A Mixtral under EP holds its rank's experts and
+enters its group's collectives once a forward (``modules/moe.py``); an idle
+rank keeps the group in lock-step through ``empty_run`` (the serving
+scheduler's heartbeat), and :meth:`leave_expert_group` ends a rank's part:
+the group stops at the first forward in which every rank has left.
+``simulated_gating`` turns the process-wide simulated router on, at
+``simulated_gating_temperature``.
+
+Not ported yet, and refused with ``NotImplementedError``: tensor
+parallelism (ROADMAP.md A8) and weight quantization (A9).
 """
 
 from typing import Iterable, List, Optional, Tuple
@@ -36,6 +46,7 @@ import torch
 
 from deepspeed_tpu_torch import telemetry as _telemetry
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+from deepspeed_tpu_torch.inference.v2.modules.moe import enable_simulated_gating
 from deepspeed_tpu_torch.inference.v2.ragged import handoff
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_manager import DSStateManager
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import RaggedBatchWrapper
@@ -47,13 +58,37 @@ from deepspeed_tpu_torch.inference.v2.tracer import Tracer, get_tracer, set_trac
 def _refuse_unported(config: RaggedInferenceEngineConfig) -> None:
     unported = (
         ("tensor_parallel.tp_size > 1", config.tensor_parallel.tp_size > 1, "A8"),
-        ("expert_parallel", config.expert_parallel.enabled, "A9"),
         ("weight quantization", config.quantization.enabled, "A9"),
-        ("simulated_gating", config.simulated_gating, "A9"),
     )
     for what, on, item in unported:
         if on:
             raise NotImplementedError(f"{what} is not ported to deepspeed_tpu_torch yet (see ROADMAP.md {item})")
+
+
+def expert_group(config: RaggedInferenceEngineConfig, device):
+    """This rank's expert-parallel group (a ``utils.groups.RankGroup`` over
+    the mesh's expert axis), or None without expert parallelism or in a
+    world of one rank. The expert axis is the comm world, joined from the
+    launcher's environment (``comm.init_distributed``); it raises when
+    ``expert_parallel.replica_num`` is not the world's size (the reference
+    checks its mesh's expert axis against it)."""
+    ep = config.expert_parallel
+    if not ep.enabled:
+        return None
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.utils import groups
+
+    comm.init_distributed(device=device, verbose=False)
+    world = comm.get_world_size()
+    if ep.replica_num != world:
+        raise ValueError(f"expert_parallel.replica_num {ep.replica_num} != the comm world's {world} ranks "
+                         "(one process is one expert-parallel rank)")
+    if world == 1:
+        return None
+    mesh = groups.get_mesh() if groups.mesh_is_initialized() else None
+    if mesh is None or mesh.size != world or mesh.shape.get(groups.EXPERT_AXIS, 1) != world:
+        groups.initialize_mesh(expert_parallel_size=world, force=True)
+    return groups.get_group(groups.EXPERT_AXIS)
 
 
 class InferenceEngineV2:
@@ -63,7 +98,10 @@ class InferenceEngineV2:
         (``engine_factory.build_engine`` makes both)."""
         _refuse_unported(engine_config)
         self._config = engine_config
+        if engine_config.simulated_gating:
+            enable_simulated_gating(engine_config.simulated_gating_temperature)
         self._model = model
+        self._ep_group = expert_group(engine_config, model.device)
         self._batch = RaggedBatchWrapper(engine_config.state_manager)
         self._state_manager = DSStateManager(engine_config.state_manager, model.kv_cache_config(), model.device)
         self._model.set_state_manager(self._state_manager)
@@ -541,11 +579,35 @@ class InferenceEngineV2:
 
     # -------------------------------------------------------------- empty_run --
     def empty_run(self) -> None:
-        """A forward with zero live tokens (keeps replicas in lock-step once
-        expert parallelism is ported)."""
+        """A forward with zero live tokens: under expert parallelism it
+        enters the group's collectives, keeping an idle rank in lock-step
+        with busy ones (the serving scheduler's heartbeat calls it)."""
         if self._tracer:
             self._tracer.init_batch(is_empty_run=True, num_layers=self._model.num_layers)
         metrics = self._resolve_tel_metrics()
         if metrics is not None:
             metrics["empty_runs"].inc()
         self._model.empty_run()
+
+    @property
+    def expert_parallel_group(self):
+        """This rank's expert group (``utils.groups.RankGroup``), or None."""
+        return self._ep_group
+
+    def leave_expert_group(self) -> int:
+        """End this rank's part in its expert group: ask to leave, then run
+        empty forwards (in step with the ranks still serving) until the first
+        forward in which every rank has asked; every rank stops at that one
+        forward. Returns the number of empty forwards run; 0 without expert
+        parallelism. Afterwards ``empty_run`` runs nothing and a forward
+        raises. A rank whose serving scheduler heartbeats may instead call
+        ``model.ep_sync.request_leave()`` and wait for ``ep_sync.stopped``."""
+        sync = getattr(self._model, "ep_sync", None)
+        if sync is None:
+            return 0
+        sync.request_leave()
+        runs = 0
+        while not sync.stopped:
+            self.empty_run()
+            runs += 1
+        return runs

@@ -83,7 +83,7 @@ class LlamaV2Model(DSTransformerModelBase):
         o = pre + "self_attn.o_proj."
         return x + F.linear(out.reshape(x.shape[0], H * D), p[o + "weight"], p.get(o + "bias")), cache
 
-    def _ffn_phase(self, li, x):
+    def _ffn_phase(self, li, x, batch=None):
         p, pre = self._params, f"layers.{li}."
         h = rms_norm(x, p[pre + "post_attention_layernorm.weight"], self._config.rms_norm_eps)
         gate = F.linear(h, p[pre + "mlp.gate_proj.weight"])
@@ -92,13 +92,13 @@ class LlamaV2Model(DSTransformerModelBase):
 
     def layer_forward(self, li, x, cache, attn_fn, batch):
         x, cache = self._attn_phase(li, x, cache, attn_fn, batch)
-        return self._ffn_phase(li, x), cache
+        return self._ffn_phase(li, x, batch=batch), cache
 
     def layer_forward_traced(self, li, x, cache, attn_fn, batch):
         with record("attn"):
             x, cache = self._attn_phase(li, x, cache, attn_fn, batch)
         with record("ffn"):
-            x = self._ffn_phase(li, x)
+            x = self._ffn_phase(li, x, batch=batch)
         return x, cache
 
 

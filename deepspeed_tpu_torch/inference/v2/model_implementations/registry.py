@@ -1,7 +1,7 @@
 """Inference-v2 model policy registry.
 
 Port of ``deepspeed_tpu/inference/v2/model_implementations/registry.py`` for
-the llama family (llama, mistral, qwen2). Mixtral and the generic decoder
+the llama family (llama, mistral, qwen2) and mixtral. The generic decoder
 models are ROADMAP A9.
 """
 
@@ -9,7 +9,9 @@ from typing import Dict, Tuple
 
 from deepspeed_tpu_torch.inference.v2.model_implementations.llama_v2 import (LlamaV2Model, MistralV2Model,
                                                                              Qwen2V2Model)
+from deepspeed_tpu_torch.inference.v2.model_implementations.mixtral_v2 import MixtralV2Model
 from deepspeed_tpu_torch.models.llama import LlamaConfig
+from deepspeed_tpu_torch.models.mixtral import MixtralConfig
 
 _BY_CONFIG: Dict[type, type] = {}
 _BY_NAME: Dict[str, Tuple[type, type]] = {}
@@ -36,3 +38,4 @@ def model_cls_for(model_config) -> type:
 register_policy("llama", LlamaConfig, LlamaV2Model)
 register_policy("mistral", LlamaConfig, MistralV2Model)
 register_policy("qwen2", LlamaConfig, Qwen2V2Model)
+register_policy("mixtral", MixtralConfig, MixtralV2Model)

@@ -156,7 +156,11 @@ class DSTransformerModelBase:
         return self._forward_impl(tok_meta, seq_meta, batch["n_tokens"])[:batch["n_seqs"]]
 
     def empty_run(self) -> None:
-        """A forward of the smallest bucket with every validity flag false."""
+        """A forward with zero live tokens: the smallest bucket with every
+        validity flag false. It enters exactly the collectives a real forward
+        enters (a Mixtral under expert parallelism: the token-count exchange,
+        then two all-to-alls a layer), so an idle rank keeps its expert group
+        in lock-step, and it writes no KV."""
         wrapper = RaggedBatchWrapper(self._engine_config.state_manager)
         wrapper.finalize()  # zero live sequences/tokens
         self.forward(wrapper)
@@ -215,11 +219,16 @@ class DSTransformerModelBase:
     def _hidden(self, batch, attn):
         """Embed and run every layer; the residual stream ``[T, hidden]``
         before the final norm."""
+        self._begin_forward(batch)
         cache = self._state_manager.kv_cache.cache
         x = self.embed(batch["input_ids"])
         for li in range(self.num_layers):
             x, cache = self.layer_forward(li, x, cache, attn, batch)
         return x
+
+    def _begin_forward(self, batch) -> None:
+        """Each forward's first step, before the embedding (subclasses: a
+        Mixtral's gate seed and expert-group exchange); adds to ``batch``."""
 
     def _forward_impl(self, tok_meta, seq_meta, n_tokens):
         batch = self._unpack_batch(tok_meta, seq_meta, n_tokens)
@@ -234,6 +243,7 @@ class DSTransformerModelBase:
         the phase times (no-op waits on a CPU tracer)."""
         batch = self._unpack_batch(tok_meta, seq_meta, n_tokens)
         attn = partial(self._paged_attention, batch=batch)
+        self._begin_forward(batch)
         cache = self._state_manager.kv_cache.cache
         with record("embed"):
             x = self.embed(batch["input_ids"])

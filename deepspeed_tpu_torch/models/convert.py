@@ -20,7 +20,9 @@ the reference ``PipelineEngine``'s ``{"pre", "stack", "post"}`` params
 and ``pipeline_state_from_llama`` / ``llama_state_from_pipeline`` move a
 ``LlamaModel`` state to ``llama_pipeline_module``'s layout and back.
 ``tiled_linear_from_flax`` / ``_to_flax`` carry ``TiledLinear``'s tile
-grid.
+grid. ``mixtral_from_flax`` / ``_to_flax`` carry a Mixtral tree
+(``block_sparse_moe.{gate, ExpertFFN_0.{wi, wo}}``) bit for bit, and
+``expert_slice`` keeps an expert-parallel rank's experts.
 """
 
 from collections.abc import Mapping
@@ -265,3 +267,92 @@ def tiled_linear_from_flax(tree) -> dict:
 def tiled_linear_to_flax(state) -> dict:
     """The inverse of :func:`tiled_linear_from_flax`."""
     return {k: v.detach().float().cpu().numpy() for k, v in state.items()}
+
+
+# ------------------------------------------------------------------ Mixtral --
+_FLAX_EXPERTS = "ExpertFFN_0"
+
+
+def mixtral_from_flax(tree, cfg) -> dict:
+    """The reference ``MixtralForCausalLM``'s param tree (nested dicts of
+    numpy arrays, at the root) as ``models/mixtral.py``'s ``state_dict``:
+    Dense kernels transposed, the router ``gate [M, E]`` and the banks
+    ``ExpertFFN_0.{wi, wo}`` (named ``experts.{wi, wo}`` here) as they are.
+    CPU tensors in ``cfg.dtype``."""
+    from deepspeed_tpu_torch.models.mixtral import param_shapes as mixtral_shapes
+
+    out = {}
+    for path, value in _flatten(tree):
+        arr = np.asarray(value, dtype=np.float32)
+        head, leaf = path[:-1], path[-1]
+        parts = []
+        for p in head:
+            if p.startswith("layers_"):
+                parts += ["layers", p[len("layers_"):]]
+            else:
+                parts.append("experts" if p == _FLAX_EXPERTS else p)
+        if leaf == "kernel":
+            arr, leaf = arr.T, "weight"
+        elif leaf == "embedding":
+            leaf = "weight"
+        elif leaf not in ("weight", "gate", "wi", "wo"):
+            raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
+        out[".".join(parts + [leaf])] = torch.tensor(arr, dtype=cfg.dtype)
+    want = mixtral_shapes(cfg)
+    if set(out) != set(want):
+        raise ValueError(f"flax tree does not fit {type(cfg).__name__}: missing {sorted(set(want) - set(out))}, "
+                         f"unexpected {sorted(set(out) - set(want))}")
+    for name, shape in want.items():
+        if tuple(out[name].shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(out[name].shape)} != {tuple(shape)}")
+    return out
+
+
+def mixtral_to_flax(state_dict, cfg) -> dict:
+    """The inverse of :func:`mixtral_from_flax`: the reference's tree of f32
+    numpy arrays."""
+    from deepspeed_tpu_torch.models.mixtral import param_shapes as mixtral_shapes
+
+    want = mixtral_shapes(cfg)
+    if set(state_dict) != set(want):
+        raise ValueError(f"state_dict does not fit {type(cfg).__name__}: missing "
+                         f"{sorted(set(want) - set(state_dict))}, unexpected {sorted(set(state_dict) - set(want))}")
+    root = {}
+    for name, value in state_dict.items():
+        arr = value.detach().float().cpu().numpy()
+        *head, leaf = name.split(".")
+        path, i = [], 0
+        while i < len(head):
+            if head[i] == "layers":
+                path.append(f"layers_{head[i + 1]}")
+                i += 2
+            else:
+                path.append(_FLAX_EXPERTS if head[i] == "experts" else head[i])
+                i += 1
+        if leaf == "weight" and path[-1] == "embed_tokens":
+            leaf = "embedding"
+        elif leaf == "weight" and not path[-1].endswith("norm"):
+            arr, leaf = arr.T, "kernel"
+        node = root
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return root
+
+
+def expert_slice(state_dict, rank: int, ep: int) -> dict:
+    """The weights an expert-parallel rank holds: everything, but only
+    experts ``[rank·E/ep, (rank+1)·E/ep)`` of each bank (``experts.wi``,
+    ``experts.wo``). Raises when the experts do not divide over the ranks."""
+    from deepspeed_tpu_torch.models.mixtral import is_expert_bank
+
+    out = {}
+    for name, t in state_dict.items():
+        if is_expert_bank(name):
+            E = t.shape[0]
+            if E % ep:
+                raise ValueError(f"{name}: {E} experts do not divide over {ep} expert-parallel ranks")
+            per = E // ep
+            t = t[rank * per:(rank + 1) * per]
+        out[name] = t
+    return out

@@ -85,6 +85,7 @@ from deepspeed_tpu_torch.compression.compress import init_compression
 from deepspeed_tpu_torch.compression.scheduler import CompressionScheduler
 from deepspeed_tpu_torch.models.convert import reference_names
 from deepspeed_tpu_torch.models.llama import LlamaModel
+from deepspeed_tpu_torch.moe.layer import MoE
 from deepspeed_tpu_torch.ops.adagrad.cpu_adagrad import DeepSpeedCPUAdagrad
 from deepspeed_tpu_torch.ops.adam.fused_adam import DeepSpeedCPUAdam, FusedAdam
 from deepspeed_tpu_torch.ops.adam.onebit_adam import OnebitAdam
@@ -157,12 +158,16 @@ def _make_optimizer(name, params_cfg):
     return classes[name](**cfg)
 
 
-def _unsupported(cfg: DeepSpeedConfig, stages: int):
+def _unsupported(cfg: DeepSpeedConfig, stages: int, module=None):
     """Configured features this engine does not run, each with the ROADMAP
     queue item that ports it (the rest of A8). ``stages`` is the engine's
     pipeline stage count: a ``pipeline_parallel_size`` above 1 runs only as
     a ``PipelineModule``'s stages (the reference also replicates a plain
-    module over its mesh's pipe axis; the port does not)."""
+    module over its mesh's pipe axis; the port does not). A ``module``
+    holding a MoE layer trains on one rank only: the reference's gate is
+    global over the whole batch (capacity, priority order and aux loss over
+    every rank's tokens), which a gate of each rank's tokens would not
+    match once capacity binds."""
     found = []
     for key, what in ((cfg.sequence_parallel_size, "sequence parallelism"),
                       (cfg.tensor_parallel_size, "tensor parallelism"),
@@ -172,6 +177,9 @@ def _unsupported(cfg: DeepSpeedConfig, stages: int):
     if cfg.pipeline_parallel_size > 1 and stages == 1:
         found.append(f"pipeline_parallel_size {cfg.pipeline_parallel_size} on a module that is not a PipelineModule "
                      "(A8)")
+    if module is not None and dist.get_world_size() > 1 and any(isinstance(m, MoE) for m in module.modules()):
+        found.append(f"a MoE model on {dist.get_world_size()} data or expert ranks, whose gate must be global over "
+                     "the batch (A8)")
     return found
 
 
@@ -197,7 +205,7 @@ class DeepSpeedEngine:
         # join the gang the launcher described (a world of one without one)
         dist.init_distributed(device=self.device)
         self._config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
-        missing = _unsupported(self._config, self._pipeline_stages())
+        missing = _unsupported(self._config, self._pipeline_stages(), model)
         if missing:
             raise NotImplementedError(f"not ported yet, each with the ROADMAP item that ports it: {', '.join(missing)}")
         # the rank mesh: the pipeline stages (PipelineEngine), then the data
@@ -249,6 +257,8 @@ class DeepSpeedEngine:
             model.load_state_dict({k: torch.as_tensor(v).clone() if assign else torch.as_tensor(v)
                                    for k, v in model_parameters.items()}, assign=assign)
         self.module = model.to(self.device)
+        self._moe_layers = [m for m in self.module.modules() if isinstance(m, MoE)]
+        self._gating_draws = 0
         self.params = {n: p.detach().to(self.master_dtype, copy=True) for n, p in self.module.named_parameters()}
         self.module.to(self.compute_dtype)
         self._module_params = dict(self.module.named_parameters())
@@ -814,10 +824,24 @@ class DeepSpeedEngine:
         """The module's loss on this rank's chunk. At stage 3 over several
         ranks the units gather and recompute per layer, which stands in for
         ``remat``'s recomputation, so ``remat`` stores instead."""
+        if self._moe_layers:
+            self._seed_gates()
         if self._partition_params:
             with recompute_disabled():
                 return self.module(batch)
         return self.module(batch)
+
+    def _seed_gates(self):
+        """The MoE layers' noise for this forward (C16): the reference engine
+        hands a flax MoE a fresh ``gating`` rng each training micro-step
+        (its noisy gates, random token selection, top-2's sampled second
+        expert) and none in evaluation. Here each layer gets a seed from
+        the engine's count of training forwards and the layer's index; in
+        evaluation none."""
+        for i, m in enumerate(self._moe_layers):
+            m.gating_seed = (self._gating_draws * len(self._moe_layers) + i) if self.training else None
+        if self.training:
+            self._gating_draws += 1
 
     def _micro_grads(self, loss):
         """Gradients of ``loss * scale`` with respect to what this rank

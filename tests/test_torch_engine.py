@@ -220,10 +220,17 @@ def test_kv_cache_dtype_follows_model_dtype(setup):
 
 def test_unported_features_are_refused(setup):
     _, _, cfg, params, _, _ = setup
-    for field, value in (("quantization", {"enabled": True}), ("simulated_gating", True)):
-        ec = dataclasses.replace(_port_config(), **{field: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_engine(params, cfg, ec, device="cpu")
+    ec = dataclasses.replace(_port_config(), quantization={"enabled": True})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_engine(params, cfg, ec, device="cpu")
+    # simulated gating is ported: it turns the process-wide simulated router
+    # on (a Llama has no router to replace)
+    from deepspeed_tpu_torch.inference.v2.modules import moe
+    try:
+        build_engine(params, cfg, dataclasses.replace(_port_config(), simulated_gating=True), device="cpu")
+        assert moe.simulated_gating_enabled()
+    finally:
+        moe.disable_simulated_gating()
     ec = RaggedInferenceEngineConfig.from_dict({"tp": {"tp_size": 2}})
     with pytest.raises(NotImplementedError, match="tensor_parallel"):
         build_engine(params, cfg, ec, device="cpu")
