@@ -187,7 +187,19 @@ Phases (any failure raises and the script exits non-zero):
    to their exact runs (losses, the first reduced gradients, masters, the
    bytes a rank sends), hpZ and MiCS over four held to world 1 and the
    placement rule; the pipeline engine over two stages, bitwise one rank;
-16. print one JSON line describing every kernel, then the result line.
+16. parallel path (run_parallel_path): two ranks of this script over gloo,
+   started once, run four legs: Llama-2-7B served at TP 2 (the main path's
+   8 requests, rank 0 scheduling and rank 1 following; B1 at 16 heads a
+   rank; tokens against the main path's or teacher-forced through f32; the
+   all-reduce bytes counted), the 530M model cut to 2 layers trained at TP
+   2 and with Ulysses at sp 2 (S 2048, labels masked in one rank's half),
+   each held to a world-1 run, and Mixtral-8x7B's widths at 1 layer trained
+   with its experts over 2 ranks (capacity binding; the global gate, each
+   token's first loss and picked entries of the expert banks' gradients held
+   to a world-1 f32 step along the same routes, as is the first loss; the
+   experts' outputs swapped between the ranks must fail the last three); each
+   check with a control;
+17. print one JSON line describing every kernel, then the result line.
 
 The script imports the port only (never jax or deepspeed_tpu), needs one
 GPU, and writes its full record to chiprun_out/chip_smoke.json.
@@ -289,6 +301,8 @@ FLASH_CASES = (
     ("gqa_S300_causal", 2, 300, 32, 8, True, 128),  # S not a multiple of the 64- or 128-row tiles
     ("gqa_S256_full", 2, 256, 32, 8, False, 128),
     ("gqa_S1000_D64_causal", 4, 1000, 16, 4, True, 64),  # the 64-wide head, ragged last tile
+    ("tp2_train", 8, 1024, 8, 8, True, 128),  # the parallel phase's TP leg: 8 of 16 heads a rank
+    ("ulysses_sp2", 4, 2048, 8, 8, True, 128),  # its Ulysses leg: the whole sequence at 8 of 16 heads
 )
 # the kernels' designs, named in the kernels line
 FLASH_DESIGN = {"fwd": "wgmma+tma", "dkv": "wgmma+tma", "dq": "wgmma+tma"}
@@ -525,6 +539,8 @@ def check_paged_attention(dev) -> list:
         # decode near the end of the 4096-position context: a bound of about
         # 0.16 ms of bytes, so the kernel's share of the bandwidth reads
         _paged_case("llama2_7b_decode_long", 32, 32, BLOCK, [[3960 + 5 * i] for i in range(8)], gen, cpu_gen),
+        # the parallel phase's TP 2 decode step: one rank's 16 of 32 heads
+        _paged_case("llama2_7b_tp2_decode", 16, 16, BLOCK, [[n] for n in PROMPT_LENS], gen, cpu_gen),
     ]
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     results = []
@@ -1186,6 +1202,7 @@ def run_main_path(dev, params=None) -> dict:
                   for k in ("prefill_tokens_per_s", "decode_tokens_per_s", "ms_per_decode_step")},
                paged_attention_launches=launches, expected_launches=expected_launches)
     log("[main] " + json.dumps(res))
+    res["tokens"] = tokens  # the parallel phase's one-rank tokens
     del engine.put, engine.decode_loop  # unwrap the timers
 
     first = [t[0] for t in tokens]
@@ -4612,11 +4629,35 @@ def _gate_routes(num_experts, record=None, replay=None):
         sharded_moe._one_hot = inner
 
 
-def _moe_f32_step(cfg, dev, batch, replay=None, seeds=False):
+@contextlib.contextmanager
+def _token_nll(record):
+    """Each token's loss (f32 negative log-likelihood, masked labels 0) of
+    the Mixtral model's first loss in the block, appended to ``record``."""
+    from deepspeed_tpu_torch.models import mixtral as mixtral_mod
+    inner = mixtral_mod.cross_entropy_loss
+
+    def loss(logits, labels):
+        if not record:
+            logp = torch.log_softmax(logits.detach().float(), dim=-1)
+            valid = labels != -100
+            ll = torch.gather(logp, -1, torch.where(valid, labels, 0).long()[..., None])[..., 0]
+            record.append((-(ll * valid)).cpu())
+        return inner(logits, labels)
+
+    mixtral_mod.cross_entropy_loss = loss
+    try:
+        yield
+    finally:
+        mixtral_mod.cross_entropy_loss = inner
+
+
+def _moe_f32_step(cfg, dev, batch, replay=None, seeds=False, picks=None):
     """One forward (and, replaying routes, backward) of the f32 model from
     the seed-0 weights: the loss and gradient norm along ``replay``'s
-    routes, or with ``seeds`` the routes its own gates take under the
-    engine's first noise seeds (returned recorded, no backward)."""
+    routes (with ``picks``, ``{name: flat indices}``, those entries of each
+    named gradient too, and each token's loss), or with ``seeds`` the
+    routes its own gates take under the engine's first noise seeds
+    (returned recorded, no backward)."""
     with torch.device("meta"):
         model = MixtralForCausalLM(cfg)
     model.load_state_dict(_moe_params(cfg, dev, dtype=torch.float32), assign=True)
@@ -4628,11 +4669,16 @@ def _moe_f32_step(cfg, dev, batch, replay=None, seeds=False):
         with torch.no_grad(), _gate_routes(cfg.num_local_experts, record=own):
             model(ids)
         return own
-    with _gate_routes(cfg.num_local_experts, replay=replay):
+    nll = []
+    with _gate_routes(cfg.num_local_experts, replay=replay), _token_nll(nll):
         loss = model(ids)
         loss.backward()
     out = dict(loss=loss.item(), grad_norm=torch.sqrt(sum(p.grad.float().pow(2).sum()
                                                           for p in model.parameters())).item())
+    if picks is not None:
+        out["picked_grads"] = {n: model.get_parameter(n).grad.reshape(-1)[idx.to(dev)].tolist()
+                               for n, idx in picks.items()}
+        out["token_nll"] = nll[0].tolist()
     del model, loss
     gc.collect()
     torch.cuda.empty_cache()
@@ -5837,7 +5883,9 @@ def run_train_features_path(dev) -> dict:
 # card is one H100: NCCL runs at world 1, and two ranks share the card over
 # gloo, named explicitly (NCCL refuses two ranks on one device; leg b records
 # its error). No multi-GPU speed is measured.
-ZERO_STEPS = 3  # train_batch steps of each leg (a) and (b) run
+# train_batch steps of each leg (a) and (b) run (cut: steps, from 3, so that
+# the whole script stays inside its time with the parallel phase)
+ZERO_STEPS = 2
 ZERO_B = 8  # the global batch: 8 rows of TRAIN_S tokens, 4 + 4 over two ranks
 ZERO_CUT_LAYERS = 2  # legs (b) and (c): bench.py's width at a cut depth
 ZERO_GANG_STEPS = 4  # leg (c): the gang trains to this global step
@@ -5892,16 +5940,17 @@ def _zero_train(engine, batches):
     return losses, _flash_launches(), time.perf_counter() - t0
 
 
-def _masters_close(got, want, share_min=0.99):
+def _masters_close(got, want, share_min=0.99, steps=None):
     """{name: (share within a third of an lr step, max abs diff)} and the
     names outside ZERO's bf16 tolerance (at least ``share_min`` within a
-    third of a step, none further than two steps of each leg)."""
+    third of a step, none further than two lr for each of the ``steps``
+    steps, ZERO_STEPS by default)."""
     stats, bad = {}, []
     for name, w in want.items():
         d = (got[name].float().to(w.device) - w).abs()
         share, top = float((d <= TRAIN_LR / 3).float().mean()), float(d.max())
         stats[name] = (share, top)
-        if not (share >= share_min and top <= 2 * ZERO_STEPS * TRAIN_LR):
+        if not (share >= share_min and top <= 2 * (steps or ZERO_STEPS) * TRAIN_LR):
             bad.append(name)
     return stats, bad
 
@@ -6272,7 +6321,7 @@ def run_zero_path(dev) -> dict:
 # 530M model at world 1 over NCCL; legs b-d cut its depth (b: the disk
 # tier's 1.85 GB of state a step each way; c and d: two and four ranks
 # share the one card over gloo, as run_zero_path's leg b).
-ZPP_STEPS = 3  # legs a and b
+ZPP_STEPS = 2  # legs a and b (cut: steps, from 3, as ZERO_STEPS)
 ZPP_RANK_STEPS = 2  # legs c and d
 ZPP_PIPE_LAYERS, ZPP_PIPE_MICRO, ZPP_PIPE_GAS = 4, 2, 4  # leg d: two blocks a stage
 # leg c's losses against the exact run of their stage (qwZ, qgZ) or world 1
@@ -6745,6 +6794,632 @@ def run_zero_plus_path(dev) -> dict:
 
 
 # --------------------------------------------------------------------- main --
+# ----------------------------------------------------------------- phase 16 --
+# model, sequence and expert ranks: two processes of this script
+# (--par-rank-child) over gloo on the card, started once, run four legs in
+# sequence: (a) Llama-2-7B served at TP 2, (b) the 530M bench model trained at
+# TP 2, (c) the same model trained with Ulysses at sp 2, (d) Mixtral-8x7B's
+# widths trained with its experts over 2 expert ranks. The parent computes
+# the world-1 runs they are held to.
+PAR_PREDICTED_S = 150.0  # the phase's predicted seconds, printed before it runs
+PAR_TIMEOUT_S = 900  # bound on the ranks
+PAR_LAYERS = 2  # legs b and c: bench.py's widths at a cut depth (cut: depth, as the zero phase)
+PAR_STEPS = 3  # legs b, c and d
+PAR_TP_B = 8  # leg b: the global batch, rows of TRAIN_S tokens
+PAR_SP_B, PAR_SP_S = 4, 2048  # leg c: 4 rows of 2048 positions, 1024 a rank
+PAR_SP_MASK = (100, 700)  # leg c's -100 span of labels: inside sequence rank 0's half
+PAR_MOE_B = 2  # leg d: rows of MOE_TRAIN_S tokens, one a rank
+PAR_MOE_CAPACITY = 1.0  # leg d: capacity binds
+PAR_MOE_BANKS = ("layers.0.block_sparse_moe.experts.wi", "layers.0.block_sparse_moe.experts.wo")
+PAR_MOE_PICKS = 8192  # leg d: entries of each expert bank's first gradient held to the f32 step's
+PAR_MOE_GRAD_L2_TOL = 0.06  # their L2 error, relative (the attention gradients' bf16 limit, ATTN_GRAD_L2_TOL)
+# leg d: each token's first loss against the f32 step's, in nats: bf16's relative step (2^-8) on logits of
+# std 1.28 (Mixtral's lm_head, std 0.02 over 4096 features) at 5 standard deviations is 0.025; four times it
+PAR_MOE_NLL_TOL = 0.1
+PAR_CONTROL_TOKENS = 4  # leg a's control: new tokens a request, rank 1's o_proj shard rank 0's
+PAR_COLUMN = "layers.0.self_attn.q_proj.weight"  # leg b's control: rank 1's shard of it gets no gradient
+_ONE_HOT = sharded_moe._one_hot
+
+
+def _par_llama(sequence_parallel=False):
+    return bench_llama(num_hidden_layers=PAR_LAYERS, sequence_parallel=sequence_parallel,
+                       max_position_embeddings=PAR_SP_S)
+
+
+def _par_batches(cfg, dev, rows, seq, seed, mask=None):
+    """PAR_STEPS global batches of ``rows`` x ``seq`` tokens from
+    np.random.default_rng(seed); ``mask`` = (lo, hi): labels -100 there."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(PAR_STEPS):
+        ids = rng.integers(0, cfg.vocab_size, size=(rows, seq + 1), dtype=np.int64)
+        labels = ids[:, 1:].copy()
+        if mask is not None:
+            labels[:, mask[0]:mask[1]] = -100
+        out.append(tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (ids[:, :-1], labels)))
+    return out
+
+
+def _par_engine(cfg, dev, rows, extra=None, tp=False):
+    """initialize() on ``cfg`` with weights from seed 0 (as _zero_engine),
+    ``rows`` a global batch, ZeRO 1, bf16 over f32 masters; ``tp`` places the
+    model on the model axis with auto_tp_specs."""
+    from deepspeed_tpu_torch.module_inject import auto_tp_specs
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.float32)
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    config = {"train_batch_size": rows, "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "AdamW", "params": {"lr": TRAIN_LR}}, "zero_optimization": {"stage": 1},
+              "bf16": {"enabled": True}, **(extra or {})}
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params, config=config, device=dev,
+                                                     param_specs=auto_tp_specs(model) if tp else None)
+    return engine
+
+
+def _par_train(engine, batches):
+    """The steps, B2-B4's launches zeroed just before and read just after."""
+    torch.cuda.synchronize()
+    _zero_flash_launches()
+    t0 = time.perf_counter()
+    losses = [float(engine.train_batch(batch=b)) for b in batches]
+    torch.cuda.synchronize()
+    return losses, _flash_launches(), time.perf_counter() - t0
+
+
+def _par_references(dev, work) -> dict:
+    """The world-1 runs of legs b and c (the same programs on one rank):
+    losses and launches to work/ref_<leg>.json, masters to work/ref_<leg>.pt."""
+    out = {}
+    for leg, cfg, rows, seq, mask in (("b", _par_llama(), PAR_TP_B, TRAIN_S, None),
+                                      ("c", _par_llama(True), PAR_SP_B, PAR_SP_S, PAR_SP_MASK)):
+        engine = _par_engine(cfg, dev, rows)
+        losses, launches, secs = _par_train(engine, _par_batches(cfg, dev, rows, seq, seed=17, mask=mask))
+        out[leg] = dict(losses=losses, flash_launches=launches, seconds=secs)
+        torch.save({k: v.cpu() for k, v in engine.params.items()}, os.path.join(work, f"ref_{leg}.pt.tmp"))
+        os.rename(os.path.join(work, f"ref_{leg}.pt.tmp"), os.path.join(work, f"ref_{leg}.pt"))
+        _free(engine)
+    return out
+
+
+def _wait_for(path, deadline):
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {os.path.basename(path)} from the parent")
+        time.sleep(0.2)
+
+
+def _par_leg_a(dev, rank, plan) -> dict:
+    """TP 2 serving: Llama-2-7B's 32 layers from the main path's weights,
+    this rank's heads and MLP columns; rank 0 serves the main path's 8
+    requests through generate, rank 1 follows every engine call. Then the
+    control: the same with rank 1's o_proj shards replaced by rank 0's."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference.v2.config_v2 import DeepSpeedTPConfig
+    from deepspeed_tpu_torch.inference.v2.engine_factory import serving_tp_slice
+    cfg = LlamaConfig.llama2_7b()
+    t0 = time.perf_counter()
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
+    params = {k: v.clone() for k, v in serving_tp_slice(full, cfg, rank, 2).items()}
+    swap = {k: v.clone() for k, v in serving_tp_slice(full, cfg, 0, 2).items() if ".o_proj." in k} if rank == 1 else {}
+    del full
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out = dict(params=sum(p.numel() for p in params.values()), init_s=time.perf_counter() - t0,
+               param_gb=sum(p.numel() * p.element_size() for p in params.values()) / 1e9)
+    mgr = DSStateManagerConfig(max_context=MAX_CONTEXT, memory_config=MemoryConfig(size=KV_BYTES))
+    ecfg = RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=BLOCK,
+                                       tensor_parallel=DeepSpeedTPConfig(tp_size=2))
+    for run in ("main", "control"):
+        if run == "control":
+            for k, v in swap.items():
+                params[k].copy_(v)
+        engine = build_engine(params, cfg, ecfg, device=dev)
+        buckets = []
+        inner = engine.model._forward_impl
+        engine.model._forward_impl = lambda tok, seq, n, inner=inner: buckets.append(tok.shape[-1]) or \
+            inner(tok, seq, n)
+        comm.comm.comms_logger.comms_dict.clear()
+        paged_attention_update.launches = 0
+        times = {"put": [], "decode_loop": []}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if rank == 0:
+            _timed(engine, "put", times["put"], _put_tokens)
+            _timed(engine, "decode_loop", times["decode_loop"], _loop_steps)
+            tokens = generate(engine, plan["prompts"], max_new_tokens=NEW_TOKENS if run == "main" else
+                              PAR_CONTROL_TOKENS, decode_chunk=NEW_TOKENS)
+            calls = None
+        else:
+            tokens, calls = None, engine.follow()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rank == 0:
+            engine.close()  # releases rank 1
+        ar = comm.comm.comms_logger.comms_dict.get("tp_row", {})
+        out[run] = dict(tokens=tokens, follower_calls=calls, wall_s=wall, b1_launches=paged_attention_update.launches,
+                        forwards=len(buckets), bucket_tokens=buckets,
+                        all_reduce_count=sum(v[0] for v in ar.values()),
+                        all_reduce_bytes=sum(size * v[0] for size, v in ar.items()),
+                        all_reduce_ms=sum(sum(v[1]) for v in ar.values()),
+                        puts=[n for _, n in times["put"]], decode_loops=[list(w) for _, w in times["decode_loop"]],
+                        prefill_s=sum(s for s, _ in times["put"]), decode_s=sum(s for s, _ in times["decode_loop"]),
+                        heads=[engine.model.num_heads, engine.model.num_kv_heads],
+                        cache_shape=list(engine._state_manager.kv_cache.cache.shape))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, swap
+    return out
+
+
+def _par_leg_train(dev, rank, leg, work, deadline) -> dict:
+    """Leg b (TP 2) or c (Ulysses, sp 2): PAR_STEPS steps held to the
+    world-1 run's masters; then the control (b: rank 1's shard of
+    PAR_COLUMN without its gradient; c: RoPE at each slice's local
+    positions), which must miss them."""
+    tp = leg == "b"
+    cfg = _par_llama(sequence_parallel=not tp)
+    rows, seq, mask = (PAR_TP_B, TRAIN_S, None) if tp else (PAR_SP_B, PAR_SP_S, PAR_SP_MASK)
+    extra = {"tensor_parallel_size": 2} if tp else {"sequence_parallel_size": 2}
+    _wait_for(os.path.join(work, f"ref_{leg}.pt"), deadline)
+    want = {k: v.to(dev) for k, v in torch.load(os.path.join(work, f"ref_{leg}.pt"), weights_only=True).items()}
+    out = {}
+    for run in ("main", "control"):
+        engine = _par_engine(cfg, dev, rows, extra, tp=tp)
+        batches = _par_batches(cfg, dev, rows, seq, seed=17, mask=mask)
+        keep_rope = LlamaModel.rope
+        if run == "control" and tp and rank == 1:
+            inner = engine._boundary_grads
+
+            def dropped(inner=inner):
+                grads = inner()
+                grads[PAR_COLUMN] = torch.zeros_like(grads[PAR_COLUMN])
+                return grads
+
+            engine._boundary_grads = dropped
+        elif run == "control" and not tp:
+            LlamaModel.rope = lambda self, n, device: rotary_embedding(n, self.cfg.head_dim, self.cfg.rope_theta,
+                                                                       device=device)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            losses, launches, secs = _par_train(engine, batches)
+        finally:
+            LlamaModel.rope = keep_rope
+        stats, bad = _masters_close(engine.full_params(), want, steps=PAR_STEPS)
+        local = {n: list(p.shape) for n, p in engine.params.items() if n in (PAR_COLUMN, "lm_head.weight")}
+        out[run] = dict(losses=losses, flash_launches=launches, steps_s=secs, masters_outside=bad,
+                        masters_worst=min(stats.values()), local_shapes=local,
+                        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+        _free(engine)
+    return out
+
+
+def _moe_gate_log(record):
+    """Each global gate's (exp_counts, kept assignments) appended to
+    ``record``, and the same gate of this rank's own tokens (the control's
+    local gate: capacity and priority over its rows only)."""
+    inner = sharded_moe.top2gating
+
+    def gating(logits, capacity_factor=1.0, min_capacity=4, generator=None):
+        out = inner(logits, capacity_factor, min_capacity, generator)
+        from deepspeed_tpu_torch import comm
+        n, r = comm.get_world_size(), comm.get_rank()
+        s = logits.shape[0] // n
+        recording, sharded_moe._one_hot = sharded_moe._one_hot, _ONE_HOT  # the routes record the global gate's
+        try:
+            local = inner(logits[r * s:(r + 1) * s], capacity_factor, min_capacity, generator)
+        finally:
+            sharded_moe._one_hot = recording
+        record.append(dict(counts=out[3].tolist(), kept=float(out[2].sum()), local_kept=float(local[2].sum()),
+                           local_counts=local[3].tolist()))
+        return out
+
+    sharded_moe.top2gating = gating
+    return inner
+
+
+def _par_moe_picks(cfg) -> dict:
+    """PAR_MOE_PICKS flat indices (seeded, sorted) into each whole expert
+    bank of PAR_MOE_BANKS."""
+    with torch.device("meta"):
+        shapes = {n: p.shape for n, p in MixtralForCausalLM(cfg).named_parameters() if n in PAR_MOE_BANKS}
+    rng = np.random.default_rng(7)
+    return {n: torch.from_numpy(np.unique(rng.integers(0, math.prod(shape), PAR_MOE_PICKS))) for n, shape in
+            shapes.items()}
+
+
+@contextlib.contextmanager
+def _swapped_experts():
+    """Leg d's control: the expert group's all-gather of the experts'
+    outputs hands each rank's outputs back in the other rank's place (the
+    backward follows the swap)."""
+    inner = sharded_moe._GatherExperts
+
+    class Swapped:
+        @staticmethod
+        def apply(x, group):
+            return inner.apply(x, group).roll(x.shape[0], 0)
+
+    sharded_moe._GatherExperts = Swapped
+    try:
+        yield
+    finally:
+        sharded_moe._GatherExperts = inner
+
+
+def _par_picked_grads(engine, rank, picks) -> dict:
+    """The entries of ``picks`` that this rank's experts hold, of the
+    accumulated gradients as the optimizer step takes them (over the
+    engine's loss scale, accumulation steps and ranks)."""
+    inv = 1.0 / (engine.scale_state.cur_scale * engine.gradient_accumulation_steps() * engine._loss_group.size)
+    out = {}
+    for n, idx in picks.items():
+        g = engine.acc_grads[n].reshape(-1)
+        lo = rank * g.numel()
+        mine = idx[(idx >= lo) & (idx < lo + g.numel())] - lo
+        out[n] = (g[mine.to(g.device)].float() * inv).tolist()
+    return out
+
+
+def _par_leg_d(dev, rank) -> dict:
+    """Mixtral-8x7B's widths at MOE_TRAIN_LAYERS, experts over 2 expert
+    ranks (data 2, expert-data 1; 4 experts a rank), ZeRO 1, capacity
+    factor PAR_MOE_CAPACITY, top-2, noise off: PAR_STEPS steps; the first
+    step's gate records, routes, the collectives' bytes and the picked
+    entries of the expert banks' gradients. First the control: the first
+    batch's loss and gradients with the experts' outputs swapped between
+    the ranks (no step)."""
+    from deepspeed_tpu_torch import comm
+    cfg = mixtral_config(MOE_TRAIN_LAYERS, capacity_factor=PAR_MOE_CAPACITY)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, size=(PAR_STEPS, PAR_MOE_B, MOE_TRAIN_S + 1), dtype=np.int64)
+    batches = [tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (b[:, :-1], b[:, 1:])) for b in ids]
+    params = _moe_params(cfg, dev, dtype=torch.float32)
+    with torch.device("meta"):
+        model = MixtralForCausalLM(cfg)
+    config = {"train_batch_size": PAR_MOE_B, "gradient_accumulation_steps": 1, "expert_parallel_size": 2,
+              "optimizer": {"type": "AdamW", "params": {"lr": TRAIN_LR}}, "zero_optimization": {"stage": 1},
+              "bf16": {"enabled": True}}
+    t0 = time.perf_counter()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params, config=config, device=dev)
+    engine._seed_gates = lambda: None  # the noise off, as the f32 reference's
+    comm.configure(enabled=True)  # the engine configured the comms logger from its (empty) block
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(init_s=time.perf_counter() - t0, local_params=sum(p.numel() for p in engine.params.values()),
+               local_experts=int(engine.params["layers.0.block_sparse_moe.experts.wi"].shape[0]))
+    picks = _par_moe_picks(cfg)
+    nll = []
+    with _swapped_experts(), _token_nll(nll):
+        loss = engine.forward(batches[0])
+        engine.backward(loss)
+    out["control"] = dict(loss=engine._global_mean(loss).item(), picked_grads=_par_picked_grads(engine, rank, picks),
+                          token_nll=nll[0].tolist())
+    engine.acc_grads = None
+    del loss
+    apply = engine._apply
+
+    def picked_apply():
+        out["picked_grads"] = _par_picked_grads(engine, rank, picks)
+        engine._apply = apply
+        return apply()
+
+    engine._apply = picked_apply
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, routes, gates = [], [], [], []
+    comm.comm.comms_logger.comms_dict.clear()
+    nll = []
+    for step, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner = _moe_gate_log(gates) if step == 0 else None
+        try:
+            with _gate_routes(cfg.num_local_experts, record=routes) if step == 0 else contextlib.nullcontext(), \
+                    _token_nll(nll) if step == 0 else contextlib.nullcontext():
+                losses.append(engine.train_batch(batch=b).item())
+        finally:
+            if inner is not None:
+                sharded_moe.top2gating = inner
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if step == 0:
+            moved = {op: {str(size): v[0] for size, v in comm.comm.comms_logger.comms_dict.get(op, {}).items()}
+                     for op in MOE_COLLECTIVES}
+    out.update(losses=losses, step_s=secs, gates=gates, moved_step1=moved, token_nll=nll[0].tolist(),
+               routes=[r.argmax(-1).tolist() for r in routes],
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               ms_per_step=1e3 * statistics.median(secs[1:]),
+               tokens_per_s=PAR_MOE_B * MOE_TRAIN_S / statistics.median(secs[1:]))
+    _free(engine)
+    return out
+
+
+def parallel_rank_child(work, device="cuda:0") -> int:
+    """One rank of run_parallel_path, started through the launcher: joins the
+    gloo group, waits for the parent's plan, runs legs a-d, writes its
+    readings to work/rank<r>.json."""
+    from deepspeed_tpu_torch import comm
+    dev = torch.device(device)
+    comm.init_distributed(dist_backend="gloo", device=dev, verbose=False)
+    comm.configure(enabled=True)
+    rank = comm.get_rank()
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    _wait_for(os.path.join(work, "go"), deadline)
+    with open(os.path.join(work, "go")) as f:
+        plan = json.load(f)
+    out = {"rank": rank}
+    for leg, fn in (("a", lambda: _par_leg_a(dev, rank, plan)),
+                    ("b", lambda: _par_leg_train(dev, rank, "b", work, deadline)),
+                    ("c", lambda: _par_leg_train(dev, rank, "c", work, deadline)),
+                    ("d", lambda: _par_leg_d(dev, rank))):
+        t0 = time.perf_counter()
+        out[leg] = fn()
+        out[leg]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        comm.barrier()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    comm.destroy_process_group()
+    return 0
+
+
+def _par_check_a(a, main, dev, failures) -> dict:
+    """Leg a against the main path: each request's tokens equal its one-rank
+    tokens or pass the serving phase's teacher-forced check against the
+    dense f32 model (the control's tokens must fail it); B1 two launches a
+    layer per decode step and small put on each rank; the all-reduce bytes
+    two a layer a forward of the bucket's tokens x hidden x 4 (f32)."""
+    cfg = LlamaConfig.llama2_7b()
+    r0, r1 = a[0]["main"], a[1]["main"]
+    res = dict(heads=r0["heads"], cache_shape=r0["cache_shape"], param_gb_per_rank=a[0]["param_gb"],
+               follower_calls=r1["follower_calls"], wall_s=r0["wall_s"])
+    steps = sum(n for _, n in r0["decode_loops"])
+    res.update(prefill_tokens_per_s=sum(PROMPT_LENS) / r0["prefill_s"],
+               decode_tokens_per_s=sum(s * n for s, n in r0["decode_loops"]) / r0["decode_s"],
+               ms_per_decode_step=1e3 * r0["decode_s"] / steps)
+    expected = 2 * cfg.num_hidden_layers * (steps + sum(1 for n in r0["puts"] if n <= 32))
+    res["b1_launches"] = [r["main"]["b1_launches"] for r in a]
+    res["b1_expected"] = expected
+    for r, run in enumerate(a):
+        if run["main"]["b1_launches"] != expected:
+            failures.append(f"a: rank {r} launched B1 {run['main']['b1_launches']} times, expected {expected}")
+        predicted = 2 * cfg.num_hidden_layers * sum(run["main"]["bucket_tokens"]) * cfg.hidden_size * 4
+        count = 2 * cfg.num_hidden_layers * run["main"]["forwards"]
+        run["main"]["all_reduce_predicted"] = [predicted, count]
+        if [run["main"]["all_reduce_bytes"], run["main"]["all_reduce_count"]] != [predicted, count]:
+            failures.append(f"a: rank {r} all-reduced {run['main']['all_reduce_bytes']} bytes in "
+                            f"{run['main']['all_reduce_count']} calls, predicted {predicted} in {count}")
+    res["all_reduce"] = [dict(bytes=r["main"]["all_reduce_bytes"], count=r["main"]["all_reduce_count"],
+                              ms=r["main"]["all_reduce_ms"], predicted=r["main"]["all_reduce_predicted"]) for r in a]
+    if r0["heads"] != [16, 16] or r0["cache_shape"][3] != 16:
+        failures.append(f"a: rank 0 holds heads {r0['heads']} and a cache {r0['cache_shape']}")
+    tokens = r0["tokens"]
+    res["tokens_equal_main"] = sum(t == m for t, m in zip(tokens, main["tokens"]))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+    params = main_params(dev)
+    model = _dense_f32(params, cfg)
+    del params
+    tol = TF_SLACK * max(main["logits_max_abs_err_kernel_vs_f32"], main["logits_max_abs_err_gather_vs_f32"])
+    differ = [i for i in range(len(prompts)) if tokens[i] != main["tokens"][i]]
+    res["differ"] = differ
+    if differ:
+        gaps = _teacher_forced(model, dev, [(prompts[i], tokens[i]) for i in differ])
+        res["teacher_forced_max_gap"] = gaps.max().item()
+        if not gaps.max().item() <= tol:
+            failures.append(f"a: a served token trails the f32 maximum by {gaps.max().item()} > {tol}")
+    control = a[0]["control"]["tokens"]
+    res["control_max_gap"] = _teacher_forced(model, dev, list(zip(prompts, control))).max().item()
+    res["teacher_forced_limit"] = tol
+    if not res["control_max_gap"] > tol:
+        failures.append("a: the teacher-forced check passes the tokens served with rank 1's o_proj shards rank 0's")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _par_check_train(leg, ranks, ref, failures) -> dict:
+    """Legs b and c: every rank's losses within ZERO_LOSS_REL_TOL of world
+    1's and the masters within its bf16 tolerance; B2-B4 launched as the
+    world-1 run launches them; the control must miss the masters."""
+    expected = {k: v // TRAIN_GAS for k, v in _expected_flash_launches(PAR_STEPS, PAR_LAYERS).items()}
+    res = dict(world1=ref, expected_flash_launches=expected, ranks=ranks)
+    for r, run in enumerate(ranks):
+        main, control = run["main"], run["control"]
+        main["loss_rel_err"] = max(abs(x - y) / abs(y) for x, y in zip(main["losses"], ref["losses"]))
+        if main["loss_rel_err"] > ZERO_LOSS_REL_TOL:
+            failures.append(f"{leg}: rank {r} losses {main['losses']} vs world 1 {ref['losses']}")
+        if main["masters_outside"]:
+            failures.append(f"{leg}: rank {r} masters outside the bf16 tolerance: {main['masters_outside'][:4]}")
+        if main["flash_launches"] != expected or ref["flash_launches"] != expected:
+            failures.append(f"{leg}: rank {r} flash launches {main['flash_launches']} (world 1 "
+                            f"{ref['flash_launches']}) != {expected}")
+        if not control["masters_outside"]:
+            failures.append(f"{leg}: rank {r}'s control passes the masters check")
+    return res
+
+
+MOE_COLLECTIVES = ("moe_gate_logits", "moe_dispatch", "moe_experts_out", "moe_gate_logits_bwd", "moe_dispatch_bwd",
+                   "moe_experts_out_bwd")
+
+
+def _moe_bytes(cfg, tokens_local, n) -> dict:
+    """The MoE layers' collectives in one training step (forward, remat's
+    recomputed forward, backward), as (comms logger name, bytes of the
+    input) -> count: the routing logits [S_l, E] f32 all-gathered, the
+    dispatched buffer [E, C, M] f32 reduce-scattered, this rank's experts'
+    outputs [E/n, C, M] all-gathered; in the backward their adjoints."""
+    E, M, L = cfg.num_local_experts, cfg.hidden_size, cfg.num_hidden_layers
+    C = sharded_moe._capacity(tokens_local * n, E, 2 * PAR_MOE_CAPACITY, 4)
+    return {("moe_gate_logits", tokens_local * E * 4): 2 * L, ("moe_dispatch", E * C * M * 4): 2 * L,
+            ("moe_experts_out", E // n * C * M * 4): 2 * L, ("moe_gate_logits_bwd", n * tokens_local * E * 4): L,
+            ("moe_dispatch_bwd", E // n * C * M * 4): L, ("moe_experts_out_bwd", E * C * M * 4): L}
+
+
+def _par_check_d(ranks, dev, failures) -> dict:
+    """Leg d: the global gate's counts and kept assignments equal a world-1
+    f32 step's along the same routes (recorded on rank 0, replayed); the
+    first loss is within the training phase's limit of it and the picked
+    entries of the expert banks' first gradients within
+    PAR_MOE_GRAD_L2_TOL; every loss finite and the same on both ranks. The
+    controls: the gate of each rank's own tokens must keep another number;
+    the experts' outputs swapped between the ranks must fail the loss, the
+    per-token and the gradient check. The collectives' bytes equal _moe_bytes's count."""
+    cfg = mixtral_config(MOE_TRAIN_LAYERS, capacity_factor=PAR_MOE_CAPACITY)
+    r0 = ranks[0]
+    res = dict(ranks=[{k: v for k, v in r.items() if k not in ("routes", "gates", "picked_grads", "token_nll")}
+                      for r in ranks], gates=r0["gates"])
+    for r in res["ranks"]:
+        r["control"] = dict(loss=r["control"]["loss"])
+    global_gate = lambda r: [(g["counts"], g["kept"]) for g in r["gates"]]
+    if r0["routes"] != ranks[1]["routes"] or global_gate(r0) != global_gate(ranks[1]):
+        failures.append("d: the ranks' global gates disagree")
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, size=(PAR_STEPS, PAR_MOE_B, MOE_TRAIN_S + 1), dtype=np.int64)[0]
+    batch = tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (ids[:, :-1], ids[:, 1:]))
+    replay = [F.one_hot(torch.tensor(r, device=dev), cfg.num_local_experts).float() for r in r0["routes"]]
+    record = []
+    inner = sharded_moe.top2gating
+    sharded_moe.top2gating = lambda *a, **k: record.append(inner(*a, **k)) or record[-1]
+    picks = _par_moe_picks(cfg)
+    try:
+        ref = _moe_f32_step(cfg, dev, batch, replay=replay, picks=picks)
+    finally:
+        sharded_moe.top2gating = inner
+    world1 = [dict(counts=g[3].tolist(), kept=float(g[2].sum())) for g in record]
+    picked, picked_nll = ref.pop("picked_grads"), ref.pop("token_nll")
+    want_grads = torch.tensor([x for n in PAR_MOE_BANKS for x in picked[n]], dtype=torch.float64)
+    res["world1"] = dict(ref, gates=world1)
+    first = world1[:cfg.num_hidden_layers]
+    mine = r0["gates"][:cfg.num_hidden_layers]
+    if [g["counts"] for g in mine] != [g["counts"] for g in first] or \
+            [g["kept"] for g in mine] != [g["kept"] for g in first]:
+        failures.append(f"d: the global gate {mine} != world 1's {first}")
+    local_kept = [sum(r["gates"][i]["local_kept"] for r in ranks) for i in range(cfg.num_hidden_layers)]
+    res["dropped"] = [2 * PAR_MOE_B * MOE_TRAIN_S - g["kept"] for g in first]
+    res["control_dropped"] = [2 * PAR_MOE_B * MOE_TRAIN_S - k for k in local_kept]
+    if res["control_dropped"] == res["dropped"]:
+        failures.append("d: the gate of each rank's own tokens drops as many as the global gate")
+    if not res["dropped"][0] > 0:
+        failures.append("d: capacity does not bind")
+    res["loss_rel_err"] = _rel(r0["losses"][0], ref["loss"])
+    if not res["loss_rel_err"] <= LOSS_REL_TOL:
+        failures.append(f"d: the first loss is {res['loss_rel_err']} from world 1's f32 step > {LOSS_REL_TOL}")
+    if not all(math.isfinite(x) for x in r0["losses"]) or r0["losses"] != ranks[1]["losses"]:
+        failures.append(f"d: the ranks' losses {[r['losses'] for r in ranks]}")
+    res["control_loss_rel_err"] = _rel(r0["control"]["loss"], ref["loss"])
+    if not res["control_loss_rel_err"] > LOSS_REL_TOL:
+        failures.append("d: the first loss with the experts' outputs swapped between the ranks passes its check")
+
+    def nll_err(run):  # each token's loss, the ranks' rows in order
+        got = torch.tensor([x for r in ranks for row in run(r)["token_nll"] for x in row], dtype=torch.float64)
+        return (got - want_nll).abs().max().item()
+
+    want_nll = torch.tensor(picked_nll, dtype=torch.float64).reshape(-1)
+    res["token_nll_max_abs_err"] = nll_err(lambda r: r)
+    res["control_token_nll_max_abs_err"] = nll_err(lambda r: r["control"])
+    if not res["token_nll_max_abs_err"] <= PAR_MOE_NLL_TOL:
+        failures.append(f"d: a token's first loss is {res['token_nll_max_abs_err']} from world 1's f32 step > "
+                        f"{PAR_MOE_NLL_TOL}")
+    if not res["control_token_nll_max_abs_err"] > PAR_MOE_NLL_TOL:
+        failures.append("d: each token's first loss with the experts' outputs swapped between the ranks passes "
+                        "its check")
+
+    def grads_err(run):  # the ranks' picked entries, rank 0's (the lower experts) first
+        got = torch.tensor([x for n in PAR_MOE_BANKS for r in ranks for x in run(r)["picked_grads"][n]],
+                           dtype=torch.float64)
+        return _l2_rel(got, want_grads)
+
+    res["picked_grads"] = int(want_grads.numel())
+    res["grad_l2_rel_err"] = grads_err(lambda r: r)
+    res["control_grad_l2_rel_err"] = grads_err(lambda r: r["control"])
+    if not res["grad_l2_rel_err"] <= PAR_MOE_GRAD_L2_TOL:
+        failures.append(f"d: the expert banks' first gradients are {res['grad_l2_rel_err']} from world 1's f32 "
+                        f"step > {PAR_MOE_GRAD_L2_TOL}")
+    if not res["control_grad_l2_rel_err"] > PAR_MOE_GRAD_L2_TOL:
+        failures.append("d: the gradients with the experts' outputs swapped between the ranks pass their check")
+    want = _moe_bytes(cfg, PAR_MOE_B // 2 * MOE_TRAIN_S, 2)
+    for r, run in enumerate(ranks):
+        got = {(op, int(size)): n for op, sizes in run["moved_step1"].items() for size, n in sizes.items()}
+        run["moved_predicted"] = {f"{op}:{size}": n for (op, size), n in want.items()}
+        if got != want:
+            failures.append(f"d: rank {r} moved {got} in its MoE collectives, predicted {want}")
+    res["moved_predicted"] = {f"{op}:{size}": n for (op, size), n in want.items()}
+    return res
+
+
+def run_parallel_path(dev, main) -> dict:
+    """Training and serving across model, sequence and expert ranks (legs
+    a-d above), the two ranks started once; ``main`` is run_main_path's
+    record (its tokens and logit errors)."""
+    t_phase = time.perf_counter()
+    log(f"[parallel] predicted: {PAR_PREDICTED_S:.0f} s for the phase; leg d's ranks at about 32 GiB each "
+        "(1.0B parameters a rank: f32 masters and AdamW moments, bf16 weights, f32 gradients, activations)")
+    failures = []
+    work = tempfile.mkdtemp(prefix="parallel_")
+    proc = _start(_ranks_cmd(["--par-rank-child", work]))
+    try:
+        # the world-1 runs while the ranks import; then the plan starts them
+        t0 = time.perf_counter()
+        refs = _par_references(dev, work)
+        refs["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(work, "go.tmp"), "w") as f:
+            rng = np.random.default_rng(0)
+            vocab = LlamaConfig.llama2_7b().vocab_size
+            json.dump({"prompts": [rng.integers(0, vocab, n).tolist() for n in PROMPT_LENS]}, f)
+        os.rename(os.path.join(work, "go.tmp"), os.path.join(work, "go"))
+        rc, out, err = _finish(proc, timeout=PAR_TIMEOUT_S)
+        if rc != 0:
+            raise AssertionError(f"parallel: the ranks failed (exit {rc}): {err[-3000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    res = dict(references_s=refs["seconds"], legs_s={leg: [r[leg]["seconds"] for r in ranks] for leg in "abcd"})
+    res["a"] = _par_check_a([r["a"] for r in ranks], main, dev, failures)
+    log("[parallel] a: " + json.dumps(res["a"]))
+    for leg in "bc":
+        res[leg] = _par_check_train(leg, [r[leg] for r in ranks], refs[leg], failures)
+        log(f"[parallel] {leg}: " + json.dumps(res[leg]))
+    res["d"] = _par_check_d([r["d"] for r in ranks], dev, failures)
+    log("[parallel] d: " + json.dumps(res["d"]))
+    res["b1_launches"] = res["a"]["b1_launches"][0]
+    res["flash_launches"] = {k: ranks[0]["b"]["main"]["flash_launches"][k] + ranks[0]["c"]["main"]["flash_launches"][k]
+                             for k in ("fwd", "dkv", "dq")}
+    res["seconds"] = time.perf_counter() - t_phase
+    res["failures"] = failures
+    a, d = res["a"], res["d"]
+    log(f"[parallel] a: TP 2 prefill {a['prefill_tokens_per_s']:.1f} tokens/s, decode {a['decode_tokens_per_s']:.1f} "
+        f"tokens/s, B1 {a['b1_launches']} launches, tokens equal one rank's for {a['tokens_equal_main']} of "
+        f"{len(PROMPT_LENS)}, "
+        f"control gap {a['control_max_gap']:.3f} (limit {a['teacher_forced_limit']:.3f})")
+    for leg in "bc":
+        m = [r["main"] for r in res[leg]["ranks"]]
+        control = [r["control"]["masters_worst"] for r in res[leg]["ranks"]]
+        log(f"[parallel] {leg}: losses {m[0]['losses']} (world 1 {res[leg]['world1']['losses']}), worst masters "
+            f"{[x['masters_worst'] for x in m]}, control worst {control}")
+    log(f"[parallel] d: dropped {d['dropped']} (own-token gate: {d['control_dropped']}), first loss "
+        f"{d['loss_rel_err']:.2e} from f32 (experts swapped: {d['control_loss_rel_err']:.2e}), a token's worst "
+        f"{d['token_nll_max_abs_err']:.4f} (swapped {d['control_token_nll_max_abs_err']:.4f}, limit "
+        f"{PAR_MOE_NLL_TOL}), picked expert gradients {d['grad_l2_rel_err']:.4f} (swapped "
+        f"{d['control_grad_l2_rel_err']:.4f}, limit {PAR_MOE_GRAD_L2_TOL}), peak "
+        f"{[r['max_memory_allocated_gib'] for r in d['ranks']]} GiB, "
+        f"{[r['ms_per_step'] for r in d['ranks']]} ms a step")
+    log(f"[parallel] {res['seconds']:.1f} s (predicted {PAR_PREDICTED_S:.0f}); legs {res['legs_s']}")
+    log(card_line())
+    if failures:
+        raise AssertionError("parallel phase: " + "; ".join(failures))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA GPU; torch.cuda.is_available() is false", file=sys.stderr)
@@ -6758,6 +7433,8 @@ def main() -> int:
         return zero_plus_child(*sys.argv[2:])
     if sys.argv[1:2] == ["--moe-rank-child"]:
         return moe_rank_child(*sys.argv[2:])
+    if sys.argv[1:2] == ["--par-rank-child"]:
+        return parallel_rank_child(*sys.argv[2:])
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6798,6 +7475,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     record["zero_plus_path"] = run_zero_plus_path(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["parallel_path"] = run_parallel_path(dev, record["main_path"])
     record["seconds"] = time.perf_counter() - t_start
 
     decode = record["paged_attention"][0]  # the serving path's decode shape
@@ -6810,6 +7490,7 @@ def main() -> int:
                     launches_observe_path=record["observe_path"]["b1_launches"],
                     launches_fleet_path=record["fleet_path"]["b1_launches"],
                     launches_moe_path=record["moe_path"]["b1_launches"],
+                    launches_parallel_path=record["parallel_path"]["b1_launches"],
                     max_abs_err=max(r["max_abs_err"] for r in record["paged_attention"]),
                     ms=decode["ms"], plain_ms=decode["plain_ms"], bound_ms=decode["bound_ms"],
                     bound_by=decode["bound_by"], library_ms=decode["library_ms"],
@@ -6825,6 +7506,7 @@ def main() -> int:
                             launches_train_features_path=record["train_features_path"]["flash_launches"][kern],
                             launches_zero_path=record["zero_path"]["flash_launches"][kern],
                             launches_zero_plus_path=record["zero_plus_path"]["flash_launches"][kern],
+                            launches_parallel_path=record["parallel_path"]["flash_launches"][kern],
                             max_abs_err=max(r["max_abs_err"][o] for r in record["flash_attention"] for o in outputs),
                             ms=train[kern]["ms"], plain_ms=train[kern]["plain_ms"],
                             bound_ms=train[kern]["bound_ms"], bound_by=train[kern]["bound_by"],

@@ -10,7 +10,7 @@ __version__ = "0.1.0"
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None, training_data=None,
-               lr_scheduler=None, collate_fn=None, config=None, config_params=None, device=None):
+               lr_scheduler=None, collate_fn=None, config=None, config_params=None, device=None, param_specs=None):
     """Build the training engine (reference ``deepspeed/__init__.py:64``).
 
     ``model`` is a ``torch.nn.Module`` whose ``forward(batch)`` returns the
@@ -20,6 +20,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     ``(engine, optimizer, dataloader, lr_scheduler)``. A
     ``PipelineModule`` gets the pipeline engine (reference
     ``deepspeed_tpu/__init__.py:92-99``), one process a stage.
+    ``param_specs`` (``module_inject.auto_tp_specs(model)``) places the
+    module's parameters on the mesh's ``model`` axis under
+    ``tensor_parallel_size`` (reference ``deepspeed_tpu/__init__.py:67``).
     """
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
     from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine
@@ -30,8 +33,15 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     if config is None and getattr(args, "deepspeed_config", None):
         config = args.deepspeed_config
     assert config is not None, "DeepSpeed requires --deepspeed_config to specify configuration file"
-    engine_cls = PipelineEngine if isinstance(model, PipelineModule) else DeepSpeedEngine
+    kw = {}
+    if isinstance(model, PipelineModule):
+        engine_cls = PipelineEngine
+        if param_specs is not None:
+            raise NotImplementedError("param_specs with the pipeline engine is not ported yet (A8 item 5)")
+    else:
+        engine_cls = DeepSpeedEngine
+        kw["param_specs"] = param_specs
     engine = engine_cls(model=model, model_parameters=model_parameters, optimizer=optimizer,
                         training_data=training_data, lr_scheduler=lr_scheduler, collate_fn=collate_fn,
-                        config=config, device=device)
+                        config=config, device=device, **kw)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler

@@ -332,16 +332,25 @@ def inference_all_reduce(tensor, op=ReduceOp.SUM, group=None, async_op=False, lo
     return all_reduce(tensor, op=op, group=group)
 
 
+def _words(tensor):
+    """``tensor`` as a collective that only moves it sends it: 16-bit floats
+    whose last dimension (not dim 0) is even as int32 pairs, the same bytes
+    (gloo has no 16-bit all-to-all); anything else as it is."""
+    if tensor.dtype in (torch.bfloat16, torch.float16) and tensor.ndim > 1 and tensor.shape[-1] % 2 == 0:
+        return tensor.view(torch.int32)
+    return tensor
+
+
 @timed_op
 def all_gather_into_tensor(tensor, group=None, async_op=False, log_name=None):
     g = _resolve_group(group)
     tensor = tensor.contiguous()
     if not _live(g):
         return tensor.clone()
-    out = torch.empty((g.size * tensor.shape[0], ) + tuple(tensor.shape[1:]), dtype=tensor.dtype,
-                      device=tensor.device)
-    _staged("all_gather_into_tensor", lambda t, o: _all_gather_single(o, t, group=g.pg), [tensor], [out])
-    return out
+    moved = _words(tensor)
+    out = torch.empty((g.size * moved.shape[0], ) + tuple(moved.shape[1:]), dtype=moved.dtype, device=moved.device)
+    _staged("all_gather_into_tensor", lambda t, o: _all_gather_single(o, t, group=g.pg), [moved], [out])
+    return out.view(tensor.dtype)
 
 
 allgather_fn = all_gather_into_tensor
@@ -377,9 +386,10 @@ def all_to_all_single(tensor, group=None, async_op=False, log_name=None):
         raise ValueError(f"all_to_all_single: dim 0 ({tensor.shape[0]}) must divide into {g.size} chunks")
     if not _live(g):
         return tensor.clone()
-    out = torch.empty_like(tensor)
-    _staged("all_to_all_single", lambda t, o: tdist.all_to_all_single(o, t, group=g.pg), [tensor], [out])
-    return out
+    moved = _words(tensor)
+    out = torch.empty_like(moved)
+    _staged("all_to_all_single", lambda t, o: tdist.all_to_all_single(o, t, group=g.pg), [moved], [out])
+    return out.view(tensor.dtype)
 
 
 @timed_op

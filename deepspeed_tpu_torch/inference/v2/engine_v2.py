@@ -35,10 +35,24 @@ the group stops at the first forward in which every rank has left.
 ``simulated_gating`` turns the process-wide simulated router on, at
 ``simulated_gating_temperature``.
 
+Tensor parallelism (``tensor_parallel.tp_size``): one process is one TP
+rank, and the ``model`` axis is the comm world (:func:`tensor_group`). A
+Llama under TP holds its rank's heads and MLP columns (``engine_factory.
+build_engine`` slices them) and all-reduces after ``o_proj`` and
+``down_proj``. Every TP rank must run the same forwards on the same
+batches, but the serving scheduler reads the wall clock, so two schedulers
+could diverge: rank 0 alone schedules, and each engine call that changes
+state (``put``, ``decode_loop``, ``verify``, ``flush`` and the rest marked
+``_lockstep``) is broadcast from it to the other ranks, which run
+:meth:`InferenceEngineV2.follow` and repeat it until rank 0's ``close``.
+
 Not ported yet, and refused with ``NotImplementedError``: tensor
-parallelism (ROADMAP.md A8) and weight quantization (A9).
+parallelism with expert parallelism or of a MoE model (ROADMAP.md A8
+item 5) and weight quantization (A9).
 """
 
+import functools
+import pickle
 from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -53,16 +67,95 @@ from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import RaggedBatchWr
 from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import PlaceholderSequenceDescriptor
 from deepspeed_tpu_torch.inference.v2.scheduling_utils import SchedulingError, SchedulingResult
 from deepspeed_tpu_torch.inference.v2.tracer import Tracer, get_tracer, set_tracer
+from deepspeed_tpu_torch.utils.logging import logger
 
 
-def _refuse_unported(config: RaggedInferenceEngineConfig) -> None:
+def _refuse_unported(config: RaggedInferenceEngineConfig, moe: bool = False) -> None:
+    """Raise for what is not ported; ``moe``: the model has MoE layers."""
+    tp = config.tensor_parallel.tp_size > 1
     unported = (
-        ("tensor_parallel.tp_size > 1", config.tensor_parallel.tp_size > 1, "A8"),
+        ("tensor_parallel.tp_size > 1 with expert parallelism", tp and config.expert_parallel.enabled, "A8 item 5"),
+        ("tensor_parallel.tp_size > 1 of a MoE model", tp and moe, "A8 item 5"),
         ("weight quantization", config.quantization.enabled, "A9"),
     )
     for what, on, item in unported:
         if on:
             raise NotImplementedError(f"{what} is not ported to deepspeed_tpu_torch yet (see ROADMAP.md {item})")
+
+
+def tensor_group(config: RaggedInferenceEngineConfig, device):
+    """This rank's tensor-parallel group (a ``utils.groups.RankGroup`` over
+    the mesh's ``model`` axis), or None without tensor parallelism. The
+    model axis is the comm world, joined from the launcher's environment;
+    it raises when ``tensor_parallel.tp_size`` is not the world's size."""
+    tp = config.tensor_parallel.tp_size
+    if tp <= 1:
+        return None
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.utils import groups
+
+    comm.init_distributed(device=device, verbose=False)
+    world = comm.get_world_size()
+    if tp != world:
+        raise ValueError(f"tensor_parallel.tp_size {tp} != the comm world's {world} ranks "
+                         "(one process is one tensor-parallel rank)")
+    mesh = groups.get_mesh() if groups.mesh_is_initialized() else None
+    if mesh is None or mesh.size != world or mesh.shape.get(groups.MODEL_AXIS, 1) != world:
+        groups.initialize_mesh(model_parallel_size=world, force=True)
+    return groups.get_group(groups.MODEL_AXIS)
+
+
+def _send_call(group, msg) -> None:
+    from deepspeed_tpu_torch import comm
+    payload = torch.frombuffer(bytearray(pickle.dumps(msg)), dtype=torch.uint8)
+    comm.broadcast(torch.tensor([payload.numel()], dtype=torch.int64), src=0, group=group)
+    comm.broadcast(payload, src=0, group=group)
+
+
+def _recv_call(group):
+    from deepspeed_tpu_torch import comm
+    size = comm.broadcast(torch.zeros(1, dtype=torch.int64), src=0, group=group)
+    payload = comm.broadcast(torch.empty(int(size[0]), dtype=torch.uint8), src=0, group=group)
+    return pickle.loads(payload.numpy().tobytes())
+
+
+def _portable(value):
+    """A call argument as it crosses to the other TP ranks (a generator as
+    its state)."""
+    if isinstance(value, torch.Generator):
+        return ("__generator__", str(value.device), value.get_state())
+    return value
+
+
+def _restored(value):
+    if isinstance(value, tuple) and len(value) == 3 and value[0] == "__generator__":
+        gen = torch.Generator(device=value[1])
+        gen.set_state(value[2])
+        return gen
+    return value
+
+
+def _lockstep(fn):
+    """Under tensor parallelism rank 0's call of ``fn`` is broadcast to the
+    other ranks first (their :meth:`InferenceEngineV2.follow` repeats it);
+    a call made inside another lock-step call is not sent again."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        group = self._tp_group
+        if group is None or self._in_lockstep:
+            return fn(self, *args, **kwargs)
+        if group.rank == 0:
+            _send_call(group, (name, tuple(_portable(a) for a in args),
+                               {k: _portable(v) for k, v in kwargs.items()}))
+        self._in_lockstep = True
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            self._in_lockstep = False
+
+    return call
 
 
 def expert_group(config: RaggedInferenceEngineConfig, device):
@@ -96,12 +189,15 @@ class InferenceEngineV2:
     def __init__(self, model, engine_config: RaggedInferenceEngineConfig) -> None:
         """``model`` is a built ``DSTransformerModelBase`` subclass on its device
         (``engine_factory.build_engine`` makes both)."""
-        _refuse_unported(engine_config)
+        _refuse_unported(engine_config, moe=bool(getattr(model, "moes", None)))
         self._config = engine_config
         if engine_config.simulated_gating:
             enable_simulated_gating(engine_config.simulated_gating_temperature)
         self._model = model
         self._ep_group = expert_group(engine_config, model.device)
+        self._tp_group = tensor_group(engine_config, model.device)
+        self._in_lockstep = False
+        self._followers_released = False
         self._batch = RaggedBatchWrapper(engine_config.state_manager)
         self._state_manager = DSStateManager(engine_config.state_manager, model.kv_cache_config(), model.device)
         self._model.set_state_manager(self._state_manager)
@@ -169,10 +265,14 @@ class InferenceEngineV2:
         """Tear the engine down (idempotent): stop an attached serving
         scheduler, deregister this engine's tracer from the module-global slot
         (so tracer state cannot leak into the next engine in this process),
-        and close an engine-owned telemetry session."""
+        and close an engine-owned telemetry session. Rank 0 of a
+        tensor-parallel group releases the ranks that follow it."""
         if self._serving_scheduler is not None:
             self._serving_scheduler.stop(drain=False)
             self._serving_scheduler = None
+        if self._tp_group is not None and self._tp_group.rank == 0 and not self._followers_released:
+            self._followers_released = True
+            _send_call(self._tp_group, None)
         if self._tracer is not None and get_tracer() is self._tracer:
             set_tracer(None)
         if self._telemetry is not None:
@@ -218,6 +318,7 @@ class InferenceEngineV2:
         metrics["tracked"].set(self._state_manager.n_tracked_sequences)
 
     # ----------------------------------------------------------------- put() --
+    @_lockstep
     def put(self, batch_uids: Iterable[int], batch_tokens: Iterable, do_checks: bool = True) -> torch.Tensor:
         """Run one ragged forward over ``batch_uids``/``batch_tokens``; returns
         f32 logits ``[len(batch_uids), vocab]`` on the engine's device, each
@@ -288,6 +389,7 @@ class InferenceEngineV2:
             done.synchronize()
 
     # ------------------------------------------------------------ decode_loop --
+    @_lockstep
     def decode_loop(self, batch_uids: Iterable[int], batch_tokens: Iterable, n_steps: int,
                     do_checks: bool = True, temperature: float = 0.0,
                     generator: Optional[torch.Generator] = None):
@@ -378,6 +480,7 @@ class InferenceEngineV2:
         return tokens[:, :len(batch_uids)].T
 
     # ------------------------------------------------------ speculative verify --
+    @_lockstep
     def verify(self, batch_uids: Iterable[int], batch_tokens: Iterable, do_checks: bool = True,
                greedy: bool = False) -> List[np.ndarray]:
         """Speculative verify step: feed each sequence its next-input token
@@ -406,6 +509,7 @@ class InferenceEngineV2:
             offset += tokens.size
         return out
 
+    @_lockstep
     def verify_tree(self, batch_uids: Iterable[int], trees: Iterable, greedy: bool = False,
                     do_checks: bool = True) -> List[dict]:
         """Token-tree verify: feed each sequence a draft tree
@@ -441,6 +545,7 @@ class InferenceEngineV2:
             offset += n
         return out
 
+    @_lockstep
     def compact_accepted(self, uid: int, n_fed: int, path_indices) -> int:
         """Tree-aware KV compaction after a :meth:`verify_tree` step over an
         ``n_fed``-node tree: keep the root plus the accepted path
@@ -466,6 +571,7 @@ class InferenceEngineV2:
             seq_desc.rollback(rejected)
         return rejected
 
+    @_lockstep
     def rollback(self, uid: int, n_tokens: int) -> None:
         """Truncate ``uid``'s last ``n_tokens`` committed tokens after a verify
         step rejected them: the stale KV stays in its blocks and is
@@ -529,6 +635,7 @@ class InferenceEngineV2:
             return 0
         return self._model.get_remaining_block_capacity(seq_desc)
 
+    @_lockstep
     def flush(self, uid: int) -> None:
         self._state_manager.flush_sequence(uid)
 
@@ -539,6 +646,7 @@ class InferenceEngineV2:
             if self._state_manager.is_offloaded(uid):
                 self._state_manager.restore_sequence(uid)
 
+    @_lockstep
     def offload_sequence(self, uid: int) -> None:
         """Evict a cold sequence's KV blocks to the host tier, freeing device
         blocks for other sequences. The next put/decode_loop touching ``uid``
@@ -564,6 +672,7 @@ class InferenceEngineV2:
         return handoff.pack_sequence(self._state_manager, uid, tokens, extra=extra, seen_tokens=seen_tokens,
                                      version=handoff.VERSION if version is None else version)
 
+    @_lockstep
     def import_sequence(self, payload: bytes, uid: Optional[int] = None) -> Tuple[int, dict]:
         """Recreate an exported sequence from an :meth:`export_sequence`
         payload under ``uid`` (default: the donor's uid); the next
@@ -572,12 +681,14 @@ class InferenceEngineV2:
         exporter's ``extra`` generation state."""
         return handoff.import_payload(self._state_manager, payload, uid=uid)
 
+    @_lockstep
     def flush_all(self) -> None:
         """Recycle every tracked sequence's KV blocks."""
         for uid in list(self._state_manager.tracked_sequences):
             self._state_manager.flush_sequence(uid)
 
     # -------------------------------------------------------------- empty_run --
+    @_lockstep
     def empty_run(self) -> None:
         """A forward with zero live tokens: under expert parallelism it
         enters the group's collectives, keeping an idle rank in lock-step
@@ -588,6 +699,35 @@ class InferenceEngineV2:
         if metrics is not None:
             metrics["empty_runs"].inc()
         self._model.empty_run()
+
+    # ------------------------------------------------------- tensor parallel --
+    @property
+    def tensor_parallel_group(self):
+        """This rank's tensor-parallel group (``utils.groups.RankGroup``), or None."""
+        return self._tp_group
+
+    def follow(self) -> int:
+        """A tensor-parallel rank other than 0: repeat rank 0's lock-step
+        engine calls, in its order, until rank 0 closes its engine. Returns
+        the number of calls repeated.
+
+        A repeated call that raises is rank 0's call raising the same error
+        from the same state (a ``SchedulingError`` when KV blocks run short,
+        which rank 0's scheduler catches and answers with other calls), so
+        the follower goes on following."""
+        if self._tp_group is None or self._tp_group.rank == 0:
+            raise RuntimeError("follow() runs on a tensor-parallel rank other than 0")
+        calls = 0
+        while True:
+            msg = _recv_call(self._tp_group)
+            if msg is None:
+                return calls
+            name, args, kwargs = msg
+            try:
+                getattr(self, name)(*(_restored(a) for a in args), **{k: _restored(v) for k, v in kwargs.items()})
+            except Exception as e:  # rank 0 raised it too
+                logger.debug(f"follow(): {name} raised {type(e).__name__}: {e}, as on rank 0")
+            calls += 1
 
     @property
     def expert_parallel_group(self):

@@ -94,15 +94,6 @@ def _simulated_seed(layer_id: int, gate_seed: Optional[int], replica: Optional[i
     return int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0] >> 1)
 
 
-def _a2a(buf: torch.Tensor, group) -> torch.Tensor:
-    """``all_to_all_single`` of ``buf [ep, ..., M]`` over ``group``; 16-bit
-    floats move as int32 pairs (the same bytes: every backend has int32, not
-    every one bf16)."""
-    if buf.dtype in (torch.bfloat16, torch.float16) and buf.shape[-1] % 2 == 0:
-        return comm.all_to_all_single(buf.view(torch.int32), group=group).view(buf.dtype)
-    return comm.all_to_all_single(buf, group=group)
-
-
 class ExpertGroupSync:
     """An EP rank's lock-step state over its expert ``group`` (a
     ``utils.groups.RankGroup``).
@@ -301,9 +292,9 @@ class RaggedMoE:
             probs = probs * token_valid[:, None]
         slot, kept, w = self._pack(probs, token_valid, C)
         buf = self._dispatch(h, slot, kept, E, C).view(ep, El, C, M)  # destination-rank major
-        recv = _a2a(buf, sync.group)  # a2a #1: [source rank, El, C, M]
+        recv = comm.all_to_all_single(buf, group=sync.group)  # a2a #1: [source rank, El, C, M]
         merged = recv.transpose(0, 1).reshape(El, ep * C, M)
         out = self._expert_ffn(merged, wi, wo, activation)
         out = out.view(El, ep, C, M).transpose(0, 1).contiguous()  # [source rank, El, C, M]
-        ret = _a2a(out, sync.group)  # a2a #2: [owner rank, El, C, M] = [E, C, M]
+        ret = comm.all_to_all_single(out, group=sync.group)  # a2a #2: [owner rank, El, C, M] = [E, C, M]
         return self._combine(ret.view(E, C, M), slot, kept, w, h.dtype)

@@ -11,7 +11,9 @@ run it. Spawned processes receive ``DSTPU_COORDINATOR``,
 ``DSTPU_NUM_PROCESSES`` and ``DSTPU_PROCESS_ID``, which
 ``deepspeed_tpu_torch.comm.init_distributed`` turns into a
 ``torch.distributed`` process group. A slot is one process, one rank; a
-host's slots default to its GPU count.
+host's slots default to its GPU count. ``deepspeed_tpu_torch/bin/dstpu_ssh
+-f HOSTFILE <command>`` runs a command on every host of the same hostfile
+(pdsh, else an ssh loop).
 """
 
 import argparse

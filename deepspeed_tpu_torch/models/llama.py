@@ -9,9 +9,16 @@ GQA, SwiGLU, optional q/k/v biases (qwen2), an output-projection bias
 Module and parameter names follow the flax tree, so ``state_dict`` keys read
 ``layers.{i}.self_attn.q_proj.weight`` where flax has
 ``layers_{i}/self_attn/q_proj/kernel``; ``models/convert.py`` maps one onto
-the other. Sequence parallelism belongs to a later slice of the port.
+the other. ``sequence_parallel`` runs Ulysses (``sequence/layer.py``): the
+batch's dim 1 is this rank's slice of the sequence, each attention runs
+over the whole sequence at this rank's share of the heads, and RoPE is
+taken at the slice's global positions. Under tensor parallelism
+(``module_inject/layers.py``) the projections hold this rank's heads, so the
+attention reshapes by the widths it is given.
 """
 
+import contextlib
+import contextvars
 from dataclasses import dataclass
 
 import torch
@@ -20,6 +27,7 @@ import torch.nn.functional as F
 
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import remat
+from deepspeed_tpu_torch.sequence.layer import DistributedAttention
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 
@@ -40,6 +48,7 @@ class LlamaConfig:
     # "nothing": recompute the whole block in the backward; "dots": save the
     # projections' outputs and recompute the rest (attention included)
     remat_policy: str = "nothing"
+    sequence_parallel: bool = False
     use_flash_attention: bool = False
     # llama-family deltas: qwen2 adds q/k/v biases; internlm biases the output
     # projection too; mistral masks beyond a sliding attention window
@@ -135,18 +144,23 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, cos, sin):
         cfg = self.cfg
-        H, KVH, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        q = self.q_proj(x).reshape(*x.shape[:-1], H, D)
-        k = self.k_proj(x).reshape(*x.shape[:-1], KVH, D)
-        v = self.v_proj(x).reshape(*x.shape[:-1], KVH, D)
+        D = cfg.head_dim
+        # the heads this rank holds (all of them unless tensor-parallel)
+        q = self.q_proj(x).reshape(*x.shape[:-1], -1, D)
+        k = self.k_proj(x).reshape(*x.shape[:-1], -1, D)
+        v = self.v_proj(x).reshape(*x.shape[:-1], -1, D)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
         if cfg.use_flash_attention:
             assert cfg.sliding_window == 0, "flash path has no sliding-window mask yet"
-            out = flash_causal_attention(q, k, v, scale=1.0 / (D**0.5))
+            attn, kw = flash_causal_attention, {}
         else:
-            out = causal_attention(q, k, v, scale=1.0 / (D**0.5), window=cfg.sliding_window)
-        return self.o_proj(out.reshape(*x.shape[:-1], H * D))
+            attn, kw = causal_attention, {"window": cfg.sliding_window}
+        if cfg.sequence_parallel:
+            # Ulysses: all-to-all sequence -> heads around whole-sequence attention
+            attn = DistributedAttention(attn)
+        out = attn(q, k, v, scale=1.0 / (D**0.5), **kw)
+        return self.o_proj(out.reshape(*x.shape[:-1], -1))
 
 
 class LlamaMLP(nn.Module):
@@ -186,11 +200,22 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
 
+    def rope(self, seq_len, device):
+        """cos, sin at this rank's positions: ``0..seq_len``, or under
+        sequence parallelism the slice's global positions ``[r·S/sp,
+        (r+1)·S/sp)`` of the whole sequence."""
+        cfg = self.cfg
+        if not cfg.sequence_parallel:
+            return rotary_embedding(seq_len, cfg.head_dim, cfg.rope_theta, device=device)
+        from deepspeed_tpu_torch.utils import groups
+        g = groups.get_group(groups.SEQ_AXIS)
+        cos, sin = rotary_embedding(seq_len * g.size, cfg.head_dim, cfg.rope_theta, device=device)
+        return cos[g.rank * seq_len:(g.rank + 1) * seq_len], sin[g.rank * seq_len:(g.rank + 1) * seq_len]
+
     def forward(self, input_ids):
         cfg = self.cfg
         x = self.embed_tokens(input_ids)
-        cos, sin = rotary_embedding(input_ids.shape[1], cfg.head_dim, cfg.rope_theta,
-                                    device=input_ids.device)
+        cos, sin = self.rope(input_ids.shape[1], input_ids.device)
         # activation recomputation keeps only block boundaries (and, under
         # "dots", the projections' outputs); nothing to save without autograd
         recompute = cfg.remat and torch.is_grad_enabled()
@@ -261,14 +286,40 @@ def llama_pipeline_module(cfg: LlamaConfig, num_stages: int):
     return PipelineModule(layers=layers, num_stages=num_stages, loss_fn=cross_entropy_loss)
 
 
-def cross_entropy_loss(logits, labels, ignore_index=-100):
+IGNORE_INDEX = -100  # a label the loss masks (the engine counts the others, C18)
+_TOKEN_MEAN = contextvars.ContextVar("global_token_mean", default=None)
+
+
+@contextlib.contextmanager
+def global_token_mean(count, group_size: int):
+    """Within the context :func:`cross_entropy_loss` is this rank's share of
+    the mean over ``count`` valid labels of the whole batch (a 0-d tensor,
+    the sum over the ``group_size`` ranks that average their losses): the
+    local mean times ``local count · group_size / count``, so that the
+    ranks' average is the global token mean. The factor is exactly 1 where
+    every rank holds as many valid labels."""
+    token = _TOKEN_MEAN.set((count, group_size))
+    try:
+        yield
+    finally:
+        _TOKEN_MEAN.reset(token)
+
+
+def cross_entropy_loss(logits, labels, ignore_index=IGNORE_INDEX):
     """Mean negative log-likelihood over the labels that are not
-    ``ignore_index``, in f32; 0 when every label is ignored."""
+    ``ignore_index``, in f32; 0 when every label is ignored. Inside
+    :func:`global_token_mean` the rank's share of the global token mean."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, safe[..., None])[..., 0]
-    return -(ll * valid).sum() / valid.sum().clamp(min=1)
+    n_valid = valid.sum()
+    loss = -(ll * valid).sum() / n_valid.clamp(min=1)
+    norm = _TOKEN_MEAN.get()
+    if norm is not None:
+        count, group_size = norm
+        loss = loss * ((n_valid * group_size).float() / count.clamp(min=1).float())
+    return loss
 
 
 def param_shapes(cfg: LlamaConfig) -> dict:

@@ -11,6 +11,13 @@ reference does; ``use_residual`` adds PR-MoE's dense MLP and learned mix.
 Expert parameters carry ``allreduce = False`` (upstream DeepSpeed's stamp,
 read by ``moe/utils.py::is_moe_param``); :func:`expert_param_specs` names
 them, where the reference returns a PartitionSpec tree.
+
+Across ranks (one process a rank) the banks hold this rank's experts,
+``[E/ep, ...]`` (the training engine slices them, as the reference places
+the banks on the expert axis), and :meth:`MoE.forward` takes its groups
+from the rank mesh (``moe/utils.py::moe_groups``): the gate is global over
+the data-parallel ranks' tokens, and the dispatched buffer moves to the
+experts' ranks and back (``sharded_moe.py``).
 """
 
 from typing import Callable, Optional
@@ -20,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.moe.sharded_moe import TopKGate, moe_dispatch_combine
+from deepspeed_tpu_torch.moe.utils import moe_groups
 
 
 def gelu_tanh(x):
@@ -109,9 +117,10 @@ class MoE(nn.Module):
         if generator is None and training and self.gating_seed is not None:
             generator = torch.Generator(device=x.device).manual_seed(self.gating_seed)
         tokens = x.reshape(-1, self.hidden_size)
+        dp, ep, edp = moe_groups()
         l_aux, combine, dispatch, exp_counts = self.topk(self.gate, tokens, generator=generator,
-                                                         used_token=used_token, training=training)
-        out = moe_dispatch_combine(tokens, combine, dispatch, self.experts)
+                                                         used_token=used_token, training=training, group=dp)
+        out = moe_dispatch_combine(tokens, combine, dispatch, self.experts, ep_group=ep, edp_group=edp)
         if self.use_residual:
             mlp_out = self.residual_out(self.activation(self.residual_in(tokens)))
             coef = torch.softmax(self.coefficient(tokens), dim=-1)

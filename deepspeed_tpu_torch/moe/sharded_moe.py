@@ -16,9 +16,23 @@ no generator (evaluation, inference) every path is the reference's exactly.
 
 Ties: ``torch.argmax`` returns the first maximal index, as ``jnp.argmax``
 does, and the priority order sorts with ``stable=True`` as ``jnp.argsort``
-does. The gate here takes the local tokens, as the reference's does on one
-device; training a MoE model on more than one rank (whose reference gate is
-global over the batch) is refused by the engine.
+does.
+
+Across ranks (one process a rank): the reference's gate is global over the
+batch, which GSPMD shards over the data axes. :class:`TopKGate` given the
+data-parallel ``group`` all-gathers the f32 routing logits in rank order
+(the order of the batch's dim-0 chunks), runs the gating on the whole
+batch's tokens identically on every rank, and keeps this rank's rows of
+the masks, so capacity, priority, ``l_aux`` and ``exp_counts`` are the
+reference's (the gather's backward sums the ranks' gradients of each
+rank's rows: a reduce-scatter). :func:`moe_dispatch_combine` given the
+expert and expert-data groups moves the dispatched ``[E, C, M]`` buffer to
+the ranks that hold the experts: each global capacity slot holds one token,
+so a rank's buffer is zero outside its own tokens' slots and the ranks'
+sum is exact in any order; it is summed over the expert-data group (an
+all-reduce) and reduce-scattered over the expert group on ``E``. The
+experts' outputs are all-gathered back over the expert group, and each
+rank combines its own tokens. Each collective's backward is its adjoint.
 """
 
 import math
@@ -26,6 +40,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from deepspeed_tpu_torch import comm
 
 # uniforms are clamped into the open interval: -log(-log(u)) is finite on it
 _U_MIN, _U_MAX = 1e-20, 1.0 - 2.0**-24
@@ -186,25 +202,107 @@ class TopKGate:
         self.use_rts = use_rts
         self.top2_2nd_expert_sampling = top2_2nd_expert_sampling
 
-    def __call__(self, wg, x, generator=None, used_token=None, training=True):
+    def __call__(self, wg, x, generator=None, used_token=None, training=True, group=None):
+        """``group``: the data-parallel ``RankGroup`` whose ranks hold the
+        batch's dim-0 chunks (the gate is then global over them; see the
+        module doc). Returns this rank's rows of the masks."""
+        n = group.size if group is not None else 1
         x_fp32 = x.float()
         if self.noisy_gate_policy == "Jitter" and generator is not None and training:
-            x_fp32 = multiplicative_jitter(x_fp32, generator)
+            if n > 1:
+                # this rank's rows of the whole batch's draw
+                noise = multiplicative_jitter(torch.ones((n * x.shape[0], x.shape[1]), device=x.device), generator)
+                x_fp32 = x_fp32 * noise[group.rank * x.shape[0]:(group.rank + 1) * x.shape[0]]
+            else:
+                x_fp32 = multiplicative_jitter(x_fp32, generator)
         logits = x_fp32 @ wg.float()
+        if n > 1:
+            logits = _GatherRows.apply(logits, group)
+            if used_token is not None:
+                used_token = comm.all_gather_into_tensor(used_token.float().contiguous(), group=group)
         cf = self.capacity_factor if training else self.eval_capacity_factor
         if self.k == 1:
-            return top1gating(logits, cf, self.min_capacity, used_token,
-                              self.noisy_gate_policy if training else None, generator, self.drop_tokens,
-                              self.use_rts)
-        return top2gating(logits, cf, self.min_capacity,
-                          generator if (training and self.top2_2nd_expert_sampling) else None)
+            out = top1gating(logits, cf, self.min_capacity, used_token,
+                             self.noisy_gate_policy if training else None, generator, self.drop_tokens,
+                             self.use_rts)
+        else:
+            out = top2gating(logits, cf, self.min_capacity,
+                             generator if (training and self.top2_2nd_expert_sampling) else None)
+        if n == 1:
+            return out
+        l_aux, combine, dispatch, exp_counts = out
+        rows = slice(group.rank * x.shape[0], (group.rank + 1) * x.shape[0])
+        return l_aux, combine[rows], dispatch[rows], exp_counts
 
 
-def moe_dispatch_combine(x, combine_weights, dispatch_mask, expert_fn):
+class _GatherRows(torch.autograd.Function):
+    """The ranks' ``[S, ...]`` concatenated on dim 0 in rank order; the
+    backward reduce-scatters (each rank's rows get every rank's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return comm.all_gather_into_tensor(x.contiguous(), group=group, log_name="moe_gate_logits")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return comm.reduce_scatter_tensor(grad.contiguous(), group=ctx.group, log_name="moe_gate_logits_bwd"), \
+            None
+
+
+class _DispatchToExperts(torch.autograd.Function):
+    """``[E, C, M]`` summed over the expert-data group, then this rank's
+    ``E/ep`` experts of its sum over the expert group (a reduce-scatter);
+    the backward all-gathers over the expert group, then sums over the
+    expert-data group."""
+
+    @staticmethod
+    def forward(ctx, x, ep_group, edp_group):
+        ctx.groups = ep_group, edp_group
+        if edp_group is not None and edp_group.size > 1:
+            x = comm.all_reduce(x.contiguous().clone(), group=edp_group, log_name="moe_dispatch_sum")
+        if ep_group is not None and ep_group.size > 1:
+            x = comm.reduce_scatter_tensor(x.contiguous(), group=ep_group, log_name="moe_dispatch")
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        ep_group, edp_group = ctx.groups
+        grad = grad.contiguous()
+        if ep_group is not None and ep_group.size > 1:
+            grad = comm.all_gather_into_tensor(grad, group=ep_group, log_name="moe_dispatch_bwd")
+        if edp_group is not None and edp_group.size > 1:
+            grad = comm.all_reduce(grad.clone(), group=edp_group, log_name="moe_dispatch_sum_bwd")
+        return grad, None, None
+
+
+class _GatherExperts(torch.autograd.Function):
+    """Every expert's ``[E/ep, C, M]`` output from the expert group's ranks
+    (an all-gather on ``E``); the backward reduce-scatters."""
+
+    @staticmethod
+    def forward(ctx, x, ep_group):
+        ctx.group = ep_group
+        return comm.all_gather_into_tensor(x.contiguous(), group=ep_group, log_name="moe_experts_out")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return comm.reduce_scatter_tensor(grad.contiguous(), group=ctx.group, log_name="moe_experts_out_bwd"), \
+            None
+
+
+def moe_dispatch_combine(x, combine_weights, dispatch_mask, expert_fn, ep_group=None, edp_group=None):
     """Dispatch, the experts, combine. ``x [S, M]``; the masks ``[S, E, C]``;
-    ``expert_fn(inputs [E, C, M]) -> [E, C, M]``. The dispatched buffer takes
-    the masks' dtype (f32) as the reference's einsum promotes it; the
-    combine runs in ``x``'s dtype."""
+    ``expert_fn(inputs [E/ep, C, M]) -> [E/ep, C, M]`` over this rank's
+    experts. The dispatched buffer takes the masks' dtype (f32) as the
+    reference's einsum promotes it; the combine runs in ``x``'s dtype. With
+    ``ep_group``/``edp_group`` (the expert and expert-data ``RankGroup`` objects)
+    the buffers move between the ranks as the module doc says."""
     dispatched = torch.einsum("sec,sm->ecm", dispatch_mask, x.to(dispatch_mask.dtype))
+    spread = any(g is not None and g.size > 1 for g in (ep_group, edp_group))
+    if spread:
+        dispatched = _DispatchToExperts.apply(dispatched, ep_group, edp_group)
     expert_out = expert_fn(dispatched)
+    if ep_group is not None and ep_group.size > 1:
+        expert_out = _GatherExperts.apply(expert_out, ep_group)
     return torch.einsum("sec,ecm->sm", combine_weights.to(x.dtype), expert_out.to(x.dtype))

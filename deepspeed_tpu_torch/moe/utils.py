@@ -9,9 +9,18 @@ reference's rules: a group is made only where it has parameters, an expert
 group is named ``<name>_moe`` (``moe_group_<i>`` when the input group has no
 name) and carries ``moe: True``, and every other key of the input group is
 copied to both.
+
+:func:`moe_groups` gives a MoE layer its groups from the rank mesh: the
+data-parallel group its gate is global over, the expert group its banks
+are spread over and the expert-data group that replicates them (reference
+``utils/groups.py``: experts are data-parallel over ``data``/``hpz`` only).
+Expert gradients are summed over the expert-data group, dense ones over
+the data group.
 """
 
 from typing import Dict, List
+
+from deepspeed_tpu_torch.utils import groups
 
 
 def is_moe_param(param) -> bool:
@@ -37,3 +46,12 @@ def split_params_into_different_moe_groups_for_optimizer(param_groups) -> List[D
             moe["name"] = f"{base['name']}_moe" if base.get("name") else f"moe_group_{i}"
             out.append(moe)
     return out
+
+
+def moe_groups():
+    """``(data-parallel, expert, expert-data)`` ``RankGroup`` objects of this rank,
+    or ``(None, None, None)`` in a world of one rank (or with no mesh)."""
+    if not groups.mesh_is_initialized() or groups.get_mesh().size == 1:
+        return None, None, None
+    return (groups.get_group(groups.DATA_PARALLEL_AXES), groups.get_group(groups.EXPERT_AXIS),
+            groups.get_group(groups.EXPERT_DATA_PARALLEL_AXES))

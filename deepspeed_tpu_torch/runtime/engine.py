@@ -62,11 +62,34 @@ hpZ / MiCS split the data dimension into ``(data, hpz)`` and partition
 within the secondary group (``utils/groups.py``). Pipeline parallelism is
 ``runtime/pipe/engine.py``'s ``PipelineEngine``, one process a stage.
 
-What still raises ``NotImplementedError`` is the rest of ROADMAP A8:
-sequence, tensor and expert parallelism. The monitor and the flops
-profiler are A9: where the JAX engine calls them, this one does nothing.
+Model, sequence and expert ranks (the rest of the mesh's axes, reference
+``engine.py:166-190``): ``tensor_parallel_size`` builds the ``model`` axis
+and ``initialize(param_specs=...)`` (``module_inject/auto_tp.py``'s
+placements) swaps the module's linears and embeddings for this rank's
+shards (``module_inject/layers.py``); ``sequence_parallel_size`` builds the
+``seq`` axis, each batch leaf's dim 1 is chunked over it (a leaf the ranks
+do not divide stays whole, as ``_batch_sharding`` replicates it), and the
+gradients are summed over data × seq; ``expert_parallel_size`` builds the
+``expert`` axis, carved from the data ranks: each rank holds its experts'
+banks, whose gradients are summed (and whose ZeRO state is partitioned)
+over the expert-data group only. Replicated parameters are never summed
+over ``model``.
+
+The loss of a step across data or sequence ranks is the reference's global
+token mean: the count of valid labels of each micro-batch is summed over
+the ranks that average their losses before the forward, and
+``models/llama.py::cross_entropy_loss`` returns this rank's share of the
+whole batch's mean (``global_token_mean``); a loss term that is global
+already (Mixtral's router loss) is left alone.
+
+What still raises ``NotImplementedError`` names ROADMAP A8 item 5 (model
+or sequence ranks with the pipeline, hpZ, MiCS, qgZ or offload; tensor
+parallelism of a MoE model; expert ranks at stage 3). The monitor and the
+flops profiler are A9: where the JAX engine calls them, this one does
+nothing.
 """
 
+import contextlib
 import itertools
 import json
 import os
@@ -84,8 +107,9 @@ from deepspeed_tpu_torch.comm.reduce_op import ReduceOp
 from deepspeed_tpu_torch.compression.compress import init_compression
 from deepspeed_tpu_torch.compression.scheduler import CompressionScheduler
 from deepspeed_tpu_torch.models.convert import reference_names
-from deepspeed_tpu_torch.models.llama import LlamaModel
-from deepspeed_tpu_torch.moe.layer import MoE
+from deepspeed_tpu_torch.models.llama import IGNORE_INDEX, LlamaModel, global_token_mean
+from deepspeed_tpu_torch.module_inject.layers import apply_tensor_parallel
+from deepspeed_tpu_torch.moe.layer import ExpertFFN, MoE
 from deepspeed_tpu_torch.ops.adagrad.cpu_adagrad import DeepSpeedCPUAdagrad
 from deepspeed_tpu_torch.ops.adam.fused_adam import DeepSpeedCPUAdam, FusedAdam
 from deepspeed_tpu_torch.ops.adam.onebit_adam import OnebitAdam
@@ -160,26 +184,32 @@ def _make_optimizer(name, params_cfg):
 
 def _unsupported(cfg: DeepSpeedConfig, stages: int, module=None):
     """Configured features this engine does not run, each with the ROADMAP
-    queue item that ports it (the rest of A8). ``stages`` is the engine's
+    queue item that ports it (A8 item 5). ``stages`` is the engine's
     pipeline stage count: a ``pipeline_parallel_size`` above 1 runs only as
     a ``PipelineModule``'s stages (the reference also replicates a plain
-    module over its mesh's pipe axis; the port does not). A ``module``
-    holding a MoE layer trains on one rank only: the reference's gate is
-    global over the whole batch (capacity, priority order and aux loss over
-    every rank's tokens), which a gate of each rank's tokens would not
-    match once capacity binds."""
+    module over its mesh's pipe axis; the port does not)."""
     found = []
-    for key, what in ((cfg.sequence_parallel_size, "sequence parallelism"),
-                      (cfg.tensor_parallel_size, "tensor parallelism"),
-                      (cfg.expert_parallel_size, "expert parallelism")):
-        if key > 1:
-            found.append(f"{what} (A8)")
+    zc = cfg.zero_config
+    tp, sp, ep = cfg.tensor_parallel_size, cfg.sequence_parallel_size, cfg.expert_parallel_size
     if cfg.pipeline_parallel_size > 1 and stages == 1:
         found.append(f"pipeline_parallel_size {cfg.pipeline_parallel_size} on a module that is not a PipelineModule "
                      "(A8)")
-    if module is not None and dist.get_world_size() > 1 and any(isinstance(m, MoE) for m in module.modules()):
-        found.append(f"a MoE model on {dist.get_world_size()} data or expert ranks, whose gate must be global over "
-                     "the batch (A8)")
+    offload = (zc.offload_optimizer is not None and zc.offload_optimizer.device.value != "none") or \
+        (cfg.optimizer_name or "").lower() == "cpuadam"
+    combos = (("the pipeline", stages > 1), ("hpZ/MiCS", _secondary_partition_size(zc) > 1),
+              ("qgZ", zc.zero_quantized_gradients), ("offload", offload))
+    for what, size in (("tensor parallelism", tp), ("sequence parallelism", sp), ("expert parallelism", ep)):
+        if size > 1:
+            found.extend(f"{what} with {other} (A8 item 5)" for other, on in combos if on)
+    if tp > 1 and sp > 1:
+        found.append("tensor parallelism with sequence parallelism (A8 item 5)")
+    if ep > 1 and zc.stage >= 3:
+        found.append("expert parallelism at ZeRO stage 3 (A8 item 5)")
+    if module is not None and any(isinstance(m, MoE) for m in module.modules()):
+        if tp > 1:
+            found.append("tensor parallelism of a MoE model (A8 item 5)")
+        if sp > 1:
+            found.append("sequence parallelism of a MoE model (A8 item 5)")
     return found
 
 
@@ -196,7 +226,7 @@ class DeepSpeedEngine:
     """Config-driven training engine (see the module doc)."""
 
     def __init__(self, model, model_parameters=None, optimizer=None, training_data=None, lr_scheduler=None,
-                 collate_fn=None, config=None, device=None):
+                 collate_fn=None, config=None, device=None, param_specs=None):
         if model is None or not isinstance(model, torch.nn.Module):
             raise ValueError("model must be a torch.nn.Module whose forward(batch) returns the loss")
         # the zero.Init demand governs this engine only
@@ -214,15 +244,28 @@ class DeepSpeedEngine:
         zc = self._config.zero_config
         secondary = _secondary_partition_size(zc)
         pipe = self._pipeline_stages()
+        axes = {groups.MODEL_AXIS: self._config.tensor_parallel_size,
+                groups.SEQ_AXIS: self._config.sequence_parallel_size,
+                groups.EXPERT_AXIS: self._config.expert_parallel_size}
         mesh = groups.get_mesh() if groups.mesh_is_initialized() else None
         if mesh is None or mesh.size != dist.get_world_size() or mesh.shape.get(groups.PIPE_AXIS, 1) != pipe or \
-                (secondary > 1 and mesh.shape.get(groups.HPZ_AXIS, 1) != secondary):
-            groups.initialize_mesh(pipe_parallel_size=pipe, secondary_partition_size=secondary, force=True)
+                (secondary > 1 and mesh.shape.get(groups.HPZ_AXIS, 1) != secondary) or \
+                any(mesh.shape.get(ax, 1) != n for ax, n in axes.items()):
+            groups.initialize_mesh(pipe_parallel_size=pipe, secondary_partition_size=secondary,
+                                   model_parallel_size=axes[groups.MODEL_AXIS],
+                                   sequence_parallel_size=axes[groups.SEQ_AXIS],
+                                   expert_parallel_size=axes[groups.EXPERT_AXIS], force=True)
         self.mesh = groups.get_mesh()
         if secondary > 1 and self.mesh.shape.get(groups.HPZ_AXIS, 1) != secondary:
             raise groups.TopologyError(f"hpZ/MiCS partition size {secondary} requires a mesh with an 'hpz' axis of "
                                        f"that size (got {dict(self.mesh.shape)})")
         self._dp_group = groups.get_group(groups.get_data_parallel_axes())
+        # the ranks that average their losses: data x seq (the ZeRO group)
+        self._loss_group = groups.get_group(groups.SEQ_DATA_PARALLEL_AXES)
+        self._sp_group = groups.get_group(groups.SEQ_AXIS)
+        self._mp_group = groups.get_group(groups.MODEL_AXIS)
+        self._ep_group = groups.get_group(groups.EXPERT_AXIS)
+        self._edp_group = groups.get_group(groups.EXPERT_DATA_PARALLEL_AXES)
         if zero_init_demanded:
             logger.info("zero.Init was requested: the engine partitions the parameters of the module it was given")
         dist.configure(self._config)
@@ -256,6 +299,18 @@ class DeepSpeedEngine:
             assign = any(p.is_meta for p in model.parameters())
             model.load_state_dict({k: torch.as_tensor(v).clone() if assign else torch.as_tensor(v)
                                    for k, v in model_parameters.items()}, assign=assign)
+        # model ranks: this rank's shards of the placed linears and embeddings
+        # (reference initialize(param_specs=...)); expert ranks: its experts
+        self._tp_dims = {}
+        if self._mp_group.size > 1 and param_specs is not None:
+            apply_tensor_parallel(model, param_specs, self._mp_group)
+            self._tp_dims = {n: spec[1] for n, spec in param_specs.items()
+                             if spec is not None and spec[0] == groups.MODEL_AXIS}
+        self._expert_names = set()
+        for mod_name, mod in model.named_modules():
+            if isinstance(mod, ExpertFFN):
+                _keep_local_experts(mod, self._ep_group)
+                self._expert_names.update(f"{mod_name}.{p}" if mod_name else p for p in ("wi", "wo"))
         self.module = model.to(self.device)
         self._moe_layers = [m for m in self.module.modules() if isinstance(m, MoE)]
         self._gating_draws = 0
@@ -270,6 +325,8 @@ class DeepSpeedEngine:
             part_kw["zero_axes"] = groups.SECONDARY_PARTITION_AXES
         elif zc.zero_hpz_partition_size > 1:
             part_kw["param_axes"] = groups.SECONDARY_PARTITION_AXES
+        if self._ep_group.size > 1:
+            part_kw["expert_names"] = self._expert_names
         self._zero = ZeroPartitioner(self.module, zc.stage,
                                      persistence_threshold=zc.param_persistence_threshold if zc.stage >= 3 else 0,
                                      **part_kw)
@@ -456,20 +513,45 @@ class DeepSpeedEngine:
             if not self._zero.relayout:
                 return dict(params)
             return {n: self._zero.param_to_opt(p, n) for n, p in params.items()}
-        return {n: self._zero.shard(p, self._zero.opt_dim[n]) for n, p in params.items()}
+        return {n: self._zero.shard(p, self._zero.opt_dim[n], name=n) for n, p in params.items()}
+
+    def _spread(self, name):
+        """Where the rest of parameter ``name`` lies beyond this rank (ZeRO
+        aside): ``(group, dim)`` for a tensor-parallel shard (the model
+        group) or an expert bank (the expert group, on its expert dim), else
+        None."""
+        if name in self._tp_dims:
+            return self._mp_group, self._tp_dims[name]
+        if name in self._expert_names and self._ep_group.size > 1:
+            return self._ep_group, 0
+        return None
 
     def full_params(self):
-        """The whole f32 masters (gathered from every rank at stage 3: a
-        collective, every rank calls it)."""
-        if not self._partition_params:
-            return dict(self.params)
-        return {n: self._zero.gather_param(p, n) for n, p in self.params.items()}
+        """The whole f32 masters (gathered from every rank at stage 3, and
+        across the model and expert ranks: a collective, every rank calls
+        it)."""
+        out = dict(self.params)
+        if self._partition_params:
+            out = {n: self._zero.gather_param(p, n) for n, p in out.items()}
+        for n, p in out.items():
+            spread = self._spread(n)
+            if spread is not None:
+                group, dim = spread
+                out[n] = dist.all_gather_into_tensor(p.movedim(dim, 0).contiguous(), group=group).movedim(0, dim)
+        return out
 
     def _localize_params(self, full):
         """Whole masters to what this rank holds."""
+        out = dict(full)
+        for n, p in out.items():
+            spread = self._spread(n)
+            if spread is not None:
+                group, dim = spread
+                k = p.shape[dim] // group.size
+                out[n] = p.narrow(dim, group.rank * k, k).clone()
         if not self._partition_params:
-            return dict(full)
-        return {n: self._zero.shard_param(p, n) for n, p in full.items()}
+            return out
+        return {n: self._zero.shard_param(p, n) for n, p in out.items()}
 
     def state_bytes(self):
         """Bytes this rank holds of the training state: ``params`` (the f32
@@ -491,9 +573,16 @@ class DeepSpeedEngine:
         """The pipeline's stage count (``PipelineEngine`` overrides)."""
         return 1
 
-    def _dp_all_reduce(self, t):
-        """``t`` summed over the data-parallel ranks."""
-        return dist.all_reduce(t, group=self._dp_group) if self.dp_world_size > 1 else t
+    def _grad_group(self, name):
+        """The ranks whose gradients of ``name`` sum to the batch's: the
+        expert-data group for an expert bank, else data x seq."""
+        return self._edp_group if name in self._expert_names else self._loss_group
+
+    def _dp_all_reduce(self, t, name=None):
+        """``t`` summed over the ranks that hold parameter ``name`` for
+        other rows (or positions) of the batch."""
+        group = self._grad_group(name)
+        return dist.all_reduce(t, group=group) if group.size > 1 else t
 
     def _checkpoint_layout(self):
         """For each flat entry of the saved state trees, the dimension this
@@ -509,24 +598,33 @@ class DeepSpeedEngine:
         return {"params": dict(z.param_dim), "opt_state": opt,
                 "scale_state": {k: None for k in self.scale_state._asdict()}}
 
-    def _dp_chunk(self, x, dim=0):
+    def _dp_chunk(self, x, dim=0, group=None):
         """This rank's contiguous chunk of a global batch leaf along ``dim``
-        (a leaf whose size there the ranks do not divide stays whole, as the
-        reference replicates it)."""
-        n = self.dp_world_size
+        over ``group`` (default: the data-parallel ranks); a leaf whose size
+        there the ranks do not divide stays whole, as the reference
+        replicates it."""
+        group = self._dp_group if group is None else group
+        n = group.size
         if n == 1 or not isinstance(x, (np.ndarray, torch.Tensor)) or x.ndim <= dim or x.shape[dim] % n:
             return x
         k = x.shape[dim] // n
         sl = [slice(None)] * x.ndim
-        sl[dim] = slice(self.dp_rank * k, (self.dp_rank + 1) * k)
+        sl[dim] = slice(group.rank * k, (group.rank + 1) * k)
         return x[tuple(sl)]
+
+    def _rank_slice(self, x, dim=0):
+        """This rank's part of a global micro-batch leaf whose batch dim is
+        ``dim``: its data rank's rows, and under sequence parallelism its
+        sequence rank's positions of the next dim (reference
+        ``_batch_sharding``)."""
+        return self._dp_chunk(self._dp_chunk(x, dim), dim + 1, self._sp_group)
 
     def _global_mean(self, value):
         """The gang's mean of a per-rank scalar (each rank's loss over its
-        chunk)."""
-        if self.dp_world_size == 1:
+        part of the batch)."""
+        if self._loss_group.size == 1:
             return value
-        return dist.all_reduce(value.detach().float().clone(), op=ReduceOp.AVG, group=self._dp_group)
+        return dist.all_reduce(value.detach().float().clone(), op=ReduceOp.AVG, group=self._loss_group)
 
     # ------------------------------------------------------- config accessors --
     def train_batch_size(self):
@@ -800,7 +898,7 @@ class DeepSpeedEngine:
             batch = self._apply_curriculum(batch)
             batch = self._tree_map(lambda x: x.reshape((gas, -1) + tuple(x.shape[1:])), batch)
         # [gas, micro * dp, ...] global micro-batches: this rank's rows
-        batch = self._tree_map(lambda x: self._dp_chunk(x, dim=1), batch)
+        batch = self._tree_map(lambda x: self._rank_slice(x, dim=1), batch)
         if self.device.type != "cuda":
             return StagedBatch(self._to_device(batch))
         if self._staging_stream is None:
@@ -823,13 +921,22 @@ class DeepSpeedEngine:
     def _forward_module(self, batch):
         """The module's loss on this rank's chunk. At stage 3 over several
         ranks the units gather and recompute per layer, which stands in for
-        ``remat``'s recomputation, so ``remat`` stores instead."""
+        ``remat``'s recomputation, so ``remat`` stores instead. Across the
+        ranks that average their losses, a ``(input_ids, labels)`` batch's
+        loss is this rank's share of the global token mean (C18): the count
+        of valid labels is summed over them first."""
         if self._moe_layers:
             self._seed_gates()
-        if self._partition_params:
-            with recompute_disabled():
-                return self.module(batch)
-        return self.module(batch)
+        with self._token_mean(batch), (recompute_disabled() if self._partition_params else contextlib.nullcontext()):
+            return self.module(batch)
+
+    def _token_mean(self, batch):
+        group = self._loss_group
+        labels = batch[1] if isinstance(batch, (tuple, list)) and len(batch) == 2 else None
+        if group.size == 1 or not isinstance(labels, torch.Tensor) or labels.is_floating_point():
+            return contextlib.nullcontext()
+        count = dist.all_reduce((labels != IGNORE_INDEX).sum().reshape(1), group=group)[0]
+        return global_token_mean(count, group.size)
 
     def _seed_gates(self):
         """The MoE layers' noise for this forward (C16): the reference engine
@@ -837,7 +944,8 @@ class DeepSpeedEngine:
         (its noisy gates, random token selection, top-2's sampled second
         expert) and none in evaluation. Here each layer gets a seed from
         the engine's count of training forwards and the layer's index; in
-        evaluation none."""
+        evaluation none. The count is the same on every rank, so a gate
+        that is global over the ranks draws the same noise on each."""
         for i, m in enumerate(self._moe_layers):
             m.gating_seed = (self._gating_draws * len(self._moe_layers) + i) if self.training else None
         if self.training:
@@ -869,7 +977,8 @@ class DeepSpeedEngine:
                     for n, g in summed.items()}
         out = {n: g.to(self._grad_accum_dtype) for n, g in grads.items()}
         if z.partitioned and z.stage == 2:
-            out = {n: g if z.grad_dim[n] is None else z.reduce_scatter(g, z.grad_dim[n]) for n, g in out.items()}
+            out = {n: g if z.grad_dim[n] is None else z.reduce_scatter(g, z.grad_dim[n], name=n)
+                   for n, g in out.items()}
         return out
 
     def _accumulate(self, grads):
@@ -908,8 +1017,8 @@ class DeepSpeedEngine:
                     g = z.replica_all_reduce(g)
             else:
                 if self._qgz is None:
-                    g = self._dp_all_reduce(g)
-                g = z.shard(g, z.opt_dim[name])
+                    g = self._dp_all_reduce(g, name)
+                g = z.shard(g, z.opt_dim[name], name=name)
             out[name] = g
         return out
 
@@ -917,17 +1026,34 @@ class DeepSpeedEngine:
         """Whether every rank's gradients are finite (a 0-d bool tensor)."""
         if self._zero.partitioned:
             finite = self._zero.all_reduce(finite.float(), op=ReduceOp.MIN) > 0
+        if self._mp_group.size > 1 or self._ep_group.size > 1:
+            finite = dist.all_reduce(finite.float(), op=ReduceOp.MIN, group=groups.world_group()) > 0
         return finite
 
     def _gang_norm(self, grads):
         """The global L2 norm of the gradients (over ``_opt_view``): chunked
-        ones summed over the ranks, whole ones counted once."""
+        ones summed over the ranks, whole ones counted once; the squares of
+        tensor-parallel shards and expert banks are then summed over the
+        model or expert group (their ZeRO chunks first over theirs)."""
         dims = self._zero.opt_dim
-        whole = [g.float().square().sum() for n, g in grads.items() if dims[n] is None]
-        chunked = [g.float().square().sum() for n, g in grads.items() if dims[n] is not None]
+        spread = {n: self._spread(n) for n in grads}
+        whole = [g.float().square().sum() for n, g in grads.items() if dims[n] is None and spread[n] is None]
+        chunked = [g.float().square().sum() for n, g in grads.items() if dims[n] is not None and spread[n] is None]
         total = torch.stack(whole).sum() if whole else torch.zeros([], device=self.device)
         if chunked:
             total = total + self._zero.all_reduce(torch.stack(chunked).sum())
+        for group in (self._mp_group, self._ep_group):
+            names = [n for n in grads if spread[n] is not None and spread[n][0] is group]
+            if not names:
+                continue
+            part = torch.zeros([], device=self.device)
+            for n in names:
+                sq = grads[n].float().square().sum()
+                if dims[n] is not None:  # a ZeRO chunk: first summed over its own group
+                    zgroup = self._zero._of(False, n)[0]
+                    sq = dist.all_reduce(sq, group=zgroup) if zgroup is not None else sq
+                part = part + sq
+            total = total + dist.all_reduce(part, group=group)
         return total.sqrt()
 
     def _optimizer_update(self, grads, opt_state, params):
@@ -938,8 +1064,8 @@ class DeepSpeedEngine:
         z = self._zero
         if not z.partitioned or getattr(self.optimizer, "elementwise", False):
             return self.optimizer.update(grads, opt_state, params, self._current_lr)
-        gather = lambda tree: {n: z.gather(t, z.opt_dim[n]) for n, t in tree.items()}
-        shard = lambda tree: {n: z.shard(t, z.opt_dim[n]) for n, t in tree.items()}
+        gather = lambda tree: {n: z.gather(t, z.opt_dim[n], name=n) for n, t in tree.items()}
+        shard = lambda tree: {n: z.shard(t, z.opt_dim[n], name=n) for n, t in tree.items()}
         full_state = _map_state(opt_state, params, gather)
         new_p, new_state = self.optimizer.update(gather(grads), full_state, gather(params), self._current_lr)
         return shard(new_p), _map_state(new_state, new_p, shard)
@@ -951,7 +1077,7 @@ class DeepSpeedEngine:
         gang's, and each rank updates its part of the state (then, at stages
         1 and 2, the updated parameters are all-gathered)."""
         gas = float(self.gradient_accumulation_steps())
-        inv = 1.0 / (self.scale_state.cur_scale * gas * self.dp_world_size)
+        inv = 1.0 / (self.scale_state.cur_scale * gas * self._loss_group.size)
         grads = {k: g * inv for k, g in self._boundary_grads().items()}
         self.acc_grads = None
         # fp16 always gates on finite gradients (overflow skip); the anomaly
@@ -971,7 +1097,7 @@ class DeepSpeedEngine:
         self.opt_state = self._offload.stage_out(new_opt)
         z = self._zero
         if z.partitioned and not self._partition_params:
-            new_view = {n: z.gather(p, z.opt_dim[n]) for n, p in new_view.items()}
+            new_view = {n: z.gather(p, z.opt_dim[n], name=n) for n, p in new_view.items()}
         elif self._partition_params and z.relayout:
             new_view = {n: z.opt_to_param(p, n) for n, p in new_view.items()}
         self.params = new_view
@@ -1008,7 +1134,7 @@ class DeepSpeedEngine:
         self.timers(FORWARD_MICRO_TIMER).start()
         if self.training:
             batch = self._apply_curriculum(batch)
-        batch = self._to_device(self._tree_map(self._dp_chunk, batch))
+        batch = self._to_device(self._tree_map(self._rank_slice, batch))
         if not self.training:
             self._cached_loss = None
             try:
@@ -1408,6 +1534,9 @@ class DeepSpeedEngine:
         if z.zrep is not None or z.prep is not None or self._pipeline_stages() > 1:
             raise NotImplementedError("checkpoints of hpZ/MiCS partitions and of pipeline stages are not ported "
                                       "yet (A8)")
+        if self._mp_group.size > 1 or self._ep_group.size > 1:
+            raise NotImplementedError("checkpoints of tensor- or expert-parallel shards are not ported yet "
+                                      "(A8 item 5); save_16bit_model gathers the whole weights")
 
     def _checkpoint_tag_validation(self, tag):
         """Every rank must save the same tag (reference ``engine.py:3035``):
@@ -1443,6 +1572,23 @@ class DeepSpeedEngine:
 
     def save_fp16_model(self, save_dir, save_filename="pytorch_model.bin"):
         return self.save_16bit_model(save_dir, save_filename)
+
+
+def _keep_local_experts(experts: ExpertFFN, group):
+    """An :class:`ExpertFFN`'s banks cut to the experts ``group``'s rank
+    holds (``[E/ep, ...]``), as ``models/convert.py::expert_slice`` cuts a
+    state dict; raises when the experts do not divide over the ranks."""
+    if group.size == 1:
+        return
+    for name in ("wi", "wo"):
+        bank = getattr(experts, name)
+        E = bank.shape[0]
+        if E % group.size:
+            raise ValueError(f"{E} experts do not divide over {group.size} expert-parallel ranks")
+        per = E // group.size
+        local = torch.nn.Parameter(bank.detach()[group.rank * per:(group.rank + 1) * per].clone())
+        local.allreduce = False
+        setattr(experts, name, local)
 
 
 def _gang_mean_hvp(hvp, group):

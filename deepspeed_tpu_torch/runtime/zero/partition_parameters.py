@@ -64,10 +64,17 @@ class ZeroPartitioner:
     sync of MiCS and hpZ; nothing without a secondary partition). With qwZ
     the engine sets ``qwz`` (``runtime/zero/qwz.py``), which changes what a
     unit's gather moves: int8 (or packed int4) payloads and their scales,
-    taken from the f32 masters, instead of the compute-dtype chunks."""
+    taken from the f32 masters, instead of the compute-dtype chunks.
+
+    Expert parameters (``expert_names``: the banks a rank holds its experts
+    of) are data-parallel over the expert-data group only (reference
+    ``utils/groups.py``), so their gradient buffer and optimizer state are
+    partitioned over that group: ``shard``/``gather``/``reduce_scatter``
+    given such a ``name`` move it there. Their parameters are not
+    partitioned (the engine runs expert parallelism at stages 0-2)."""
 
     def __init__(self, module: torch.nn.Module, stage: int, persistence_threshold: int = 0, zero_axes=None,
-                 param_axes=None):
+                 param_axes=None, expert_names=()):
         from deepspeed_tpu_torch.models.convert import reference_names
 
         self.stage = stage
@@ -88,6 +95,13 @@ class ZeroPartitioner:
         self.prep = groups.get_group(prep) if prep else None
         self.qwz = None
         self.masters: Dict[str, torch.Tensor] = {}
+        self.expert_names = frozenset(expert_names)
+        epolicy = None
+        if self.expert_names:
+            epolicy = ZeroShardingPolicy(stage, mesh=mesh, persistence_threshold=persistence_threshold,
+                                         zero_axes=groups.EXPERT_DATA_PARALLEL_AXES)
+            egroup = groups.get_group(epolicy.zero_axes) if epolicy.zero_axes else None
+            self._expert_of = (egroup, epolicy.zero_size, egroup.rank if epolicy.zero_size > 1 else 0)
         names = reference_names(module)
         # without a secondary partition the three placements agree at stage
         # 3 (one rule, one threshold), which the engine relies on: the
@@ -98,9 +112,10 @@ class ZeroPartitioner:
             ref = reference_shape(p.shape, transposed)
             self.shapes[name] = tuple(p.shape)
             self.transposed[name] = transposed
-            self.param_dim[name] = port_dim(self.policy.param_dim(ref), p.ndim, transposed)
-            self.grad_dim[name] = port_dim(self.policy.grad_dim(ref), p.ndim, transposed)
-            self.opt_dim[name] = port_dim(self.policy.opt_dim(ref), p.ndim, transposed)
+            pol = epolicy if name in self.expert_names else self.policy
+            self.param_dim[name] = port_dim(pol.param_dim(ref), p.ndim, transposed)
+            self.grad_dim[name] = port_dim(pol.grad_dim(ref), p.ndim, transposed)
+            self.opt_dim[name] = port_dim(pol.opt_dim(ref), p.ndim, transposed)
         self.units = []
         self.unowned = set()
         self.leaves: Dict[str, torch.Tensor] = {}
@@ -123,30 +138,32 @@ class ZeroPartitioner:
         at stage 3: the masters move between the two layouts each step)."""
         return self.params_partitioned and (self.pgroup.ranks != self.group.ranks or self.param_dim != self.opt_dim)
 
-    def _of(self, param):
+    def _of(self, param, name=None):
+        if name in self.expert_names:
+            return self._expert_of
         return (self.pgroup, self.pdegree, self.prank) if param else (self.group, self.degree, self.rank)
 
     # -- moving tensors ------------------------------------------------------
-    def shard(self, t: torch.Tensor, dim: Optional[int], param: bool = False) -> torch.Tensor:
+    def shard(self, t: torch.Tensor, dim: Optional[int], param: bool = False, name=None) -> torch.Tensor:
         """This rank's chunk of ``t`` along ``dim`` (``t`` itself when None)."""
-        _, degree, rank = self._of(param)
+        _, degree, rank = self._of(param, name)
         if dim is None or degree == 1:
             return t
         n = t.shape[dim] // degree
         return t.narrow(dim, rank * n, n).clone()
 
-    def gather(self, t: torch.Tensor, dim: Optional[int], param: bool = False) -> torch.Tensor:
+    def gather(self, t: torch.Tensor, dim: Optional[int], param: bool = False, name=None) -> torch.Tensor:
         """The whole tensor from every rank's chunk along ``dim``."""
-        group, degree, _ = self._of(param)
+        group, degree, _ = self._of(param, name)
         if dim is None or degree == 1:
             return t
         moved = t.movedim(dim, 0).contiguous()
         full = dist.all_gather_into_tensor(moved, group=group)
         return full.movedim(0, dim).contiguous()
 
-    def reduce_scatter(self, t: torch.Tensor, dim: Optional[int], param: bool = False) -> torch.Tensor:
+    def reduce_scatter(self, t: torch.Tensor, dim: Optional[int], param: bool = False, name=None) -> torch.Tensor:
         """This rank's chunk along ``dim`` of the sum of every rank's ``t``."""
-        group, _, _ = self._of(param)
+        group, _, _ = self._of(param, name)
         moved = t.movedim(dim, 0).contiguous()
         part = dist.reduce_scatter_tensor(moved, op=ReduceOp.SUM, group=group)
         return part.movedim(0, dim).contiguous()
@@ -181,7 +198,7 @@ class ZeroPartitioner:
         n = 1
         for s in self.shapes[name]:
             n *= s
-        degree = self.pdegree if dim_of is self.param_dim else self.degree
+        degree = self.pdegree if dim_of is self.param_dim else self._of(False, name)[1]
         return n // degree if dim_of[name] is not None else n
 
     # -- stage 3: the units ----------------------------------------------------
@@ -310,12 +327,13 @@ class _GatheredUnit(torch.autograd.Function):
             out = unit.inner(*args)
         finally:
             unit.release()
-        if not isinstance(out, torch.Tensor):
-            raise TypeError(f"a ZeRO-3 unit must return one tensor, got {type(out).__name__}")
+        outs = out if isinstance(out, tuple) else (out, )
+        if not all(isinstance(o, torch.Tensor) for o in outs):
+            raise TypeError(f"a ZeRO-3 unit must return a tensor or a tuple of tensors, got {type(out).__name__}")
         return out
 
     @staticmethod
-    def backward(ctx, grad_out):
+    def backward(ctx, *grad_outs):
         from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import recompute_disabled
 
         unit = ctx.unit
@@ -334,8 +352,10 @@ class _GatheredUnit(torch.autograd.Function):
         try:
             with torch.enable_grad(), recompute_disabled():
                 out = unit.inner(*args)
+            outs = out if isinstance(out, tuple) else (out, )
+            grad_outs = [torch.zeros_like(o) if g is None else g for o, g in zip(outs, grad_outs)]
             wrt = [a for a in args if isinstance(a, torch.Tensor) and a.requires_grad] + list(unit.params)
-            grads = torch.autograd.grad(out, wrt, grad_out, allow_unused=True)
+            grads = torch.autograd.grad(outs, wrt, grad_outs, allow_unused=True)
         finally:
             unit.release()
         n_wrt_args = len(wrt) - len(unit.params)

@@ -231,8 +231,10 @@ def test_unported_features_are_refused(setup):
         assert moe.simulated_gating_enabled()
     finally:
         moe.disable_simulated_gating()
+    # tensor parallelism is ported: one process is one TP rank, so a TP
+    # engine in a world of one rank raises naming the world
     ec = RaggedInferenceEngineConfig.from_dict({"tp": {"tp_size": 2}})
-    with pytest.raises(NotImplementedError, match="tensor_parallel"):
+    with pytest.raises(ValueError, match="tp_size 2 != the comm world's 1 ranks"):
         build_engine(params, cfg, ec, device="cpu")
     # sampled generate runs through the serving scheduler (seeded per request)
     eng = build_engine(params, cfg, _port_config(), device="cpu")

@@ -1,8 +1,8 @@
 """Port parity for ``models/mixtral.py`` (Mixtral's causal LM): the loss and
 its gradients, the flax ↔ torch converter, and ``train_batch`` at world 1
 against the JAX package's engine, at ``MixtralConfig.tiny`` in f32; and the
-training engine's refusal of a MoE model on more than one rank (a gloo gang
-of 2, ``tests/torch_gang.py``)."""
+same training on two data ranks (a gloo gang of 2, ``tests/torch_gang.py``),
+whose gate is global over both ranks' tokens."""
 
 import dataclasses
 
@@ -18,7 +18,7 @@ from deepspeed_tpu.models import mixtral as jmixtral
 from deepspeed_tpu.utils import groups as jgroups
 from deepspeed_tpu_torch.models.convert import expert_slice, mixtral_from_flax, mixtral_to_flax
 from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM, init_params, param_shapes
-from tests import torch_moe_scenarios as sc
+from tests import torch_parallel_scenarios as psc
 from tests.torch_gang import Gang
 from tests.torch_port_helpers import to_numpy_tree
 
@@ -184,18 +184,35 @@ def test_train_batch_gating_noise_is_deterministic(setup):
     assert noisy != _train(_port_engine(jparams, noise=False)[0], batches)
 
 
-def test_moe_model_on_two_data_ranks_is_refused():
-    """A MoE model on two ranks raises NotImplementedError naming A8 (the
-    reference's gate is global over the batch); one rank builds."""
+def test_moe_model_on_two_data_ranks_is_refused(setup):
+    """The run this test once saw refused (a MoE model on two data ranks)
+    now trains: three ``train_batch`` steps of the global batch over a gang
+    of 2 (GAS 2, ZeRO 3, both ranks holding every expert), the gates' noise
+    off, equal the JAX engine's at world 1 as
+    :func:`test_train_batch_matches_the_jax_engine_at_world_1` holds them:
+    the gate is global over both ranks' tokens, as the reference's. The
+    name is kept so that the test's id stays the same across the change."""
+    jcfg, jparams = setup
+    batches = [_batch(jcfg.vocab_size, 8, 16, seed=40 + i) for i in range(3)]
+    jgroups.initialize_mesh(devices=jax.devices()[:1], force=True)
+    config = dict(_ds_config(), train_micro_batch_size_per_gpu=4)
+    jengine, _, _, _ = deepspeed_tpu.initialize(model=_NoGatingRng(jmixtral.MixtralForCausalLM(jcfg)),
+                                                model_parameters=jparams, config=config)
+    jlosses = [float(jengine.train_batch(batch=b)) for b in batches]
+    want = [np.asarray(x) for x in jax.tree.leaves(jax.device_get(jengine.params))]
+    jgroups.destroy_mesh()
     cfg = _cfg()
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name != "dtype"}
+    state = {k: v.numpy() for k, v in mixtral_from_flax(jparams, cfg).items()}
     gang = Gang(2)
     try:
-        messages = gang.run(sc.train_moe, fields)
+        res = gang.run(psc.train_mixtral, fields, state, dict(_ds_config(), train_micro_batch_size_per_gpu=2),
+                       batches)
     finally:
         gang.close()
-    for msg in messages:
-        assert msg is not None and "MoE model on 2" in msg and "(A8)" in msg
-    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=MixtralForCausalLM(cfg), config={"train_batch_size": 2},
-                                                     device="cpu")
-    engine.destroy()
+    for r in res:
+        np.testing.assert_allclose(r["losses"], jlosses, **LOSS_TOL)
+    got = jax.tree.leaves(mixtral_to_flax({k: torch.from_numpy(v) for k, v in res[0]["full"].items()}, cfg))
+    for g, w in zip(got, want):
+        diff = np.abs(g - w)
+        assert np.mean(diff <= 0.01 * LR + 1e-4 * np.abs(w)) >= 0.995 and diff.max() <= 3 * LR, diff.max()

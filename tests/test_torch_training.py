@@ -25,6 +25,7 @@ from deepspeed_tpu_torch.models.convert import to_flax_params
 from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, cross_entropy_loss
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import dynamic_loss_scale_state, update_scale
+from deepspeed_tpu_torch.utils.groups import TopologyError
 from tests.torch_port_helpers import jax_params, jax_tiny, port_config, port_params
 
 # f32 on both sides; XLA's and torch's CPU matmuls sum in different orders
@@ -369,18 +370,21 @@ def test_batch_triangle_and_config_errors():
 
 
 @pytest.mark.parametrize("key,value,error", [
-    ("tensor_parallel_size", 2, NotImplementedError), ("pipeline_parallel_size", 2, NotImplementedError),
+    ("tensor_parallel_size", 2, TopologyError), ("pipeline_parallel_size", 2, NotImplementedError),
     ("zero_optimization", {"stage": 2, "zero_quantized_weights": True}, ValueError),
-    ("sequence_parallel_size", 2, NotImplementedError),
+    ("sequence_parallel_size", 2, TopologyError),
     ("optimizer", {"type": "NoSuchOptimizer", "params": {"lr": 0.1}}, ValueError),
-    ("expert_parallel_size", 2, NotImplementedError)])
+    ("expert_parallel_size", 2, TopologyError)])
 def test_unported_features_raise(key, value, error):
     """What is not ported raises NotImplementedError naming its ROADMAP queue
-    item (sequence, tensor and expert parallelism, and a pipeline size on a
-    module that is not a PipelineModule: the rest of A8); an
+    item (a pipeline size on a module that is not a PipelineModule: A8); an
     unknown optimizer raises the reference's ValueError, and so does a ZeRO
-    stage the quantized-weight knobs cannot serve."""
-    match = {NotImplementedError: r"\(A8\)", ValueError: "Unknown optimizer|qwZ|stage 3"}[error]
+    stage the quantized-weight knobs cannot serve. Sequence, tensor and
+    expert parallelism are ported: in a world of one rank their axis of 2
+    cannot be laid out, and the rank mesh raises its TopologyError (their
+    runs across ranks: tests/test_torch_{ulysses,tp,moe_train_ep}.py)."""
+    match = {NotImplementedError: r"\(A8\)", ValueError: "Unknown optimizer|qwZ|stage 3",
+             TopologyError: "not divisible by mp\\*pp\\*ep\\*sp = 2"}[error]
     with pytest.raises(error, match=match):
         deepspeed_tpu_torch.initialize(model=SimpleModel(), config={"train_batch_size": 8, key: value},
                                        device="cpu")

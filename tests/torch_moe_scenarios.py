@@ -142,20 +142,6 @@ def ep_heartbeat(state, cfg_fields, prompt, steps):
     return tokens, run(dense)
 
 
-def train_moe(cfg_fields):
-    """``initialize`` on a MoE model in this gang: the training engine
-    refuses it on more than one rank; returns the message."""
-    import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models.mixtral import MixtralForCausalLM
-
-    try:
-        deepspeed_tpu_torch.initialize(model=MixtralForCausalLM(_cfg(cfg_fields)), config={"train_batch_size": 2},
-                                       device="cpu")
-    except NotImplementedError as e:
-        return str(e)
-    return None
-
-
 def ep_build_indivisible(cfg_fields):
     """An EP engine whose experts do not divide over the ranks: the build
     raises (ROADMAP C17); returns the message."""
