@@ -188,9 +188,9 @@ Phases (any failure raises and the script exits non-zero):
    bytes a rank sends), hpZ and MiCS over four held to world 1 and the
    placement rule; the pipeline engine over two stages, bitwise one rank;
 16. parallel path (run_parallel_path): two ranks of this script over gloo,
-   started once, run four legs: Llama-2-7B served at TP 2 (the main path's
-   8 requests, rank 0 scheduling and rank 1 following; B1 at 16 heads a
-   rank; tokens against the main path's or teacher-forced through f32; the
+   started once, run four legs: Llama-2-7B's widths at 8 layers served at TP
+   2 (the main path's 8 requests, rank 0 scheduling and rank 1 following; B1
+   at 16 heads a rank; every token teacher-forced through f32; the
    all-reduce bytes counted), the 530M model cut to 2 layers trained at TP
    2 and with Ulysses at sp 2 (S 2048, labels masked in one rank's half),
    each held to a world-1 run, and Mixtral-8x7B's widths at 1 layer trained
@@ -199,7 +199,23 @@ Phases (any failure raises and the script exits non-zero):
    to a world-1 f32 step along the same routes, as is the first loss; the
    experts' outputs swapped between the ranks must fail the last three); each
    check with a control;
-17. print one JSON line describing every kernel, then the result line.
+17. composed path (run_composed_path): four ranks of this script over gloo,
+   started once, run three legs: Mixtral-8x7B's widths at 2 layers served at
+   TP 2 x EP 2 (B1 at 16 heads over 4 KV heads; tokens against a one-rank
+   engine's or teacher-forced through f32 along the served routes; the
+   all-to-all and row all-reduce bytes counted; flipped banks on one expert
+   rank, the control), Llama-2-7B's widths at 2 layers trained at TP 2 x SP
+   2 (held to a world-1 run; RoPE at local positions, the control) whose
+   tag, every array whole, a world-1 engine loads bitwise and steps on, and
+   Mixtral's widths at 1 layer trained at SP 2 x EP 2 and ZeRO 3 (the global
+   gate's drops against a world-1 f32 step along the same routes, a gate of
+   each rank's own tokens the control; a quarter of each bank a rank);
+18. print one JSON line describing every kernel, then the result line.
+
+The main path and the serving, prefix, speculative, observe and fleet
+phases run Llama-2-7B's widths at 16 of its 32 layers (SERVE_LAYERS), and
+the features and MoE phases 4 layers: depth cuts that keep the whole script
+inside the card's time.
 
 The script imports the port only (never jax or deepspeed_tpu), needs one
 GPU, and writes its full record to chiprun_out/chip_smoke.json.
@@ -281,6 +297,14 @@ PROFILE_STEPS = 8  # decode steps traced by torch.profiler after the measured ru
 BLOCK = 64
 MAX_CONTEXT = 4096
 KV_BYTES = 8 * 2**30  # per engine
+# the serving phases' model (the main path, serving, prefix, spec, observe and
+# fleet phases share its weights): Llama-2-7B's widths at a cut depth (cut:
+# depth, from 32 layers, for the card's time with the composed phase)
+SERVE_LAYERS = 16
+
+
+def serve_config() -> LlamaConfig:
+    return LlamaConfig.llama2_7b(num_hidden_layers=SERVE_LAYERS)
 # bf16 keeps 8 significant bits; kernel and plain version each round an f32
 # result summed in another order, so they differ by at most about one bf16
 # ulp of the output (2^-8 relative) plus the f32 summation-order noise
@@ -303,6 +327,7 @@ FLASH_CASES = (
     ("gqa_S1000_D64_causal", 4, 1000, 16, 4, True, 64),  # the 64-wide head, ragged last tile
     ("tp2_train", 8, 1024, 8, 8, True, 128),  # the parallel phase's TP leg: 8 of 16 heads a rank
     ("ulysses_sp2", 4, 2048, 8, 8, True, 128),  # its Ulysses leg: the whole sequence at 8 of 16 heads
+    ("tp2_sp2_train", 4, 2048, 8, 8, True, 128),  # the composed phase's leg f: 8 of Llama-2-7B's 32 heads a rank
 )
 # the kernels' designs, named in the kernels line
 FLASH_DESIGN = {"fwd": "wgmma+tma", "dkv": "wgmma+tma", "dq": "wgmma+tma"}
@@ -541,6 +566,10 @@ def check_paged_attention(dev) -> list:
         _paged_case("llama2_7b_decode_long", 32, 32, BLOCK, [[3960 + 5 * i] for i in range(8)], gen, cpu_gen),
         # the parallel phase's TP 2 decode step: one rank's 16 of 32 heads
         _paged_case("llama2_7b_tp2_decode", 16, 16, BLOCK, [[n] for n in PROMPT_LENS], gen, cpu_gen),
+        # the composed phase's TP 2 x EP 2 decode step: a Mixtral rank's 16
+        # of 32 heads over 4 of 8 KV heads, its expert rank's 4 requests
+        _paged_case("mixtral_tp2_ep2_decode", 16, 4, BLOCK, [[PROMPT_LENS[i]] for i in COMP_E_SPLIT[0]], gen,
+                    cpu_gen),
     ]
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     results = []
@@ -1124,9 +1153,9 @@ def _profile_decode(engine, prompts, first_tokens):
 
 
 def main_params(dev) -> dict:
-    """Llama-2-7B's bf16 weights, random from seed 0: the main path's and the
-    serving phase's."""
-    cfg = LlamaConfig.llama2_7b()
+    """Llama-2-7B's bf16 weights at SERVE_LAYERS layers, random from seed 0:
+    the main path's and the serving phases'."""
+    cfg = serve_config()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -1148,7 +1177,7 @@ def run_main_path(dev, params=None) -> dict:
     """Serve PROMPT_LENS through generate (which drives the serving
     scheduler inline) REPEATS times; ``params`` defaults to
     :func:`main_params`."""
-    cfg = LlamaConfig.llama2_7b()
+    cfg = serve_config()
     if params is None:
         params = main_params(dev)
     engine = _engine(params, cfg, None, dev)
@@ -1428,7 +1457,7 @@ def run_serving_path(dev, params, main) -> dict:
     against each other, B1's launches, the pool after stop, evictions, and
     one offload/restore round trip; each check with a control it rejects."""
     t_start = time.perf_counter()
-    cfg = LlamaConfig.llama2_7b()
+    cfg = serve_config()
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
     failures = []
@@ -2120,7 +2149,7 @@ def run_prefix_path(dev, params, main) -> dict:
     every check has a control it rejects."""
     import tempfile
     t_start = time.perf_counter()
-    cfg = LlamaConfig.llama2_7b()
+    cfg = serve_config()
     rng = np.random.default_rng(8)
     prefix = rng.integers(0, cfg.vocab_size, PREFIX_TOKENS).tolist()
     lens = rng.integers(PREFIX_SUFFIX[0], PREFIX_SUFFIX[1] + 1, PREFIX_REQUESTS)
@@ -2818,7 +2847,7 @@ def run_spec_path(dev, params, main) -> dict:
     Every served greedy token is held to the dense f32 model
     (teacher-forced); every check has a control it rejects."""
     t_start = time.perf_counter()
-    cfg = LlamaConfig.llama2_7b()
+    cfg = serve_config()
     rng = np.random.default_rng(9)
     prompts = _spec_prompts(cfg, rng)
     err = max(main["logits_max_abs_err_kernel_vs_f32"], main["logits_max_abs_err_gather_vs_f32"])
@@ -3419,7 +3448,7 @@ def run_observe_path(dev, params, main) -> dict:
     SLO breach that lifts the brownout stage; every check has a control that
     fails it."""
     t_start = time.perf_counter()
-    cfg = LlamaConfig.llama2_7b()
+    cfg = serve_config()
     failures, parts = [], {}
     pa.paged_attention_update.launches = 0
     t0 = time.perf_counter()
@@ -4037,7 +4066,7 @@ def run_fleet_path(dev, params, main) -> dict:
     (f). Every served greedy token is held to the dense f32 model; every leg
     has a control that fails its check."""
     t_start = time.perf_counter()
-    cfg = LlamaConfig.llama2_7b()
+    cfg = serve_config()
     rng = np.random.default_rng(0)  # run_serving_path's prompts
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
     per_token = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads * (cfg.hidden_size // cfg.num_attention_heads) * 2
@@ -4106,8 +4135,9 @@ def run_fleet_path(dev, params, main) -> dict:
 # ------------------------------------------------------------- MoE phase --
 # Mixtral-8x7B's widths (hidden 4096, FFN 14336, 32 heads and 8 KV heads of
 # 128, 8 experts, top-2, vocab 32000, rope theta 1e6), bf16, random weights
-# from seed 0, 8 of its 32 layers (cut: depth; 11.87B parameters, 23.7 GB).
-MOE_LAYERS = 8
+# from seed 0, 4 of its 32 layers (cut: depth; 8 layers, 11.87B parameters and
+# 23.7 GB, until the composed phase needed the card's time).
+MOE_LAYERS = 4
 # leg d's depth cut: 1 layer, 1.71B parameters. At 2 (3.16B) the engine's
 # out-of-place AdamW, which holds the old and the new state at once
 # (ops/adam/fused_adam.py), ran out of the card's 80 GB (76.55 GiB allocated
@@ -5432,6 +5462,7 @@ FEAT_COMPRESSION = {
                        "different_groups": {"sp": {"params": {"dense_ratio": 0.5},
                                                    "modules": FEAT_COMPRESSION_MODULES}}},
 }
+FEAT_LAYERS = 4  # the phase's depth cut (from the bench model's 8, for the card's time)
 FEAT_EIG_LAYERS = 2  # the eigenvalue leg's depth cut: the HVP's retained graph
 # the engine's "eigenvalue" block: power iteration to the reference's
 # stopping rule (loss_curvature itself stops after 8 iterations, as there)
@@ -5809,8 +5840,8 @@ def _eigenvalue_leg(dev, batches, failures):
 
 
 def run_train_features_path(dev) -> dict:
-    """The rest of training on the bench model (full width and depth; the
-    eigenvalue leg cut to FEAT_EIG_LAYERS), B2-B4 in every train_batch with
+    """The rest of training on the bench model (full width, FEAT_LAYERS
+    layers; the eigenvalue leg cut to FEAT_EIG_LAYERS), B2-B4 in every train_batch with
     their launch counts zeroed just before each step and read just after:
 
     - curriculum: fixed_linear 256 -> 1024 over 4 steps, 6 steps: each step's
@@ -5834,7 +5865,7 @@ def run_train_features_path(dev) -> dict:
     - eigenvalue (_eigenvalue_leg).
     """
     t_phase = time.perf_counter()
-    cfg = bench_llama()
+    cfg = bench_llama(num_hidden_layers=FEAT_LAYERS)
     batches = _train_batches(cfg, dev)
     failures = []
     total = {"fwd": 0, "dkv": 0, "dq": 0}
@@ -6797,14 +6828,15 @@ def run_zero_plus_path(dev) -> dict:
 # ----------------------------------------------------------------- phase 16 --
 # model, sequence and expert ranks: two processes of this script
 # (--par-rank-child) over gloo on the card, started once, run four legs in
-# sequence: (a) Llama-2-7B served at TP 2, (b) the 530M bench model trained at
-# TP 2, (c) the same model trained with Ulysses at sp 2, (d) Mixtral-8x7B's
+# sequence: (a) Llama-2-7B's widths at PAR_A_LAYERS layers served at TP 2,
+# (b) the 530M bench model trained at TP 2, (c) the same model trained with
+# Ulysses at sp 2, (d) Mixtral-8x7B's
 # widths trained with its experts over 2 expert ranks. The parent computes
 # the world-1 runs they are held to.
 PAR_PREDICTED_S = 150.0  # the phase's predicted seconds, printed before it runs
 PAR_TIMEOUT_S = 900  # bound on the ranks
 PAR_LAYERS = 2  # legs b and c: bench.py's widths at a cut depth (cut: depth, as the zero phase)
-PAR_STEPS = 3  # legs b, c and d
+PAR_STEPS = 2  # legs b, c and d (cut: steps, from 3, for the card's time)
 PAR_TP_B = 8  # leg b: the global batch, rows of TRAIN_S tokens
 PAR_SP_B, PAR_SP_S = 4, 2048  # leg c: 4 rows of 2048 positions, 1024 a rank
 PAR_SP_MASK = (100, 700)  # leg c's -100 span of labels: inside sequence rank 0's half
@@ -6817,6 +6849,7 @@ PAR_MOE_GRAD_L2_TOL = 0.06  # their L2 error, relative (the attention gradients'
 # std 1.28 (Mixtral's lm_head, std 0.02 over 4096 features) at 5 standard deviations is 0.025; four times it
 PAR_MOE_NLL_TOL = 0.1
 PAR_CONTROL_TOKENS = 4  # leg a's control: new tokens a request, rank 1's o_proj shard rank 0's
+PAR_A_LAYERS = 8  # leg a: Llama-2-7B's widths at a cut depth (cut: depth, from 32, for the card's time)
 PAR_COLUMN = "layers.0.self_attn.q_proj.weight"  # leg b's control: rank 1's shard of it gets no gradient
 _ONE_HOT = sharded_moe._one_hot
 
@@ -6889,14 +6922,15 @@ def _wait_for(path, deadline):
 
 
 def _par_leg_a(dev, rank, plan) -> dict:
-    """TP 2 serving: Llama-2-7B's 32 layers from the main path's weights,
-    this rank's heads and MLP columns; rank 0 serves the main path's 8
-    requests through generate, rank 1 follows every engine call. Then the
+    """TP 2 serving: Llama-2-7B's widths at PAR_A_LAYERS layers, drawn from
+    seed 0 as the main path's weights are, this rank's heads and MLP
+    columns; rank 0 serves the main path's 8 requests through generate,
+    rank 1 follows every engine call. Then the
     control: the same with rank 1's o_proj shards replaced by rank 0's."""
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.inference.v2.config_v2 import DeepSpeedTPConfig
     from deepspeed_tpu_torch.inference.v2.engine_factory import serving_tp_slice
-    cfg = LlamaConfig.llama2_7b()
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=PAR_A_LAYERS)
     t0 = time.perf_counter()
     full = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
     params = {k: v.clone() for k, v in serving_tp_slice(full, cfg, rank, 2).items()}
@@ -6994,20 +7028,23 @@ def _par_leg_train(dev, rank, leg, work, deadline) -> dict:
     return out
 
 
-def _moe_gate_log(record):
+def _moe_gate_log(record, seq=None):
     """Each global gate's (exp_counts, kept assignments) appended to
     ``record``, and the same gate of this rank's own tokens (the control's
-    local gate: capacity and priority over its rows only)."""
+    local gate: capacity and priority over its tokens only). The gate is
+    over every rank of the world, in rank order; ``seq``: ``(sp, rows)``
+    when the last ``sp`` ranks of each run are sequence ranks, each holding
+    ``rows`` rows' slices (``sharded_moe._token_order``)."""
     inner = sharded_moe.top2gating
 
     def gating(logits, capacity_factor=1.0, min_capacity=4, generator=None):
         out = inner(logits, capacity_factor, min_capacity, generator)
         from deepspeed_tpu_torch import comm
         n, r = comm.get_world_size(), comm.get_rank()
-        s = logits.shape[0] // n
+        _, mine = sharded_moe._token_order(n, r, logits.shape[0] // n, *(seq or (1, 1)), device=logits.device)
         recording, sharded_moe._one_hot = sharded_moe._one_hot, _ONE_HOT  # the routes record the global gate's
         try:
-            local = inner(logits[r * s:(r + 1) * s], capacity_factor, min_capacity, generator)
+            local = inner(logits[mine], capacity_factor, min_capacity, generator)
         finally:
             sharded_moe._one_hot = recording
         record.append(dict(counts=out[3].tolist(), kept=float(out[2].sum()), local_kept=float(local[2].sum()),
@@ -7166,12 +7203,13 @@ def parallel_rank_child(work, device="cuda:0") -> int:
 
 
 def _par_check_a(a, main, dev, failures) -> dict:
-    """Leg a against the main path: each request's tokens equal its one-rank
-    tokens or pass the serving phase's teacher-forced check against the
-    dense f32 model (the control's tokens must fail it); B1 two launches a
-    layer per decode step and small put on each rank; the all-reduce bytes
-    two a layer a forward of the bucket's tokens x hidden x 4 (f32)."""
-    cfg = LlamaConfig.llama2_7b()
+    """Leg a: every request's tokens pass the serving phase's teacher-forced
+    check against the dense f32 model of the same weights (PAR_A_LAYERS
+    layers; the limit from the main path's logit errors), and the control's
+    tokens must fail it; B1 two launches a layer per decode step and small
+    put on each rank; the all-reduce bytes two a layer a forward of the
+    bucket's tokens x hidden x 4 (f32)."""
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=PAR_A_LAYERS)
     r0, r1 = a[0]["main"], a[1]["main"]
     res = dict(heads=r0["heads"], cache_shape=r0["cache_shape"], param_gb_per_rank=a[0]["param_gb"],
                follower_calls=r1["follower_calls"], wall_s=r0["wall_s"])
@@ -7196,20 +7234,17 @@ def _par_check_a(a, main, dev, failures) -> dict:
     if r0["heads"] != [16, 16] or r0["cache_shape"][3] != 16:
         failures.append(f"a: rank 0 holds heads {r0['heads']} and a cache {r0['cache_shape']}")
     tokens = r0["tokens"]
-    res["tokens_equal_main"] = sum(t == m for t, m in zip(tokens, main["tokens"]))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
-    params = main_params(dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
     model = _dense_f32(params, cfg)
     del params
     tol = TF_SLACK * max(main["logits_max_abs_err_kernel_vs_f32"], main["logits_max_abs_err_gather_vs_f32"])
-    differ = [i for i in range(len(prompts)) if tokens[i] != main["tokens"][i]]
-    res["differ"] = differ
-    if differ:
-        gaps = _teacher_forced(model, dev, [(prompts[i], tokens[i]) for i in differ])
-        res["teacher_forced_max_gap"] = gaps.max().item()
-        if not gaps.max().item() <= tol:
-            failures.append(f"a: a served token trails the f32 maximum by {gaps.max().item()} > {tol}")
+    gaps = _teacher_forced(model, dev, list(zip(prompts, tokens)))
+    res["teacher_forced_tokens"] = int(gaps.numel())
+    res["teacher_forced_max_gap"] = gaps.max().item()
+    if not gaps.max().item() <= tol:
+        failures.append(f"a: a served token trails the f32 maximum by {gaps.max().item()} > {tol}")
     control = a[0]["control"]["tokens"]
     res["control_max_gap"] = _teacher_forced(model, dev, list(zip(prompts, control))).max().item()
     res["teacher_forced_limit"] = tol
@@ -7221,11 +7256,12 @@ def _par_check_a(a, main, dev, failures) -> dict:
     return res
 
 
-def _par_check_train(leg, ranks, ref, failures) -> dict:
-    """Legs b and c: every rank's losses within ZERO_LOSS_REL_TOL of world
-    1's and the masters within its bf16 tolerance; B2-B4 launched as the
-    world-1 run launches them; the control must miss the masters."""
-    expected = {k: v // TRAIN_GAS for k, v in _expected_flash_launches(PAR_STEPS, PAR_LAYERS).items()}
+def _par_check_train(leg, ranks, ref, failures, steps=PAR_STEPS) -> dict:
+    """Legs b and c (and the composed phase's f, of ``steps`` steps): every
+    rank's losses within ZERO_LOSS_REL_TOL of world 1's and the masters
+    within its bf16 tolerance; B2-B4 launched as the world-1 run launches
+    them; the control must miss the masters."""
+    expected = {k: v // TRAIN_GAS for k, v in _expected_flash_launches(steps, PAR_LAYERS).items()}
     res = dict(world1=ref, expected_flash_launches=expected, ranks=ranks)
     for r, run in enumerate(ranks):
         main, control = run["main"], run["control"]
@@ -7398,8 +7434,8 @@ def run_parallel_path(dev, main) -> dict:
     res["failures"] = failures
     a, d = res["a"], res["d"]
     log(f"[parallel] a: TP 2 prefill {a['prefill_tokens_per_s']:.1f} tokens/s, decode {a['decode_tokens_per_s']:.1f} "
-        f"tokens/s, B1 {a['b1_launches']} launches, tokens equal one rank's for {a['tokens_equal_main']} of "
-        f"{len(PROMPT_LENS)}, "
+        f"tokens/s, B1 {a['b1_launches']} launches, {a['teacher_forced_tokens']} tokens teacher-forced, worst gap "
+        f"{a['teacher_forced_max_gap']:.3f}, "
         f"control gap {a['control_max_gap']:.3f} (limit {a['teacher_forced_limit']:.3f})")
     for leg in "bc":
         m = [r["main"] for r in res[leg]["ranks"]]
@@ -7420,6 +7456,604 @@ def run_parallel_path(dev, main) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 17 --
+# the model-parallel axes composed: four processes of this script
+# (--composed-rank-child) over gloo on the card, started once, run three legs
+# in sequence: (e) Mixtral-8x7B's widths at 2 layers served at TP 2 x EP 2 (the
+# (expert, model) mesh: ranks 0-1 expert rank 0, ranks 2-3 expert rank 1), (f)
+# Llama-2-7B's widths at 2 layers trained at TP 2 x SP 2, its tag then loaded
+# at world 1 by the parent, and (g) Mixtral-8x7B's widths at 1 layer trained
+# with Ulysses 2 and EP 2 at ZeRO 3 (seq 2 x expert 2). TP of a MoE model in
+# training is held on the CPU only: its banks,
+# whole on every model rank, cost about 25 GB of state a rank at these
+# widths, which four ranks on one card cannot hold (PERF.md section 4).
+COMP_PREDICTED_S = 200.0  # the phase's predicted seconds, printed before it runs
+# each leg's predicted seconds and peak GiB a rank (printed before it runs)
+COMP_PREDICTED = {"e": (40.0, 9.0), "f": (70.0, 9.0), "g": (45.0, 17.0)}
+COMP_TIMEOUT_S = 900  # bound on the ranks
+COMP_E_LAYERS = 2  # leg e: Mixtral-8x7B's widths at a cut depth (cut: depth)
+COMP_F_LAYERS = 2  # leg f: Llama-2-7B's widths at a cut depth (cut: depth)
+COMP_F_B, COMP_F_S = 2, 2048  # leg f: 2 rows of 2048 positions, 1024 a sequence rank
+COMP_F_MASK = (100, 700)  # leg f's -100 span of labels: inside sequence rank 0's half
+COMP_F_STEPS = 2  # leg f's steps before the save (cut: steps, from 3, as ZERO_STEPS)
+COMP_F_CONTROL_STEPS = 1  # its control's
+COMP_G_LAYERS = 1  # leg g: Mixtral-8x7B's widths at 1 layer (MOE_TRAIN_LAYERS)
+# leg g: (rows of MOE_TRAIN_S tokens, axes). Ulysses 2 beside EP 2: each rank
+# holds 4 experts, and a bank's ZeRO-3 partitions lie over its expert-data group
+# of 2, its sequence ranks. Ulysses beside data ranks instead leaves every
+# expert on each rank, and a unit then gathers all 8 banks (2.8 GB) beside
+# their f32 copies in the experts' product (5.6 GB), which four ranks cannot hold
+COMP_G_RUNS = {"sp2xep2_zero3": (4, {"sequence_parallel_size": 2, "expert_parallel_size": 2})}
+COMP_G_STEPS = 1  # the checks read the first step's gates
+COMP_E_SPLIT = ([0, 2, 4, 6], [1, 3, 5, 7])  # leg e: the main path's prompts of expert rank 0 and 1
+
+
+def _comp_llama(sequence_parallel=True):
+    """Leg f's model: bench.py's training setup (remat "dots", flash) at
+    Llama-2-7B's widths, COMP_F_LAYERS layers."""
+    w = LlamaConfig.llama2_7b()
+    return bench_llama(hidden_size=w.hidden_size, intermediate_size=w.intermediate_size,
+                       num_attention_heads=w.num_attention_heads, num_key_value_heads=w.num_key_value_heads,
+                       num_hidden_layers=COMP_F_LAYERS, sequence_parallel=sequence_parallel,
+                       max_position_embeddings=COMP_F_S)
+
+
+def _comp_f_batches(cfg, dev, n=COMP_F_STEPS + 1):
+    """Leg f's global batches (the last one for the step after the save)."""
+    rng = np.random.default_rng(19)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, cfg.vocab_size, size=(COMP_F_B, COMP_F_S + 1), dtype=np.int64)
+        labels = ids[:, 1:].copy()
+        labels[:, COMP_F_MASK[0]:COMP_F_MASK[1]] = -100
+        out.append(tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (ids[:, :-1], labels)))
+    return out
+
+
+def _comp_g_config(run):
+    rows, axes = COMP_G_RUNS[run]
+    return mixtral_config(COMP_G_LAYERS, capacity_factor=PAR_MOE_CAPACITY,
+                          sequence_parallel="sequence_parallel_size" in axes), rows, axes
+
+
+def _comp_g_batches(cfg, rows, dev):
+    rng = np.random.default_rng(23)
+    ids = rng.integers(0, cfg.vocab_size, size=(COMP_G_STEPS, rows, MOE_TRAIN_S + 1), dtype=np.int64)
+    return [tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (b[:, :-1], b[:, 1:])) for b in ids]
+
+
+def _comp_references(dev, work, plan) -> dict:
+    """The parent's runs while the ranks serve leg e: leg e's one-rank Mixtral
+    engine (every expert, no TP) through generate on the main path's
+    prompts, and leg f's world-1 training run (losses, launches; masters to
+    work/ref_f.pt)."""
+    out = {}
+    cfg = mixtral_config(COMP_E_LAYERS)
+    params = _moe_params(cfg, dev)
+    engine = _moe_engine(params, cfg, dev)
+    t0 = time.perf_counter()
+    out["e"] = dict(tokens=generate(engine, plan["prompts"], max_new_tokens=NEW_TOKENS, decode_chunk=NEW_TOKENS))
+    out["e"]["seconds"] = time.perf_counter() - t0
+    engine.close()
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _comp_llama()
+    engine = _par_engine(_comp_llama(False), dev, COMP_F_B)
+    losses, launches, secs = _par_train(engine, _comp_f_batches(cfg, dev)[:COMP_F_STEPS])
+    out["f"] = dict(losses=losses, flash_launches=launches, seconds=secs)
+    torch.save({k: v.cpu() for k, v in engine.params.items()}, os.path.join(work, "ref_f.pt.tmp"))
+    os.rename(os.path.join(work, "ref_f.pt.tmp"), os.path.join(work, "ref_f.pt"))
+    _free(engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card from here on
+    return out
+
+
+def _comp_leg_e(dev, rank, plan) -> dict:
+    """TP 2 x EP 2 serving: each rank draws its expert rank's 4 experts of
+    the seed-0 weights (the attention whole: ``build_engine`` cuts this
+    model rank's heads); the model rank 0 of expert rank ``e`` serves
+    COMP_E_SPLIT[e] of the main path's prompts through generate, its model
+    rank 1 follows every engine call, then both leave the expert group. Then
+    the control: the same for MOE_CONTROL_TOKENS with expert rank 1's
+    experts swapped (its banks flipped on both its model ranks)."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference.v2.config_v2 import DeepSpeedTPConfig
+    cfg = mixtral_config(COMP_E_LAYERS)
+    ep_rank, lead = rank // 2, rank % 2 == 0
+    per = cfg.num_local_experts // 2
+    t0 = time.perf_counter()
+    params = _moe_params(cfg, dev, experts=(ep_rank * per, (ep_rank + 1) * per))
+    torch.cuda.synchronize()
+    out = dict(ep_rank=ep_rank, init_s=time.perf_counter() - t0)
+    prompts = [plan["prompts"][i] for i in COMP_E_SPLIT[ep_rank]]
+    for run, new_tokens in (("main", NEW_TOKENS), ("control", MOE_CONTROL_TOKENS)):
+        if run == "control" and ep_rank == 1:
+            for li in range(cfg.num_hidden_layers):
+                for bank in ("wi", "wo"):
+                    t = params[f"layers.{li}.block_sparse_moe.experts.{bank}"]
+                    t.copy_(t.flip(0))
+        torch.cuda.reset_peak_memory_stats()
+        engine = _moe_engine(params, cfg, dev, ep=2, tensor_parallel=DeepSpeedTPConfig(tp_size=2))
+        model = engine.model
+        buckets, exchanged = [], []
+        inner = model._forward_impl
+        model._forward_impl = lambda tok, seq, n, inner=inner: buckets.append(tok.shape[-1]) or inner(tok, seq, n)
+        sync = model.ep_sync.exchange
+        model.ep_sync.exchange = lambda n, sync=sync: exchanged.append(sync(n)) or exchanged[-1]
+        comm.comm.comms_logger.comms_dict.clear()
+        paged_attention_update.launches = 0
+        for m in model.moes:
+            m.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        routing = _RoutingLog(engine) if lead else None
+        if lead:
+            tokens = generate(engine, prompts, max_new_tokens=new_tokens, decode_chunk=new_tokens)
+            serve_s = time.perf_counter() - t0
+            empty_runs = engine.leave_expert_group()
+            calls = None
+        else:
+            tokens, serve_s, empty_runs, calls = None, None, None, engine.follow()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if routing is not None:
+            routing.close()
+        logged = comm.comm.comms_logger.comms_dict
+        a2a, row = logged.get("all_to_all_single", {}), logged.get("tp_row", {})
+        out[run] = dict(tokens=tokens, follower_calls=calls, serve_s=serve_s, wall_s=wall, empty_runs=empty_runs,
+                        b1_launches=paged_attention_update.launches, forwards=len(buckets), bucket_tokens=buckets,
+                        exchanged=exchanged, a2a_count=sum(v[0] for v in a2a.values()),
+                        a2a_bytes=sum(size * v[0] for size, v in a2a.items()),
+                        a2a_ms=sum(sum(v[1]) for v in a2a.values()), tp_row_count=sum(v[0] for v in row.values()),
+                        tp_row_bytes=sum(size * v[0] for size, v in row.items()),
+                        routes=None if routing is None else [[u, p, li, *e] for (u, p), layers in routing.routes.items()
+                                                             for li, e in layers.items()],
+                        heads=[model.num_heads, model.num_kv_heads],
+                        bank_shape=list(model._params["layers.0.block_sparse_moe.experts.wi"].shape),
+                        cache_shape=list(engine._state_manager.kv_cache.cache.shape),
+                        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30, **_moe_stats(engine))
+        engine.close()
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    return out
+
+
+def _comp_leg_f(dev, rank, work, deadline) -> dict:
+    """TP 2 x SP 2 training (``initialize`` with auto_tp_specs, Ulysses over
+    each model rank's 16 heads, 8 a rank after the all-to-all),
+    COMP_F_STEPS steps held to the world-1 run's masters; then a save (every array whole,
+    rank 0 writing) and one more step, whose loss the parent's world-1
+    engine, loaded from the tag, must repeat; rank 0 records the CRC32 of
+    each gathered master at the save. Then the control (RoPE at each
+    slice's local positions, COMP_F_CONTROL_STEPS steps), which must miss
+    the masters."""
+    cfg = _comp_llama()
+    extra = {"tensor_parallel_size": 2, "sequence_parallel_size": 2}
+    _wait_for(os.path.join(work, "ref_f.pt"), deadline)
+    want = {k: v.to(dev) for k, v in torch.load(os.path.join(work, "ref_f.pt"), weights_only=True).items()}
+    batches = _comp_f_batches(cfg, dev)
+    out = {}
+    for run in ("main", "control"):
+        torch.cuda.reset_peak_memory_stats()
+        engine = _par_engine(cfg, dev, COMP_F_B, extra, tp=True)
+        keep_rope = LlamaModel.rope
+        if run == "control":
+            LlamaModel.rope = lambda self, n, device: rotary_embedding(n, self.cfg.head_dim, self.cfg.rope_theta,
+                                                                       device=device)
+        try:
+            losses, launches, secs = _par_train(engine, batches[:COMP_F_STEPS if run == "main" else
+                                                                COMP_F_CONTROL_STEPS])
+        finally:
+            LlamaModel.rope = keep_rope
+        full = engine.full_params()
+        stats, bad = _masters_close(full, want, steps=COMP_F_STEPS)
+        out[run] = dict(losses=losses, flash_launches=launches, steps_s=secs, masters_outside=bad,
+                        masters_worst=min(stats.values()),
+                        local_shapes={n: list(p.shape) for n, p in engine.params.items()
+                                      if n in (PAR_COLUMN, "lm_head.weight", "embed_tokens.weight")},
+                        heads_after_all_to_all=cfg.num_attention_heads // 4,
+                        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if run == "main":
+            out["masters_crc"] = {n: ckpt.tensor_crc32(p.detach().cpu()) for n, p in full.items()} if rank == 0 \
+                else None
+            del full
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.save_checkpoint(os.path.join(work, "tag_f"), tag="f")
+            torch.cuda.synchronize()
+            out["save_s"] = time.perf_counter() - t0
+            out["tag_bytes"] = _tag_bytes(os.path.join(work, "tag_f", "f")) if rank == 0 else None
+            _zero_flash_launches()
+            out["next_loss"] = float(engine.train_batch(batch=batches[COMP_F_STEPS]))
+            out["next_flash_launches"] = _flash_launches()
+        else:
+            del full
+        _free(engine)
+        del engine  # before the next run builds its own: destroy() keeps the state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _comp_leg_g(dev, rank) -> dict:
+    """MoE across the composed axes, Mixtral-8x7B's widths at 1 layer,
+    capacity binding (PAR_MOE_CAPACITY), noise off, ZeRO 3 (persistence
+    threshold 0), each run of COMP_G_RUNS (Ulysses 2 beside EP 2: 4 experts
+    a rank, each bank partitioned over its expert-data group, the 2
+    sequence ranks).
+    COMP_G_STEPS steps each; the first step's global gates (and, as the
+    control, the same gates over each rank's own tokens), rank 0's routes,
+    and the bytes of the banks' masters and optimizer state this rank
+    holds."""
+    from deepspeed_tpu_torch import comm
+    out = {}
+    for run in COMP_G_RUNS:
+        cfg, rows, axes = _comp_g_config(run)
+        batches = _comp_g_batches(cfg, rows, dev)
+        torch.cuda.reset_peak_memory_stats()
+        config = {"train_batch_size": rows, "gradient_accumulation_steps": 1, **axes,
+                  "optimizer": {"type": "AdamW", "params": {"lr": TRAIN_LR}},
+                  "zero_optimization": {"stage": 3, "stage3_param_persistence_threshold": 0},
+                  "bf16": {"enabled": True}}
+        t0 = time.perf_counter()
+        # built on the card in bf16 from one seed (the same weights on every
+        # rank), not drawn and copied in: a rank then holds the model once in
+        # bf16 beside the engine's f32 masters while it builds, and four
+        # ranks build at once (the groups are made by every rank together).
+        # The checks read the gates' counts along replayed routes, which no
+        # weight decides
+        keep = torch.get_default_dtype()
+        torch.manual_seed(0)
+        torch.set_default_dtype(torch.bfloat16)
+        try:
+            with torch.device(dev):
+                model = MixtralForCausalLM(cfg)
+        finally:
+            torch.set_default_dtype(keep)
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=config, device=dev)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine._seed_gates = lambda: None  # the noise off, as the f32 reference's
+        init_s = time.perf_counter() - t0
+        losses, secs, routes, gates = [], [], [], []
+        for step, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sp = axes.get("sequence_parallel_size", 1)
+            inner = _moe_gate_log(gates, (sp, rows // (comm.get_world_size() // sp)) if sp > 1 else None) \
+                if step == 0 else None
+            try:
+                with _gate_routes(cfg.num_local_experts, record=routes) if step == 0 and rank == 0 \
+                        else contextlib.nullcontext():
+                    losses.append(engine.train_batch(batch=b).item())
+            finally:
+                if inner is not None:
+                    sharded_moe.top2gating = inner
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        banks = [n for n in engine.params if n.endswith(("experts.wi", "experts.wo"))]
+        opt = engine.opt_state._asdict() if hasattr(engine.opt_state, "_asdict") else dict(engine.opt_state)
+        out[run] = dict(init_s=init_s, losses=losses, step_s=secs, gates=gates,
+                        routes=[r.argmax(-1).tolist() for r in routes] if rank == 0 else None,
+                        mesh={k: int(v) for k, v in engine.mesh.shape.items() if v > 1},
+                        bank_master_elems=sum(engine.params[n].numel() for n in banks),
+                        bank_opt_elems=sum(v[n].numel() for v in opt.values() if isinstance(v, dict) for n in banks),
+                        bank_shapes={n: list(engine.params[n].shape) for n in banks},
+                        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+        _free(engine)
+        del engine  # before the next run builds its own: destroy() keeps the state
+        gc.collect()
+        torch.cuda.empty_cache()
+        comm.barrier()
+    return out
+
+
+def composed_rank_child(work, device="cuda:0") -> int:
+    """One rank of run_composed_path, started through the launcher: joins the
+    gloo group, waits for the parent's plan, runs legs e-g, writes its
+    readings to work/rank<r>.json."""
+    from deepspeed_tpu_torch import comm
+    dev = torch.device(device)
+    comm.init_distributed(dist_backend="gloo", device=dev, verbose=False)
+    comm.configure(enabled=True)
+    rank = comm.get_rank()
+    deadline = time.monotonic() + COMP_TIMEOUT_S
+    _wait_for(os.path.join(work, "go"), deadline)
+    with open(os.path.join(work, "go")) as f:
+        plan = json.load(f)
+    out = {"rank": rank}
+    for leg, fn in (("e", lambda: _comp_leg_e(dev, rank, plan)), ("f", lambda: _comp_leg_f(dev, rank, work, deadline)),
+                    ("g", lambda: _comp_leg_g(dev, rank))):
+        t0 = time.perf_counter()
+        out[leg] = fn()
+        out[leg]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        comm.configure(enabled=True)  # an engine's init configured the comms logger from its (empty) block
+        comm.barrier()
+        # what is done survives a later leg's failure, and the parent reads
+        # each leg as it lands (written whole, then renamed)
+        with open(os.path.join(work, f"rank{rank}.json.tmp"), "w") as f:
+            json.dump(out, f)
+        os.replace(os.path.join(work, f"rank{rank}.json.tmp"), os.path.join(work, f"rank{rank}.json"))
+    comm.destroy_process_group()
+    return 0
+
+
+def _comp_check_e(ranks, refs, main, plan, dev, failures) -> dict:
+    """Leg e: each request's tokens equal the one-rank engine's or pass the
+    teacher-forced check against the f32 Mixtral along the served routes,
+    within leg a's limit (the control's tokens must fail it); no assignment
+    dropped; B1 two launches a layer in every forward of a decode-sized
+    bucket on every rank, at 16 heads over 4 KV heads; the all-to-all bytes
+    to the count from C, E, M and the layers, over each rank's expert group;
+    the row all-reduce's bytes one a layer a forward of the bucket's tokens
+    x hidden x 4 (f32), over each model group."""
+    cfg = mixtral_config(COMP_E_LAYERS)
+    L = cfg.num_hidden_layers
+    res = dict(ranks=[{k: v for k, v in r["main"].items() if k not in ("tokens", "routes", "bucket_tokens",
+                                                                       "exchanged")} for r in ranks])
+    for r, run in enumerate(ranks):
+        m = run["main"]
+        small = sum(1 for t in m["bucket_tokens"] if t <= 32)
+        m["b1_expected"] = 2 * L * small
+        res["ranks"][r]["b1_expected"] = m["b1_expected"]
+        if m["b1_launches"] != m["b1_expected"] or not small:
+            failures.append(f"e: rank {r} launched B1 {m['b1_launches']} times, expected {m['b1_expected']}")
+        if m["heads"] != [16, 4] or m["cache_shape"][3] != 4 or m["bank_shape"][0] != cfg.num_local_experts // 2:
+            failures.append(f"e: rank {r} holds heads {m['heads']}, a cache {m['cache_shape']}, "
+                            f"banks {m['bank_shape']}")
+        if m["dropped"]:
+            failures.append(f"e: rank {r} dropped {m['dropped']} assignments")
+        a2a = (_moe_predicted_a2a_bytes(cfg, m["exchanged"]), 2 * L * m["forwards"])
+        row = (L * sum(m["bucket_tokens"]) * cfg.hidden_size * 4, L * m["forwards"])
+        res["ranks"][r].update(a2a_predicted=a2a, tp_row_predicted=row)
+        if (m["a2a_bytes"], m["a2a_count"]) != a2a:
+            failures.append(f"e: rank {r} moved {m['a2a_bytes']} bytes in {m['a2a_count']} all-to-alls, "
+                            f"predicted {a2a}")
+        if (m["tp_row_bytes"], m["tp_row_count"]) != row:
+            failures.append(f"e: rank {r} all-reduced {m['tp_row_bytes']} bytes in {m['tp_row_count']} calls, "
+                            f"predicted {row}")
+    for e in range(2):  # a model group runs its leader's forwards; an expert group pairs them
+        if ranks[2 * e]["main"]["bucket_tokens"] != ranks[2 * e + 1]["main"]["bucket_tokens"]:
+            failures.append(f"e: expert rank {e}'s model ranks ran different forwards")
+    if ranks[0]["main"]["exchanged"] != ranks[2]["main"]["exchanged"]:
+        failures.append("e: the expert ranks ran different forwards")
+    prompts = plan["prompts"]
+
+    def by_request(run):
+        tokens, routes = [None] * len(prompts), [None] * len(prompts)
+        for e in range(2):
+            got = ranks[2 * e][run]
+            table = {(u, p, li): x for u, p, li, *x in got["routes"]}
+            for j, i in enumerate(COMP_E_SPLIT[e]):
+                tokens[i] = got["tokens"][j]
+                routes[i] = [[table[(j, p, li)] for li in range(L)]
+                             for p in range(len(prompts[i]) + len(tokens[i]) - 1)]
+        return tokens, routes
+
+    served, routes = by_request("main")
+    control, control_routes = by_request("control")
+    one = refs["e"]["tokens"]
+    limit = TF_SLACK * max(main["logits_max_abs_err_kernel_vs_f32"], main["logits_max_abs_err_gather_vs_f32"])
+    res.update(teacher_forced_limit=limit, tokens_equal_one_rank=sum(s == o for s, o in zip(served, one)),
+               differ=[i for i in range(len(prompts)) if served[i] != one[i]], one_rank_s=refs["e"]["seconds"])
+    params = _moe_params(cfg, dev)
+    if res["differ"]:
+        idx = res["differ"]
+        rows, deficit, disagree = _moe_teacher_forced(params, cfg, [prompts[i] for i in idx], [served[i] for i in idx],
+                                                      [routes[i] for i in idx])
+        gaps = _moe_gaps(rows, [served[i] for i in idx])
+        res["teacher_forced"] = dict(max_gap=gaps.max().item(), tokens=gaps.numel(), routes_disagree=disagree,
+                                     routes_max_deficit=deficit)
+        if not gaps.max().item() <= limit:
+            failures.append(f"e: a served token trails the f32 maximum by {gaps.max().item()} > {limit}")
+    rows, deficit, _ = _moe_teacher_forced(params, cfg, prompts, control, control_routes)
+    res["control_max_gap"] = _moe_gaps(rows, control).max().item()
+    if not res["control_max_gap"] > limit:
+        failures.append("e: the teacher-forced check passes the tokens served with expert rank 1's experts swapped")
+    del params, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["b1_launches"] = ranks[0]["main"]["b1_launches"]
+    return res
+
+
+def _comp_check_f(ranks, ref, work, dev, failures) -> dict:
+    """Leg f: legs b and c's checks (losses, masters, B2-B4's launches at 8
+    heads a rank, the control), then the tag: a world-1 engine loads it,
+    its masters' CRC32s equal those of the ranks' gathered masters at the
+    save, and its next step's loss equals the ranks' within
+    ZERO_LOSS_REL_TOL."""
+    res = _par_check_train("f", [{k: r[k] for k in ("main", "control")} for r in ranks], ref, failures,
+                           steps=COMP_F_STEPS)
+    res["heads_after_all_to_all"] = ranks[0]["main"]["heads_after_all_to_all"]
+    if res["heads_after_all_to_all"] != 8:
+        failures.append(f"f: {res['heads_after_all_to_all']} heads a rank in the attention")
+    res.update(save_s=[r["save_s"] for r in ranks], tag_bytes=ranks[0]["tag_bytes"],
+               next_losses=[r["next_loss"] for r in ranks])
+    t0 = time.perf_counter()
+    engine = _par_engine(_comp_llama(False), dev, COMP_F_B)
+    engine.load_checkpoint(os.path.join(work, "tag_f"), tag="f")
+    res["load_s"] = time.perf_counter() - t0
+    crc = {n: ckpt.tensor_crc32(p.detach().cpu()) for n, p in engine.params.items()}
+    res["masters_bitwise"] = crc == ranks[0]["masters_crc"]
+    if not res["masters_bitwise"]:
+        failures.append("f: the masters loaded at world 1 differ from the ranks' gathered masters")
+    _zero_flash_launches()
+    res["world1_next_loss"] = float(engine.train_batch(batch=_comp_f_batches(_comp_llama(False), dev)[COMP_F_STEPS]))
+    res["next_loss_rel_err"] = max(abs(x - res["world1_next_loss"]) / abs(res["world1_next_loss"])
+                                   for x in res["next_losses"])
+    if not res["next_loss_rel_err"] <= ZERO_LOSS_REL_TOL:
+        failures.append(f"f: the next step's losses {res['next_losses']} vs world 1's {res['world1_next_loss']}")
+    _free(engine)
+    return res
+
+
+def _comp_check_g(ranks, dev, failures) -> dict:
+    """Leg g, each run: the global gate's counts and kept assignments equal
+    a world-1 f32 step's along the same routes (recorded on rank 0,
+    replayed) and agree on every rank; the gate of each rank's own tokens
+    (the control) must keep another number; every loss finite and the same
+    on every rank; each rank holds a quarter of each bank's masters and
+    optimizer state (the banks over 2 expert ranks, each partitioned over
+    its 2 sequence ranks)."""
+    res = {}
+    for run in COMP_G_RUNS:
+        cfg, rows, _ = _comp_g_config(run)
+        mine = [r[run] for r in ranks]
+        out = dict(ranks=[{k: v for k, v in m.items() if k not in ("routes", "gates")} for m in mine])
+        first = lambda m: [(g["counts"], g["kept"]) for g in m["gates"][:cfg.num_hidden_layers]]
+        if any(first(m) != first(mine[0]) for m in mine):
+            failures.append(f"g {run}: the ranks' global gates disagree")
+        batch = _comp_g_batches(mixtral_config(COMP_G_LAYERS, capacity_factor=PAR_MOE_CAPACITY), rows, dev)[0]
+        replay = [F.one_hot(torch.tensor(r, device=dev), cfg.num_local_experts).float() for r in mine[0]["routes"]]
+        record = []
+        inner = sharded_moe.top2gating
+        sharded_moe.top2gating = lambda *a, **k: record.append(inner(*a, **k)) or record[-1]
+        try:
+            _moe_f32_step(mixtral_config(COMP_G_LAYERS, capacity_factor=PAR_MOE_CAPACITY), dev, batch, replay=replay)
+        finally:
+            sharded_moe.top2gating = inner
+        world1 = [(g[3].tolist(), float(g[2].sum())) for g in record][:cfg.num_hidden_layers]
+        tokens = 2 * rows * MOE_TRAIN_S
+        out["dropped"] = [tokens - kept for _, kept in first(mine[0])]
+        out["world1_dropped"] = [tokens - kept for _, kept in world1]
+        out["control_dropped"] = [tokens - sum(m["gates"][i]["local_kept"] for m in mine)
+                                  for i in range(cfg.num_hidden_layers)]
+        if first(mine[0]) != world1:
+            failures.append(f"g {run}: the global gate {first(mine[0])} != world 1's {world1}")
+        if not out["dropped"][0] > 0:
+            failures.append(f"g {run}: capacity does not bind")
+        if out["control_dropped"] == out["dropped"]:
+            failures.append(f"g {run}: the gate of each rank's own tokens drops as many as the global gate")
+        if not all(math.isfinite(x) for x in mine[0]["losses"]) or any(m["losses"] != mine[0]["losses"] for m in mine):
+            failures.append(f"g {run}: the ranks' losses {[m['losses'] for m in mine]}")
+        whole = cfg.num_hidden_layers * cfg.num_local_experts * 3 * cfg.hidden_size * cfg.intermediate_size
+        out["bank_share"] = [m["bank_master_elems"] / whole for m in mine]
+        out["bank_opt_share"] = [m["bank_opt_elems"] / (2 * whole) for m in mine]
+        if any(x != 0.25 for x in out["bank_share"] + out["bank_opt_share"]):
+            failures.append(f"g {run}: a rank holds {out['bank_share']} of the banks' masters and "
+                            f"{out['bank_opt_share']} of their optimizer state, not a quarter")
+        res[run] = out
+    return res
+
+
+def _comp_wait_for_leg(work, leg, proc, deadline):
+    """Every rank's readings of ``leg`` once all four have written them, or
+    None if the ranks' launcher exits first (its failure is read after)."""
+    paths = [os.path.join(work, f"rank{r}.json") for r in range(4)]
+    while time.monotonic() < deadline and proc.poll() is None:
+        if all(os.path.exists(p) for p in paths):
+            readings = []
+            for p in paths:
+                with open(p) as f:
+                    readings.append(json.load(f).get(leg))
+            if all(r is not None for r in readings):
+                return readings
+        time.sleep(0.5)
+    return None
+
+
+def run_composed_path(dev, main) -> dict:
+    """The model-parallel axes composed (legs e-g above), the four ranks
+    started once; ``main`` is run_main_path's record (its logit errors)."""
+    t_phase = time.perf_counter()
+    log(f"[composed] predicted: {COMP_PREDICTED_S:.0f} s for the phase; each leg's seconds and peak GiB a rank: "
+        + json.dumps(COMP_PREDICTED))
+    failures, res = [], {}
+    work = tempfile.mkdtemp(prefix="composed_")
+    # four ranks share the card: the allocator's expandable segments keep each
+    # rank's cached blocks from fragmenting into memory the others need
+    proc = _start(_ranks_cmd(["--composed-rank-child", work], world=4),
+                  env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    try:
+        rng = np.random.default_rng(0)
+        plan = {"prompts": [rng.integers(0, LlamaConfig.llama2_7b().vocab_size, n).tolist() for n in PROMPT_LENS]}
+        # the plan first: the ranks serve leg e while the parent runs its
+        # references (leg f's ranks wait for ref_f.pt)
+        with open(os.path.join(work, "go.tmp"), "w") as f:
+            json.dump(plan, f)
+        os.rename(os.path.join(work, "go.tmp"), os.path.join(work, "go"))
+        t0 = time.perf_counter()
+        refs = _comp_references(dev, work, plan)
+        refs["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        # leg e's checks while the ranks train legs f and g
+        e_ranks = _comp_wait_for_leg(work, "e", proc, time.monotonic() + COMP_TIMEOUT_S)
+        if e_ranks is not None:
+            res["e"] = _comp_check_e(e_ranks, refs, main, plan, dev, failures)
+            gc.collect()
+            torch.cuda.empty_cache()
+        rc, out, err = _finish(proc, timeout=COMP_TIMEOUT_S)
+        if rc != 0:
+            os.makedirs("chiprun_out", exist_ok=True)
+            with open(os.path.join("chiprun_out", "composed_ranks.err"), "w") as f:
+                f.write(err)
+            for r in range(4):
+                if os.path.exists(os.path.join(work, f"rank{r}.json")):
+                    shutil.copy(os.path.join(work, f"rank{r}.json"),
+                                os.path.join("chiprun_out", f"composed_rank{r}.json"))
+            raise AssertionError(f"composed: the ranks failed (exit {rc}; their stderr in "
+                                 f"chiprun_out/composed_ranks.err): {err[-3000:]}")
+        ranks = []
+        for r in range(4):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        res.update(references_s=refs["seconds"], legs_s={leg: [r[leg]["seconds"] for r in ranks] for leg in "efg"})
+        if "e" not in res:
+            res["e"] = _comp_check_e([r["e"] for r in ranks], refs, main, plan, dev, failures)
+        log("[composed] e: " + json.dumps(res["e"]))
+        res["f"] = _comp_check_f([r["f"] for r in ranks], refs["f"], work, dev, failures)
+        log("[composed] f: " + json.dumps(res["f"]))
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    res["g"] = _comp_check_g([r["g"] for r in ranks], dev, failures)
+    log("[composed] g: " + json.dumps(res["g"]))
+    res["b1_launches"] = res["e"]["b1_launches"]
+    res["flash_launches"] = ranks[0]["f"]["main"]["flash_launches"]
+    res["seconds"] = time.perf_counter() - t_phase
+    res["failures"] = failures
+    e, f, g = res["e"], res["f"], res["g"]
+    log(f"[composed] e: TP 2 x EP 2 tokens equal one rank's for {e['tokens_equal_one_rank']} of {len(PROMPT_LENS)} "
+        f"(teacher-forced {e.get('teacher_forced')}, limit {e['teacher_forced_limit']:.3f}, control gap "
+        f"{e['control_max_gap']:.3f}), B1 {[r['b1_launches'] for r in e['ranks']]} launches, all-to-all bytes "
+        f"{[r['a2a_bytes'] for r in e['ranks']]}, peak {[r['max_memory_allocated_gib'] for r in e['ranks']]} GiB")
+    log(f"[composed] f: losses {f['ranks'][0]['main']['losses']} (world 1 {f['world1']['losses']}), worst masters "
+        f"{[r['main']['masters_worst'] for r in f['ranks']]}, control worst "
+        f"{[r['control']['masters_worst'] for r in f['ranks']]}; tag {f['tag_bytes']} bytes saved in {f['save_s']} s, "
+        f"loaded at world 1 in {f['load_s']:.1f} s, bitwise {f['masters_bitwise']}, next loss "
+        f"{f['next_losses'][0]} (world 1 {f['world1_next_loss']})")
+    for run, r in g.items():
+        log(f"[composed] g {run}: dropped {r['dropped']} (world 1 {r['world1_dropped']}, own-token gate "
+            f"{r['control_dropped']}), bank share {r['bank_share']}, peak "
+            f"{[x['max_memory_allocated_gib'] for x in r['ranks']]} GiB, steps {r['ranks'][0]['step_s']} s")
+    log(f"[composed] {res['seconds']:.1f} s (predicted {COMP_PREDICTED_S:.0f}); legs {res['legs_s']}")
+    log(card_line())
+    if failures:
+        raise AssertionError("composed phase: " + "; ".join(failures))
+    return res
+
+
+def _phase(record, name, fn, *args):
+    """``fn(*args)``, its wall seconds kept in ``record["phase_seconds"]``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    record.setdefault("phase_seconds", {})[name] = time.perf_counter() - t0
+    log(f"[phase] {name} {record['phase_seconds'][name]:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA GPU; torch.cuda.is_available() is false", file=sys.stderr)
@@ -7435,6 +8069,8 @@ def main() -> int:
         return moe_rank_child(*sys.argv[2:])
     if sys.argv[1:2] == ["--par-rank-child"]:
         return parallel_rank_child(*sys.argv[2:])
+    if sys.argv[1:2] == ["--composed-rank-child"]:
+        return composed_rank_child(*sys.argv[2:])
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7443,41 +8079,44 @@ def main() -> int:
     card = card_line()
     log(card)
     record = {"card": card, "device": torch.cuda.get_device_name(0)}
-    record["build"] = build_kernels()
-    record["paged_attention"] = check_paged_attention(dev)
-    record["flash_attention"] = check_flash_attention(dev)
-    record["block_sparse_attention"] = check_block_sparse_attention(dev)
+    record["build"] = _phase(record, "build", build_kernels)
+    record["paged_attention"] = _phase(record, "paged_attention", check_paged_attention, dev)
+    record["flash_attention"] = _phase(record, "flash_attention", check_flash_attention, dev)
+    record["block_sparse_attention"] = _phase(record, "block_sparse_attention", check_block_sparse_attention, dev)
     params = main_params(dev)
-    record["main_path"] = run_main_path(dev, params)
-    record["serving_path"] = run_serving_path(dev, params, record["main_path"])
-    record["prefix_path"] = run_prefix_path(dev, params, record["main_path"])
-    record["spec_path"] = run_spec_path(dev, params, record["main_path"])
-    record["observe_path"] = run_observe_path(dev, params, record["main_path"])
-    record["fleet_path"] = run_fleet_path(dev, params, record["main_path"])
+    record["main_path"] = _phase(record, "main_path", run_main_path, dev, params)
+    record["serving_path"] = _phase(record, "serving_path", run_serving_path, dev, params, record["main_path"])
+    record["prefix_path"] = _phase(record, "prefix_path", run_prefix_path, dev, params, record["main_path"])
+    record["spec_path"] = _phase(record, "spec_path", run_spec_path, dev, params, record["main_path"])
+    record["observe_path"] = _phase(record, "observe_path", run_observe_path, dev, params, record["main_path"])
+    record["fleet_path"] = _phase(record, "fleet_path", run_fleet_path, dev, params, record["main_path"])
     record["fleet_path"]["single_replica"] = {k: record["serving_path"][k] for k in (
         "ttft_p50_s", "ttft_p99_s", "itl_p50_s", "itl_p99_s", "served_tokens_per_s")}
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    record["moe_path"] = run_moe_path(dev)
+    record["moe_path"] = _phase(record, "moe_path", run_moe_path, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    record["training_path"] = run_training_path(dev)
+    record["training_path"] = _phase(record, "training_path", run_training_path, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    record["checkpoint_path"] = run_checkpoint_path(dev)
+    record["checkpoint_path"] = _phase(record, "checkpoint_path", run_checkpoint_path, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    record["train_features_path"] = run_train_features_path(dev)
+    record["train_features_path"] = _phase(record, "train_features_path", run_train_features_path, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    record["zero_path"] = run_zero_path(dev)
+    record["zero_path"] = _phase(record, "zero_path", run_zero_path, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    record["zero_plus_path"] = run_zero_plus_path(dev)
+    record["zero_plus_path"] = _phase(record, "zero_plus_path", run_zero_plus_path, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    record["parallel_path"] = run_parallel_path(dev, record["main_path"])
+    record["parallel_path"] = _phase(record, "parallel_path", run_parallel_path, dev, record["main_path"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["composed_path"] = _phase(record, "composed_path", run_composed_path, dev, record["main_path"])
     record["seconds"] = time.perf_counter() - t_start
 
     decode = record["paged_attention"][0]  # the serving path's decode shape
@@ -7491,6 +8130,7 @@ def main() -> int:
                     launches_fleet_path=record["fleet_path"]["b1_launches"],
                     launches_moe_path=record["moe_path"]["b1_launches"],
                     launches_parallel_path=record["parallel_path"]["b1_launches"],
+                    launches_composed_path=record["composed_path"]["b1_launches"],
                     max_abs_err=max(r["max_abs_err"] for r in record["paged_attention"]),
                     ms=decode["ms"], plain_ms=decode["plain_ms"], bound_ms=decode["bound_ms"],
                     bound_by=decode["bound_by"], library_ms=decode["library_ms"],
@@ -7507,6 +8147,7 @@ def main() -> int:
                             launches_zero_path=record["zero_path"]["flash_launches"][kern],
                             launches_zero_plus_path=record["zero_plus_path"]["flash_launches"][kern],
                             launches_parallel_path=record["parallel_path"]["flash_launches"][kern],
+                            launches_composed_path=record["composed_path"]["flash_launches"][kern],
                             max_abs_err=max(r["max_abs_err"][o] for r in record["flash_attention"] for o in outputs),
                             ms=train[kern]["ms"], plain_ms=train[kern]["plain_ms"],
                             bound_ms=train[kern]["bound_ms"], bound_by=train[kern]["bound_by"],
@@ -7524,7 +8165,8 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
-    log(f"[done] {record['seconds']:.1f} s")
+    log(f"[done] {record['seconds']:.1f} s; phases " + json.dumps({k: round(v, 1) for k, v in
+                                                               record["phase_seconds"].items()}))
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,11 +12,11 @@ from typing import List, Optional, Sequence
 import torch
 
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
-from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2, _refuse_unported, expert_group, tensor_group
+from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2, expert_group, tensor_group
 from deepspeed_tpu_torch.inference.v2.model_implementations.registry import model_cls_for
 from deepspeed_tpu_torch.models.convert import expert_slice
 from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
-from deepspeed_tpu_torch.models.mixtral import MixtralConfig, is_expert_bank
+from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM, is_expert_bank
 from deepspeed_tpu_torch.module_inject import auto_tp_specs, tp_slice
 from deepspeed_tpu_torch.utils.device import resolve_device
 
@@ -29,7 +29,8 @@ def build_engine(params, model_config, engine_config: Optional[RaggedInferenceEn
     expert parallelism a rank holds only its experts: whole expert banks
     are sliced to them here (``models/convert.py::expert_slice``); under
     tensor parallelism its heads and MLP columns (:func:`serving_tp_slice`),
-    from whole weights."""
+    from whole weights; under both, its expert rank's banks, whole, and its
+    model rank's heads."""
     device = resolve_device(device)
     if engine_config is None:
         engine_config = RaggedInferenceEngineConfig()
@@ -38,9 +39,8 @@ def build_engine(params, model_config, engine_config: Optional[RaggedInferenceEn
         banks = [t for name, t in params.items() if is_expert_bank(name)]
         if banks and banks[0].shape[0] == model_config.num_local_experts:
             params = expert_slice(params, group.rank, group.size)
-    if engine_config.tensor_parallel.tp_size > 1:
-        _refuse_unported(engine_config, moe=isinstance(model_config, MixtralConfig))
-        tp = tensor_group(engine_config, device)
+    tp = tensor_group(engine_config, device)
+    if tp is not None:
         q = params["layers.0.self_attn.q_proj.weight"]
         if q.shape[0] == model_config.num_attention_heads * model_config.head_dim:
             params = serving_tp_slice(params, model_config, tp.rank, tp.size)
@@ -50,12 +50,16 @@ def build_engine(params, model_config, engine_config: Optional[RaggedInferenceEn
 
 def serving_tp_slice(params, model_config, rank: int, size: int) -> dict:
     """The weights tensor-parallel rank ``rank`` of ``size`` serves a
-    Llama-family model with, from whole ones: training's placements
-    (``auto_tp_specs`` of the model, built on the meta device) cut by
-    ``module_inject.layers.tp_slice``, with the embedding and the
-    unembedding whole."""
+    Llama-family model or a Mixtral with, from whole ones: training's
+    placements (``auto_tp_specs`` of the model, built on the meta device)
+    cut by ``module_inject.layers.tp_slice``, with the embedding and the
+    unembedding whole. A Mixtral's attention is cut as a Llama's; its
+    router and its expert banks, which AutoTP places on no model axis (a
+    bank of 3 dimensions goes on the ``expert`` axis, reference
+    ``auto_tp.py:124-125``), stay whole on every model rank."""
+    model_cls = MixtralForCausalLM if isinstance(model_config, MixtralConfig) else LlamaForCausalLM
     with torch.device("meta"):
-        specs = auto_tp_specs(LlamaForCausalLM(model_config))
+        specs = auto_tp_specs(model_cls(model_config))
     return tp_slice(params, specs, rank, size, whole=("embed_tokens.weight", "lm_head.weight"))
 
 

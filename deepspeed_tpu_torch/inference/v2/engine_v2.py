@@ -25,9 +25,10 @@ the card); ``decode_loop`` stays untraced, as in the JAX package. With a
 ``dispatch_observer`` installed (the serving scheduler's cost plane) each
 dispatch's end time is taken after its device work has finished.
 
-Expert parallelism (``expert_parallel``): one process is one EP rank, and
-the expert axis is the comm world (:func:`expert_group`; ``replica_num``
-must equal its size). A Mixtral under EP holds its rank's experts and
+Expert parallelism (``expert_parallel``): one process is one EP rank, on
+the expert axis of the rank mesh (:func:`serving_mesh`, :func:`expert_group`;
+``replica_num`` times ``tp_size`` must equal the world's size). A Mixtral
+under EP holds its rank's experts and
 enters its group's collectives once a forward (``modules/moe.py``); an idle
 rank keeps the group in lock-step through ``empty_run`` (the serving
 scheduler's heartbeat), and :meth:`leave_expert_group` ends a rank's part:
@@ -36,19 +37,26 @@ the group stops at the first forward in which every rank has left.
 ``simulated_gating_temperature``.
 
 Tensor parallelism (``tensor_parallel.tp_size``): one process is one TP
-rank, and the ``model`` axis is the comm world (:func:`tensor_group`). A
+rank, on the ``model`` axis of the rank mesh (:func:`tensor_group`). A
 Llama under TP holds its rank's heads and MLP columns (``engine_factory.
 build_engine`` slices them) and all-reduces after ``o_proj`` and
-``down_proj``. Every TP rank must run the same forwards on the same
-batches, but the serving scheduler reads the wall clock, so two schedulers
-could diverge: rank 0 alone schedules, and each engine call that changes
-state (``put``, ``decode_loop``, ``verify``, ``flush`` and the rest marked
-``_lockstep``) is broadcast from it to the other ranks, which run
-:meth:`InferenceEngineV2.follow` and repeat it until rank 0's ``close``.
+``down_proj``; a Mixtral holds its rank's heads and, whole, its expert
+rank's banks. Both at once (TP x EP) make a mesh of ``(expert, model)``:
+each expert rank is a group of ``tp_size`` model ranks that serve its own
+requests, and the MoE's exchange runs over the expert group of each model
+rank (``model_implementations/mixtral_v2.py``). Every TP rank must run
+the same forwards on the same batches, but the serving scheduler reads the
+wall clock, so two schedulers could diverge: the model group's rank 0
+alone schedules, and each engine call that changes state (``put``,
+``decode_loop``, ``verify``, ``flush``, ``empty_run``,
+``leave_expert_group`` and the rest marked ``_lockstep``) is broadcast
+from it to the other ranks of its model group, which run
+:meth:`InferenceEngineV2.follow` and repeat it until their rank 0's
+``close``. Under TP x EP each expert rank's model group has its own rank
+0, so every rank of the mesh follows one leader.
 
-Not ported yet, and refused with ``NotImplementedError``: tensor
-parallelism with expert parallelism or of a MoE model (ROADMAP.md A8
-item 5) and weight quantization (A9).
+Not ported yet, and refused with ``NotImplementedError``: weight
+quantization (A9).
 """
 
 import functools
@@ -70,38 +78,55 @@ from deepspeed_tpu_torch.inference.v2.tracer import Tracer, get_tracer, set_trac
 from deepspeed_tpu_torch.utils.logging import logger
 
 
-def _refuse_unported(config: RaggedInferenceEngineConfig, moe: bool = False) -> None:
-    """Raise for what is not ported; ``moe``: the model has MoE layers."""
-    tp = config.tensor_parallel.tp_size > 1
-    unported = (
-        ("tensor_parallel.tp_size > 1 with expert parallelism", tp and config.expert_parallel.enabled, "A8 item 5"),
-        ("tensor_parallel.tp_size > 1 of a MoE model", tp and moe, "A8 item 5"),
-        ("weight quantization", config.quantization.enabled, "A9"),
-    )
-    for what, on, item in unported:
-        if on:
-            raise NotImplementedError(f"{what} is not ported to deepspeed_tpu_torch yet (see ROADMAP.md {item})")
+def _refuse_unported(config: RaggedInferenceEngineConfig) -> None:
+    """Raise for what is not ported."""
+    if config.quantization.enabled:
+        raise NotImplementedError("weight quantization is not ported to deepspeed_tpu_torch yet (see ROADMAP.md A9)")
 
 
-def tensor_group(config: RaggedInferenceEngineConfig, device):
-    """This rank's tensor-parallel group (a ``utils.groups.RankGroup`` over
-    the mesh's ``model`` axis), or None without tensor parallelism. The
-    model axis is the comm world, joined from the launcher's environment;
-    it raises when ``tensor_parallel.tp_size`` is not the world's size."""
+def serving_mesh(config: RaggedInferenceEngineConfig, device):
+    """The rank mesh of a served model over the comm world (joined from the
+    launcher's environment): ``(expert, model)`` of ``replica_num`` (with
+    expert parallelism on) times ``tp_size`` ranks, laid out as the
+    reference's ``initialize_mesh(model_parallel_size=tp,
+    expert_parallel_size=ep)``: the model ranks of one expert rank are
+    neighbours. Raises when the two do not multiply to the world's size;
+    None in a world of one rank."""
     tp = config.tensor_parallel.tp_size
-    if tp <= 1:
+    ep = config.expert_parallel.replica_num if config.expert_parallel.enabled else 1
+    if tp <= 1 and not config.expert_parallel.enabled:
         return None
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.utils import groups
 
     comm.init_distributed(device=device, verbose=False)
     world = comm.get_world_size()
-    if tp != world:
-        raise ValueError(f"tensor_parallel.tp_size {tp} != the comm world's {world} ranks "
-                         "(one process is one tensor-parallel rank)")
+    if tp * ep != world:
+        if ep == 1:
+            what = f"tensor_parallel.tp_size {tp}", "tensor-parallel rank"
+        elif tp == 1:
+            what = f"expert_parallel.replica_num {ep}", "expert-parallel rank"
+        else:
+            what = (f"tensor_parallel.tp_size {tp} x expert_parallel.replica_num {ep}",
+                    "rank of the (expert, model) mesh")
+        raise ValueError(f"{what[0]} != the comm world's {world} ranks (one process is one {what[1]})")
+    if world == 1:
+        return None
     mesh = groups.get_mesh() if groups.mesh_is_initialized() else None
-    if mesh is None or mesh.size != world or mesh.shape.get(groups.MODEL_AXIS, 1) != world:
-        groups.initialize_mesh(model_parallel_size=world, force=True)
+    if mesh is None or mesh.size != world or mesh.shape.get(groups.MODEL_AXIS, 1) != tp or \
+            mesh.shape.get(groups.EXPERT_AXIS, 1) != ep:
+        groups.initialize_mesh(model_parallel_size=tp, expert_parallel_size=ep, force=True)
+    return groups.get_mesh()
+
+
+def tensor_group(config: RaggedInferenceEngineConfig, device):
+    """This rank's tensor-parallel group (a ``utils.groups.RankGroup`` over
+    the mesh's ``model`` axis: the model ranks of its expert rank), or None
+    without tensor parallelism (:func:`serving_mesh`)."""
+    mesh = serving_mesh(config, device)
+    if config.tensor_parallel.tp_size <= 1 or mesh is None:
+        return None
+    from deepspeed_tpu_torch.utils import groups
     return groups.get_group(groups.MODEL_AXIS)
 
 
@@ -160,27 +185,14 @@ def _lockstep(fn):
 
 def expert_group(config: RaggedInferenceEngineConfig, device):
     """This rank's expert-parallel group (a ``utils.groups.RankGroup`` over
-    the mesh's expert axis), or None without expert parallelism or in a
-    world of one rank. The expert axis is the comm world, joined from the
-    launcher's environment (``comm.init_distributed``); it raises when
-    ``expert_parallel.replica_num`` is not the world's size (the reference
-    checks its mesh's expert axis against it)."""
-    ep = config.expert_parallel
-    if not ep.enabled:
+    the mesh's expert axis: one rank of each expert rank, all of one model
+    rank), or None without expert parallelism or in a world of one rank
+    (:func:`serving_mesh`; the reference checks its mesh's expert axis
+    against ``replica_num``)."""
+    mesh = serving_mesh(config, device)
+    if not config.expert_parallel.enabled or mesh is None or config.expert_parallel.replica_num <= 1:
         return None
-    from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.utils import groups
-
-    comm.init_distributed(device=device, verbose=False)
-    world = comm.get_world_size()
-    if ep.replica_num != world:
-        raise ValueError(f"expert_parallel.replica_num {ep.replica_num} != the comm world's {world} ranks "
-                         "(one process is one expert-parallel rank)")
-    if world == 1:
-        return None
-    mesh = groups.get_mesh() if groups.mesh_is_initialized() else None
-    if mesh is None or mesh.size != world or mesh.shape.get(groups.EXPERT_AXIS, 1) != world:
-        groups.initialize_mesh(expert_parallel_size=world, force=True)
     return groups.get_group(groups.EXPERT_AXIS)
 
 
@@ -189,7 +201,7 @@ class InferenceEngineV2:
     def __init__(self, model, engine_config: RaggedInferenceEngineConfig) -> None:
         """``model`` is a built ``DSTransformerModelBase`` subclass on its device
         (``engine_factory.build_engine`` makes both)."""
-        _refuse_unported(engine_config, moe=bool(getattr(model, "moes", None)))
+        _refuse_unported(engine_config)
         self._config = engine_config
         if engine_config.simulated_gating:
             enable_simulated_gating(engine_config.simulated_gating_temperature)
@@ -734,6 +746,7 @@ class InferenceEngineV2:
         """This rank's expert group (``utils.groups.RankGroup``), or None."""
         return self._ep_group
 
+    @_lockstep
     def leave_expert_group(self) -> int:
         """End this rank's part in its expert group: ask to leave, then run
         empty forwards (in step with the ranks still serving) until the first

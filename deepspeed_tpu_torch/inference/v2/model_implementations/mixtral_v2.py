@@ -31,6 +31,14 @@ class MixtralV2Model(LlamaV2Model):
 
         super().__init__(params, config.as_llama(), engine_config, device, state_manager)
         self._moe_config = config
+        # under TP x EP this rank's expert group holds one model rank of each
+        # expert rank. The model ranks of one expert rank route the same
+        # tokens and each sends them, once, over its own expert group to the
+        # same model rank of the other expert ranks, whose banks are whole:
+        # each expert group moves and computes the tokens once, and the
+        # model ranks repeat it in parallel, never summing their results
+        # (nothing is reduced over the model group after the MoE), so no
+        # token counts twice in a capacity, a drop or an expert's output
         group = expert_group(engine_config, self.device)
         self.ep_sync = ExpertGroupSync(group, self.device) if group is not None else None
         E = config.num_local_experts

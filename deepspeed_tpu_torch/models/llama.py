@@ -131,6 +131,18 @@ def flash_causal_attention(q, k, v, scale):
     return flash_attention(q, k, v, scale=scale, causal=True)
 
 
+def rank_rope(cfg, seq_len, device):
+    """cos, sin at this rank's positions: ``0..seq_len``, or under
+    sequence parallelism the slice's global positions ``[r·S/sp,
+    (r+1)·S/sp)`` of the whole sequence."""
+    if not cfg.sequence_parallel:
+        return rotary_embedding(seq_len, cfg.head_dim, cfg.rope_theta, device=device)
+    from deepspeed_tpu_torch.utils import groups
+    g = groups.get_group(groups.SEQ_AXIS)
+    cos, sin = rotary_embedding(seq_len * g.size, cfg.head_dim, cfg.rope_theta, device=device)
+    return cos[g.rank * seq_len:(g.rank + 1) * seq_len], sin[g.rank * seq_len:(g.rank + 1) * seq_len]
+
+
 class LlamaAttention(nn.Module):
 
     def __init__(self, cfg: LlamaConfig):
@@ -201,16 +213,8 @@ class LlamaModel(nn.Module):
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
 
     def rope(self, seq_len, device):
-        """cos, sin at this rank's positions: ``0..seq_len``, or under
-        sequence parallelism the slice's global positions ``[r·S/sp,
-        (r+1)·S/sp)`` of the whole sequence."""
-        cfg = self.cfg
-        if not cfg.sequence_parallel:
-            return rotary_embedding(seq_len, cfg.head_dim, cfg.rope_theta, device=device)
-        from deepspeed_tpu_torch.utils import groups
-        g = groups.get_group(groups.SEQ_AXIS)
-        cos, sin = rotary_embedding(seq_len * g.size, cfg.head_dim, cfg.rope_theta, device=device)
-        return cos[g.rank * seq_len:(g.rank + 1) * seq_len], sin[g.rank * seq_len:(g.rank + 1) * seq_len]
+        """cos, sin at this rank's positions (:func:`rank_rope`)."""
+        return rank_rope(self.cfg, seq_len, device)
 
     def forward(self, input_ids):
         cfg = self.cfg

@@ -8,6 +8,12 @@ auxiliary losses; each block is recomputed in the backward when ``remat``
 is on, as ``models/llama.py`` does. Mixtral's attention is
 ``LlamaAttention(cfg.as_llama())``, which leaves ``use_flash_attention``
 off, as the reference does, so training it launches no hand-written kernel.
+``sequence_parallel`` runs Ulysses around each attention as
+``models/llama.py`` does (RoPE at the slice's global positions), with the
+MoE's gate global over the sequence ranks' tokens (``moe/sharded_moe.py``);
+under tensor parallelism (``initialize(param_specs=auto_tp_specs(model))``)
+the attention holds this rank's heads and the MoE runs whole on every
+model rank.
 
 ``state_dict`` keys: ``embed_tokens.weight``,
 ``layers.{i}.{input_layernorm,post_attention_layernorm}.weight``,
@@ -28,7 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.models.llama import (INIT_STD, LlamaAttention, LlamaConfig, RMSNorm, cross_entropy_loss,
-                                              rotary_embedding)
+                                              rank_rope)
 from deepspeed_tpu_torch.moe.layer import MoE
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import remat
 from deepspeed_tpu_torch.utils.device import resolve_device
@@ -51,6 +57,7 @@ class MixtralConfig:
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
     gated_experts: bool = True  # Mixtral experts are SwiGLU (HF w1/w3 fused)
+    sequence_parallel: bool = False
     model_type: str = "mixtral"
 
     @property
@@ -76,7 +83,8 @@ class MixtralConfig:
                            num_attention_heads=self.num_attention_heads,
                            num_key_value_heads=self.num_key_value_heads,
                            max_position_embeddings=self.max_position_embeddings, rms_norm_eps=self.rms_norm_eps,
-                           rope_theta=self.rope_theta, dtype=self.dtype, remat=False)
+                           rope_theta=self.rope_theta, dtype=self.dtype, remat=False,
+                           sequence_parallel=self.sequence_parallel)
 
 
 class MixtralBlock(nn.Module):
@@ -114,7 +122,7 @@ class MixtralModel(nn.Module):
     def forward(self, input_ids) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         x = self.embed_tokens(input_ids)
-        cos, sin = rotary_embedding(input_ids.shape[1], cfg.head_dim, cfg.rope_theta, device=input_ids.device)
+        cos, sin = rank_rope(cfg, input_ids.shape[1], input_ids.device)
         recompute = cfg.remat and torch.is_grad_enabled()
         total_aux = torch.zeros((), dtype=torch.float32, device=input_ids.device)
         for block in self.layers:

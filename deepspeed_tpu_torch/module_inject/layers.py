@@ -17,6 +17,11 @@ Megatron-style layers do, each collective with its adjoint as the backward:
   each rank looks up its features and the output is all-gathered;
 - :class:`Normalize`: a replicated LayerNorm (norms never shard).
 
+The ``model`` group is this rank's slice of the rank mesh along the
+``model`` axis, so on a mesh that also has data, sequence or expert axes
+each collective (the embedding's gather too) runs over the model ranks of
+one (data, expert, seq) slot only.
+
 The all-reduce of 16-bit partial sums upcasts: the partials are summed in
 f32 and rounded to the compute dtype once. The comms logger names the
 collectives ``tp_row``, ``tp_input_grad`` and ``tp_gather``.

@@ -16,8 +16,10 @@ Across ranks (one process a rank) the banks hold this rank's experts,
 ``[E/ep, ...]`` (the training engine slices them, as the reference places
 the banks on the expert axis), and :meth:`MoE.forward` takes its groups
 from the rank mesh (``moe/utils.py::moe_groups``): the gate is global over
-the data-parallel ranks' tokens, and the dispatched buffer moves to the
-experts' ranks and back (``sharded_moe.py``).
+the data, expert and sequence ranks' tokens (under Ulysses ``x`` is this
+rank's ``[B, S/sp, M]`` slice, in the global token order there), and the
+dispatched buffer moves to the experts' ranks and back
+(``sharded_moe.py``). Model ranks run the layer whole on the same tokens.
 """
 
 from typing import Callable, Optional
@@ -117,9 +119,11 @@ class MoE(nn.Module):
         if generator is None and training and self.gating_seed is not None:
             generator = torch.Generator(device=x.device).manual_seed(self.gating_seed)
         tokens = x.reshape(-1, self.hidden_size)
-        dp, ep, edp = moe_groups()
+        gate_group, ep, edp, sp = moe_groups()
+        seq = (sp.size, x.shape[0] if x.ndim > 2 else 1) if sp is not None and sp.size > 1 else None
         l_aux, combine, dispatch, exp_counts = self.topk(self.gate, tokens, generator=generator,
-                                                         used_token=used_token, training=training, group=dp)
+                                                         used_token=used_token, training=training, group=gate_group,
+                                                         seq=seq)
         out = moe_dispatch_combine(tokens, combine, dispatch, self.experts, ep_group=ep, edp_group=edp)
         if self.use_residual:
             mlp_out = self.residual_out(self.activation(self.residual_in(tokens)))

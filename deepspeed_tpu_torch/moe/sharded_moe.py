@@ -25,7 +25,13 @@ data-parallel ``group`` all-gathers the f32 routing logits in rank order
 batch's tokens identically on every rank, and keeps this rank's rows of
 the masks, so capacity, priority, ``l_aux`` and ``exp_counts`` are the
 reference's (the gather's backward sums the ranks' gradients of each
-rank's rows: a reduce-scatter). :func:`moe_dispatch_combine` given the
+rank's rows: a reduce-scatter). Under Ulysses the gate's group also spans
+the sequence ranks, each of which holds a slice of every row's positions:
+the gathered logits are put in the global batch's token order (row-major
+over ``[B, S]``) before the gating, and each rank keeps its own tokens'
+rows of that order. Model ranks hold the same tokens and are never in the
+group, so no token enters the capacity, the priority order, the cumsums
+or ``l_aux``'s means twice. :func:`moe_dispatch_combine` given the
 expert and expert-data groups moves the dispatched ``[E, C, M]`` buffer to
 the ranks that hold the experts: each global capacity slot holds one token,
 so a rank's buffer is zero outside its own tokens' slots and the ranks'
@@ -202,24 +208,29 @@ class TopKGate:
         self.use_rts = use_rts
         self.top2_2nd_expert_sampling = top2_2nd_expert_sampling
 
-    def __call__(self, wg, x, generator=None, used_token=None, training=True, group=None):
-        """``group``: the data-parallel ``RankGroup`` whose ranks hold the
-        batch's dim-0 chunks (the gate is then global over them; see the
-        module doc). Returns this rank's rows of the masks."""
+    def __call__(self, wg, x, generator=None, used_token=None, training=True, group=None, seq=None):
+        """``group``: the ``RankGroup`` whose ranks hold the batch's other
+        tokens (the gate is then global over them; see the module doc);
+        ``seq``: ``(sp, rows)`` when its last ``sp`` ranks in each run are
+        sequence ranks and ``x`` is this rank's ``[rows, S/sp]`` tokens
+        flattened. Returns this rank's rows of the masks."""
         n = group.size if group is not None else 1
+        order = mine = None
+        if n > 1:
+            order, mine = _token_order(n, group.rank, x.shape[0], *(seq or (1, 1)), device=x.device)
         x_fp32 = x.float()
         if self.noisy_gate_policy == "Jitter" and generator is not None and training:
             if n > 1:
-                # this rank's rows of the whole batch's draw
+                # this rank's tokens of the whole batch's draw
                 noise = multiplicative_jitter(torch.ones((n * x.shape[0], x.shape[1]), device=x.device), generator)
-                x_fp32 = x_fp32 * noise[group.rank * x.shape[0]:(group.rank + 1) * x.shape[0]]
+                x_fp32 = x_fp32 * noise[mine]
             else:
                 x_fp32 = multiplicative_jitter(x_fp32, generator)
         logits = x_fp32 @ wg.float()
         if n > 1:
-            logits = _GatherRows.apply(logits, group)
+            logits = _GatherRows.apply(logits, group)[order]
             if used_token is not None:
-                used_token = comm.all_gather_into_tensor(used_token.float().contiguous(), group=group)
+                used_token = comm.all_gather_into_tensor(used_token.float().contiguous(), group=group)[order]
         cf = self.capacity_factor if training else self.eval_capacity_factor
         if self.k == 1:
             out = top1gating(logits, cf, self.min_capacity, used_token,
@@ -231,8 +242,21 @@ class TopKGate:
         if n == 1:
             return out
         l_aux, combine, dispatch, exp_counts = out
-        rows = slice(group.rank * x.shape[0], (group.rank + 1) * x.shape[0])
-        return l_aux, combine[rows], dispatch[rows], exp_counts
+        return l_aux, combine[mine], dispatch[mine], exp_counts
+
+
+def _token_order(n, rank, tokens, sp, rows, device=None):
+    """``(order, mine)`` for a gate over ``n`` ranks of ``tokens`` each, in
+    group order, the last ``sp`` of each run of ranks the sequence ranks of
+    one batch chunk of ``rows`` rows: ``order[g]`` is the gathered position
+    of the global batch's token ``g`` (row-major over ``[B, S]``), and
+    ``mine`` the global positions of this rank's tokens."""
+    order = torch.arange(n * tokens, device=device)
+    if sp > 1:
+        order = order.view(n // sp, sp, rows, tokens // rows).permute(0, 2, 1, 3).reshape(-1)
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(order.numel(), device=device)
+    return order, inverse[rank * tokens:(rank + 1) * tokens]
 
 
 class _GatherRows(torch.autograd.Function):

@@ -11,11 +11,12 @@ name) and carries ``moe: True``, and every other key of the input group is
 copied to both.
 
 :func:`moe_groups` gives a MoE layer its groups from the rank mesh: the
-data-parallel group its gate is global over, the expert group its banks
-are spread over and the expert-data group that replicates them (reference
-``utils/groups.py``: experts are data-parallel over ``data``/``hpz`` only).
-Expert gradients are summed over the expert-data group, dense ones over
-the data group.
+group its gate is global over (every rank that holds other tokens: the
+data, expert and sequence ranks, never the model ranks, which hold the
+same tokens), the expert group its banks are spread over and the
+expert-data group that replicates them (the data and sequence ranks:
+``groups.EXPERT_ZERO_AXES``). Expert gradients are summed over the
+expert-data group, dense ones over data x seq.
 """
 
 from typing import Dict, List
@@ -49,9 +50,11 @@ def split_params_into_different_moe_groups_for_optimizer(param_groups) -> List[D
 
 
 def moe_groups():
-    """``(data-parallel, expert, expert-data)`` ``RankGroup`` objects of this rank,
-    or ``(None, None, None)`` in a world of one rank (or with no mesh)."""
+    """``(gate, expert, expert-data, sequence)`` ``RankGroup`` objects of
+    this rank (the gate's group over ``groups.SEQ_DATA_PARALLEL_AXES``, its
+    sequence ranks the minor ones), or four Nones in a world of one rank
+    (or with no mesh)."""
     if not groups.mesh_is_initialized() or groups.get_mesh().size == 1:
-        return None, None, None
-    return (groups.get_group(groups.DATA_PARALLEL_AXES), groups.get_group(groups.EXPERT_AXIS),
-            groups.get_group(groups.EXPERT_DATA_PARALLEL_AXES))
+        return None, None, None, None
+    return (groups.get_group(groups.SEQ_DATA_PARALLEL_AXES), groups.get_group(groups.EXPERT_AXIS),
+            groups.get_group(groups.EXPERT_ZERO_AXES), groups.get_group(groups.SEQ_AXIS))

@@ -38,7 +38,13 @@ manifest. A rank that dies mid-save never seals, so the tag stays torn,
 and a load skips it loudly. A load at any world size reads every rank's
 files, puts each tensor back together along its dimension, and hands each
 rank its own part under the current partitioning: a save at world N loads
-at world M, bit for bit. A world of one keeps the single-process layout.
+at world M, bit for bit. A world of one keeps the single-process layout,
+and so does a save across model, sequence or expert ranks: there every
+rank gathers each array whole, entry by entry, and rank 0 alone writes
+them as a world-1 save would (the same files and the same per-array CRCs
+in the manifest; the other ranks write only their seals), so the tag loads
+at any mesh, or at world 1, with each rank cutting its tensor-parallel or
+expert shard and then its ZeRO chunk from the whole arrays.
 """
 
 import atexit
@@ -401,6 +407,32 @@ def _chunked_part(trees, layout):
     return out
 
 
+def _global_trees(engine, trees, keep):
+    """``trees`` with every entry gathered whole over the ranks, entry by
+    entry in one order on every rank (``engine._gather_entry``); a copy on
+    the host where ``keep``, else nothing (the entries are dropped as they
+    come, so no rank holds more than one whole tensor at a time)."""
+    out = {}
+    for name, tree in trees.items():
+        part = {}
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                sub = {}
+                for n, t in value.items():
+                    whole = engine._gather_entry(name, f"{key}/{n}", t)
+                    if keep:
+                        sub[n] = whole.detach().to("cpu", copy=True)
+                part[key] = sub
+            elif value is None:
+                part[key] = None
+            else:
+                whole = engine._gather_entry(name, key, value)
+                if keep:
+                    part[key] = whole.detach().to("cpu", copy=True)
+        out[name] = part if keep else {}
+    return out
+
+
 def _host_snapshot(trees):
     """Host copies of every tensor, taken now: later steps replace the
     engine's tensors but never touch these."""
@@ -499,10 +531,10 @@ def _maybe_die_during_save(engine, path):
 
 
 def _gang_commit(engine, path, save_dir, tag, host_state, save_latest, manifest_meta, keep_last_k, world,
-                 rank_arrays):
+                 rank_arrays, chunked=True):
     """Every rank seals its files; rank 0 waits for all the seals, then
-    writes the partition map, host_state.pkl and the manifest (last). One
-    rank seals and commits at once."""
+    writes the partition map (of a ``chunked`` save), host_state.pkl and
+    the manifest (last). One rank seals and commits at once."""
     rank = engine._gang_rank
     _maybe_die_during_save(engine, path)
     _write_rank_seal(path, rank, rank_arrays if world > 1 else None)
@@ -516,10 +548,11 @@ def _gang_commit(engine, path, save_dir, tag, host_state, save_latest, manifest_
             for r in range(world):
                 merged.update(seals[r].get("arrays") or {})
             manifest_meta["arrays"] = merged
-        with open(os.path.join(path, STATE_DIR, PARTITION_FILE), "w") as f:
-            json.dump({"world": world, "dims": engine._checkpoint_layout()}, f, sort_keys=True)
-            f.flush()
-            os.fsync(f.fileno())
+        if chunked:
+            with open(os.path.join(path, STATE_DIR, PARTITION_FILE), "w") as f:
+                json.dump({"world": world, "dims": engine._checkpoint_layout()}, f, sort_keys=True)
+                f.flush()
+                os.fsync(f.fileno())
     _commit_host_side(engine, path, save_dir, tag, host_state, save_latest, manifest_meta, keep_last_k)
 
 
@@ -617,7 +650,12 @@ def save_engine_state(engine, save_dir, tag, client_state, save_latest, async_sa
         hb.beat(step=engine.global_steps, phase="save")
 
     trees = _state_trees(engine)
-    if world > 1 and rank != 0:
+    global_layout = world > 1 and engine._checkpoint_global()
+    if global_layout:
+        # every array whole, as at world 1: gathered by every rank, kept
+        # (and written) by rank 0 alone
+        trees = _global_trees(engine, trees, keep=rank == 0)
+    elif world > 1 and rank != 0:
         trees = _chunked_part(trees, engine._checkpoint_layout())
     snapshot = _host_snapshot(trees)
     host_state = {
@@ -637,18 +675,19 @@ def save_engine_state(engine, save_dir, tag, client_state, save_latest, async_sa
     ck_cfg = engine._config.checkpoint_config
     keep_last_k = int(ck_cfg.keep_last_k or 0)
     arrays_crc = None
-    if ck_cfg.array_checksums:
-        arrays_crc = array_checksums({f"rank{rank}": snapshot} if world > 1 else snapshot)
+    if ck_cfg.array_checksums and (rank == 0 or not global_layout):
+        arrays_crc = array_checksums({f"rank{rank}": snapshot} if world > 1 and not global_layout else snapshot)
     # over several ranks rank 0 replaces the arrays with every rank's seal's
     manifest_meta = _manifest_meta(engine, tag, host_state, snapshot["scale_state"], arrays_crc, keep_last_k)
     state_dir = os.path.join(path, STATE_DIR)
-    if world > 1:
+    if world > 1 and not global_layout:
         state_dir = os.path.join(state_dir, f"rank{rank}")
 
     def commit():
-        _write_state(snapshot, state_dir)
+        if rank == 0 or not global_layout:
+            _write_state(snapshot, state_dir)
         _gang_commit(engine, path, save_dir, tag, host_state, save_latest, manifest_meta, keep_last_k, world,
-                     arrays_crc)
+                     arrays_crc, chunked=not global_layout)
 
     if not async_save:
         commit()
@@ -846,7 +885,7 @@ def _restore_into_engine(engine, path, load_optimizer_states, load_lr_scheduler_
     restored = {}
     for name in STATE_TREES:
         dims = layout[name]
-        local = {k: engine._zero.shard(t, dims.get(k)).to(engine.device) for k, t in full[name].items()}
+        local = {k: engine._localize_entry(name, k, t, dims.get(k)).to(engine.device) for k, t in full[name].items()}
         restored[name] = _unflatten_like(local, templates[name], name)
 
     with open(os.path.join(path, "host_state.pkl"), "rb") as f:

@@ -72,8 +72,19 @@ do not divide stays whole, as ``_batch_sharding`` replicates it), and the
 gradients are summed over data × seq; ``expert_parallel_size`` builds the
 ``expert`` axis, carved from the data ranks: each rank holds its experts'
 banks, whose gradients are summed (and whose ZeRO state is partitioned)
-over the expert-data group only. Replicated parameters are never summed
-over ``model``.
+over the expert-data group only (the data and sequence ranks:
+``groups.EXPERT_ZERO_AXES``). The axes compose: one mesh holds all of them
+at once (TP with Ulysses, TP or Ulysses of a MoE model, expert ranks at
+ZeRO 3), and ZeRO partitions a tensor-parallel shard or an expert bank on
+top of its placement, never on its placed dimension (reference
+``zero/policy.py::_add_zero_axes``). Replicated parameters are never
+summed over ``model``, and no token is counted twice across model ranks:
+they hold the same tokens, and the loss, the token count and the MoE gate
+span data x expert x seq only.
+
+A checkpoint taken across model, sequence or expert ranks holds every
+array in its global layout, as a world-1 checkpoint does (rank 0 writes
+what the ranks gather), so it loads at any other mesh or at world 1.
 
 The loss of a step across data or sequence ranks is the reference's global
 token mean: the count of valid labels of each micro-batch is summed over
@@ -82,9 +93,9 @@ the ranks that average their losses before the forward, and
 whole batch's mean (``global_token_mean``); a loss term that is global
 already (Mixtral's router loss) is left alone.
 
-What still raises ``NotImplementedError`` names ROADMAP A8 item 5 (model
-or sequence ranks with the pipeline, hpZ, MiCS, qgZ or offload; tensor
-parallelism of a MoE model; expert ranks at stage 3). The monitor and the
+What still raises ``NotImplementedError`` names ROADMAP A8 item 5 (model,
+sequence or expert ranks with the pipeline, hpZ, MiCS, qgZ or offload;
+checkpoints of hpZ/MiCS partitions and pipeline stages). The monitor and the
 flops profiler are A9: where the JAX engine calls them, this one does
 nothing.
 """
@@ -182,7 +193,7 @@ def _make_optimizer(name, params_cfg):
     return classes[name](**cfg)
 
 
-def _unsupported(cfg: DeepSpeedConfig, stages: int, module=None):
+def _unsupported(cfg: DeepSpeedConfig, stages: int):
     """Configured features this engine does not run, each with the ROADMAP
     queue item that ports it (A8 item 5). ``stages`` is the engine's
     pipeline stage count: a ``pipeline_parallel_size`` above 1 runs only as
@@ -201,15 +212,6 @@ def _unsupported(cfg: DeepSpeedConfig, stages: int, module=None):
     for what, size in (("tensor parallelism", tp), ("sequence parallelism", sp), ("expert parallelism", ep)):
         if size > 1:
             found.extend(f"{what} with {other} (A8 item 5)" for other, on in combos if on)
-    if tp > 1 and sp > 1:
-        found.append("tensor parallelism with sequence parallelism (A8 item 5)")
-    if ep > 1 and zc.stage >= 3:
-        found.append("expert parallelism at ZeRO stage 3 (A8 item 5)")
-    if module is not None and any(isinstance(m, MoE) for m in module.modules()):
-        if tp > 1:
-            found.append("tensor parallelism of a MoE model (A8 item 5)")
-        if sp > 1:
-            found.append("sequence parallelism of a MoE model (A8 item 5)")
     return found
 
 
@@ -235,7 +237,7 @@ class DeepSpeedEngine:
         # join the gang the launcher described (a world of one without one)
         dist.init_distributed(device=self.device)
         self._config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
-        missing = _unsupported(self._config, self._pipeline_stages(), model)
+        missing = _unsupported(self._config, self._pipeline_stages())
         if missing:
             raise NotImplementedError(f"not ported yet, each with the ROADMAP item that ports it: {', '.join(missing)}")
         # the rank mesh: the pipeline stages (PipelineEngine), then the data
@@ -265,7 +267,7 @@ class DeepSpeedEngine:
         self._sp_group = groups.get_group(groups.SEQ_AXIS)
         self._mp_group = groups.get_group(groups.MODEL_AXIS)
         self._ep_group = groups.get_group(groups.EXPERT_AXIS)
-        self._edp_group = groups.get_group(groups.EXPERT_DATA_PARALLEL_AXES)
+        self._edp_group = groups.get_group(groups.EXPERT_ZERO_AXES)
         if zero_init_demanded:
             logger.info("zero.Init was requested: the engine partitions the parameters of the module it was given")
         dist.configure(self._config)
@@ -327,6 +329,14 @@ class DeepSpeedEngine:
             part_kw["param_axes"] = groups.SECONDARY_PARTITION_AXES
         if self._ep_group.size > 1:
             part_kw["expert_names"] = self._expert_names
+        # placements the ZeRO axes partition on top of: this rank's
+        # tensor-parallel shards, and banks placed on the expert axis
+        taken = {n: (d, self._mp_group.size) for n, d in self._tp_dims.items()}
+        for n in self._expert_names:
+            spec = (param_specs or {}).get(n)
+            if self._ep_group.size > 1 or (spec is not None and spec[0] == groups.EXPERT_AXIS):
+                taken[n] = (0, self._ep_group.size)
+        part_kw["taken"] = taken
         self._zero = ZeroPartitioner(self.module, zc.stage,
                                      persistence_threshold=zc.param_persistence_threshold if zc.stage >= 3 else 0,
                                      **part_kw)
@@ -530,28 +540,12 @@ class DeepSpeedEngine:
         """The whole f32 masters (gathered from every rank at stage 3, and
         across the model and expert ranks: a collective, every rank calls
         it)."""
-        out = dict(self.params)
-        if self._partition_params:
-            out = {n: self._zero.gather_param(p, n) for n, p in out.items()}
-        for n, p in out.items():
-            spread = self._spread(n)
-            if spread is not None:
-                group, dim = spread
-                out[n] = dist.all_gather_into_tensor(p.movedim(dim, 0).contiguous(), group=group).movedim(0, dim)
-        return out
+        return {n: self._gather_entry("params", n, p) for n, p in self.params.items()}
 
     def _localize_params(self, full):
         """Whole masters to what this rank holds."""
-        out = dict(full)
-        for n, p in out.items():
-            spread = self._spread(n)
-            if spread is not None:
-                group, dim = spread
-                k = p.shape[dim] // group.size
-                out[n] = p.narrow(dim, group.rank * k, k).clone()
-        if not self._partition_params:
-            return out
-        return {n: self._zero.shard_param(p, n) for n, p in out.items()}
+        dims = self._zero.param_dim if self._partition_params else {}
+        return {n: self._localize_entry("params", n, p, dims.get(n)).clone() for n, p in full.items()}
 
     def state_bytes(self):
         """Bytes this rank holds of the training state: ``params`` (the f32
@@ -1529,14 +1523,48 @@ class DeepSpeedEngine:
     def _check_checkpointable(self):
         """The gang checkpoint puts the ranks' chunks back together in rank
         order; chunks that repeat across groups (hpZ's parameters, MiCS) or
-        differ by pipeline stage have no such layout yet (ROADMAP A8)."""
+        differ by pipeline stage have no such layout yet (ROADMAP A8 item
+        5)."""
         z = self._zero
         if z.zrep is not None or z.prep is not None or self._pipeline_stages() > 1:
             raise NotImplementedError("checkpoints of hpZ/MiCS partitions and of pipeline stages are not ported "
-                                      "yet (A8)")
-        if self._mp_group.size > 1 or self._ep_group.size > 1:
-            raise NotImplementedError("checkpoints of tensor- or expert-parallel shards are not ported yet "
-                                      "(A8 item 5); save_16bit_model gathers the whole weights")
+                                      "yet (A8 item 5)")
+
+    def _checkpoint_global(self) -> bool:
+        """Whether a save writes every array in its global layout (rank 0
+        alone, from what the ranks gather): across model, sequence or
+        expert ranks, whose shards no rank-order concatenation joins."""
+        return any(g.size > 1 for g in (self._mp_group, self._sp_group, self._ep_group))
+
+    def _gather_entry(self, tree, key, t):
+        """A saved entry whole: its ZeRO chunks, then its tensor-parallel
+        or expert shards, gathered (a collective)."""
+        name = key.partition("/")[2] if tree == "opt_state" else key
+        if name not in self.params:
+            return t
+        z = self._zero
+        if tree == "params":
+            t = z.gather_param(t, name)
+        else:
+            t = z.gather(t, z.opt_dim[name], name=name)
+        spread = self._spread(name)
+        if spread is not None:
+            group, dim = spread
+            t = dist.all_gather_into_tensor(t.movedim(dim, 0).contiguous(), group=group).movedim(0, dim)
+        return t.contiguous()
+
+    def _localize_entry(self, tree, key, t, dim):
+        """A whole saved entry as this rank holds it: its tensor-parallel or
+        expert shard, then its ZeRO chunk along ``dim``."""
+        name = key.partition("/")[2] if tree == "opt_state" else key
+        if name not in self.params:
+            return t
+        spread = self._spread(name)
+        if spread is not None:
+            group, sdim = spread
+            k = t.shape[sdim] // group.size
+            t = t.narrow(sdim, group.rank * k, k)
+        return self._zero.shard(t, dim, param=tree == "params", name=name).contiguous()
 
     def _checkpoint_tag_validation(self, tag):
         """Every rank must save the same tag (reference ``engine.py:3035``):

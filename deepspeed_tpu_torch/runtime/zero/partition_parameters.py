@@ -70,11 +70,16 @@ class ZeroPartitioner:
     of) are data-parallel over the expert-data group only (reference
     ``utils/groups.py``), so their gradient buffer and optimizer state are
     partitioned over that group: ``shard``/``gather``/``reduce_scatter``
-    given such a ``name`` move it there. Their parameters are not
-    partitioned (the engine runs expert parallelism at stages 0-2)."""
+    given such a ``name`` move it there; at stage 3 a bank's unit gathers
+    it over that group only.
+
+    ``taken``: ``{name: (port dim, ranks)}`` for the parameters another
+    placement splits (a tensor-parallel shard, an expert bank over the
+    expert ranks): each is partitioned on top of its shard, never on that
+    dimension (``policy.zero_shard_dim``)."""
 
     def __init__(self, module: torch.nn.Module, stage: int, persistence_threshold: int = 0, zero_axes=None,
-                 param_axes=None, expert_names=()):
+                 param_axes=None, expert_names=(), taken=None):
         from deepspeed_tpu_torch.models.convert import reference_names
 
         self.stage = stage
@@ -99,7 +104,7 @@ class ZeroPartitioner:
         epolicy = None
         if self.expert_names:
             epolicy = ZeroShardingPolicy(stage, mesh=mesh, persistence_threshold=persistence_threshold,
-                                         zero_axes=groups.EXPERT_DATA_PARALLEL_AXES)
+                                         zero_axes=groups.EXPERT_ZERO_AXES)
             egroup = groups.get_group(epolicy.zero_axes) if epolicy.zero_axes else None
             self._expert_of = (egroup, epolicy.zero_size, egroup.rank if epolicy.zero_size > 1 else 0)
         names = reference_names(module)
@@ -107,15 +112,19 @@ class ZeroPartitioner:
         # 3 (one rule, one threshold), which the engine relies on: the
         # optimizer covers the masters' chunks (hpZ relays them: ``relayout``)
         self.param_dim, self.grad_dim, self.opt_dim, self.shapes, self.transposed = {}, {}, {}, {}, {}
+        taken = taken or {}
         for name, p in module.named_parameters():
             transposed = names[name][1]
             ref = reference_shape(p.shape, transposed)
             self.shapes[name] = tuple(p.shape)
             self.transposed[name] = transposed
             pol = epolicy if name in self.expert_names else self.policy
-            self.param_dim[name] = port_dim(pol.param_dim(ref), p.ndim, transposed)
-            self.grad_dim[name] = port_dim(pol.grad_dim(ref), p.ndim, transposed)
-            self.opt_dim[name] = port_dim(pol.opt_dim(ref), p.ndim, transposed)
+            held = taken.get(name)
+            if held is not None:  # the reference's layout of the dimension
+                held = (port_dim(held[0], p.ndim, transposed), held[1])
+            self.param_dim[name] = port_dim(pol.param_dim(ref, held), p.ndim, transposed)
+            self.grad_dim[name] = port_dim(pol.grad_dim(ref, held), p.ndim, transposed)
+            self.opt_dim[name] = port_dim(pol.opt_dim(ref, held), p.ndim, transposed)
         self.units = []
         self.unowned = set()
         self.leaves: Dict[str, torch.Tensor] = {}
@@ -178,10 +187,10 @@ class ZeroPartitioner:
         return dist.all_reduce(t, group=rep) if rep is not None else t
 
     def shard_param(self, t, name):
-        return self.shard(t, self.param_dim[name], param=True) if self.params_partitioned else t
+        return self.shard(t, self.param_dim[name], param=True, name=name) if self.params_partitioned else t
 
     def gather_param(self, t, name):
-        return self.gather(t, self.param_dim[name], param=True) if self.params_partitioned else t
+        return self.gather(t, self.param_dim[name], param=True, name=name) if self.params_partitioned else t
 
     def param_to_opt(self, t, name):
         """A parameter-layout chunk as this rank's optimizer chunk."""
@@ -198,7 +207,7 @@ class ZeroPartitioner:
         n = 1
         for s in self.shapes[name]:
             n *= s
-        degree = self.pdegree if dim_of is self.param_dim else self._of(False, name)[1]
+        degree = self._of(dim_of is self.param_dim, name)[1]
         return n // degree if dim_of[name] is not None else n
 
     # -- stage 3: the units ----------------------------------------------------
@@ -299,7 +308,7 @@ class _Unit:
             if part.qwz is not None and part.qwz.applies(name, d):
                 out.append(part.qwz.gather(name, part.masters[name], d))
             else:
-                out.append(part.gather(leaf.detach(), d, param=True))
+                out.append(part.gather(leaf.detach(), d, param=True, name=name))
         return out
 
     def install(self, fulls):
@@ -364,13 +373,13 @@ class _GatheredUnit(torch.autograd.Function):
         for a in args:
             out_args.append(next(arg_grads) if isinstance(a, torch.Tensor) and a.requires_grad else None)
         out_leaves = []
-        for g, leaf, dim in zip(grads[n_wrt_args:], leaves, unit.dims):
+        for g, leaf, dim, name in zip(grads[n_wrt_args:], leaves, unit.dims, unit.names):
             if g is None:
                 out_leaves.append(torch.zeros_like(leaf))
             elif dim is None:
                 out_leaves.append(g)  # a replicated parameter: reduced at the boundary
             else:
-                out_leaves.append(unit.part.reduce_scatter(g, dim, param=True))
+                out_leaves.append(unit.part.reduce_scatter(g, dim, param=True, name=name))
         return (None, None, *out_args, *out_leaves)
 
 

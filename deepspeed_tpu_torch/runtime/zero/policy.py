@@ -18,7 +18,11 @@ engine does the same placement by hand over ``comm``'s collectives
 The rule (``policy.py:59-112`` there): a tensor is sharded over the ZeRO
 axes on its first dimension that the ZeRO degree divides; it stays
 replicated when it has at most ``persistence_threshold`` elements (stage 3
-only, as the reference's engine passes it) or when nothing divides. The rule
+only, as the reference's engine passes it) or when nothing divides. A
+tensor that another placement already splits (a tensor-parallel shard on
+the ``model`` axis, an expert bank on the ``expert`` axis) is partitioned
+on top of its shard: the ZeRO axes never take that dimension, and the
+threshold reads the whole tensor's size (``_add_zero_axes``). The rule
 is stated in the reference's layout (:func:`zero_shard_dim`, a pure
 function of shape, degree and threshold); the port holds a ``Linear``
 weight transposed (``[out, in]`` for the flax kernel's ``[in, out]``), so
@@ -33,14 +37,19 @@ import numpy as np
 from deepspeed_tpu_torch.utils import groups
 
 
-def zero_shard_dim(shape: Sequence[int], degree: int, persistence_threshold: int = 0) -> Optional[int]:
+def zero_shard_dim(shape: Sequence[int], degree: int, persistence_threshold: int = 0,
+                   taken: Optional[Tuple[int, int]] = None) -> Optional[int]:
     """The dimension the ZeRO rule shards a tensor of ``shape`` on over
-    ``degree`` ranks (the reference's layout), or None for replicated."""
+    ``degree`` ranks (the reference's layout), or None for replicated.
+    ``taken``: ``(dim, ranks)`` when ``shape`` is this rank's shard of a
+    tensor another placement splits on ``dim`` over ``ranks``."""
     if degree <= 1 or len(shape) == 0:
         return None
-    if int(np.prod(shape)) <= persistence_threshold:
+    if int(np.prod(shape)) * (taken[1] if taken else 1) <= persistence_threshold:
         return None
     for dim, size in enumerate(shape):
+        if taken is not None and dim == taken[0]:
+            continue
         if size > 0 and size % degree == 0:
             return dim
     return None
@@ -76,35 +85,35 @@ class ZeroShardingPolicy:
         self.tp_axis = tp_axis
         self.persistence_threshold = persistence_threshold
 
-    def _spec(self, shape, axes=None):
+    def _spec(self, shape, axes=None, taken=None):
         axes = self.zero_axes if axes is None else axes
         degree = int(np.prod([self.mesh.shape[ax] for ax in axes])) if axes else 1
-        dim = zero_shard_dim(shape, degree, self.persistence_threshold)
+        dim = zero_shard_dim(shape, degree, self.persistence_threshold, taken)
         spec = [None] * len(shape)
         if dim is not None:
             spec[dim] = axes if len(axes) > 1 else axes[0]
         return tuple(spec)
 
-    def param_spec(self, shape):
-        return self._spec(shape, self.param_axes) if self.stage >= 3 else (None, ) * len(shape)
+    def param_spec(self, shape, taken=None):
+        return self._spec(shape, self.param_axes, taken) if self.stage >= 3 else (None, ) * len(shape)
 
-    def grad_spec(self, shape):
+    def grad_spec(self, shape, taken=None):
         """Placement of the gradient-accumulation buffer."""
-        return self._spec(shape) if self.stage >= 2 else self.param_spec(shape)
+        return self._spec(shape, taken=taken) if self.stage >= 2 else self.param_spec(shape, taken)
 
-    def opt_spec(self, shape):
-        return self._spec(shape) if self.stage >= 1 else (None, ) * len(shape)
+    def opt_spec(self, shape, taken=None):
+        return self._spec(shape, taken=taken) if self.stage >= 1 else (None, ) * len(shape)
 
     @staticmethod
     def spec_dim(spec) -> Optional[int]:
         dims = [d for d, entry in enumerate(spec) if entry is not None]
         return dims[0] if dims else None
 
-    def param_dim(self, shape):
-        return self.spec_dim(self.param_spec(shape))
+    def param_dim(self, shape, taken=None):
+        return self.spec_dim(self.param_spec(shape, taken))
 
-    def grad_dim(self, shape):
-        return self.spec_dim(self.grad_spec(shape))
+    def grad_dim(self, shape, taken=None):
+        return self.spec_dim(self.grad_spec(shape, taken))
 
-    def opt_dim(self, shape):
-        return self.spec_dim(self.opt_spec(shape))
+    def opt_dim(self, shape, taken=None):
+        return self.spec_dim(self.opt_spec(shape, taken))

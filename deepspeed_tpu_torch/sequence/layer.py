@@ -16,6 +16,11 @@ backward is the opposite flip):
 :class:`DistributedAttention` runs a local attention between the two, so
 the attention sees the whole sequence at a share of the heads.
 
+Under tensor parallelism as well (a mesh with ``model`` and ``seq`` axes),
+the attention's inputs hold this rank's ``H/tp`` query and ``KVH/tp`` KV
+heads, and the flips run over the ``seq`` group of its model rank on those
+heads: ``H/tp`` must divide by ``sp``.
+
 Heads that the ranks do not divide: GSPMD pads such a dimension. The port
 repeats K/V to the query heads when the KV heads do not divide over the
 ranks (grouped-query attention then runs as multi-head attention, the same

@@ -19,7 +19,11 @@ The axis meanings, the getters and the ``TopologyError`` cases are the
 reference's: ``model`` (tensor parallel), ``seq`` (Ulysses), ``expert``
 (carved from the data-parallel ranks), ``hpz`` (ZeRO++ secondary
 partition), ``data`` and ``pipe``; ZeRO partitions over
-``('data', 'hpz', 'expert', 'seq')``.
+``('data', 'hpz', 'expert', 'seq')``, and an expert bank over the same
+less ``expert`` (``EXPERT_ZERO_AXES``). Any of the axes may be larger
+than 1 at once: rank ``r``'s coordinates are those of ``r`` in the grid, so
+the ``model`` ranks of one (expert, seq, data) slot are neighbours, as the
+reference's ``initialize_mesh`` lays its devices out.
 """
 
 from dataclasses import dataclass
@@ -41,6 +45,10 @@ DATA_PARALLEL_AXES = (DATA_AXIS, HPZ_AXIS, EXPERT_AXIS)  # dense-param DP group
 EXPERT_DATA_PARALLEL_AXES = (DATA_AXIS, HPZ_AXIS)  # expert-param DP group
 SEQ_DATA_PARALLEL_AXES = (DATA_AXIS, HPZ_AXIS, EXPERT_AXIS, SEQ_AXIS)  # ZeRO partition group
 SECONDARY_PARTITION_AXES = (HPZ_AXIS, EXPERT_AXIS, SEQ_AXIS)  # hpZ/MiCS shard group
+# an expert bank's ZeRO and gradient group: the ZeRO axes its expert
+# placement leaves free (reference zero/policy.py::_add_zero_axes), the
+# ranks that hold the same experts for other tokens
+EXPERT_ZERO_AXES = (DATA_AXIS, HPZ_AXIS, SEQ_AXIS)
 
 _MESH = None  # the process-global RankMesh
 

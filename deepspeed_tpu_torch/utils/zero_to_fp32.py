@@ -2,8 +2,9 @@
 
 Port of ``deepspeed_tpu/utils/zero_to_fp32.py``: put a checkpoint's masters
 back together, whatever world size and ZeRO stage wrote them (the rank
-files of ``runtime/checkpoint_engine`` joined along their chunk dimension),
-and export them flat:
+files of ``runtime/checkpoint_engine`` joined along their chunk dimension;
+a tag saved across model, sequence or expert ranks holds them whole
+already, as a world-1 tag does), and export them flat:
 
     python -m deepspeed_tpu_torch.utils.zero_to_fp32 <checkpoint_dir> <output_file> [--tag TAG]
 

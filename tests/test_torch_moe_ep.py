@@ -146,16 +146,21 @@ def test_top_k_ties_take_the_lower_index(setup):
 
 
 def test_engine_refuses_only_tensor_parallelism_and_quantization(setup):
-    """EP and simulated gating build; TP and weight quantization still raise,
-    each naming its item; a replica count that is not the world's raises."""
+    """EP and simulated gating build; weight quantization still raises,
+    naming its item. Tensor parallelism of a MoE model is ported (its
+    parity runs in ``tests/test_torch_tp.py``), so TP 2 in a world of one
+    rank raises naming the world, as a Llama's does; a replica count that
+    is not the world's raises. The name is kept so that the test's id
+    stays the same across the change."""
     _, _, cfg, state, _ = setup
     _engine(state, cfg, simulated_gating=True).close()
     eng = build_engine({k: torch.from_numpy(v) for k, v in state.items()}, cfg, sc.engine_config(1), device="cpu")
     assert eng.expert_parallel_group is None and eng.leave_expert_group() == 0
-    for key, value, item in (("tensor_parallel", {"tp_size": 2}, "A8"), ("quantization", {"enabled": True}, "A9")):
+    for key, value, error, match in (("tensor_parallel", {"tp_size": 2}, ValueError, "tp_size 2 != the comm world's 1"),
+                                     ("quantization", {"enabled": True}, NotImplementedError, "A9")):
         config = sc.engine_config(0)
         config = dataclasses.replace(config, **{key: type(getattr(config, key))(**value)})
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(error, match=match):
             InferenceEngineV2(eng.model, config)
     with pytest.raises(ValueError, match="replica_num 2"):
         build_engine({k: torch.from_numpy(v) for k, v in state.items()}, cfg, sc.engine_config(2), device="cpu")
