@@ -5065,13 +5065,14 @@ CONTROLS = (
 
 
 # ---------------------------------------------------------------- phase 10 --
-# the checkpoint legs' depth cut: the bench model's width at 2 of its 8
-# layers (a 2.77 GB tag where 8 layers write 6.35 GB onto the 9p disk), so
+# the checkpoint legs' depth cut: the bench model's width at 1 of its 8
+# layers (2 layers wrote a 2.77 GB tag and 8 write 6.35 GB onto the 9p
+# disk), so
 # that the whole script, with the MoE phase, stays well inside its 1200 s
-CKPT_LAYERS = 2
+CKPT_LAYERS = 1  # cut: depth, from 2, for the card's time
 CKPT_STEPS = 2  # steps after TRAIN_WARMUP before the save, and while the async commit runs
 CKPT_RESUME = 3  # steps after the save, in run A and in the resumed run B
-OPT_LAYERS = 2  # the optimizer leg's depth cut
+OPT_LAYERS = 1  # the optimizer leg's depth cut (from 2, for the card's time)
 OPT_STEPS = 3
 OPT_TINY_TOL = 1e-5  # card against CPU, f32, relative to each tensor's largest entry
 # every optimizer but Adam/AdamW, at a lr that moves the bf16 weights in 3
@@ -5462,7 +5463,7 @@ FEAT_COMPRESSION = {
                        "different_groups": {"sp": {"params": {"dense_ratio": 0.5},
                                                    "modules": FEAT_COMPRESSION_MODULES}}},
 }
-FEAT_LAYERS = 4  # the phase's depth cut (from the bench model's 8, for the card's time)
+FEAT_LAYERS = 2  # the phase's depth cut (from the bench model's 8, then 4; for the card's time)
 FEAT_EIG_LAYERS = 2  # the eigenvalue leg's depth cut: the HVP's retained graph
 # the engine's "eigenvalue" block: power iteration to the reference's
 # stopping rule (loss_curvature itself stops after 8 iterations, as there)
@@ -6353,6 +6354,7 @@ def run_zero_path(dev) -> dict:
 # tier's 1.85 GB of state a step each way; c and d: two and four ranks
 # share the one card over gloo, as run_zero_path's leg b).
 ZPP_STEPS = 2  # legs a and b (cut: steps, from 3, as ZERO_STEPS)
+ZPP_A_LAYERS = 4  # leg a: the bench model's width at a cut depth (cut: depth, from 8, for the card's time)
 ZPP_RANK_STEPS = 2  # legs c and d
 ZPP_PIPE_LAYERS, ZPP_PIPE_MICRO, ZPP_PIPE_GAS = 4, 2, 4  # leg d: two blocks a stage
 # leg c's losses against the exact run of their stage (qwZ, qgZ) or world 1
@@ -6415,17 +6417,20 @@ def _zpp_engine(cfg, dev, config, model=None):
     return engine
 
 
-def _zpp_steps(engine, batches):
+def _zpp_steps(engine, batches, after=None):
     """The steps with B2-B4's launches zeroed just before and read just
-    after: (losses, launches, per-step seconds)."""
+    after: (losses, launches, per-step seconds). ``after(i)``, if given,
+    runs after step ``i``, outside its time."""
     torch.cuda.synchronize()
     _zero_flash_launches()
     losses, times = [], []
-    for b in batches:
+    for i, b in enumerate(batches):
         t0 = time.perf_counter()
         losses.append(float(engine.train_batch(batch=b)))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        if after is not None:
+            after(i)
     return losses, _flash_launches(), times
 
 
@@ -6456,7 +6461,7 @@ def _zpp_cpu_offload(dev, failures) -> dict:
     run_training_path's batches on the card, then the same with the
     optimizer state in pinned host memory and its update on the host."""
     from deepspeed_tpu_torch import comm
-    cfg = bench_llama()
+    cfg = bench_llama(num_hidden_layers=ZPP_A_LAYERS)
     batches = _train_batches(cfg, dev)[:ZPP_STEPS]
     comm.destroy_process_group()
     comm.init_distributed(dist_backend="nccl", verbose=False)
@@ -7256,12 +7261,12 @@ def _par_check_a(a, main, dev, failures) -> dict:
     return res
 
 
-def _par_check_train(leg, ranks, ref, failures, steps=PAR_STEPS) -> dict:
-    """Legs b and c (and the composed phase's f, of ``steps`` steps): every
-    rank's losses within ZERO_LOSS_REL_TOL of world 1's and the masters
-    within its bf16 tolerance; B2-B4 launched as the world-1 run launches
-    them; the control must miss the masters."""
-    expected = {k: v // TRAIN_GAS for k, v in _expected_flash_launches(steps, PAR_LAYERS).items()}
+def _par_check_train(leg, ranks, ref, failures, steps=PAR_STEPS, layers=PAR_LAYERS) -> dict:
+    """Legs b and c (and the composed phase's f, of ``steps`` steps and
+    ``layers`` layers): every rank's losses within ZERO_LOSS_REL_TOL of
+    world 1's and the masters within its bf16 tolerance; B2-B4 launched as
+    the world-1 run launches them; the control must miss the masters."""
+    expected = {k: v // TRAIN_GAS for k, v in _expected_flash_launches(steps, layers).items()}
     res = dict(world1=ref, expected_flash_launches=expected, ranks=ranks)
     for r, run in enumerate(ranks):
         main, control = run["main"], run["control"]
@@ -7458,21 +7463,24 @@ def run_parallel_path(dev, main) -> dict:
 
 # ----------------------------------------------------------------- phase 17 --
 # the model-parallel axes composed: four processes of this script
-# (--composed-rank-child) over gloo on the card, started once, run three legs
+# (--composed-rank-child) over gloo on the card, started once, run six legs
 # in sequence: (e) Mixtral-8x7B's widths at 2 layers served at TP 2 x EP 2 (the
 # (expert, model) mesh: ranks 0-1 expert rank 0, ranks 2-3 expert rank 1), (f)
-# Llama-2-7B's widths at 2 layers trained at TP 2 x SP 2, its tag then loaded
-# at world 1 by the parent, and (g) Mixtral-8x7B's widths at 1 layer trained
-# with Ulysses 2 and EP 2 at ZeRO 3 (seq 2 x expert 2). TP of a MoE model in
+# Llama-2-7B's widths at COMP_F_LAYERS trained at TP 2 x SP 2, its tag then
+# loaded at world 1 by the parent, (g) Mixtral-8x7B's widths at 1 layer trained
+# with Ulysses 2 and EP 2 at ZeRO 3 (seq 2 x expert 2), then the 530M bench
+# model's widths (h) at pipe 2 x TP 2, its tag loaded at one stage by the
+# parent, (i) at pipe 2 x data 2 at ZeRO 3, (j) at TP 2 x hpZ 2 and at TP 2
+# with offload. The parent checks each leg as it lands. TP of a MoE model in
 # training is held on the CPU only: its banks,
 # whole on every model rank, cost about 25 GB of state a rank at these
 # widths, which four ranks on one card cannot hold (PERF.md section 4).
-COMP_PREDICTED_S = 200.0  # the phase's predicted seconds, printed before it runs
+COMP_PREDICTED_S = 400.0  # the phase's predicted seconds, printed before it runs
 # each leg's predicted seconds and peak GiB a rank (printed before it runs)
 COMP_PREDICTED = {"e": (40.0, 9.0), "f": (70.0, 9.0), "g": (45.0, 17.0)}
 COMP_TIMEOUT_S = 900  # bound on the ranks
 COMP_E_LAYERS = 2  # leg e: Mixtral-8x7B's widths at a cut depth (cut: depth)
-COMP_F_LAYERS = 2  # leg f: Llama-2-7B's widths at a cut depth (cut: depth)
+COMP_F_LAYERS = 1  # leg f: Llama-2-7B's widths at a cut depth (cut: depth, from 2, for the card's time)
 COMP_F_B, COMP_F_S = 2, 2048  # leg f: 2 rows of 2048 positions, 1024 a sequence rank
 COMP_F_MASK = (100, 700)  # leg f's -100 span of labels: inside sequence rank 0's half
 COMP_F_STEPS = 2  # leg f's steps before the save (cut: steps, from 3, as ZERO_STEPS)
@@ -7486,6 +7494,14 @@ COMP_G_LAYERS = 1  # leg g: Mixtral-8x7B's widths at 1 layer (MOE_TRAIN_LAYERS)
 COMP_G_RUNS = {"sp2xep2_zero3": (4, {"sequence_parallel_size": 2, "expert_parallel_size": 2})}
 COMP_G_STEPS = 1  # the checks read the first step's gates
 COMP_E_SPLIT = ([0, 2, 4, 6], [1, 3, 5, 7])  # leg e: the main path's prompts of expert rank 0 and 1
+# legs h-j: the pipeline, hpZ and offload composed with the model axis, at
+# the 530M bench model's widths (bf16 over f32 masters, flash, remat "dots")
+COMP_HIJ_PREDICTED = {"h": (75.0, 9.0), "i": (45.0, 7.0), "j": (75.0, 8.0)}  # seconds, peak GiB a rank
+COMP_H_LAYERS = 8  # legs h (pipe 2 x TP 2) and i (pipe 2 x data 2 at ZeRO 3): 4 blocks a stage
+COMP_J_LAYERS = 2  # leg j: TP 2 x hpZ 2, then TP 2 with offload (cut: depth, as ZERO_CUT_LAYERS)
+COMP_PIPE_MICRO, COMP_PIPE_GAS = 2, 4  # legs h and i: rows a micro-batch, micro-batches a step
+COMP_H_STEPS = 2  # leg h's steps before its save
+COMP_IJ_STEPS = 1  # legs i and j's steps (cut: steps, for the card's time)
 
 
 def _comp_llama(sequence_parallel=True):
@@ -7754,6 +7770,168 @@ def _comp_leg_g(dev, rank) -> dict:
     return out
 
 
+def _comp_pipe_batches(cfg, dev, n=COMP_H_STEPS + 1):
+    """Legs h and i's global batches (micro x GAS rows of TRAIN_S tokens;
+    the last one for the step after leg h's save)."""
+    rng = np.random.default_rng(29)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, cfg.vocab_size, size=(COMP_PIPE_MICRO * COMP_PIPE_GAS, TRAIN_S + 1), dtype=np.int64)
+        out.append(tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (ids[:, :-1], ids[:, 1:])))
+    return out
+
+
+def _comp_pipe_config(zero, **axes):
+    return dict(_zpp_config(None, COMP_PIPE_GAS, zero), train_batch_size=COMP_PIPE_MICRO * COMP_PIPE_GAS, **axes)
+
+
+def _crcs(tree):
+    return {k: ckpt.tensor_crc32(t.detach().contiguous().cpu()) for k, t in tree.items()}
+
+
+def _opt_crcs(engine):
+    opt = engine.opt_state._asdict()
+    return {f"{f}/{n}": ckpt.tensor_crc32(t.detach().contiguous().cpu())
+            for f in ("exp_avg", "exp_avg_sq") for n, t in opt[f].items()}
+
+
+def _comp_leg_h(dev, rank, work, carry) -> dict:
+    """The pipeline over model ranks: pipe 2 x TP 2 at ZeRO 1 (each stage
+    replicated over its 2 model ranks, which run the same micro-batches),
+    COMP_H_LAYERS layers, GAS COMP_PIPE_GAS, COMP_H_STEPS steps; the
+    CRC32 of each master and moment this rank holds (whole: no data
+    ranks), then a save (each stage's first rank writes its stage) and one
+    more step. The stage's masters after COMP_IJ_STEPS steps stay on the
+    card in ``carry`` for leg i (they are the one-rank control's, bitwise,
+    as the parent checks)."""
+    from deepspeed_tpu_torch.models.llama import llama_pipeline_module
+    cfg = bench_llama(num_hidden_layers=COMP_H_LAYERS)
+    batches = _comp_pipe_batches(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    engine = _zpp_engine(cfg, dev, _comp_pipe_config({"stage": 1}, tensor_parallel_size=2),
+                         model=llama_pipeline_module(cfg, 2))
+
+    def keep(i):
+        if i + 1 == COMP_IJ_STEPS:
+            carry["h_masters"] = {k: v.detach().clone() for k, v in engine.params.items()}
+
+    losses, launches, times = _zpp_steps(engine, batches[:COMP_H_STEPS], after=keep)
+    out = dict(stage=engine.stage_id, losses=losses, flash_launches=launches, step_s=times,
+               masters_crc=_crcs(engine.params), moments_crc=_opt_crcs(engine), steps=engine.global_steps,
+               mesh={k: int(v) for k, v in engine.mesh.shape.items() if v > 1})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.save_checkpoint(os.path.join(work, "tag_h"), tag="h")
+    out["save_s"] = time.perf_counter() - t0
+    out["tag_bytes"] = _tag_bytes(os.path.join(work, "tag_h", "h")) if rank == 0 else None
+    out["next_loss"] = float(engine.train_batch(batch=batches[COMP_H_STEPS]))
+    out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    _free(engine)
+    del engine
+    return out
+
+
+def _comp_leg_i(dev, rank, carry) -> dict:
+    """The pipeline at ZeRO 3: pipe 2 x data 2, leg h's model, each
+    stage's layers partitioned over its 2 data ranks and gathered a layer
+    at a time; the losses, the launches, the bytes this rank holds and its
+    stage's whole, and its stage's gathered masters against leg h's after
+    as many steps (``carry``) within _masters_close."""
+    from deepspeed_tpu_torch.models.llama import llama_pipeline_module
+    cfg = bench_llama(num_hidden_layers=COMP_H_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    engine = _zpp_engine(cfg, dev, _comp_pipe_config({"stage": 3, "stage3_param_persistence_threshold": 0}),
+                         model=llama_pipeline_module(cfg, 2))
+    losses, launches, times = _zpp_steps(engine, _comp_pipe_batches(cfg, dev)[:COMP_IJ_STEPS])
+    z = engine._zero
+    whole = sum(int(np.prod(s)) for s in z.shapes.values())
+    held = dict(masters=sum(t.numel() * t.element_size() for t in engine.params.values()),
+                optimizer=sum(t.numel() * t.element_size() for f in ("exp_avg", "exp_avg_sq")
+                              for t in getattr(engine.opt_state, f).values()))
+    stats, bad = _masters_close(engine.full_params(), carry.pop("h_masters"), steps=COMP_IJ_STEPS)  # a collective
+    out = dict(stage=engine.stage_id, losses=losses, flash_launches=launches, step_s=times, held_bytes=held,
+               stage_bytes=dict(masters=whole * 4, optimizer=whole * 8), units=len(z.units),
+               zero_group=list(z.group.ranks), masters_worst_vs_control=min(s for s, _ in stats.values()),
+               masters_max_abs_vs_control=max(t for _, t in stats.values()), masters_outside=bad,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    _free(engine)
+    del engine
+    return out
+
+
+def _comp_j_config(zero, **axes):
+    return dict({"train_batch_size": ZERO_B, "gradient_accumulation_steps": 1,
+                 "optimizer": {"type": "AdamW", "params": {"lr": TRAIN_LR}}, "zero_optimization": zero,
+                 "bf16": {"enabled": True}}, **axes)
+
+
+def _comp_j_engine(cfg, dev, config):
+    from deepspeed_tpu_torch.module_inject import auto_tp_specs
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.float32)
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params, config=config, device=dev,
+                                                     param_specs=auto_tp_specs(model))
+    return engine
+
+
+def _comp_leg_j(dev, rank, work) -> dict:
+    """hpZ and offload beside the model axis, COMP_J_LAYERS layers, ZERO_B
+    rows a step: TP 2 x hpZ 2 at ZeRO 3 (mesh data 1 x hpz 2 x model 2),
+    the parameter all-gathers counted during the steps and their group,
+    the gathered masters' CRC32s, a save; then TP 2 x data 2 at ZeRO 2
+    on the card, then with the optimizer state offloaded to pinned host
+    memory, the offloaded run's gathered masters against the other's."""
+    from deepspeed_tpu_torch import comm
+    cfg = bench_llama(num_hidden_layers=COMP_J_LAYERS)
+    batches = _zero_batches(cfg, dev)[:COMP_IJ_STEPS]
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    engine = _comp_j_engine(cfg, dev, _comp_j_config({"stage": 3, "zero_hpz_partition_size": 2,
+                                                      "stage3_param_persistence_threshold": 0},
+                                                     tensor_parallel_size=2))
+    z = engine._zero
+    per_pass = sum(z.local_numel(n, z.param_dim) * 2 for u in z.units for n in u.names if z.param_dim[n] is not None)
+    comm.configure(enabled=True, prof_all=True)  # after the engine's own configure
+    comm.comm.comms_logger.comms_dict.clear()
+    losses, launches, times = _zpp_steps(engine, batches)
+    gathered = {size: v[0] for size, v in comm.comm.comms_logger.comms_dict.get("all_gather_into_tensor", {}).items()}
+    comm.comm.comms_logger.comms_dict.clear()
+    comm.configure(enabled=False)
+    crc = _crcs(engine.full_params())  # a collective
+    # each unit's partitioned parameters gathered twice a micro-step (its
+    # forward, its backward's recompute), bf16, over the hpz pair alone
+    out["hpz"] = dict(losses=losses, flash_launches=launches, step_s=times,
+                      gather_bytes=sum(size * n for size, n in gathered.items()),
+                      gather_bytes_predicted=per_pass * 2 * COMP_IJ_STEPS,
+                      param_group=list(z.pgroup.ranks), model_group=list(engine._mp_group.ranks),
+                      masters_crc=crc if rank == 0 else None)
+    t0 = time.perf_counter()
+    engine.save_checkpoint(os.path.join(work, "tag_j"), tag="j")
+    out["hpz"]["save_s"] = time.perf_counter() - t0
+    out["hpz"]["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    _free(engine)
+    del engine
+    full = {}
+    for run, zero in (("device", {"stage": 2}), ("offload", {"stage": 2, "offload_optimizer": {"device": "cpu"}})):
+        engine = _comp_j_engine(cfg, dev, _comp_j_config(zero, tensor_parallel_size=2))
+        losses, launches, times = _zpp_steps(engine, batches)
+        full[run] = {k: v.detach().clone() for k, v in engine.full_params().items()}  # a collective
+        out[run] = dict(losses=losses, flash_launches=launches, step_s=times,
+                        resting=engine._offload.resting_bytes(engine.opt_state), cpu_offload=engine.zero_cpu_offload())
+        _free(engine)
+        del engine
+    # the host's AdamW is not the card's bit for bit (run_zero_plus_path
+    # leg a): held to the card's run by the same tolerance, the bitwise
+    # count beside it
+    stats, bad = _masters_close(full["offload"], full["device"], steps=COMP_IJ_STEPS)
+    out["offload"].update(masters_worst_vs_device=min(stats.values()), masters_outside=bad,
+                          masters_bitwise=sum(torch.equal(full["offload"][k], t) for k, t in full["device"].items()),
+                          masters_count=len(full["device"]))
+    del full
+    return out
+
+
 def composed_rank_child(work, device="cuda:0") -> int:
     """One rank of run_composed_path, started through the launcher: joins the
     gloo group, waits for the parent's plan, runs legs e-g, writes its
@@ -7768,8 +7946,10 @@ def composed_rank_child(work, device="cuda:0") -> int:
     with open(os.path.join(work, "go")) as f:
         plan = json.load(f)
     out = {"rank": rank}
+    carry = {}  # leg h's masters for leg i, on the card
     for leg, fn in (("e", lambda: _comp_leg_e(dev, rank, plan)), ("f", lambda: _comp_leg_f(dev, rank, work, deadline)),
-                    ("g", lambda: _comp_leg_g(dev, rank))):
+                    ("g", lambda: _comp_leg_g(dev, rank)), ("h", lambda: _comp_leg_h(dev, rank, work, carry)),
+                    ("i", lambda: _comp_leg_i(dev, rank, carry)), ("j", lambda: _comp_leg_j(dev, rank, work))):
         t0 = time.perf_counter()
         out[leg] = fn()
         out[leg]["seconds"] = time.perf_counter() - t0
@@ -7872,7 +8052,7 @@ def _comp_check_f(ranks, ref, work, dev, failures) -> dict:
     save, and its next step's loss equals the ranks' within
     ZERO_LOSS_REL_TOL."""
     res = _par_check_train("f", [{k: r[k] for k in ("main", "control")} for r in ranks], ref, failures,
-                           steps=COMP_F_STEPS)
+                           steps=COMP_F_STEPS, layers=COMP_F_LAYERS)
     res["heads_after_all_to_all"] = ranks[0]["main"]["heads_after_all_to_all"]
     if res["heads_after_all_to_all"] != 8:
         failures.append(f"f: {res['heads_after_all_to_all']} heads a rank in the attention")
@@ -7945,6 +8125,150 @@ def _comp_check_g(ranks, dev, failures) -> dict:
     return res
 
 
+def _comp_hij_references(dev) -> dict:
+    """The parent's runs while the ranks train legs f-j: legs h and i's
+    control (the pipeline's model as one LlamaForCausalLM at world 1, the
+    same micro-batches: its losses, its masters' CRC32s under the
+    pipeline's names, one more step) and leg j's world-1 run."""
+    from deepspeed_tpu_torch.models.convert import pipeline_state_from_llama
+    cfg = bench_llama(num_hidden_layers=COMP_H_LAYERS)
+    batches = _comp_pipe_batches(cfg, dev)
+    engine = _zpp_engine(cfg, dev, _comp_pipe_config({"stage": 1}))
+    losses, launches, times = _zpp_steps(engine, batches[:COMP_H_STEPS])
+    out = {"h": dict(losses=losses, flash_launches=launches, step_s=times,
+                     masters_crc=_crcs(pipeline_state_from_llama(engine.params, cfg)))}
+    out["h"]["next_loss"] = float(engine.train_batch(batch=batches[COMP_H_STEPS]))
+    _free(engine)
+    del engine
+    cfg = bench_llama(num_hidden_layers=COMP_J_LAYERS)
+    engine = _comp_j_engine(cfg, dev, _comp_j_config({"stage": 2}))
+    losses, launches, times = _zpp_steps(engine, _zero_batches(cfg, dev)[:COMP_IJ_STEPS])
+    out["j"] = dict(losses=losses, flash_launches=launches, step_s=times,
+                    masters={k: v.detach().clone() for k, v in engine.params.items()})
+    _free(engine)
+    del engine
+    return out
+
+
+def _comp_pipe_launches(steps):
+    """B2-B4 on a stage of legs h and i: each of its blocks, every
+    micro-batch, a forward and its recompute (remat, or a ZeRO-3 unit's),
+    and one backward of two launches."""
+    blocks, micro = COMP_H_LAYERS // 2, steps * COMP_PIPE_GAS
+    return {"fwd": micro * 2 * blocks, "dkv": micro * blocks, "dq": micro * blocks}
+
+
+def _comp_check_h(h, ctl, work, dev, failures) -> dict:
+    """Leg h: each stage's losses, masters and next step bitwise the
+    one-rank control's (the stages sum a micro-batch's gradients in its
+    order), its model ranks' masters bitwise equal, B2-B4 as
+    _comp_pipe_launches; the tag loaded by a one-stage engine here (while
+    the ranks go on to legs i and j): masters and moments bitwise the
+    ranks', its next step the control's."""
+    from deepspeed_tpu_torch.models.llama import llama_pipeline_module
+    want_l = _comp_pipe_launches(COMP_H_STEPS)
+    res = dict(ranks=[{k: v for k, v in x.items() if not k.endswith("_crc")} for x in h],
+               control=dict(losses=ctl["losses"], next_loss=ctl["next_loss"], step_s=ctl["step_s"]))
+    masters = {**h[0]["masters_crc"], **h[2]["masters_crc"]}
+    moments = {**h[0]["moments_crc"], **h[2]["moments_crc"]}
+    res["masters_bitwise_control"] = masters == ctl["masters_crc"]
+    res["model_ranks_equal"] = h[0]["masters_crc"] == h[1]["masters_crc"] and \
+        h[2]["masters_crc"] == h[3]["masters_crc"]
+    for r, x in enumerate(h):
+        if x["losses"] != ctl["losses"] or x["next_loss"] != ctl["next_loss"]:
+            failures.append(f"h: rank {r}'s losses {x['losses']} + {x['next_loss']} are not the control's "
+                            f"{ctl['losses']} + {ctl['next_loss']}")
+        if x["flash_launches"] != want_l:
+            failures.append(f"h: rank {r}'s flash launches {x['flash_launches']} != {want_l}")
+    if not (res["masters_bitwise_control"] and res["model_ranks_equal"]):
+        failures.append(f"h: masters bitwise the control's {res['masters_bitwise_control']}, the model ranks' "
+                        f"equal {res['model_ranks_equal']}")
+    cfg = bench_llama(num_hidden_layers=COMP_H_LAYERS)
+    t0 = time.perf_counter()
+    engine = _zpp_engine(cfg, dev, _comp_pipe_config({"stage": 1}), model=llama_pipeline_module(cfg, 1))
+    engine.load_checkpoint(os.path.join(work, "tag_h"), tag="h")
+    res["load_s"] = time.perf_counter() - t0
+    res["tag_bytes"] = h[0]["tag_bytes"]
+    res["loaded_bitwise"] = _crcs(engine.params) == masters and _opt_crcs(engine) == moments
+    res["loaded_steps"] = engine.global_steps
+    res["one_stage_next_loss"] = float(engine.train_batch(batch=_comp_pipe_batches(cfg, dev)[COMP_H_STEPS]))
+    _free(engine)
+    del engine
+    if not (res["loaded_bitwise"] and res["loaded_steps"] == COMP_H_STEPS
+            and res["one_stage_next_loss"] == ctl["next_loss"]):
+        failures.append(f"h: the tag at one stage: bitwise {res['loaded_bitwise']}, steps "
+                        f"{res['loaded_steps']}, next loss {res['one_stage_next_loss']} vs {ctl['next_loss']}")
+    return res
+
+
+def _comp_check_ij(i, j, refs, work, dev, failures) -> dict:
+    """Leg i: the losses within ZPP_LOSS_REL_TOL of leg h's control's, the
+    stage's masters within _masters_close of leg h's after as many steps
+    (the control's, bitwise), a rank's masters and moments exactly half
+    its stage's, the launches as h's a step. j: hpZ's losses within ZPP_LOSS_REL_TOL of world 1's, its
+    masters within _masters_close, its parameter gathers over the hpz pair
+    and their bytes the count, its tag loaded at world 1 bitwise;
+    offload's masters within the host-vs-card tolerance of the same TP
+    run's on the card (leg a's), its state at rest in pinned host memory."""
+    ctl = refs["h"]
+    want_l = _comp_pipe_launches(COMP_IJ_STEPS)
+    res = {}
+    res["i"] = dict(ranks=i)
+    for r, x in enumerate(i):
+        rel = max(_rel(a, b) for a, b in zip(x["losses"], ctl["losses"]))
+        x["loss_rel_err_vs_control"] = rel
+        if rel > ZPP_LOSS_REL_TOL:
+            failures.append(f"i: rank {r}'s losses {x['losses']} vs the control's {ctl['losses']}")
+        if x["masters_outside"]:
+            failures.append(f"i: rank {r}'s masters outside the tolerance of leg h's after {COMP_IJ_STEPS} "
+                            f"step(s): {x['masters_outside'][:4]} (worst share {x['masters_worst_vs_control']})")
+        if any(2 * x["held_bytes"][k] != x["stage_bytes"][k] for k in ("masters", "optimizer")):
+            failures.append(f"i: rank {r} holds {x['held_bytes']} of its stage's {x['stage_bytes']}, not half")
+        if x["flash_launches"] != want_l or len(x["zero_group"]) != 2:
+            failures.append(f"i: rank {r}'s flash launches {x['flash_launches']} != {want_l}, ZeRO group "
+                            f"{x['zero_group']}")
+    w1 = refs["j"]
+    res["j"] = dict(ranks=[{run: {k: v for k, v in x[run].items() if k != "masters_crc"}
+                            for run in ("hpz", "offload", "device")} for x in j],
+                    world1=dict(losses=w1["losses"], step_s=w1["step_s"]))
+    L = COMP_J_LAYERS
+    want_j = {"fwd": COMP_IJ_STEPS * 2 * L, "dkv": COMP_IJ_STEPS * L, "dq": COMP_IJ_STEPS * L}
+    for r, x in enumerate(j):
+        hp = x["hpz"]
+        hp["loss_rel_err_vs_world1"] = max(_rel(a, b) for a, b in zip(hp["losses"], w1["losses"]))
+        if hp["loss_rel_err_vs_world1"] > ZPP_LOSS_REL_TOL:
+            failures.append(f"j: rank {r}'s hpZ losses {hp['losses']} vs world 1's {w1['losses']}")
+        if hp["param_group"] != [r % 2, r % 2 + 2] or hp["gather_bytes"] != hp["gather_bytes_predicted"]:
+            failures.append(f"j: rank {r}'s parameter gathers over {hp['param_group']}, {hp['gather_bytes']} bytes "
+                            f"(the count {hp['gather_bytes_predicted']})")
+        if x["offload"]["masters_outside"] or not x["offload"]["cpu_offload"]:
+            failures.append(f"j: rank {r}'s offloaded masters outside the host-vs-card tolerance of the run on the "
+                            f"card: {x['offload']['masters_outside'][:4]}")
+        rest = x["offload"]["resting"]
+        if rest["device"] != 0 or rest["pinned"] != rest["host"] or rest["host"] <= 0:
+            failures.append(f"j: rank {r}'s offloaded state does not rest in pinned host memory: {rest}")
+        for run in ("hpz", "offload", "device"):
+            if x[run]["flash_launches"] != want_j:
+                failures.append(f"j {run}: rank {r}'s flash launches {x[run]['flash_launches']} != {want_j}")
+    cfg = bench_llama(num_hidden_layers=COMP_J_LAYERS)
+    t0 = time.perf_counter()
+    engine = _comp_j_engine(cfg, dev, _comp_j_config({"stage": 2}))
+    engine.load_checkpoint(os.path.join(work, "tag_j"), tag="j")
+    res["j"]["load_s"] = time.perf_counter() - t0
+    res["j"]["loaded_bitwise"] = _crcs(engine.params) == j[0]["hpz"]["masters_crc"]
+    stats, bad = _masters_close(engine.params, w1["masters"], steps=COMP_IJ_STEPS)
+    res["j"]["masters_worst_vs_world1"] = min(stats.values())
+    _free(engine)
+    del engine
+    if not res["j"]["loaded_bitwise"] or bad:
+        failures.append(f"j: the hpZ tag at world 1: bitwise {res['j']['loaded_bitwise']}, masters outside "
+                        f"world 1's tolerance {bad[:4]}")
+    res["flash_launches_ij"] = {k: i[0]["flash_launches"][k] +
+                                sum(j[0][run]["flash_launches"][k] for run in ("hpz", "offload", "device"))
+                                for k in ("fwd", "dkv", "dq")}
+    return res
+
+
 def _comp_wait_for_leg(work, leg, proc, deadline):
     """Every rank's readings of ``leg`` once all four have written them, or
     None if the ranks' launcher exits first (its failure is read after)."""
@@ -7966,7 +8290,7 @@ def run_composed_path(dev, main) -> dict:
     started once; ``main`` is run_main_path's record (its logit errors)."""
     t_phase = time.perf_counter()
     log(f"[composed] predicted: {COMP_PREDICTED_S:.0f} s for the phase; each leg's seconds and peak GiB a rank: "
-        + json.dumps(COMP_PREDICTED))
+        + json.dumps(dict(COMP_PREDICTED, **COMP_HIJ_PREDICTED)))
     failures, res = [], {}
     work = tempfile.mkdtemp(prefix="composed_")
     # four ranks share the card: the allocator's expandable segments keep each
@@ -7992,6 +8316,20 @@ def run_composed_path(dev, main) -> dict:
             res["e"] = _comp_check_e(e_ranks, refs, main, plan, dev, failures)
             gc.collect()
             torch.cuda.empty_cache()
+        # legs h-j's references while the ranks train, then the checks of
+        # legs f and h (each loads its tag here) while they go on
+        t0 = time.perf_counter()
+        refs.update(_comp_hij_references(dev))
+        refs["hij_seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        for leg in "fh":
+            got = _comp_wait_for_leg(work, leg, proc, time.monotonic() + COMP_TIMEOUT_S)
+            if got is not None:
+                res[leg] = _comp_check_f(got, refs["f"], work, dev, failures) if leg == "f" else \
+                    _comp_check_h(got, refs["h"], work, dev, failures)
+                gc.collect()
+                torch.cuda.empty_cache()
         rc, out, err = _finish(proc, timeout=COMP_TIMEOUT_S)
         if rc != 0:
             os.makedirs("chiprun_out", exist_ok=True)
@@ -8007,12 +8345,18 @@ def run_composed_path(dev, main) -> dict:
         for r in range(4):
             with open(os.path.join(work, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
-        res.update(references_s=refs["seconds"], legs_s={leg: [r[leg]["seconds"] for r in ranks] for leg in "efg"})
+        res.update(references_s=refs["seconds"], hij_references_s=refs["hij_seconds"],
+                   legs_s={leg: [r[leg]["seconds"] for r in ranks] for leg in "efghij"})
         if "e" not in res:
             res["e"] = _comp_check_e([r["e"] for r in ranks], refs, main, plan, dev, failures)
         log("[composed] e: " + json.dumps(res["e"]))
-        res["f"] = _comp_check_f([r["f"] for r in ranks], refs["f"], work, dev, failures)
+        if "f" not in res:
+            res["f"] = _comp_check_f([r["f"] for r in ranks], refs["f"], work, dev, failures)
         log("[composed] f: " + json.dumps(res["f"]))
+        if "h" not in res:
+            res["h"] = _comp_check_h([r["h"] for r in ranks], refs["h"], work, dev, failures)
+        res.update(_comp_check_ij([r["i"] for r in ranks], [r["j"] for r in ranks], refs, work, dev, failures))
+        log("[composed] h-j: " + json.dumps({k: res[k] for k in "hij"}, default=str)[:6000])
     finally:
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
@@ -8021,7 +8365,9 @@ def run_composed_path(dev, main) -> dict:
     res["g"] = _comp_check_g([r["g"] for r in ranks], dev, failures)
     log("[composed] g: " + json.dumps(res["g"]))
     res["b1_launches"] = res["e"]["b1_launches"]
-    res["flash_launches"] = ranks[0]["f"]["main"]["flash_launches"]
+    # rank 0's legs f and h-j
+    res["flash_launches"] = {k: ranks[0]["f"]["main"]["flash_launches"][k] + ranks[0]["h"]["flash_launches"][k] +
+                             res["flash_launches_ij"][k] for k in ("fwd", "dkv", "dq")}
     res["seconds"] = time.perf_counter() - t_phase
     res["failures"] = failures
     e, f, g = res["e"], res["f"], res["g"]
@@ -8038,6 +8384,21 @@ def run_composed_path(dev, main) -> dict:
         log(f"[composed] g {run}: dropped {r['dropped']} (world 1 {r['world1_dropped']}, own-token gate "
             f"{r['control_dropped']}), bank share {r['bank_share']}, peak "
             f"{[x['max_memory_allocated_gib'] for x in r['ranks']]} GiB, steps {r['ranks'][0]['step_s']} s")
+    h, i, j = res["h"], res["i"], res["j"]
+    log(f"[composed] h: pipe 2 x TP 2 losses {h['ranks'][0]['losses']} (control {h['control']['losses']}), "
+        f"masters bitwise {h['masters_bitwise_control']}, model ranks equal {h['model_ranks_equal']}; "
+        f"tag {h['tag_bytes']} bytes saved in {[x['save_s'] for x in h['ranks']]} s, loaded at one "
+        f"stage in {h['load_s']:.1f} s, bitwise {h['loaded_bitwise']}; peak "
+        f"{[x['max_memory_allocated_gib'] for x in h['ranks']]} GiB, steps {h['ranks'][0]['step_s']} s")
+    log(f"[composed] i: pipe 2 x data 2 at ZeRO 3 losses {i['ranks'][0]['losses']}, held "
+        f"{i['ranks'][0]['held_bytes']} of {i['ranks'][0]['stage_bytes']}, peak "
+        f"{[x['max_memory_allocated_gib'] for x in i['ranks']]} GiB, steps {i['ranks'][0]['step_s']} s")
+    jr = j["ranks"][0]
+    log(f"[composed] j: TP 2 x hpZ 2 losses {jr['hpz']['losses']} (world 1 {j['world1']['losses']}), gathers "
+        f"{jr['hpz']['gather_bytes']} bytes (count {jr['hpz']['gather_bytes_predicted']}) over {jr['hpz']['param_group']}, "
+        f"tag loaded at world 1 bitwise {j['loaded_bitwise']}; offload steps {jr['offload']['step_s']} s against "
+        f"{jr['device']['step_s']} s on the card, masters worst {jr['offload']['masters_worst_vs_device']}, bitwise "
+        f"{jr['offload']['masters_bitwise']}/{jr['offload']['masters_count']}")
     log(f"[composed] {res['seconds']:.1f} s (predicted {COMP_PREDICTED_S:.0f}); legs {res['legs_s']}")
     log(card_line())
     if failures:

@@ -22,7 +22,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     ``deepspeed_tpu/__init__.py:92-99``), one process a stage.
     ``param_specs`` (``module_inject.auto_tp_specs(model)``) places the
     module's parameters on the mesh's ``model`` axis under
-    ``tensor_parallel_size`` (reference ``deepspeed_tpu/__init__.py:67``).
+    ``tensor_parallel_size`` (reference ``deepspeed_tpu/__init__.py:67``);
+    the pipeline engine takes none (reference ``pipe/engine.py:131-133``).
     """
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
     from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine
@@ -37,7 +38,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     if isinstance(model, PipelineModule):
         engine_cls = PipelineEngine
         if param_specs is not None:
-            raise NotImplementedError("param_specs with the pipeline engine is not ported yet (A8 item 5)")
+            # the reference's PipelineEngine drops them too: its stages are
+            # replicated over the model ranks, never tensor-parallel
+            from deepspeed_tpu_torch.utils.logging import logger
+            logger.info("param_specs with a PipelineModule: dropped, as the reference drops them (each stage is "
+                        "replicated over the model ranks)")
     else:
         engine_cls = DeepSpeedEngine
         kw["param_specs"] = param_specs

@@ -103,6 +103,10 @@ class MoE(nn.Module):
         self.use_residual = use_residual
         self.activation = activation
         self.gating_seed = None
+        # (gate, expert, expert-data, sequence) groups; None: the mesh's
+        # (``moe_groups``). A pipeline stage's engine sets four Nones: its
+        # gate sees this rank's tokens and its experts are whole on each rank
+        self.groups = None
         self.topk = TopKGate(M, num_experts, k, capacity_factor, eval_capacity_factor, min_capacity,
                              noisy_gate_policy, drop_tokens, use_rts)
         self.gate = nn.Parameter(torch.empty(M, num_experts))
@@ -119,7 +123,7 @@ class MoE(nn.Module):
         if generator is None and training and self.gating_seed is not None:
             generator = torch.Generator(device=x.device).manual_seed(self.gating_seed)
         tokens = x.reshape(-1, self.hidden_size)
-        gate_group, ep, edp, sp = moe_groups()
+        gate_group, ep, edp, sp = self.groups if self.groups is not None else moe_groups()
         seq = (sp.size, x.shape[0] if x.ndim > 2 else 1) if sp is not None and sp.size > 1 else None
         l_aux, combine, dispatch, exp_counts = self.topk(self.gate, tokens, generator=generator,
                                                          used_token=used_token, training=training, group=gate_group,

@@ -410,8 +410,9 @@ def _chunked_part(trees, layout):
 def _global_trees(engine, trees, keep):
     """``trees`` with every entry gathered whole over the ranks, entry by
     entry in one order on every rank (``engine._gather_entry``); a copy on
-    the host where ``keep``, else nothing (the entries are dropped as they
-    come, so no rank holds more than one whole tensor at a time)."""
+    the host of each entry ``keep(tree, key)`` accepts, and nothing of the
+    rest (the entries are dropped as they come, so no rank holds more than
+    one whole tensor at a time)."""
     out = {}
     for name, tree in trees.items():
         part = {}
@@ -420,16 +421,18 @@ def _global_trees(engine, trees, keep):
                 sub = {}
                 for n, t in value.items():
                     whole = engine._gather_entry(name, f"{key}/{n}", t)
-                    if keep:
+                    if keep(name, f"{key}/{n}"):
                         sub[n] = whole.detach().to("cpu", copy=True)
-                part[key] = sub
+                if sub:
+                    part[key] = sub
             elif value is None:
-                part[key] = None
+                if keep(name, key):
+                    part[key] = None
             else:
                 whole = engine._gather_entry(name, key, value)
-                if keep:
+                if keep(name, key):
                     part[key] = whole.detach().to("cpu", copy=True)
-        out[name] = part if keep else {}
+        out[name] = part
     return out
 
 
@@ -651,10 +654,13 @@ def save_engine_state(engine, save_dir, tag, client_state, save_latest, async_sa
 
     trees = _state_trees(engine)
     global_layout = world > 1 and engine._checkpoint_global()
+    writes = True
     if global_layout:
         # every array whole, as at world 1: gathered by every rank, kept
-        # (and written) by rank 0 alone
-        trees = _global_trees(engine, trees, keep=rank == 0)
+        # (and written) by the writers alone: rank 0, or each pipeline
+        # stage's first rank, with the entries that stage owns
+        writes = engine._checkpoint_writer()
+        trees = _global_trees(engine, trees, keep=lambda tree, key: writes and engine._checkpoint_keeps(tree, key))
     elif world > 1 and rank != 0:
         trees = _chunked_part(trees, engine._checkpoint_layout())
     snapshot = _host_snapshot(trees)
@@ -675,16 +681,18 @@ def save_engine_state(engine, save_dir, tag, client_state, save_latest, async_sa
     ck_cfg = engine._config.checkpoint_config
     keep_last_k = int(ck_cfg.keep_last_k or 0)
     arrays_crc = None
-    if ck_cfg.array_checksums and (rank == 0 or not global_layout):
+    if ck_cfg.array_checksums and writes:
         arrays_crc = array_checksums({f"rank{rank}": snapshot} if world > 1 and not global_layout else snapshot)
     # over several ranks rank 0 replaces the arrays with every rank's seal's
     manifest_meta = _manifest_meta(engine, tag, host_state, snapshot["scale_state"], arrays_crc, keep_last_k)
     state_dir = os.path.join(path, STATE_DIR)
     if world > 1 and not global_layout:
         state_dir = os.path.join(state_dir, f"rank{rank}")
+    elif global_layout and engine._checkpoint_subdir() is not None:
+        state_dir = os.path.join(state_dir, engine._checkpoint_subdir())
 
     def commit():
-        if rank == 0 or not global_layout:
+        if writes:
             _write_state(snapshot, state_dir)
         _gang_commit(engine, path, save_dir, tag, host_state, save_latest, manifest_meta, keep_last_k, world,
                      arrays_crc, chunked=not global_layout)
@@ -837,48 +845,65 @@ def _nest(flat):
     return out
 
 
-def read_state(path, verify_arrays=True):
+def read_state(path, verify_arrays=True, keep=None):
     """The checkpoint's three state trees as whole flat dicts: one file
-    each for a save at world 1; else every rank's files put back together
-    along the dimension each entry was chunked on (``partition.json``).
-    Each file is checked against the manifest's per-array CRCs first."""
+    each for a save at world 1 or in the global layout; each pipeline
+    stage's files (``state/stage<s>/``, every entry in one of them) merged;
+    else every rank's files put back together along the dimension each
+    entry was chunked on (``partition.json``). ``keep(tree, key)`` selects
+    the entries to return (default: all). Each file is checked against the
+    manifest's per-array CRCs first (the selected entries of it)."""
     state_dir = os.path.join(path, STATE_DIR)
     want = (read_manifest(path) or {}).get("arrays") if verify_arrays else None
     part_file = os.path.join(state_dir, PARTITION_FILE)
-    load = lambda d, name: torch.load(os.path.join(d, f"{name}.pt"), weights_only=True, map_location="cpu")
-    if not os.path.isfile(part_file):
-        flat = {name: load(state_dir, name) for name in STATE_TREES}
-        ranks = [("", flat)]
-        dims, world = None, 1
-    else:
+    keep = keep or (lambda tree, key: True)
+
+    def load(d):
+        flat = {}
+        for name in STATE_TREES:
+            got = torch.load(os.path.join(d, f"{name}.pt"), weights_only=True, map_location="cpu")
+            flat[name] = {k: t for k, t in got.items() if keep(name, k)}
+        return flat
+
+    dims = None
+    if os.path.isfile(part_file):
         with open(part_file) as f:
             layout = json.load(f)
         world, dims = int(layout["world"]), layout["dims"]
-        ranks = [(f"rank{r}", {name: load(os.path.join(state_dir, f"rank{r}"), name) for name in STATE_TREES})
-                 for r in range(world)]
+        parts = [(f"rank{r}", load(os.path.join(state_dir, f"rank{r}"))) for r in range(world)]
+    elif os.path.isfile(os.path.join(state_dir, f"{STATE_TREES[0]}.pt")):
+        parts = [("", load(state_dir))]
+    else:
+        stages = sorted((d for d in os.listdir(state_dir) if re.fullmatch(r"stage\d+", d)), key=lambda d: int(d[5:]))
+        if not stages:
+            raise FileNotFoundError(f"checkpoint {path} holds no state files")
+        parts = [("", load(os.path.join(state_dir, d))) for d in stages]
     if want is not None:
-        for prefix, flat in ranks:
+        for prefix, flat in parts:
             tree = {name: _nest(flat[name]) for name in STATE_TREES}
             got = array_checksums({prefix: tree} if prefix else tree)
             bad = [p for p, info in got.items() if p not in want or want[p]["crc32"] != info["crc32"]]
             if bad:
                 raise CheckpointCorruptionError(f"checkpoint {path}: restored arrays fail the manifest's per-array "
                                                 f"CRC32 ({bad[:4]}{'...' if len(bad) > 4 else ''})")
-    if dims is None:
-        return ranks[0][1]
     full = {}
     for name in STATE_TREES:
         full[name] = {}
-        for key, t0 in ranks[0][1][name].items():
+        if dims is None:
+            for _, flat in parts:
+                full[name].update(flat[name])
+            continue
+        for key, t0 in parts[0][1][name].items():
             dim = dims.get(name, {}).get(key)
-            full[name][key] = t0 if dim is None else torch.cat([flat[name][key] for _, flat in ranks], dim=dim)
+            full[name][key] = t0 if dim is None else torch.cat([flat[name][key] for _, flat in parts], dim=dim)
     return full
 
 
 def _restore_into_engine(engine, path, load_optimizer_states, load_lr_scheduler_states, load_module_only,
                          verify_arrays):
-    full = read_state(path, verify_arrays)
     layout = engine._checkpoint_layout()
+    # the entries this engine holds (a pipeline stage: its own)
+    full = read_state(path, verify_arrays, keep=lambda tree, key: key in layout[tree])
     offload = engine._offload
     templates = {"params": engine.params, "opt_state": offload.restore_template(engine.opt_state),
                  "scale_state": engine.scale_state}

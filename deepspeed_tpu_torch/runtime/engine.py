@@ -82,9 +82,19 @@ summed over ``model``, and no token is counted twice across model ranks:
 they hold the same tokens, and the loss, the token count and the MoE gate
 span data x expert x seq only.
 
-A checkpoint taken across model, sequence or expert ranks holds every
-array in its global layout, as a world-1 checkpoint does (rank 0 writes
-what the ranks gather), so it loads at any other mesh or at world 1.
+A checkpoint taken on any mesh but one of data ranks alone (model,
+sequence or expert ranks, hpZ / MiCS's secondary groups, pipe ranks) holds
+every array in its global layout, as a world-1 checkpoint does (rank 0, or
+each pipeline stage's first rank, writes what the ranks gather; a chunk
+that repeats across replica groups is gathered once, within its group),
+so it loads at any other mesh or at world 1.
+
+The axes compose with the rest of ZeRO: hpZ and MiCS partition within the
+secondary group (``groups.SECONDARY_PARTITION_AXES`` less the axes a
+placement takes), offload holds each rank's shard of the state, qgZ falls
+back to the exact reduction with the reference's warning on any axis but
+data, and a plain module under ``pipeline_parallel_size`` is replicated
+over the pipe ranks (the ZeRO axes and the batch's leave the pipe out).
 
 The loss of a step across data or sequence ranks is the reference's global
 token mean: the count of valid labels of each micro-batch is summed over
@@ -93,11 +103,8 @@ the ranks that average their losses before the forward, and
 whole batch's mean (``global_token_mean``); a loss term that is global
 already (Mixtral's router loss) is left alone.
 
-What still raises ``NotImplementedError`` names ROADMAP A8 item 5 (model,
-sequence or expert ranks with the pipeline, hpZ, MiCS, qgZ or offload;
-checkpoints of hpZ/MiCS partitions and pipeline stages). The monitor and the
-flops profiler are A9: where the JAX engine calls them, this one does
-nothing.
+The monitor and the flops profiler are A9: where the JAX engine calls
+them, this one does nothing.
 """
 
 import contextlib
@@ -193,28 +200,6 @@ def _make_optimizer(name, params_cfg):
     return classes[name](**cfg)
 
 
-def _unsupported(cfg: DeepSpeedConfig, stages: int):
-    """Configured features this engine does not run, each with the ROADMAP
-    queue item that ports it (A8 item 5). ``stages`` is the engine's
-    pipeline stage count: a ``pipeline_parallel_size`` above 1 runs only as
-    a ``PipelineModule``'s stages (the reference also replicates a plain
-    module over its mesh's pipe axis; the port does not)."""
-    found = []
-    zc = cfg.zero_config
-    tp, sp, ep = cfg.tensor_parallel_size, cfg.sequence_parallel_size, cfg.expert_parallel_size
-    if cfg.pipeline_parallel_size > 1 and stages == 1:
-        found.append(f"pipeline_parallel_size {cfg.pipeline_parallel_size} on a module that is not a PipelineModule "
-                     "(A8)")
-    offload = (zc.offload_optimizer is not None and zc.offload_optimizer.device.value != "none") or \
-        (cfg.optimizer_name or "").lower() == "cpuadam"
-    combos = (("the pipeline", stages > 1), ("hpZ/MiCS", _secondary_partition_size(zc) > 1),
-              ("qgZ", zc.zero_quantized_gradients), ("offload", offload))
-    for what, size in (("tensor parallelism", tp), ("sequence parallelism", sp), ("expert parallelism", ep)):
-        if size > 1:
-            found.extend(f"{what} with {other} (A8 item 5)" for other, on in combos if on)
-    return found
-
-
 def _secondary_partition_size(zc) -> int:
     """hpZ's or MiCS's secondary group size (1: no secondary partition)."""
     if zc.zero_hpz_partition_size > 1:
@@ -237,15 +222,12 @@ class DeepSpeedEngine:
         # join the gang the launcher described (a world of one without one)
         dist.init_distributed(device=self.device)
         self._config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
-        missing = _unsupported(self._config, self._pipeline_stages())
-        if missing:
-            raise NotImplementedError(f"not ported yet, each with the ROADMAP item that ports it: {', '.join(missing)}")
-        # the rank mesh: the pipeline stages (PipelineEngine), then the data
-        # ranks, split into (data, hpz) for hpZ / MiCS (reference
-        # engine.py:166-190)
+        # the rank mesh: the pipeline stages (a PipelineEngine's, or the pipe
+        # ranks a plain module is replicated over), then the data ranks,
+        # split into (data, hpz) for hpZ / MiCS (reference engine.py:166-190)
         zc = self._config.zero_config
         secondary = _secondary_partition_size(zc)
-        pipe = self._pipeline_stages()
+        pipe = self._pipeline_stages() if self._pipeline_stages() > 1 else self._config.pipeline_parallel_size
         axes = {groups.MODEL_AXIS: self._config.tensor_parallel_size,
                 groups.SEQ_AXIS: self._config.sequence_parallel_size,
                 groups.EXPERT_AXIS: self._config.expert_parallel_size}
@@ -308,9 +290,16 @@ class DeepSpeedEngine:
             apply_tensor_parallel(model, param_specs, self._mp_group)
             self._tp_dims = {n: spec[1] for n, spec in param_specs.items()
                              if spec is not None and spec[0] == groups.MODEL_AXIS}
+        # each expert rank keeps its own experts' banks; a pipeline stage is
+        # replicated over its expert ranks instead, which are its data ranks:
+        # each holds every expert and each gate sees its own rank's tokens,
+        # as inside the reference pipeline's shard_map
+        staged = self._pipeline_stages() > 1
         self._expert_names = set()
         for mod_name, mod in model.named_modules():
-            if isinstance(mod, ExpertFFN):
+            if isinstance(mod, MoE) and staged:
+                mod.groups = (None, ) * 4
+            elif isinstance(mod, ExpertFFN) and not staged:
                 _keep_local_experts(mod, self._ep_group)
                 self._expert_names.update(f"{mod_name}.{p}" if mod_name else p for p in ("wi", "wo"))
         self.module = model.to(self.device)
@@ -610,8 +599,11 @@ class DeepSpeedEngine:
         """This rank's part of a global micro-batch leaf whose batch dim is
         ``dim``: its data rank's rows, and under sequence parallelism its
         sequence rank's positions of the next dim (reference
-        ``_batch_sharding``)."""
-        return self._dp_chunk(self._dp_chunk(x, dim), dim + 1, self._sp_group)
+        ``_batch_sharding``). A pipeline stage's ranks take whole sequences:
+        the reference's pipeline splits the batch over
+        ``DATA_PARALLEL_AXES`` only."""
+        x = self._dp_chunk(x, dim)
+        return x if self._pipeline_stages() > 1 else self._dp_chunk(x, dim + 1, self._sp_group)
 
     def _global_mean(self, value):
         """The gang's mean of a per-rank scalar (each rank's loss over its
@@ -1003,12 +995,12 @@ class DeepSpeedEngine:
         for name, g in self.acc_grads.items():
             g = g.float()
             if self._partition_params and z.param_dim[name] is not None:
-                g = z.replica_all_reduce(g, param=True)
+                g = z.replica_all_reduce(g, param=True, name=name)
                 if z.relayout:
                     g = z.param_to_opt(g, name)
             elif z.partitioned and z.stage == 2 and z.grad_dim[name] is not None:  # a reduce-scattered chunk
                 if self._qgz is None:
-                    g = z.replica_all_reduce(g)
+                    g = z.replica_all_reduce(g, name=name)
             else:
                 if self._qgz is None:
                     g = self._dp_all_reduce(g, name)
@@ -1495,7 +1487,6 @@ class DeepSpeedEngine:
         sealed by a manifest written last (``runtime/checkpoint_engine``);
         asynchronous under ``nebula.enabled``."""
         tag = str(tag) if tag is not None else f"global_step{self.global_steps}"
-        self._check_checkpointable()
         self._checkpoint_tag_validation(tag)
         save_engine_state(self, save_dir, tag, client_state or {}, save_latest,
                           async_save=self._config.nebula_config.enabled)
@@ -1515,26 +1506,33 @@ class DeepSpeedEngine:
         explicit bad tag raises ``CheckpointCorruptionError``."""
         # deliberately leaves _ckpt_save_dir alone: a load source may be
         # read-only; only a save marks where the finalizer and rollback write
-        self._check_checkpointable()
         return load_engine_state(self, load_dir, tag, load_optimizer_states=load_optimizer_states,
                                  load_lr_scheduler_states=load_lr_scheduler_states,
                                  load_module_only=load_module_only)
 
-    def _check_checkpointable(self):
-        """The gang checkpoint puts the ranks' chunks back together in rank
-        order; chunks that repeat across groups (hpZ's parameters, MiCS) or
-        differ by pipeline stage have no such layout yet (ROADMAP A8 item
-        5)."""
-        z = self._zero
-        if z.zrep is not None or z.prep is not None or self._pipeline_stages() > 1:
-            raise NotImplementedError("checkpoints of hpZ/MiCS partitions and of pipeline stages are not ported "
-                                      "yet (A8 item 5)")
-
     def _checkpoint_global(self) -> bool:
-        """Whether a save writes every array in its global layout (rank 0
-        alone, from what the ranks gather): across model, sequence or
-        expert ranks, whose shards no rank-order concatenation joins."""
-        return any(g.size > 1 for g in (self._mp_group, self._sp_group, self._ep_group))
+        """Whether a save writes every array in its global layout (from what
+        the ranks gather), as a world-1 save does: on every mesh but one of
+        data ranks alone. Shards of model, sequence or expert ranks join on
+        no rank-order concatenation, hpZ's parameter chunks and MiCS's
+        whole state repeat across their replica groups (one copy is
+        gathered, within the secondary group), and pipeline stages hold
+        different entries (or, for a plain module, the same ones)."""
+        return any(n > 1 for ax, n in self.mesh.shape.items() if ax != groups.DATA_AXIS)
+
+    def _checkpoint_writer(self) -> bool:
+        """Whether this rank writes the global layout's files."""
+        return dist.get_rank() == 0
+
+    def _checkpoint_keeps(self, tree, key) -> bool:
+        """Whether this rank's files of the global layout hold entry
+        ``key`` of ``tree`` (a pipeline stage writes only its own)."""
+        return True
+
+    def _checkpoint_subdir(self):
+        """The directory under ``state/`` this rank's global-layout files go
+        to (None: ``state/`` itself, as at world 1)."""
+        return None
 
     def _gather_entry(self, tree, key, t):
         """A saved entry whole: its ZeRO chunks, then its tensor-parallel

@@ -34,10 +34,28 @@ is a state dict of the whole module in those names
 a ``LlamaModel``), and each stage takes its own entries.
 
 The DeepSpeed machinery of the base engine runs per stage: the optimizer,
-loss scaling, ZeRO stages 0-2 over the stage's data-parallel ranks and
-ZeRO-Offload; the finite check and the gradient norm are the whole
-pipeline's. ZeRO-3 and the checkpoints of pipeline stages are not ported
-(ROADMAP A8).
+loss scaling, the ZeRO stages over the stage's ZeRO group (at stage 3 each
+layer's parameters are gathered for its forward and its backward, as the
+base engine's units do; a tied module that a ``forward_fn`` reads stays
+whole on every holder), hpZ / MiCS and ZeRO-Offload; the finite check and
+the gradient norm are the whole pipeline's.
+
+The pipeline composes with the mesh's other axes as the reference's does
+(its ``shard_map`` splits the batch over ``DATA_PARALLEL_AXES`` only, and
+places the stage stack ``P(pipe, ...)``): model and sequence ranks hold the
+same stage and run the same micro-batches (no tensor or sequence
+parallelism inside a stage), and expert ranks are data ranks of the stage
+(its experts whole on each, every MoE gate over its own rank's tokens).
+The ZeRO group stays the base engine's (data, hpz, expert, seq), whose
+sequence ranks hold equal gradients. ``param_specs`` are dropped at
+``initialize``, as the reference drops them.
+
+A checkpoint holds the whole module in the names a one-stage engine saves
+(``layers.<i>.<name>``, ``tied.<key>.<name>``), every array whole: each
+stage's first rank writes its stage's entries under ``state/stage<s>/``
+(a tied key by its first holder; the loss scale and the optimizer's step
+by stage 0), and a load takes the entries its own stage holds, so a tag
+loads at another stage count, on another mesh or in a one-stage engine.
 """
 
 import json
@@ -47,6 +65,7 @@ import torch
 
 from deepspeed_tpu_torch import comm as dist
 from deepspeed_tpu_torch.comm.reduce_op import ReduceOp
+from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine, _secondary_partition_size
 from deepspeed_tpu_torch.runtime.pipe.executor import StageExecutor
@@ -64,7 +83,7 @@ class PipelineError(Exception):
 class PipelineStage(torch.nn.Module):
     """One stage's layers in order (see the module doc for the names)."""
 
-    def __init__(self, specs, first: int):
+    def __init__(self, specs, first: int, read_keys=()):
         super().__init__()
         self.layers = torch.nn.ModuleDict()
         self.tied = torch.nn.ModuleDict()
@@ -73,6 +92,10 @@ class PipelineStage(torch.nn.Module):
             if isinstance(spec, TiedLayerSpec):
                 if spec.key not in self.tied:
                     self.tied[spec.key] = spec.build()
+                    if spec.key in read_keys:
+                        # a forward_fn reads its weights outside its forward:
+                        # ZeRO 3 keeps them whole (no unit gathers them)
+                        self.tied[spec.key]._dstpu_whole = True
                 self.calls.append(("tied", spec.key, spec.forward_fn))
             else:
                 self.layers[str(i)] = spec.build() if isinstance(spec, LayerSpec) else spec
@@ -105,31 +128,43 @@ class PipelineEngine(DeepSpeedEngine):
         self._num_stages = model.num_stages
         device = resolve_device(device)
         dist.init_distributed(device=device)
-        # the ZeRO block alone: the whole config's batch sizes need the mesh
+        # the ZeRO block and the axes alone: the whole config's batch sizes
+        # need the mesh
         if isinstance(config, DeepSpeedConfig):
             zc = config.zero_config
+            axes = (config.tensor_parallel_size, config.sequence_parallel_size, config.expert_parallel_size)
         else:
             raw = config
             if isinstance(raw, str):
                 with open(raw) as f:
                     raw = json.load(f)
             zc = DeepSpeedZeroConfig.from_dict(raw.get("zero_optimization", {}))
-        if zc.stage >= 3:
-            raise NotImplementedError("pipeline parallelism with ZeRO stage 3 is not ported yet (A8)")
+            axes = tuple(raw.get(k, 1) for k in (C.TENSOR_PARALLEL_SIZE, C.SEQUENCE_PARALLEL_SIZE,
+                                                 C.EXPERT_PARALLEL_SIZE))
         secondary = _secondary_partition_size(zc)
         if dist.get_world_size() % self._num_stages:
             raise PipelineError(f"{dist.get_world_size()} ranks do not divide into {self._num_stages} stages")
         mesh = groups.get_mesh() if groups.mesh_is_initialized() else None
+        want = {groups.PIPE_AXIS: self._num_stages, groups.MODEL_AXIS: axes[0], groups.SEQ_AXIS: axes[1],
+                groups.EXPERT_AXIS: axes[2]}
         if mesh is None or mesh.size != dist.get_world_size() or \
-                mesh.shape.get(groups.PIPE_AXIS, 1) != self._num_stages:
+                any(mesh.shape.get(ax, 1) != n for ax, n in want.items()) or \
+                (secondary > 1 and mesh.shape.get(groups.HPZ_AXIS, 1) != secondary):
             groups.initialize_mesh(pipe_parallel_size=self._num_stages, secondary_partition_size=secondary,
-                                   force=True)
+                                   model_parallel_size=axes[0], sequence_parallel_size=axes[1],
+                                   expert_parallel_size=axes[2], force=True)
+        mesh = groups.get_mesh()
         self._pipe_group = groups.get_group(groups.PIPE_AXIS)
         self.stage_id = self._pipe_group.rank if self._num_stages > 1 else 0
+        # this stage's first rank (every other coordinate 0) writes its
+        # entries of a checkpoint
+        coords = np.argwhere(mesh.devices == mesh.rank)[0]
+        self._stage_writer = not coords[1:].any()
         self.bounds = stage_bounds(model)
         lo, hi = self.bounds[self.stage_id], self.bounds[self.stage_id + 1]
         specs = model._layer_specs
-        stage = PipelineStage(specs[lo:hi], lo)
+        read_keys = {spec.key for spec in specs if isinstance(spec, TiedLayerSpec) and spec.forward_fn is not None}
+        stage = PipelineStage(specs[lo:hi], lo, read_keys)
         self._tied_groups = self._make_tied_groups(specs)
         state = None
         if model_parameters is not None:
@@ -150,6 +185,21 @@ class PipelineEngine(DeepSpeedEngine):
     # ------------------------------------------------------------ the stages --
     def _pipeline_stages(self) -> int:
         return self._num_stages
+
+    # -- checkpoints: each stage's entries, whole ------------------------------
+    def _checkpoint_writer(self) -> bool:
+        return self._stage_writer if self._num_stages > 1 else super()._checkpoint_writer()
+
+    def _checkpoint_keeps(self, tree, key) -> bool:
+        """A parameter's entries by the stage that owns it (a tied key's
+        first holder); the rest (the loss scale, the step) by stage 0."""
+        name = key.partition("/")[2] if tree == "opt_state" else key
+        if name in self.params:
+            return self._owned(name)
+        return self.stage_id == 0
+
+    def _checkpoint_subdir(self):
+        return f"stage{self.stage_id}" if self._num_stages > 1 else None
 
     @property
     def is_first_stage(self):

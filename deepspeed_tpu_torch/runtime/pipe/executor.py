@@ -17,17 +17,21 @@ before it sends the activation), so blocking calls cannot deadlock.
 - ``ForwardPass``: the stage's layers with autograd on; the last stage
   adds the loss.
 - ``BackwardPass``: the gradients of the stage's output (the last stage:
-  of ``loss * scale``) with respect to its parameters, accumulated in the
-  engine's accumulation dtype, and to its input activation, kept for
-  ``SendGrad``.
+  of ``loss * scale``) with respect to its parameters (at ZeRO 3 over
+  several ranks: their chunks, reduce-scattered by the layers' units),
+  accumulated in the engine's accumulation dtype, and to its input
+  activation, kept for ``SendGrad``.
 - ``ReduceTiedGrads``: the tied keys' gradients all-reduced over their
   holders; ``ReduceGrads``: nothing (the engine's step reduces over the
   data-parallel ranks); ``OptimizerStep``: the engine's step.
 """
 
+import contextlib
+
 import torch
 
 from deepspeed_tpu_torch import comm as dist
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import recompute_disabled
 from deepspeed_tpu_torch.runtime.pipe import schedule as sched
 
 _DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.float64, torch.int64, torch.int32]
@@ -82,7 +86,10 @@ class StageExecutor:
     # -- the stage's work ---------------------------------------------------------
     def _forward(self, x, labels):
         e = self.engine
-        out = e.module(x)
+        # at ZeRO 3 the units recompute each layer for its backward, which
+        # stands in for remat (as the base engine's forward)
+        with recompute_disabled() if e._partition_params else contextlib.nullcontext():
+            out = e.module(x)
         if e.is_last_stage:
             out = e.loss_fn(out, labels)
         return out
@@ -92,7 +99,8 @@ class StageExecutor:
         activation's gradient (None on the first stage)."""
         e = self.engine
         names = list(e._module_params)
-        wrt = [e._module_params[n] for n in names]
+        leaves = e._zero.leaves if e._partition_params else {}
+        wrt = [leaves.get(n, e._module_params[n]) for n in names]
         takes_x = x is not None and x.requires_grad
         if takes_x:
             wrt = [x] + wrt

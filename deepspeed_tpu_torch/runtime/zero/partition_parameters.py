@@ -18,8 +18,11 @@ chunk along any dimension.
 
 At stage 3 the partitioner also owns the forward. The modules that hold the
 parameters are grouped into *units*: each member of a ``ModuleList`` (a
-transformer block) and each other module that owns parameters itself (the
-embedding, the final norm, the unembedding). A unit's forward becomes
+transformer block) or of a ``ModuleDict`` (a pipeline stage's layer) and
+each other module that owns parameters itself (the embedding, the final
+norm, the unembedding). A module marked ``_dstpu_whole`` (read outside its
+forward, as a tied layer's ``forward_fn`` reads it) is no unit: its
+parameters stay whole. A unit's forward becomes
 :class:`_GatheredUnit`: it gathers the unit's parameters from their shards,
 runs the unit without autograd, and releases them; its backward gathers
 them again, reruns the unit's forward with autograd (the recomputation that
@@ -103,10 +106,22 @@ class ZeroPartitioner:
         self.expert_names = frozenset(expert_names)
         epolicy = None
         if self.expert_names:
+            # a bank's groups: the dense ones less the expert axis its
+            # placement takes (reference _add_zero_axes), so under MiCS its
+            # state and under hpZ its parameters stay within (hpz, seq)
+            free = lambda axes: tuple(ax for ax in axes if ax != groups.EXPERT_AXIS)
             epolicy = ZeroShardingPolicy(stage, mesh=mesh, persistence_threshold=persistence_threshold,
-                                         zero_axes=groups.EXPERT_ZERO_AXES)
-            egroup = groups.get_group(epolicy.zero_axes) if epolicy.zero_axes else None
-            self._expert_of = (egroup, epolicy.zero_size, egroup.rank if epolicy.zero_size > 1 else 0)
+                                         zero_axes=free(zero_axes or groups.SEQ_DATA_PARALLEL_AXES),
+                                         param_axes=free(param_axes) if param_axes is not None else None)
+            epax = epolicy.param_axes if epolicy.param_axes is not None else epolicy.zero_axes
+            self._expert_of = {}
+            for param, axes in ((False, epolicy.zero_axes), (True, epax)):
+                g = groups.get_group(axes) if axes else None
+                self._expert_of[param] = (g, g.size if g else 1, g.rank if g else 0)
+            erep = lambda axes: tuple(ax for ax in groups.EXPERT_ZERO_AXES
+                                      if mesh.shape.get(ax, 1) > 1 and ax not in axes)
+            self._expert_rep = {param: groups.get_group(erep(axes)) if erep(axes) else None
+                                for param, axes in ((False, epolicy.zero_axes), (True, epax))}
         names = reference_names(module)
         # without a secondary partition the three placements agree at stage
         # 3 (one rule, one threshold), which the engine relies on: the
@@ -144,12 +159,19 @@ class ZeroPartitioner:
     @property
     def relayout(self) -> bool:
         """Whether the optimizer's chunks differ from the parameters' (hpZ
-        at stage 3: the masters move between the two layouts each step)."""
-        return self.params_partitioned and (self.pgroup.ranks != self.group.ranks or self.param_dim != self.opt_dim)
+        at stage 3: the masters move between the two layouts each step),
+        for the dense parameters or for the expert banks' own groups."""
+        if not self.params_partitioned:
+            return False
+        ranks = lambda g: tuple(g.ranks) if g is not None else None
+        differ = ranks(self.pgroup) != ranks(self.group)
+        if self.expert_names:
+            differ = differ or ranks(self._expert_of[True][0]) != ranks(self._expert_of[False][0])
+        return differ or self.param_dim != self.opt_dim
 
     def _of(self, param, name=None):
         if name in self.expert_names:
-            return self._expert_of
+            return self._expert_of[param]
         return (self.pgroup, self.pdegree, self.prank) if param else (self.group, self.degree, self.rank)
 
     # -- moving tensors ------------------------------------------------------
@@ -180,10 +202,13 @@ class ZeroPartitioner:
     def all_reduce(self, t: torch.Tensor, op=ReduceOp.SUM) -> torch.Tensor:
         return dist.all_reduce(t, op=op, group=self.group) if self.degree > 1 else t
 
-    def replica_all_reduce(self, t: torch.Tensor, param: bool = False) -> torch.Tensor:
+    def replica_all_reduce(self, t: torch.Tensor, param: bool = False, name=None) -> torch.Tensor:
         """``t`` (a chunk reduced within its group) summed over the ranks
         that hold the same chunk."""
-        rep = self.prep if param else self.zrep
+        if name in self.expert_names:
+            rep = self._expert_rep[param]
+        else:
+            rep = self.prep if param else self.zrep
         return dist.all_reduce(t, group=rep) if rep is not None else t
 
     def shard_param(self, t, name):
@@ -193,12 +218,13 @@ class ZeroPartitioner:
         return self.gather(t, self.param_dim[name], param=True, name=name) if self.params_partitioned else t
 
     def param_to_opt(self, t, name):
-        """A parameter-layout chunk as this rank's optimizer chunk."""
-        return self.shard(self.gather_param(t, name), self.opt_dim[name])
+        """A parameter-layout chunk as this rank's optimizer chunk (an
+        expert bank's over its own groups)."""
+        return self.shard(self.gather_param(t, name), self.opt_dim[name], name=name)
 
     def opt_to_param(self, t, name):
         """An optimizer-layout chunk as this rank's parameter chunk."""
-        return self.shard_param(self.gather(t, self.opt_dim[name]), name)
+        return self.shard_param(self.gather(t, self.opt_dim[name], name=name), name)
 
     # -- what each rank holds --------------------------------------------------
     def local_numel(self, name: str, dim_of) -> int:
@@ -218,10 +244,13 @@ class ZeroPartitioner:
         for mod_name, mod in module.named_modules():
             if any(mod_name == t or mod_name.startswith(t + ".") for t in taken):
                 continue
-            if isinstance(mod, torch.nn.ModuleList):
-                for i, child in enumerate(mod):
-                    chosen.append(child)
-                    taken.add(f"{mod_name}.{i}" if mod_name else str(i))
+            if getattr(mod, "_dstpu_whole", False):
+                taken.add(mod_name)  # read outside its forward: no unit, its parameters whole
+            elif isinstance(mod, (torch.nn.ModuleList, torch.nn.ModuleDict)):
+                for key, child in (mod.items() if isinstance(mod, torch.nn.ModuleDict) else enumerate(mod)):
+                    if not getattr(child, "_dstpu_whole", False):
+                        chosen.append(child)
+                    taken.add(f"{mod_name}.{key}" if mod_name else str(key))
             elif mod_name and any(True for _ in mod.parameters(recurse=False)):
                 chosen.append(mod)
                 taken.add(mod_name)

@@ -226,26 +226,34 @@ def test_expert_banks_at_zero_3_take_the_reference_placement(gang, mixtral):
 
 # ------------------------------------------------------------------ the mesh --
 @pytest.mark.parametrize("sizes", [dict(expert=2, seq=2, model=2), dict(data=2, seq=2, model=2),
-                                   dict(data=2, expert=2, model=2)],
-                         ids=["ep2xsp2xtp2", "dp2xsp2xtp2", "dp2xep2xtp2"])
+                                   dict(data=2, expert=2, model=2), dict(pipe=2, data=2, model=2),
+                                   dict(pipe=2, data=2, seq=2), dict(data=1, hpz=2, model=2)],
+                         ids=["ep2xsp2xtp2", "dp2xsp2xtp2", "dp2xep2xtp2", "pp2xdp2xtp2", "pp2xdp2xsp2",
+                              "dp1xhpz2xtp2"])
 def test_rank_mesh_lays_ranks_out_as_the_reference(sizes):
-    """Three axes above 1 at once over 8 ranks: the port's rank grid is the
-    reference's ``initialize_mesh`` device grid (rank ``r`` where device
-    ``r`` is), and so is every group the engines ask for (the model ranks
-    of one slot neighbours, then the sequence, expert and data ranks)."""
+    """Three axes above 1 at once over 8 ranks, or hpz beside model over 4:
+    the port's rank grid is the reference's ``initialize_mesh`` device grid
+    (rank ``r`` where device ``r`` is), and so is every group the engines
+    ask for (the model ranks of one slot neighbours, then the sequence,
+    expert, hpz and data ranks, the pipe stages outermost; a stage's data
+    group is its ``DATA_PARALLEL_AXES`` ranks)."""
     from deepspeed_tpu_torch.utils import groups
-    jgroups.initialize_mesh(devices=jax.devices()[:8], force=True, data_parallel_size=sizes.get("data", 1),
-                            **{f"{'sequence' if a == 'seq' else a}_parallel_size": n
-                               for a, n in sizes.items() if a != "data"})
+    n = int(np.prod(list(sizes.values())))
+    hpz = sizes.get("hpz", 1)
+    jgroups.initialize_mesh(devices=jax.devices()[:n], force=True, data_parallel_size=sizes.get("data", 1) * hpz,
+                            secondary_partition_size=hpz,
+                            **{f"{'sequence' if a == 'seq' else a}_parallel_size": k
+                               for a, k in sizes.items() if a not in ("data", "hpz")})
     try:
         want = np.vectorize(lambda d: d.id)(jgroups.get_mesh().devices)
     finally:
         jgroups.destroy_mesh()
-    mesh = groups.RankMesh(np.arange(8).reshape(groups.MeshTopology(**sizes).shape), 0)
+    mesh = groups.RankMesh(np.arange(n).reshape(groups.MeshTopology(**sizes).shape), 0)
     np.testing.assert_array_equal(mesh.devices, want)
     names = list(groups.MESH_AXES)
-    for axes in [(groups.MODEL_AXIS, ), (groups.SEQ_AXIS, ), (groups.EXPERT_AXIS, ), groups.SEQ_DATA_PARALLEL_AXES,
-                 groups.EXPERT_ZERO_AXES, groups.DATA_PARALLEL_AXES]:
+    for axes in [(groups.MODEL_AXIS, ), (groups.SEQ_AXIS, ), (groups.EXPERT_AXIS, ), (groups.PIPE_AXIS, ),
+                 (groups.HPZ_AXIS, ), groups.SEQ_DATA_PARALLEL_AXES, groups.EXPERT_ZERO_AXES,
+                 groups.DATA_PARALLEL_AXES, groups.SECONDARY_PARTITION_AXES]:
         moved = np.moveaxis(want, [names.index(a) for a in axes], range(want.ndim - len(axes), want.ndim))
         ref = moved.reshape(-1, int(np.prod([want.shape[names.index(a)] for a in axes])))
         assert sorted(mesh._slices(axes)) == sorted(map(list, ref)), axes

@@ -67,7 +67,12 @@ def _scenario(put, argmax, flush_all, gen, prompts, gen_prompts):
 
 @pytest.fixture(scope="module")
 def jax_run(setup):
-    """The scenario on the JAX engine, once per attention branch."""
+    """The JAX engine's runs, once per attention branch, on one engine (its
+    programs, the paged kernel's interpreted lowering above all, compiled
+    once): the scenario, then, every sequence flushed, the prompts put
+    again and greedy ``decode_loop``'s 4 tokens from their argmax, and a
+    verify feed of 3 tokens after them (``decode``: first tokens, the 4
+    tokens, the feeds, the verify's tokens)."""
     runs = {}
 
     def run(kernel):
@@ -77,11 +82,17 @@ def jax_run(setup):
                 memory_config=j_mc.MemoryConfig(mode=j_mc.AllocationMode.ALLOCATE, size=64), max_context=512)
             eng = j_factory.build_engine(jparams, jcfg, j_config.RaggedInferenceEngineConfig(
                 state_manager=mgr, kv_block_size=16, use_paged_kernel=kernel))
-            runs[kernel] = _scenario(lambda u, t: np.asarray(eng.put(u, t)), lambda lg: np.argmax(lg, -1),
-                                     eng.flush_all,
-                                     lambda p, eos: j_factory.generate(eng, p, max_new_tokens=N_NEW,
-                                                                       eos_token_id=eos),
-                                     prompts, gen_prompts)
+            scenario = _scenario(lambda u, t: np.asarray(eng.put(u, t)), lambda lg: np.argmax(lg, -1),
+                                 eng.flush_all,
+                                 lambda p, eos: j_factory.generate(eng, p, max_new_tokens=N_NEW, eos_token_id=eos),
+                                 prompts, gen_prompts)
+            eng.flush_all()
+            uids, toks = list(prompts), list(prompts.values())
+            first = np.argmax(np.asarray(eng.put(uids, toks)), -1)
+            want = np.asarray(eng.decode_loop(uids, [np.array([c]) for c in first], 4))
+            feeds = [np.array([c, 3, 5]) for c in want[:, -1]]
+            verify = [np.asarray(r) for r in eng.decode_loop(uids, feeds, 1)]
+            runs[kernel] = dict(scenario=scenario, decode=(first, want, feeds, verify))
         return runs[kernel]
 
     return run
@@ -95,7 +106,7 @@ def test_put_logits_and_greedy_generate_match_jax_engine(setup, jax_run, kernel)
         lambda u, t: eng.put(u, t).numpy(), lambda lg: np.argmax(lg, -1), eng.flush_all,
         lambda p, eos: generate(eng, p, max_new_tokens=N_NEW, eos_token_id=eos, decode_chunk=2), prompts,
         gen_prompts)
-    want_logits, *want_tokens = jax_run(kernel)
+    want_logits, *want_tokens = jax_run(kernel)["scenario"]
     for step, (got, want) in enumerate(zip(got_logits, want_logits)):
         assert got.shape == want.shape == (len(prompts), cfg.vocab_size)
         np.testing.assert_allclose(got, want, **TOL, err_msg=f"step {step}")
@@ -243,22 +254,14 @@ def test_unported_features_are_refused(setup):
 
 
 @pytest.mark.parametrize("kernel", [False, True], ids=["gather", "paged_kernel"])
-def test_sampled_decode_loop_runs_and_tends_to_the_jax_greedy_loop(setup, kernel):
+def test_sampled_decode_loop_runs_and_tends_to_the_jax_greedy_loop(setup, jax_run, kernel):
     """Sampled decode_loop draws on the device from a torch.Generator: the
     same seed gives the same tokens, and as the temperature falls to 0 the
     tokens are the JAX engine's greedy decode_loop's. A multi-token feed
     runs the greedy verify and equals the JAX engine's."""
-    jcfg, jparams, cfg, params, prompts, _ = setup
+    _, _, cfg, params, prompts, _ = setup
     uids, toks = list(prompts), list(prompts.values())
-    mgr = j_mc.DSStateManagerConfig(memory_config=j_mc.MemoryConfig(mode=j_mc.AllocationMode.ALLOCATE, size=64),
-                                    max_context=512)
-    jeng = j_factory.build_engine(jparams, jcfg, j_config.RaggedInferenceEngineConfig(state_manager=mgr,
-                                                                                      kv_block_size=16,
-                                                                                      use_paged_kernel=kernel))
-    first = np.argmax(np.asarray(jeng.put(uids, toks)), -1)
-    want = np.asarray(jeng.decode_loop(uids, [np.array([c]) for c in first], 4))
-    feeds = [np.array([c, 3, 5]) for c in want[:, -1]]
-    want_verify = jeng.decode_loop(uids, feeds, 1)
+    first, want, feeds, want_verify = jax_run(kernel)["decode"]
     runs = []
     for temperature, seed in ((1e-7, 0), (1.0, 1), (1.0, 1)):
         eng = build_engine(params, cfg, _port_config(use_paged_kernel=kernel), device="cpu")
@@ -272,7 +275,7 @@ def test_sampled_decode_loop_runs_and_tends_to_the_jax_greedy_loop(setup, kernel
     eng.put(uids, toks)
     eng.decode_loop(uids, [np.array([c]) for c in first], 4)
     for got, ref in zip(eng.decode_loop(uids, feeds, 1), want_verify):
-        np.testing.assert_array_equal(got, np.asarray(ref)[:3])
+        np.testing.assert_array_equal(got, ref[:3])
 
 
 def test_output_projection_bias_is_applied():

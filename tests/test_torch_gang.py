@@ -106,6 +106,7 @@ def _env(ckpt_dir, total_steps, **extra):
               "DSTPU_PROCESS_ID", "DSTPU_RESTART_COUNT", "DSTPU_ELASTIC_RESTART"):
         env.pop(k, None)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OPENBLAS_NUM_THREADS"] = "1"  # one BLAS thread a rank: the test workers share the cores
     env["DSTPU_PORT_BASE"] = str(_free_port())
     env["DSTPU_GANG_CKPT"] = str(ckpt_dir)
     env["DSTPU_TOTAL_STEPS"] = str(total_steps)

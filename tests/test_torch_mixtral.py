@@ -48,17 +48,25 @@ def _batch(vocab, B, S, seed):
     return ids, labels
 
 
+@pytest.fixture(scope="module")
+def jax_loss_and_grads(setup):
+    """The reference's loss and gradients on the grad cases' batch, once
+    (both cases hold the port to the same ones), compiled whole."""
+    jcfg, jparams = setup
+    ids, labels = _batch(jcfg.vocab_size, 2, 16, seed=1)
+    jmodel = jmixtral.MixtralForCausalLM(jcfg)
+    return ids, labels, jax.jit(jax.value_and_grad(
+        lambda p: jmodel.apply({"params": p}, (jnp.asarray(ids), jnp.asarray(labels)))))(jparams)
+
+
 @pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
-def test_loss_and_gradients_match_jax_grad(setup, remat):
+def test_loss_and_gradients_match_jax_grad(setup, jax_loss_and_grads, remat):
     """CE + 0.01 × Σ l_aux and its gradient with respect to every parameter
     (the routers through the aux loss and the combine weights), with and
     without the port's per-block recomputation (the reference's tiny config
     has none)."""
     jcfg, jparams = setup
-    ids, labels = _batch(jcfg.vocab_size, 2, 16, seed=1)
-    jmodel = jmixtral.MixtralForCausalLM(jcfg)
-    jloss, jgrads = jax.value_and_grad(lambda p: jmodel.apply({"params": p}, (jnp.asarray(ids), jnp.asarray(labels))))(
-        jparams)
+    ids, labels, (jloss, jgrads) = jax_loss_and_grads
     cfg = _cfg(remat=remat)
     model = MixtralForCausalLM(cfg)
     model.load_state_dict(mixtral_from_flax(jparams, cfg))

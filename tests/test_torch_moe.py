@@ -132,7 +132,7 @@ def test_moe_forward_and_gradients_match_jax_grad(k, gated, residual, training):
         out, l_aux, _ = jmod.apply({"params": p}, jnp.asarray(x), training=training)
         return jnp.sum(out * w) + l_aux, (out, l_aux)
 
-    (jval, (jout, jaux)), jgrads = jax.value_and_grad(jloss, has_aux=True)(params)
+    (jval, (jout, jaux)), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
     _, _, jcounts = jmod.apply({"params": params}, jnp.asarray(x), training=training)
     tmod.train(training)
     out, l_aux, counts = tmod(torch.from_numpy(x))

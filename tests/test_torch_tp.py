@@ -360,15 +360,21 @@ def moe_world1(mixtral):
      "tensor parallelism with hpZ/MiCS"),
 ], ids=["tp_moe", "sp_moe", "ep_zero3", "tp_offload", "sp_qgz", "tp_mics"])
 def test_training_refusals_remain(gangs, llama, moe_world1, kind, extra, what):
-    """What stays refused in training names A8 item 5. TP of a MoE model,
-    Ulysses of a MoE model and expert ranks at ZeRO 3 are ported, and each
-    of their cases now trains two steps of a tiny Mixtral over the gang of 2
-    (capacity binding): the losses on both ranks and every gate's drops
-    equal one rank's, and the gathered masters within AdamW's limit (99.5%
-    of each tensor within 1% of an lr step, every element within 2 lr;
-    ``tests/test_torch_composed_train.py`` holds the same runs at 4 ranks to
-    the JAX engine). The name
-    is kept so that the test's id stays the same across the change."""
+    """Nothing of these stays refused in training. TP of a MoE model,
+    Ulysses of a MoE model and expert ranks at ZeRO 3 each train two steps
+    of a tiny Mixtral over the gang of 2 (capacity binding): the losses on
+    both ranks and every gate's drops equal one rank's, and the gathered
+    masters within AdamW's limit (99.5% of each tensor within 1% of an lr
+    step, every element within 2 lr; ``tests/test_torch_composed_train.py``
+    holds the same runs at 4 ranks to the JAX engine). TP with offload
+    trains a tiny Llama with its state on the host, and its masters are
+    bitwise the same TP run's without offload; Ulysses with qgZ falls back
+    to the exact reduction with the reference's warning, bitwise the run
+    without qgZ; TP 2 x MiCS 2 at ZeRO 3 over the gang of 4 holds one
+    rank's losses and AdamW's limit
+    (``tests/test_torch_zeropp_composed.py`` holds MiCS and hpZ across the
+    axes to the JAX engine). The name is kept so that the test's id stays
+    the same across the change."""
     if kind == "mixtral":
         from tests import torch_composed_scenarios as csc
         fields, state, batches, one = moe_world1
@@ -381,7 +387,29 @@ def test_training_refusals_remain(gangs, llama, moe_world1, kind, extra, what):
             diff = np.abs(res[0]["full"][name] - w)
             assert np.mean(diff <= 1e-5 + 1e-4 * np.abs(w)) >= 0.995 and diff.max() <= 2e-3, name
         return
-    _, _, _, fields, _, _ = llama
-    ds = dict({"train_micro_batch_size_per_gpu": 2, "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}, **extra)
-    for msg in gangs[2].run(sc.refusal, kind, fields, ds):
-        assert msg is not None and what in msg and "A8 item 5" in msg
+    from tests import torch_composed_scenarios as csc
+    _, _, _, fields, state, _ = llama
+    _, _, batches, _ = moe_world1
+    ds = _moe_ds(extra)
+    if "MiCS" in what:
+        one = csc.train("llama", fields, state, _moe_ds({}), batches)
+        res = gangs[4].run(csc.train, kind, fields, state, ds, batches)
+        for r in res:
+            np.testing.assert_allclose(r["losses"], one["losses"], **LOSS_TOL)
+        for name, w in one["full"].items():
+            diff = np.abs(res[0]["full"][name] - w)
+            assert np.mean(diff <= 1e-5 + 1e-4 * np.abs(w)) >= 0.995 and diff.max() <= 2e-3, name
+        return
+    plain = {k: v for k, v in extra.items() if k != "zero_optimization"}
+    plain["zero_optimization"] = {"stage": extra["zero_optimization"]["stage"]}
+    res = gangs[2].run(csc.train_logged, kind, fields, state, ds, batches)
+    base = gangs[2].run(csc.train, kind, fields, state, _moe_ds(plain), batches)
+    for r, b in zip(res, base):
+        assert r["losses"] == b["losses"]
+        for name in b["full"]:
+            np.testing.assert_array_equal(r["full"][name], b["full"][name])
+        if "offload" in what:
+            assert r["offload"] and not b["offload"]
+        else:
+            assert not r["qgz"] and any("zero_quantized_gradients requested but unsupported" in w
+                                        for w in r["warnings"])

@@ -55,7 +55,7 @@ def test_causal_lm_loss_and_grads_match_jax(kvh, flash, policy):
     jparams = jax_params(jcfg)
     ids, labels = _batch(jcfg.vocab_size, 2, 24, seed=kvh, ignore=3)
     jloss_fn = lambda p: jllama.LlamaForCausalLM(jcfg).apply({"params": p}, (ids, labels))
-    jloss, jgrads = jax.value_and_grad(jloss_fn)(jparams)
+    jloss, jgrads = jax.jit(jax.value_and_grad(jloss_fn))(jparams)  # one compile, not an op at a time
 
     model = LlamaForCausalLM(port_config(jcfg))
     model.load_state_dict(port_params(jcfg, jparams))
@@ -370,20 +370,22 @@ def test_batch_triangle_and_config_errors():
 
 
 @pytest.mark.parametrize("key,value,error", [
-    ("tensor_parallel_size", 2, TopologyError), ("pipeline_parallel_size", 2, NotImplementedError),
+    ("tensor_parallel_size", 2, TopologyError),
+    # the id it had while a plain module's pipe size raised NotImplementedError
+    pytest.param("pipeline_parallel_size", 2, TopologyError, id="pipeline_parallel_size-2-NotImplementedError"),
     ("zero_optimization", {"stage": 2, "zero_quantized_weights": True}, ValueError),
     ("sequence_parallel_size", 2, TopologyError),
     ("optimizer", {"type": "NoSuchOptimizer", "params": {"lr": 0.1}}, ValueError),
     ("expert_parallel_size", 2, TopologyError)])
 def test_unported_features_raise(key, value, error):
-    """What is not ported raises NotImplementedError naming its ROADMAP queue
-    item (a pipeline size on a module that is not a PipelineModule: A8); an
-    unknown optimizer raises the reference's ValueError, and so does a ZeRO
-    stage the quantized-weight knobs cannot serve. Sequence, tensor and
-    expert parallelism are ported: in a world of one rank their axis of 2
-    cannot be laid out, and the rank mesh raises its TopologyError (their
-    runs across ranks: tests/test_torch_{ulysses,tp,moe_train_ep}.py)."""
-    match = {NotImplementedError: r"\(A8\)", ValueError: "Unknown optimizer|qwZ|stage 3",
+    """Nothing of these is left unported: an unknown optimizer raises the
+    reference's ValueError, and so does a ZeRO stage the quantized-weight
+    knobs cannot serve. Sequence, tensor, expert and pipe ranks (a plain
+    module is replicated over the pipe ranks) are ported: in a world of one
+    rank their axis of 2 cannot be laid out, and the rank mesh raises its
+    TopologyError (their runs across ranks:
+    tests/test_torch_{ulysses,tp,moe_train_ep,pipe_composed}.py)."""
+    match = {ValueError: "Unknown optimizer|qwZ|stage 3",
              TopologyError: "not divisible by mp\\*pp\\*ep\\*sp = 2"}[error]
     with pytest.raises(error, match=match):
         deepspeed_tpu_torch.initialize(model=SimpleModel(), config={"train_batch_size": 8, key: value},

@@ -186,6 +186,23 @@ def runs():
     return jcfg, state, reference
 
 
+@pytest.fixture(scope="module")
+def exact_runs(gang, runs):
+    """The port's exact run at world 2 and a stage on the reference's
+    batches (``train_llama_plus``), once a stage: what the quantized runs
+    of the stage are held against."""
+    jcfg, state, reference = runs
+    cache = {}
+
+    def exact(stage, batches):
+        if stage not in cache:
+            cache[stage] = gang.run(sc.train_llama_plus, _fields(port_config(jcfg)), state, _config(2, stage),
+                                    batches)
+        return cache[stage]
+
+    return exact
+
+
 def _held_to(res, ref, pcfg, loss_tol=LOSS_TOL):
     for r in res:
         np.testing.assert_allclose(r["losses"], ref["losses"], **loss_tol)
@@ -197,7 +214,7 @@ def _held_to(res, ref, pcfg, loss_tol=LOSS_TOL):
 
 
 @pytest.mark.parametrize("bits", [8, 4])
-def test_qwz_engine_matches_the_reference_qwz(gang, runs, bits):
+def test_qwz_engine_matches_the_reference_qwz(gang, runs, exact_runs, bits):
     """qwZ at stage 3 over 2 ranks against the reference's qwZ engine: the
     first step's loss to f32 rounding (both quantize the same masters), the
     later ones within a quantization level's effect (a weight rounding the
@@ -211,7 +228,7 @@ def test_qwz_engine_matches_the_reference_qwz(gang, runs, bits):
     pcfg = port_config(jcfg)
     cfg = _config(2, 3, zero_quantized_weights=True, zero_quantized_weights_bits=bits)
     res = gang.run(sc.train_llama_plus, _fields(pcfg), state, cfg, ref["batches"])
-    exact = gang.run(sc.train_llama_plus, _fields(pcfg), state, _config(2, 3), ref["batches"])
+    exact = exact_runs(3, ref["batches"])
     for r in res:
         assert r["losses"][0] == pytest.approx(ref["losses"][0], rel=2e-5)
     _held_to(res, ref, pcfg, loss_tol=dict(rtol=1e-3, atol=1e-3))
@@ -223,7 +240,7 @@ def test_qwz_engine_matches_the_reference_qwz(gang, runs, bits):
 
 
 @pytest.mark.parametrize("stage", [1, 2])
-def test_qgz_engine_matches_the_reference_qgz(gang, runs, stage):
+def test_qgz_engine_matches_the_reference_qgz(gang, runs, exact_runs, stage):
     """qgZ over 2 ranks against the reference's qgZ engine: its int8 blocks
     are the reference's, so the losses agree to f32 summation order; the
     int8 all-to-all moves a quarter of the bytes the exact run's gradient
@@ -239,7 +256,7 @@ def test_qgz_engine_matches_the_reference_qgz(gang, runs, stage):
     pcfg = port_config(jcfg)
     res = gang.run(sc.train_llama_plus, _fields(pcfg), state, _config(2, stage, zero_quantized_gradients=True),
                    ref["batches"])
-    exact = gang.run(sc.train_llama_plus, _fields(pcfg), state, _config(2, stage), ref["batches"])
+    exact = exact_runs(stage, ref["batches"])
     _held_to(res, ref, pcfg)
     for r, e in zip(res, exact):
         assert r["qgz"] and r["losses"] != e["losses"]

@@ -84,7 +84,7 @@ def _step(engine, batch):
 
 def whole_state(engine):
     """The engine's three state trees with every array whole (a collective)."""
-    trees = ckpt._global_trees(engine, ckpt._state_trees(engine), keep=True)
+    trees = ckpt._global_trees(engine, ckpt._state_trees(engine), keep=lambda tree, key: True)
     return {name: {k: v.float().numpy() for k, v in ckpt._flatten(tree).items()} for name, tree in trees.items()}
 
 
@@ -97,7 +97,8 @@ def train(kind, cfg_fields, state, ds_config, batches, local_gate=False, save_di
     with counted_drops(local_gate) as drops:
         losses = [_step(engine, b) for b in batches]
     out = dict(losses=losses, drops=drops, full=_numpy(engine.full_params()),
-               shapes={k: tuple(v.shape) for k, v in engine.params.items()})
+               shapes={k: tuple(v.shape) for k, v in engine.params.items()},
+               offload=engine.zero_cpu_offload(), qgz=engine._qgz is not None, relayout=engine._zero.relayout)
     if save_dir is not None:
         engine.save_checkpoint(save_dir, tag=tag)
         out["state"] = whole_state(engine)
@@ -105,6 +106,22 @@ def train(kind, cfg_fields, state, ds_config, batches, local_gate=False, save_di
     engine.destroy()
     groups.destroy_mesh()
     return out
+
+
+def train_logged(kind, cfg_fields, state, ds_config, batches):
+    """``train``, with the warnings the port's logger gave meanwhile
+    (``warnings``)."""
+    import logging
+    from deepspeed_tpu_torch.utils.logging import logger
+    records = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: records.append(record.getMessage())
+    logger.addHandler(handler)
+    try:
+        out = train(kind, cfg_fields, state, ds_config, batches)
+    finally:
+        logger.removeHandler(handler)
+    return dict(out, warnings=records)
 
 
 def resume(kind, cfg_fields, state, ds_config, load_dir, tag, batch):

@@ -68,6 +68,9 @@ class Gang:
         self.inboxes = [ctx.Queue() for _ in range(world)]
         env = dict(env or {})
         env.setdefault("PYTHONPATH", REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        # one BLAS thread a rank (read when numpy loads, before the worker
+        # imports it): ranks of several gangs share the cores
+        env.setdefault("OPENBLAS_NUM_THREADS", "1")
         self.procs = [ctx.Process(target=_worker, args=(r, world, port, self.inboxes[r], self.outbox, env, backend),
                                   daemon=True) for r in range(world)]
         for p in self.procs:

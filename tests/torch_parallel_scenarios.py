@@ -83,21 +83,6 @@ def train_mixtral(cfg_fields, state, ds_config, batches):
     return _train(_mixtral(cfg_fields), state, ds_config, batches, seed_gates=False)
 
 
-def refusal(kind, cfg_fields, ds_config):
-    """``initialize`` of a Llama (``kind`` "llama", with ``auto_tp_specs``)
-    or a Mixtral; the ``NotImplementedError``'s message, or None."""
-    from deepspeed_tpu_torch.module_inject import auto_tp_specs
-    groups.destroy_mesh()
-    model = _llama(cfg_fields) if kind == "llama" else _mixtral(cfg_fields)
-    try:
-        deepspeed_tpu_torch.initialize(model=model, config=ds_config, device="cpu", param_specs=auto_tp_specs(model))
-    except NotImplementedError as e:
-        return str(e)
-    finally:
-        groups.destroy_mesh()
-    return None
-
-
 # ------------------------------------------------------------------ Ulysses --
 def _attn(q, k, v, scale=1.0):
     """The reference test's attention: unmasked softmax(q·k) v, in f32."""

@@ -19,8 +19,21 @@ from deepspeed_tpu_torch.models.convert import from_flax_params
 
 # the tests' tensors are tiny and the suite runs in parallel worker
 # processes (each collects every module): one intra-op thread a process
-# keeps the workers from oversubscribing the cores
+# keeps the workers from oversubscribing the cores. numpy's OpenBLAS too:
+# with a pool of every core in each of the workers, its threads spin
+# against each other, and a loop of small matmuls (the draft heads'
+# distillation) runs hundreds of times slower than on one thread. numpy
+# has read OPENBLAS_NUM_THREADS by now (the gangs' ranks set it before they
+# load numpy), so the limit goes through threadpoolctl (scikit-learn's
+# dependency) where it is installed; without it the tests run the same,
+# only slower
 torch.set_num_threads(1)
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:
+    pass
+else:
+    threadpool_limits(1)
 
 
 def jax_tiny(**kw):
