@@ -117,7 +117,25 @@ Phases (any failure raises and the script exits non-zero):
    request, SIGKILL, restart, a second request, both the tokens of an
    in-process engine from the same seed. Every served greedy token
    teacher-forced; each leg with a control that must fail;
-10. MoE path (run_moe_path): Mixtral-8x7B's widths at 8 of its 32 layers
+10. breadth path (run_breadth_path): the decoder family and weights from
+   disk. (a) Falcon-7B's published widths (71 query heads over one KV head
+   of 64, hidden 4544, vocab 65024) at 8 of its 32 layers and (b) Phi-2's
+   (32 heads of 80, rotary on 40% of each head) at 8 of 32, random bf16
+   weights from seed 0, the main path's 8 requests through build_engine +
+   generate, B1's launches against their prediction, the first decode
+   step's logits and every served token held to the dense model in f32
+   (control: the tokens shifted by one). (c) The main path's model
+   quantized at build time to int8, then int4: the at-rest bytes against
+   bf16's, the peak memory in generate, a decode step and the dequantize's
+   share of it; the logits and tokens held to a bf16 engine on the same
+   dequantized weights (control: int8 against the int4 weights). (d)
+   Llama-2-7B's widths at 2 layers written as an HF directory by the
+   port's safetensors writer: build_hf_engine, serialize ->
+   build_engine_from_ds_checkpoint (int8 too, loaded back quantized), each
+   bitwise build_engine's logits (control: int8 against bf16), and
+   `python -m deepspeed_tpu_torch.bin.dstpu_replica --checkpoint` serving
+   an in-process engine's tokens over HTTP;
+11. MoE path (run_moe_path): Mixtral-8x7B's widths at 8 of its 32 layers
    (random bf16 weights from seed 0). (a) 8 requests of 125-850 prompt
    tokens through build_engine + generate on one rank, 32 greedy new tokens
    at capacity factor 4.0 (no assignment dropped), B1's launch count zeroed
@@ -139,7 +157,7 @@ Phases (any failure raises and the script exits non-zero):
    ran out of memory in the out-of-place AdamW) through
    initialize + train_batch at ZeRO 3, B 1, S 1024, three steps: the first
    step's loss and gradient norm against the same step in f32;
-11. training path: train bench.py's headline program (the 530M Llama, full
+12. training path: train bench.py's headline program (the 530M Llama, full
    width and depth, S=1024, micro-batch 8, GAS 8, AdamW, bf16 over f32
    masters, ZeRO stage 3, remat "dots", flash attention) through
    deepspeed_tpu_torch.initialize + train_batch, with the flash kernels'
@@ -149,7 +167,7 @@ Phases (any failure raises and the script exits non-zero):
    projections' gradients, through the kernels and through plain attention
    in bf16, to the same step in f32, and show that the check rejects the
    kernel step with dq, or dk and dv, zeroed or with attention replaced;
-12. checkpoint path: on the same model cut to 2 layers (cut: depth, so the
+13. checkpoint path: on the same model cut to 2 layers (cut: depth, so the
    whole script stays inside its time) and the same batches, a save into
    tempfile.mkdtemp() and a resume in a fresh engine, its losses and f32
    masters bitwise those of the run that never stopped (the flash kernels'
@@ -164,7 +182,7 @@ Phases (any failure raises and the script exits non-zero):
    torn. Then every optimizer but AdamW on the model cut to 2 layers (3
    steps on one batch: finite, falling) and its f32 updates of a tiny
    config's tree on the card against the CPU's; save, load and CRC times;
-13. train features path: on the same model, curriculum learning (each
+14. train features path: on the same model, curriculum learning (each
    step's sequence length the scheduler's, B2-B4 launched as predicted at
    each length; the control at full length from the first step, with
    progressive layer drop's θ held to its formula), an MMapIndexedDataset
@@ -178,16 +196,16 @@ Phases (any failure raises and the script exits non-zero):
    plain attention: the probe converged, its Hessian-vector product against
    central differences (a product 10% off and one along another direction,
    the controls, fail), the eigenvalue gate below and above the probed value;
-14. zero path (run_zero_path): ZeRO across ranks, NCCL at world 1 and two
+15. zero path (run_zero_path): ZeRO across ranks, NCCL at world 1 and two
    ranks sharing the card over gloo at stages 1-3, and dstpu_train with a
    killed rank;
-15. zero+ path (run_zero_plus_path): the optimizer offloaded to pinned host
+16. zero+ path (run_zero_plus_path): the optimizer offloaded to pinned host
    memory beside the same steps on the card; NVMe offload into a directory
    under TMPDIR, bitwise CPU offload's; qwZ and qgZ over two gloo ranks held
    to their exact runs (losses, the first reduced gradients, masters, the
    bytes a rank sends), hpZ and MiCS over four held to world 1 and the
    placement rule; the pipeline engine over two stages, bitwise one rank;
-16. parallel path (run_parallel_path): two ranks of this script over gloo,
+17. parallel path (run_parallel_path): two ranks of this script over gloo,
    started once, run four legs: Llama-2-7B's widths at 8 layers served at TP
    2 (the main path's 8 requests, rank 0 scheduling and rank 1 following; B1
    at 16 heads a rank; every token teacher-forced through f32; the
@@ -199,7 +217,7 @@ Phases (any failure raises and the script exits non-zero):
    to a world-1 f32 step along the same routes, as is the first loss; the
    experts' outputs swapped between the ranks must fail the last three); each
    check with a control;
-17. composed path (run_composed_path): four ranks of this script over gloo,
+18. composed path (run_composed_path): four ranks of this script over gloo,
    started once, run three legs: Mixtral-8x7B's widths at 2 layers served at
    TP 2 x EP 2 (B1 at 16 heads over 4 KV heads; tokens against a one-rank
    engine's or teacher-forced through f32 along the served routes; the
@@ -210,7 +228,7 @@ Phases (any failure raises and the script exits non-zero):
    Mixtral's widths at 1 layer trained at SP 2 x EP 2 and ZeRO 3 (the global
    gate's drops against a world-1 f32 step along the same routes, a gate of
    each rank's own tokens the control; a quarter of each bank a rank);
-18. print one JSON line describing every kernel, then the result line.
+19. print one JSON line describing every kernel, then the result line.
 
 The main path and the serving, prefix, speculative, observe and fleet
 phases run Llama-2-7B's widths at 16 of its 32 layers (SERVE_LAYERS), and
@@ -246,7 +264,12 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch import telemetry
 from deepspeed_tpu_torch.compression.compress import init_compression
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
-from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine, generate
+from deepspeed_tpu_torch.inference.checkpoint import save_hf_checkpoint
+from deepspeed_tpu_torch.inference.v2.config_v2 import QuantizationConfig
+from deepspeed_tpu_torch.inference.v2.engine_factory import (build_engine, build_engine_from_ds_checkpoint,
+                                                             build_hf_engine, generate)
+from deepspeed_tpu_torch.inference.v2.quantization import (dequantize_tree, is_quantized_leaf, quantize_tree,
+                                                           tree_nbytes)
 from deepspeed_tpu_torch.inference.v2.model_implementations import transformer_base
 from deepspeed_tpu_torch.inference.v2.ragged.handoff import CONTENT_TYPE as HANDOFF_CONTENT_TYPE
 from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import DSStateManagerConfig, MemoryConfig
@@ -254,6 +277,8 @@ from deepspeed_tpu_torch.inference.v2.model_implementations.transformer_base imp
 from deepspeed_tpu_torch.inference.v2.ragged.prefix_cache import digest_chain
 from deepspeed_tpu_torch.inference.v2.spec import TokenTree
 from deepspeed_tpu_torch.models.convert import reference_names
+from deepspeed_tpu_torch.models.decoder import DecoderConfig, DecoderModel
+from deepspeed_tpu_torch.models.decoder import init_params as decoder_init_params
 from deepspeed_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM, LlamaModel, apply_rotary,
                                               causal_attention, init_params, param_shapes, rms_norm, rotary_embedding)
 from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM
@@ -431,12 +456,12 @@ def build_kernels() -> dict:
 
 
 # ----------------------------------------------------------------- phase 2 --
-def _paged_case(name, H, KVH, bs, seqs, gen, cpu_gen):
+def _paged_case(name, H, KVH, bs, seqs, gen, cpu_gen, D=128):
     """Inputs of one paged-attention call, at layer 1 of a two-layer cache
-    with head_dim 128. ``seqs`` lists, per sequence, the positions of its
+    with head_dim ``D``. ``seqs`` lists, per sequence, the positions of its
     tokens (empty: a padding row). Tables hold distinct random blocks up to
     each sequence's last position, then -1."""
-    layers, layer_idx, D = 2, 1, 128
+    layers, layer_idx = 2, 1
     MB = MAX_CONTEXT // bs
     S = len(seqs)
     need = [(max(p) // bs + 1 if p else 0) for p in seqs]
@@ -570,6 +595,13 @@ def check_paged_attention(dev) -> list:
         # of 32 heads over 4 of 8 KV heads, its expert rank's 4 requests
         _paged_case("mixtral_tp2_ep2_decode", 16, 4, BLOCK, [[PROMPT_LENS[i]] for i in COMP_E_SPLIT[0]], gen,
                     cpu_gen),
+        # the breadth phase's first decode steps (contexts of up to 6
+        # splits): Falcon-7B's 71 query heads over one KV head of 64 (18 head
+        # groups, the last of 3 heads), Phi-2's head_dim 80 (10 chunks a row
+        # over 16-lane groups), and GPT-J-6B's 16 heads of 256 (2 chunks a lane)
+        _paged_case("falcon7b_decode", 71, 1, BLOCK, [[n] for n in PROMPT_LENS], gen, cpu_gen, D=64),
+        _paged_case("phi2_decode", 32, 32, BLOCK, [[n] for n in PROMPT_LENS], gen, cpu_gen, D=80),
+        _paged_case("gptj6b_decode", 16, 16, BLOCK, [[n] for n in PROMPT_LENS], gen, cpu_gen, D=256),
     ]
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     results = []
@@ -8406,6 +8438,396 @@ def run_composed_path(dev, main) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- breadth --
+# the ragged engine's model breadth and weights from disk: the decoder family
+# at two published widths (B1 at 71 query heads over one KV head of 64, and at
+# head_dim 80), the main path's model quantized to int8 and int4, and weights
+# written to disk in HF layout and in the serialize format, then served
+BREADTH_PREDICTED_S = 120.0  # the phase's predicted seconds, printed before it runs
+BREADTH_PREDICTED = {"a": (20.0, 22.0), "b": (15.0, 14.0), "c": (45.0, 20.0), "d": (35.0, 11.0)}  # s, peak GiB
+BREADTH_FALCON_LAYERS = 8  # leg a: Falcon-7B's widths at 8 of its 32 layers (cut: depth, for the card's time)
+BREADTH_PHI_LAYERS = 8  # leg b: Phi-2's widths at 8 of its 32 layers (cut: depth, for the card's time)
+BREADTH_DISK_LAYERS = 2  # leg d: Llama-2-7B's widths at 2 layers (cut: depth; 1.33 GB on the 9p disk)
+BREADTH_KV_BYTES = 2 * 2**30  # per engine
+BREADTH_REPLICA_TOKENS = 16
+BREADTH_REPLICA_ARGS = ("--max-context", "256", "--num-blocks", "64", "--block-size", "64")
+# leg c: the at-rest bytes of the quantized tree over the bf16 tree's, with
+# its f32 scales (one per output channel) and the norms kept in bf16
+BREADTH_BYTES_RATIO = {8: (0.45, 0.55), 4: (0.20, 0.30)}
+
+
+def falcon7b_config(layers=BREADTH_FALCON_LAYERS) -> DecoderConfig:
+    """Falcon-7B's published widths (``tiiuae/falcon-7b`` ``config.json``:
+    hidden 4544, 71 heads over one KV head of 64, 32 layers, vocab 65024,
+    parallel attention and MLP off one LayerNorm, no biases, rotary), FFN 4 x
+    hidden, in the reference's ``DecoderConfig.falcon`` form (tanh gelu)."""
+    return DecoderConfig.falcon(vocab_size=65024, hidden_size=4544, intermediate_size=18176, num_hidden_layers=layers,
+                                num_attention_heads=71, num_key_value_heads=1, max_position_embeddings=2048,
+                                dtype=torch.bfloat16)
+
+
+def phi2_config(layers=BREADTH_PHI_LAYERS) -> DecoderConfig:
+    """Phi-2's published widths (``microsoft/phi-2`` ``config.json``: hidden
+    2560, FFN 10240, 32 heads of 80, 32 layers, vocab 51200,
+    ``partial_rotary_factor`` 0.4), in the reference's ``DecoderConfig.phi``
+    form (no ``lm_head`` bias)."""
+    return DecoderConfig.phi(vocab_size=51200, hidden_size=2560, intermediate_size=10240, num_hidden_layers=layers,
+                             num_attention_heads=32, num_key_value_heads=32, rotary_pct=0.4,
+                             max_position_embeddings=2048, dtype=torch.bfloat16)
+
+
+def _breadth_config(**kw) -> RaggedInferenceEngineConfig:
+    mgr = DSStateManagerConfig(max_context=MAX_CONTEXT, memory_config=MemoryConfig(size=BREADTH_KV_BYTES))
+    return RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=BLOCK, **kw)
+
+
+def _served(engine, prompts):
+    """``generate`` of the prompts (NEW_TOKENS greedy, decode_loop in one
+    chunk) after a warm-up, B1's launch count zeroed just before and read
+    just after: ``(tokens, stats)`` with the launches predicted from the
+    scheduler's calls (2 a layer in each decode step and each put of at most
+    32 tokens), the rates, a decode step's ms and the peak memory."""
+    generate(engine, [prompts[0], prompts[2]], max_new_tokens=4, decode_chunk=4)  # warm-up, not counted
+    torch.cuda.synchronize()
+    times = {"put": [], "decode_loop": []}
+    _timed(engine, "put", times["put"], _put_tokens)
+    _timed(engine, "decode_loop", times["decode_loop"], _loop_steps)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    paged_attention_update.launches = 0
+    t0 = time.perf_counter()
+    tokens = generate(engine, prompts, max_new_tokens=NEW_TOKENS, decode_chunk=NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = paged_attention_update.launches
+    del engine.put, engine.decode_loop
+    steps = sum(n for _, (_, n) in times["decode_loop"])
+    decode_s = sum(s for s, _ in times["decode_loop"])
+    small_puts = sum(1 for _, n in times["put"] if n <= 32)
+    return tokens, dict(wall_s=wall, b1_launches=launches,
+                        b1_expected=2 * engine.model.num_layers * (steps + small_puts),
+                        puts=[n for _, n in times["put"]], decode_loops=[list(w) for _, w in times["decode_loop"]],
+                        ms_per_decode_step=1e3 * decode_s / max(steps, 1),
+                        decode_tokens_per_s=sum(a * b for _, (a, b) in times["decode_loop"]) / decode_s,
+                        prefill_tokens_per_s=sum(len(p) for p in prompts) / sum(s for s, _ in times["put"]),
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                        peak_over_weights_gib=(torch.cuda.max_memory_allocated() - base) / 2**30)
+
+
+def _tf_gaps(model, dev, sequences):
+    """Every served token teacher-forced through the dense f32 ``model``, one
+    forward a request: the gaps between each row's maximum logit and the
+    served token's, and (the control) the same for the tokens shifted by
+    one position."""
+    gaps, shifted = [], []
+    with torch.no_grad():
+        for prompt, toks in sequences:
+            rows = model(torch.tensor([list(prompt) + list(toks[:-1])], device=dev))[0, len(prompt) - 1:].float()
+            top = rows.max(-1).values
+            at = torch.arange(len(toks), device=dev)
+            gaps.append((top - rows[at, torch.tensor(toks, device=dev)]).cpu())
+            shifted.append((top - rows[at, torch.tensor(toks[1:] + toks[:1], device=dev)]).cpu())
+    return torch.cat(gaps), torch.cat(shifted)
+
+
+def _dense_decoder_f32(params, cfg):
+    with torch.device("meta"):
+        model = DecoderModel(cfg)
+    model.load_state_dict({k: v.float() for k, v in params.items()}, assign=True)
+    return model
+
+
+def _breadth_decoder_leg(leg, cfg, dev, prompts, failures) -> dict:
+    """Legs a and b: a decoder-family model at published widths through
+    build_engine + generate, B1's launches against their prediction (at the
+    model's head shape), the first decode step's logits (one put of the 8
+    requests through B1) against the dense model in f32, and every served
+    token teacher-forced through it (control: the tokens shifted by one)."""
+    t0 = time.perf_counter()
+    params = decoder_init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    engine = build_engine(params, cfg, _breadth_config(), device=dev)
+    tokens, res = _served(engine, prompts)
+    res.update(model=cfg.model_type, layers=cfg.num_hidden_layers,
+               parameters=sum(p.numel() for p in params.values()), heads=cfg.num_attention_heads,
+               kv_heads=cfg.num_key_value_heads, head_dim=cfg.head_dim,
+               b1_geometry=pa.paged_attention_geometry(cfg.head_dim, cfg.num_attention_heads // cfg.num_key_value_heads,
+                                                       2))
+    if res["b1_launches"] <= 0 or res["b1_launches"] != res["b1_expected"]:
+        failures.append(f"{leg}: B1 launched {res['b1_launches']} times, expected {res['b1_expected']}")
+    if [len(t) for t in tokens] != [NEW_TOKENS] * len(prompts) or \
+            not all(0 <= x < cfg.vocab_size for t in tokens for x in t):
+        failures.append(f"{leg}: generate returned {[len(t) for t in tokens]} tokens")
+    first = [t[0] for t in tokens]
+    before = paged_attention_update.launches
+    served = _first_decode_logits(engine, prompts, first)
+    res["first_decode_b1_launches"] = paged_attention_update.launches - before
+    engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    model = _dense_decoder_f32(params, cfg)
+    with torch.no_grad():
+        ref = torch.stack([model(torch.tensor([p + [f]], device=dev))[0, -1] for p, f in zip(prompts, first)]).float()
+    res["logits_l2_rel_err_vs_f32"] = _l2_rel(served, ref)
+    res["logits_max_abs_err_vs_f32"] = (served - ref).abs().max().item()
+    res["argmax_agree_vs_f32"] = int((served.argmax(-1) == ref.argmax(-1)).sum())
+    if not torch.isfinite(served).all() or not res["logits_l2_rel_err_vs_f32"] <= LOGITS_L2_TOL:
+        failures.append(f"{leg}: first decode logits {res['logits_l2_rel_err_vs_f32']} from f32 (L2) > {LOGITS_L2_TOL}")
+    # B1 takes the decode put of the 8 requests and every prefill chunk of at
+    # most 32 tokens (_prefill puts a prompt in chunks of the token budget)
+    budget = _breadth_config().state_manager.max_ragged_batch_size
+    small_chunks = sum(1 for p in prompts for start in range(0, len(p), budget) if len(p[start:start + budget]) <= 32)
+    res["first_decode_b1_expected"] = 2 * cfg.num_hidden_layers * (1 + small_chunks)
+    if res["first_decode_b1_launches"] != res["first_decode_b1_expected"]:
+        failures.append(f"{leg}: the first decode step's puts launched B1 {res['first_decode_b1_launches']} times, "
+                        f"expected {res['first_decode_b1_expected']}")
+    limit = TF_SLACK * res["logits_max_abs_err_vs_f32"]
+    gaps, shifted = _tf_gaps(model, dev, list(zip(prompts, tokens)))
+    res["teacher_forced"] = dict(limit=limit, tokens=int(gaps.numel()), max_gap=gaps.max().item(),
+                                 exact=int((gaps == 0).sum()), control_shifted_max_gap=shifted.max().item())
+    if not gaps.max().item() <= limit:
+        failures.append(f"{leg}: a served token trails the f32 maximum by {gaps.max().item()} > {limit}")
+    if not shifted.max().item() > limit:
+        failures.append(f"{leg}: control: the shifted tokens passed the teacher-forced check")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[breadth] {leg} " + json.dumps(res))
+    return res
+
+
+def _dequantize_ms(engine, names, reps=3) -> float:
+    """Device ms to dequantize every quantized weight once, as a forward
+    reads each once (CUDA events around ``reps`` passes)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        for name in names:
+            engine.model._params[name]
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _breadth_quantized_leg(params, cfg, dev, prompts, main, failures) -> dict:
+    """Leg c: the main path's model quantized at build time to int8, then
+    int4, served through generate: the at-rest bytes (``tree_nbytes``)
+    against the bf16 tree's, the peak memory in generate, a decode step's
+    ms and the dequantize's share of it; the first decode step's logits and
+    the greedy tokens held to a bf16 engine on
+    ``dequantize_tree(quantize_tree(params))`` (the same weights): logits
+    bit for bit, tokens equal, or teacher-forced through the dense f32 model
+    of those weights where they differ (control: int8's tokens against the
+    int4 weights' engine)."""
+    t0 = time.perf_counter()
+    bf16_bytes = tree_nbytes(params)
+    res, tokens_by_bits, logits_by_bits, ref_by_bits = dict(bf16_bytes=bf16_bytes), {}, {}, {}
+    tol = TF_SLACK * max(main["logits_max_abs_err_kernel_vs_f32"], main["logits_max_abs_err_gather_vs_f32"])
+    for bits in (8, 4):
+        r = res[f"int{bits}"] = {}
+        engine = build_engine(params, cfg, _breadth_config(quantization=QuantizationConfig(enabled=True, bits=bits)),
+                              device=dev)
+        stored = dict(engine.model._params.items())
+        names = [n for n, v in stored.items() if is_quantized_leaf(v)]
+        r.update(weight_bytes=tree_nbytes(stored), quantized_tensors=len(names))
+        r["bytes_ratio_to_bf16"] = r["weight_bytes"] / bf16_bytes
+        del stored
+        tokens, r["served"] = _served(engine, prompts)
+        r["dequantize_ms"] = _dequantize_ms(engine, names)
+        r["dequantize_share_of_decode_step"] = r["dequantize_ms"] / r["served"]["ms_per_decode_step"]
+        first = [t[0] for t in tokens]
+        q_logits = _first_decode_logits(engine, prompts, first)
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+        lo, hi = BREADTH_BYTES_RATIO[bits]
+        if not lo <= r["bytes_ratio_to_bf16"] <= hi:
+            failures.append(f"c: int{bits} weights at rest are {r['bytes_ratio_to_bf16']:.4f} of bf16's, "
+                            f"outside [{lo}, {hi}]")
+        if r["served"]["b1_launches"] <= 0 or r["served"]["b1_launches"] != r["served"]["b1_expected"]:
+            failures.append(f"c: int{bits}: B1 launched {r['served']['b1_launches']} times, "
+                            f"expected {r['served']['b1_expected']}")
+        deq = dequantize_tree(quantize_tree(params, bits=bits))
+        ref_engine = build_engine(deq, cfg, _breadth_config(), device=dev)
+        ref_tokens, r["dequantized_bf16_served"] = _served(ref_engine, prompts)
+        ref_logits = _first_decode_logits(ref_engine, prompts, first)
+        ref_engine.close()
+        del ref_engine
+        r["first_decode_logits_bitwise"] = bool(torch.equal(q_logits, ref_logits))
+        differ = [i for i, (a, b) in enumerate(zip(tokens, ref_tokens)) if a != b]
+        r["requests_with_equal_tokens"] = len(prompts) - len(differ)
+        if not r["first_decode_logits_bitwise"]:
+            failures.append(f"c: int{bits}: the first decode logits differ from the dequantized bf16 engine's "
+                            f"(max {(q_logits - ref_logits).abs().max().item()})")
+        if differ:
+            model = _dense_f32(deq, cfg)
+            gaps, _ = _tf_gaps(model, dev, [(prompts[i], tokens[i]) for i in differ])
+            del model
+            r["teacher_forced"] = dict(requests=differ, limit=tol, max_gap=gaps.max().item())
+            if not gaps.max().item() <= tol:
+                failures.append(f"c: int{bits}: a token that differs from the dequantized engine's trails the f32 "
+                                f"maximum by {gaps.max().item()} > {tol}")
+        del deq
+        gc.collect()
+        torch.cuda.empty_cache()
+        tokens_by_bits[bits], logits_by_bits[bits], ref_by_bits[bits] = tokens, q_logits, (ref_tokens, ref_logits)
+    # control: int8's logits and tokens against the int4 weights' engine
+    res["control_int8_vs_int4_logits_equal"] = bool(torch.equal(logits_by_bits[8], ref_by_bits[4][1]))
+    res["control_int8_vs_int4_requests_equal"] = sum(a == b for a, b in zip(tokens_by_bits[8], ref_by_bits[4][0]))
+    if res["control_int8_vs_int4_logits_equal"] or res["control_int8_vs_int4_requests_equal"] == len(prompts):
+        failures.append("c: control: the int4 weights' engine passed the int8 engine's checks")
+    res["seconds"] = time.perf_counter() - t0
+    log("[breadth] c " + json.dumps(res))
+    return res
+
+
+def _breadth_disk_leg(params, dev, prompts, failures) -> dict:
+    """Leg d: Llama-2-7B's widths at BREADTH_DISK_LAYERS written as an HF
+    directory by the port's own safetensors writer; ``build_hf_engine`` on it
+    against ``build_engine`` on the same weights, ``serialize`` then
+    ``build_engine_from_ds_checkpoint``, and the same for the int8 engine
+    (loaded back quantized, C24), each first decode step bit for bit
+    (control: the int8 logits against bf16's); then ``python -m
+    deepspeed_tpu_torch.bin.dstpu_replica --checkpoint`` on the card answers
+    a request over HTTP with an in-process engine's tokens from the same
+    arguments (control: the int8 engine's tokens). Everything written goes
+    under one ``tempfile.mkdtemp()`` and is removed."""
+    t0 = time.perf_counter()
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=BREADTH_DISK_LAYERS)
+    small = {k: v for k, v in params.items()
+             if not k.startswith("layers.") or int(k.split(".")[1]) < BREADTH_DISK_LAYERS}
+    first = [int(p[-1]) for p in prompts]
+    config, qconfig = _breadth_config(), _breadth_config(quantization=QuantizationConfig(enabled=True, bits=8))
+    root = tempfile.mkdtemp()
+    res = dict(layers=BREADTH_DISK_LAYERS, parameters=sum(v.numel() for v in small.values()))
+    proc = None
+    try:
+        hf, ds, dsq = (os.path.join(root, n) for n in ("hf", "ds", "ds_int8"))
+        t = time.perf_counter()
+        save_hf_checkpoint(hf, small, cfg)
+        res["hf_write_s"] = time.perf_counter() - t
+        res["hf_bytes"] = os.path.getsize(os.path.join(hf, "model.safetensors"))
+        engine = build_engine(small, cfg, config, device=dev)
+        want = _first_decode_logits(engine, prompts, first)
+        engine.close()
+        t = time.perf_counter()
+        engine = build_hf_engine(hf, config, device=dev)
+        torch.cuda.synchronize()
+        res["hf_load_s"] = time.perf_counter() - t
+        res["hf_bitwise"] = bool(torch.equal(_first_decode_logits(engine, prompts, first), want))
+        t = time.perf_counter()
+        engine.serialize(ds)
+        res["serialize_s"] = time.perf_counter() - t
+        engine.close()
+        t = time.perf_counter()
+        engine = build_engine_from_ds_checkpoint(ds, config, device=dev)
+        torch.cuda.synchronize()
+        res["ds_load_s"] = time.perf_counter() - t
+        res["ds_bitwise"] = bool(torch.equal(_first_decode_logits(engine, prompts, first), want))
+        engine.close()
+        quantized = build_engine(small, cfg, qconfig, device=dev)
+        want_q = _first_decode_logits(quantized, prompts, first)
+        quantized.serialize(dsq)
+        stored = dict(quantized.model._params.items())
+        again = build_engine_from_ds_checkpoint(dsq, qconfig, device=dev)
+        loaded = dict(again.model._params.items())
+        res["int8_leaves_back_quantized"] = sum(
+            1 for n, v in stored.items() if is_quantized_leaf(v) and is_quantized_leaf(loaded[n])
+            and all(torch.equal(v[k], loaded[n][k]) for k in v))
+        res["int8_leaves"] = sum(1 for v in stored.values() if is_quantized_leaf(v))
+        res["int8_ds_bitwise"] = bool(torch.equal(_first_decode_logits(again, prompts, first), want_q))
+        res["control_int8_vs_bf16_equal"] = bool(torch.equal(want_q, want))
+        again.close()
+        del engine, again, stored, loaded
+        torch.cuda.empty_cache()
+        for key in ("hf_bitwise", "ds_bitwise", "int8_ds_bitwise"):
+            if not res[key]:
+                failures.append(f"d: {key} is false")
+        if res["int8_leaves_back_quantized"] != res["int8_leaves"] or not res["int8_leaves"]:
+            failures.append(f"d: {res['int8_leaves_back_quantized']} of {res['int8_leaves']} int8 leaves loaded "
+                            "back quantized (C24)")
+        if res["control_int8_vs_bf16_equal"]:
+            failures.append("d: control: the int8 engine's logits passed the bitwise check against bf16's")
+
+        # the replica entry point on the card, over HTTP
+        repo = os.path.dirname(os.path.abspath(__file__))
+        port_file = os.path.join(root, "replica.port")
+        args = ["--checkpoint", hf, *BREADTH_REPLICA_ARGS]
+        prompt = list(prompts[0])
+        t = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "deepspeed_tpu_torch.bin.dstpu_replica", "--port-file",
+                                 port_file, *args], cwd=repo, env=dict(os.environ, PYTHONPATH=repo))
+        while not os.path.exists(port_file):
+            if proc.poll() is not None or time.perf_counter() - t > 300:
+                raise AssertionError(f"d: the replica exited ({proc.poll()}) or never announced its port")
+            time.sleep(0.05)
+        res["replica_spawn_to_port_s"] = time.perf_counter() - t
+        with open(port_file) as f:
+            host, port = f.read().split()
+        status, _, body = _exchange(f"http://{host}:{port}/v1/generate", "POST",
+                                    json.dumps(dict(prompt=prompt, max_new_tokens=BREADTH_REPLICA_TOKENS)).encode(),
+                                    {"Content-Type": "application/json"})
+        served = json.loads(body).get("tokens") if status == 200 else None
+        proc.terminate()
+        proc.wait(timeout=120)
+        in_process = dstpu_replica.build_engine_from_args(dstpu_replica.parser().parse_args(args))
+        want_tokens = generate(in_process, [prompt], max_new_tokens=BREADTH_REPLICA_TOKENS)[0]
+        in_process.close()
+        control = generate(quantized, [prompt], max_new_tokens=BREADTH_REPLICA_TOKENS)[0]
+        quantized.close()
+        del in_process, quantized
+        res.update(replica_status=status, replica_tokens=served, in_process_tokens=want_tokens,
+                   control_int8_tokens=control)
+        if served != want_tokens:
+            failures.append(f"d: the replica served {served}, the in-process engine {want_tokens}")
+        if control == want_tokens:
+            failures.append("d: control: the int8 engine's tokens passed the replica's equality check")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    log("[breadth] d " + json.dumps(res))
+    return res
+
+
+def run_breadth_path(dev, params, main) -> dict:
+    """The breadth phase (module doc, phase 10): legs a (Falcon-7B's widths),
+    b (Phi-2's), c (the main path's model at int8 and int4) and d (weights
+    from disk), each leg's seconds and peak memory beside its prediction."""
+    log(f"[breadth] predicted {BREADTH_PREDICTED_S:.0f} s; legs (s, peak GiB): " + json.dumps(BREADTH_PREDICTED))
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(20)
+    failures, res = [], dict(predicted_s=BREADTH_PREDICTED_S, predicted_legs=BREADTH_PREDICTED)
+    for leg, cfg in (("a", falcon7b_config()), ("b", phi2_config())):
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+        torch.cuda.reset_peak_memory_stats()
+        res[leg] = _breadth_decoder_leg(leg, cfg, dev, prompts, failures)
+        res[leg]["leg_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    cfg = serve_config()
+    prompts = [np.random.default_rng(0).integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+    torch.cuda.reset_peak_memory_stats()
+    res["c"] = _breadth_quantized_leg(params, cfg, dev, prompts, main, failures)
+    res["c"]["leg_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    res["d"] = _breadth_disk_leg(params, dev, prompts, failures)
+    res["d"]["leg_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["b1_launches"] = res["a"]["b1_launches"] + res["b"]["b1_launches"] + sum(
+        res["c"][f"int{b}"]["served"]["b1_launches"] for b in (8, 4))
+    res["seconds"] = time.perf_counter() - t0
+    res["failures"] = failures
+    log("[breadth] legs (s, peak GiB): " + json.dumps({k: (round(res[k]["seconds"], 1), round(res[k]["leg_peak_gib"], 2))
+                                                       for k in "abcd"}) + f"; {res['seconds']:.1f} s")
+    log(card_line())
+    if failures:
+        raise AssertionError("breadth phase: " + "; ".join(failures))
+    return res
+
+
 def _phase(record, name, fn, *args):
     """``fn(*args)``, its wall seconds kept in ``record["phase_seconds"]``."""
     t0 = time.perf_counter()
@@ -8453,6 +8875,7 @@ def main() -> int:
     record["fleet_path"] = _phase(record, "fleet_path", run_fleet_path, dev, params, record["main_path"])
     record["fleet_path"]["single_replica"] = {k: record["serving_path"][k] for k in (
         "ttft_p50_s", "ttft_p99_s", "itl_p50_s", "itl_p99_s", "served_tokens_per_s")}
+    record["breadth_path"] = _phase(record, "breadth_path", run_breadth_path, dev, params, record["main_path"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -8489,6 +8912,7 @@ def main() -> int:
                     launches_spec_path=record["spec_path"]["b1_launches"],
                     launches_observe_path=record["observe_path"]["b1_launches"],
                     launches_fleet_path=record["fleet_path"]["b1_launches"],
+                    launches_breadth_path=record["breadth_path"]["b1_launches"],
                     launches_moe_path=record["moe_path"]["b1_launches"],
                     launches_parallel_path=record["parallel_path"]["b1_launches"],
                     launches_composed_path=record["composed_path"]["b1_launches"],

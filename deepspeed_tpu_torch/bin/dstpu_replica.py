@@ -18,8 +18,10 @@ by default; without a GPU it raises unless ``--device cpu`` is given). The
 model is the reference's tiny random Llama (``LlamaConfig.tiny`` in bf16 at
 ``--vocab-size`` and ``--max-context``), its weights drawn on the host from
 ``--params-seed``: two replicas launched with identical arguments build
-identical weights, so KV handoffs between them are token-identical. Loading
-a checkpoint (``--checkpoint``) needs the HF containers, ROADMAP A9.
+identical weights, so KV handoffs between them are token-identical.
+``--checkpoint DIR`` serves an HF checkpoint directory, or an
+``InferenceEngineV2.serialize`` one, through ``engine_factory.build_hf_engine``
+instead, as the reference does.
 
 SIGTERM drains gracefully (in-flight requests finish bounded by
 ``--drain-timeout``); SIGKILL is the crash the supervisor's restart path
@@ -33,19 +35,17 @@ import threading
 
 
 def build_engine_from_args(args):
-    """The replica's engine: the tiny random Llama from ``--params-seed`` on
-    ``--device``, with the reference's KV pool and ragged limits."""
+    """The replica's engine on ``--device``, with the reference's KV pool and
+    ragged limits: the checkpoint's model under ``--checkpoint``, else the
+    tiny random Llama from ``--params-seed``."""
     import torch
 
     from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
-    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine, build_hf_engine
     from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import (AllocationMode, DSStateManagerConfig,
                                                                          MemoryConfig)
     from deepspeed_tpu_torch.models.llama import LlamaConfig, init_params
 
-    if args.checkpoint:
-        raise NotImplementedError("loading a checkpoint (--checkpoint) is not ported to "
-                                  "deepspeed_tpu_torch yet (see ROADMAP.md A9)")
     engine_config = RaggedInferenceEngineConfig(
         state_manager=DSStateManagerConfig(
             memory_config=MemoryConfig(mode=AllocationMode.ALLOCATE, size=args.num_blocks),
@@ -53,6 +53,8 @@ def build_engine_from_args(args):
             max_ragged_batch_size=args.max_ragged_batch_size,
             max_ragged_sequence_count=args.max_ragged_sequence_count),
         kv_block_size=args.block_size)
+    if args.checkpoint:
+        return build_hf_engine(args.checkpoint, engine_config, device=args.device)
     cfg = LlamaConfig.tiny(vocab_size=args.vocab_size, max_position_embeddings=args.max_context)
     params = init_params(cfg, torch.Generator().manual_seed(args.params_seed), device="cpu")
     return build_engine(params, cfg, engine_config, device=args.device)
@@ -73,7 +75,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=0, help="0 = ephemeral (announce via --port-file)")
     p.add_argument("--port-file", default=None, help="write '<host> <port>' here once the listener is bound")
-    p.add_argument("--checkpoint", default=None, help="inference checkpoint dir (not ported: ROADMAP A9)")
+    p.add_argument("--checkpoint", default=None, help="HF or serialize checkpoint dir (default: the tiny random Llama)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--vocab-size", type=int, default=512)
     p.add_argument("--max-context", type=int, default=128)

@@ -2,10 +2,7 @@
 
 Port of ``deepspeed_tpu/inference/v2/config_v2.py`` as dataclasses with the
 same fields, defaults and aliases (``tp``, ``weight_quantization``, ``ep``,
-``manager``; the aliases apply in :meth:`from_dict`). Tensor and expert
-parallelism, weight quantization and simulated gating keep their fields so
-that configs carry across, but the port's engine refuses them until they are
-ported (see ``engine_v2.py``). ``trace_enabled`` builds the per-layer tracer
+``manager``; the aliases apply in :meth:`from_dict`). ``trace_enabled`` builds the per-layer tracer
 (``tracer.py``). ``telemetry`` is the telemetry block of
 ``telemetry/config.py``.
 """

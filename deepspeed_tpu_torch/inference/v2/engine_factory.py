@@ -1,21 +1,40 @@
 """Engine construction + generation driver.
 
-Port of ``build_engine`` and ``generate`` from
-``deepspeed_tpu/inference/v2/engine_factory.py``. ``generate`` drives the
-serving scheduler (``serving/scheduler.py``), as the reference's does: Dynamic
-SplitFuse admission, decode-first batching and KV-pressure shrink/evict exist
-in that one place.
+Port of ``deepspeed_tpu/inference/v2/engine_factory.py``: ``build_engine``
+from weights and a config, ``build_engine_from_ds_checkpoint`` from an
+``InferenceEngineV2.serialize`` directory, ``build_hf_engine`` from an HF
+checkpoint directory (``inference/checkpoint.py``; a serialize directory
+routes to the DS loader, a legacy pickle one is refused), and ``generate``,
+which drives the serving scheduler (``serving/scheduler.py``), as the
+reference's does: Dynamic SplitFuse admission, decode-first batching and
+KV-pressure shrink/evict exist in that one place.
+
+A serialize directory is the reference's format, so either package loads
+what the other wrote: ``ds_model_config.json`` (the config class as the
+reference names it, ``deepspeed_tpu.models.<module>.<Config>``, and its
+fields, a dtype as ``{"__dtype__": name}``), ``metadata_rank0.json`` (each
+array's tree path, shape and logical dtype) and ``params_rank0.npz`` (bf16
+stored as a ``u2`` view). Paths are the reference's flax paths
+(``models/convert.py::reference_leaves``), quantized leaves included. The
+loader maps the class name to the port's class through a fixed table and
+never imports the named module.
 """
 
+import dataclasses
+import json
+import os
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2, expert_group, tensor_group
 from deepspeed_tpu_torch.inference.v2.model_implementations.registry import model_cls_for
-from deepspeed_tpu_torch.models.convert import expert_slice
-from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+from deepspeed_tpu_torch.inference.v2.quantization import is_quantized_leaf
+from deepspeed_tpu_torch.models.convert import expert_slice, reference_leaves, state_from_reference_leaves
+from deepspeed_tpu_torch.models.decoder import DecoderConfig
+from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM, is_expert_bank
 from deepspeed_tpu_torch.module_inject import auto_tp_specs, tp_slice
 from deepspeed_tpu_torch.utils.device import resolve_device
@@ -41,11 +60,117 @@ def build_engine(params, model_config, engine_config: Optional[RaggedInferenceEn
             params = expert_slice(params, group.rank, group.size)
     tp = tensor_group(engine_config, device)
     if tp is not None:
+        if any(is_quantized_leaf(v) for v in params.values()):
+            raise NotImplementedError("tensor parallelism of quantized weights: slicing cuts whole weights by name "
+                                      "(as in the reference, quantize each rank's shard after placement instead)")
         q = params["layers.0.self_attn.q_proj.weight"]
         if q.shape[0] == model_config.num_attention_heads * model_config.head_dim:
             params = serving_tp_slice(params, model_config, tp.rank, tp.size)
     model = model_cls_for(model_config)(params, model_config, engine_config, device)
     return InferenceEngineV2(model, engine_config)
+
+
+# the reference's config classes, by the name a serialize directory carries:
+# the port's class, and the port's fields that the reference's class lacks
+# (left out on writing, so that the reference's loader takes the fields)
+CONFIG_CLASSES = {
+    "deepspeed_tpu.models.llama.LlamaConfig": (LlamaConfig, ()),
+    "deepspeed_tpu.models.mixtral.MixtralConfig": (MixtralConfig, ("model_type", "sequence_parallel")),
+    "deepspeed_tpu.models.decoder.DecoderConfig": (DecoderConfig, ()),
+}
+_NPZ, _META, _CONFIG = "params_rank0.npz", "metadata_rank0.json", "ds_model_config.json"
+
+
+def write_ds_checkpoint(path: str, params, model_config) -> int:
+    """Write ``params`` (a ``state_dict``-keyed dict, quantized leaves
+    included) and ``model_config`` as a serialize directory (module doc);
+    returns the number of arrays. ``InferenceEngineV2.serialize`` calls it."""
+    names = {cls: (n, skip) for n, (cls, skip) in CONFIG_CLASSES.items()}
+    if type(model_config) not in names:
+        raise ValueError(f"serialize writes {sorted(CONFIG_CLASSES)}, not {type(model_config).__name__}")
+    name, skip = names[type(model_config)]
+    os.makedirs(path, exist_ok=True)
+    arrays, meta = {}, []
+    for i, (tree_path, t) in enumerate(sorted(reference_leaves(params, model_config).items())):
+        t = t.detach().cpu().contiguous()
+        logical = str(t.dtype).removeprefix("torch.")
+        arr = t.view(torch.int16).numpy().view(np.uint16) if t.dtype == torch.bfloat16 else t.numpy()
+        arrays[f"p{i}"] = arr
+        meta.append({"path": "/".join(tree_path), "shape": list(t.shape), "dtype": logical})
+    np.savez(os.path.join(path, _NPZ), **arrays)
+    with open(os.path.join(path, _META), "w") as f:
+        json.dump(meta, f)
+    fields = {}
+    for field in dataclasses.fields(model_config):
+        if field.name in skip:
+            continue
+        v = getattr(model_config, field.name)
+        fields[field.name] = {"__dtype__": str(v).removeprefix("torch.")} if isinstance(v, torch.dtype) else v
+    with open(os.path.join(path, _CONFIG), "w") as f:
+        json.dump({"config_class": name, "fields": fields}, f, indent=2)
+    return len(arrays)
+
+
+def load_ds_checkpoint(path: str):
+    """``(params, model_config)`` of a serialize directory (either
+    package's): CPU tensors in their stored dtypes, quantized leaves
+    regrouped. Raises for a config class outside :data:`CONFIG_CLASSES`."""
+    with open(os.path.join(path, _CONFIG)) as f:
+        doc = json.load(f)
+    if doc["config_class"] not in CONFIG_CLASSES:
+        raise ValueError(f"refusing config class {doc['config_class']!r} (loadable: {sorted(CONFIG_CLASSES)})")
+    cfg_cls = CONFIG_CLASSES[doc["config_class"]][0]
+
+    def dec(v):
+        if isinstance(v, dict) and "__dtype__" in v:
+            return getattr(torch, v["__dtype__"])
+        return tuple(v) if isinstance(v, list) else v
+
+    model_config = cfg_cls(**{k: dec(v) for k, v in doc["fields"].items()})
+    with open(os.path.join(path, _META)) as f:
+        meta = json.load(f)
+    leaves = {}
+    with np.load(os.path.join(path, _NPZ)) as z:
+        for i, m in enumerate(meta):
+            arr = z[f"p{i}"]
+            if m["dtype"] == "bfloat16":  # stored as a u2 view
+                t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+            else:
+                t = torch.from_numpy(arr)
+            leaves[tuple(m["path"].split("/"))] = t.reshape(m["shape"])
+    params = state_from_reference_leaves(leaves)
+    if isinstance(model_config, LlamaConfig) and any(".block_sparse_moe." in name for name in params):
+        raise ValueError(f"{path} holds a Mixtral's expert banks under a LlamaConfig (C25: the reference's "
+                         "serialize writes a Mixtral engine's attention config); its MoE settings are lost")
+    return params, model_config
+
+
+def build_engine_from_ds_checkpoint(path: str, engine_config: Optional[RaggedInferenceEngineConfig] = None,
+                                    device=None) -> InferenceEngineV2:
+    """Rebuild an engine from a serialize directory (either package's). A
+    quantized directory loads back quantized whatever ``engine_config``
+    says (C24): at rest as stored, dequantized where each layer reads a
+    weight."""
+    params, model_config = load_ds_checkpoint(path)
+    return build_engine(params, model_config, engine_config, device=device)
+
+
+def build_hf_engine(path: str, engine_config: Optional[RaggedInferenceEngineConfig] = None,
+                    device=None) -> InferenceEngineV2:
+    """Load an HF checkpoint directory (``inference/checkpoint.py``) and build
+    an engine; a directory with ``ds_model_config.json`` routes to
+    :func:`build_engine_from_ds_checkpoint`, and a legacy
+    ``ds_model_config.pkl`` is refused (a pickle in a checkpoint can run
+    code)."""
+    if os.path.exists(os.path.join(path, _CONFIG)):
+        return build_engine_from_ds_checkpoint(path, engine_config, device=device)
+    if os.path.exists(os.path.join(path, "ds_model_config.pkl")):
+        raise ValueError(f"{path} is a legacy pickle-format DS checkpoint; the format was retired (a pickle in a "
+                         "checkpoint can run arbitrary code). Re-serialize the engine to get the JSON-config format.")
+    from deepspeed_tpu_torch.inference.checkpoint import load_hf_checkpoint
+
+    params, model_config = load_hf_checkpoint(path)
+    return build_engine(params, model_config, engine_config, device=device)
 
 
 def serving_tp_slice(params, model_config, rank: int, size: int) -> dict:

@@ -55,8 +55,12 @@ from it to the other ranks of its model group, which run
 ``close``. Under TP x EP each expert rank's model group has its own rank
 0, so every rank of the mesh follows one leader.
 
-Not ported yet, and refused with ``NotImplementedError``: weight
-quantization (A9).
+Weight quantization (``quantization``, alias ``weight_quantization``) is
+the model's: int8 or packed int4 at rest, dequantized where each layer
+reads a weight (``model_implementations/transformer_base.py``). ``serialize``
+writes the model's config and weights in the reference's directory format
+(``engine_factory.build_engine_from_ds_checkpoint`` reads it back, as the
+reference's loader does).
 """
 
 import functools
@@ -76,12 +80,6 @@ from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import Placehol
 from deepspeed_tpu_torch.inference.v2.scheduling_utils import SchedulingError, SchedulingResult
 from deepspeed_tpu_torch.inference.v2.tracer import Tracer, get_tracer, set_tracer
 from deepspeed_tpu_torch.utils.logging import logger
-
-
-def _refuse_unported(config: RaggedInferenceEngineConfig) -> None:
-    """Raise for what is not ported."""
-    if config.quantization.enabled:
-        raise NotImplementedError("weight quantization is not ported to deepspeed_tpu_torch yet (see ROADMAP.md A9)")
 
 
 def serving_mesh(config: RaggedInferenceEngineConfig, device):
@@ -201,7 +199,6 @@ class InferenceEngineV2:
     def __init__(self, model, engine_config: RaggedInferenceEngineConfig) -> None:
         """``model`` is a built ``DSTransformerModelBase`` subclass on its device
         (``engine_factory.build_engine`` makes both)."""
-        _refuse_unported(engine_config)
         self._config = engine_config
         if engine_config.simulated_gating:
             enable_simulated_gating(engine_config.simulated_gating_temperature)
@@ -745,6 +742,21 @@ class InferenceEngineV2:
     def expert_parallel_group(self):
         """This rank's expert group (``utils.groups.RankGroup``), or None."""
         return self._ep_group
+
+    def serialize(self, save_path: str) -> None:
+        """Write the model's config and weights (quantized leaves as they
+        rest) in the reference's directory format
+        (``engine_factory.write_ds_checkpoint``);
+        ``engine_factory.build_engine_from_ds_checkpoint`` is the loader, in
+        either package. A tensor- or expert-parallel rank holds a slice of
+        the weights, so it refuses."""
+        from deepspeed_tpu_torch.inference.v2.engine_factory import write_ds_checkpoint
+
+        if self._tp_group is not None or self._ep_group is not None:
+            raise NotImplementedError("serialize writes whole weights; a tensor- or expert-parallel rank holds a "
+                                      "slice of them")
+        n = write_ds_checkpoint(save_path, dict(self._model._params.items()), self._model.model_config)
+        logger.info(f"serialized {n} param tensors to {save_path}")
 
     @_lockstep
     def leave_expert_group(self) -> int:

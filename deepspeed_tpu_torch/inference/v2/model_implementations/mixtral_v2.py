@@ -53,6 +53,12 @@ class MixtralV2Model(LlamaV2Model):
         ]
 
     @property
+    def model_config(self) -> MixtralConfig:
+        """The Mixtral config (``serialize`` writes it; the reference writes
+        the Llama config its base holds, C25)."""
+        return self._moe_config
+
+    @property
     def num_layers(self):
         return self._moe_config.num_hidden_layers
 

@@ -1,15 +1,20 @@
 """Inference-v2 model policy registry.
 
-Port of ``deepspeed_tpu/inference/v2/model_implementations/registry.py`` for
-the llama family (llama, mistral, qwen2) and mixtral. The generic decoder
-models are ROADMAP A9.
+Port of ``deepspeed_tpu/inference/v2/model_implementations/registry.py``:
+the llama family (llama, mistral, qwen2), mixtral, and the decoder family
+(opt, falcon, phi, gptj, gpt_neox), registered by config class and by
+``model_type``. Bloom (ALiBi) is not registered: ``DecoderV2Model`` refuses
+it rather than serve wrong logits, and GPT-Neo, which reaches it through
+the config class, too (C23).
 """
 
 from typing import Dict, Tuple
 
+from deepspeed_tpu_torch.inference.v2.model_implementations.decoder_v2 import DecoderV2Model
 from deepspeed_tpu_torch.inference.v2.model_implementations.llama_v2 import (LlamaV2Model, MistralV2Model,
                                                                              Qwen2V2Model)
 from deepspeed_tpu_torch.inference.v2.model_implementations.mixtral_v2 import MixtralV2Model
+from deepspeed_tpu_torch.models.decoder import DecoderConfig
 from deepspeed_tpu_torch.models.llama import LlamaConfig
 from deepspeed_tpu_torch.models.mixtral import MixtralConfig
 
@@ -39,3 +44,9 @@ register_policy("llama", LlamaConfig, LlamaV2Model)
 register_policy("mistral", LlamaConfig, MistralV2Model)
 register_policy("qwen2", LlamaConfig, Qwen2V2Model)
 register_policy("mixtral", MixtralConfig, MixtralV2Model)
+for _model_type in ("opt", "falcon", "phi", "gptj", "gpt_neox"):
+    register_policy(_model_type, DecoderConfig, DecoderV2Model)
+
+
+def supported_model_types():
+    return sorted(_BY_NAME)

@@ -11,7 +11,9 @@ threads the donated cache through it, the port runs eagerly and updates the
 one cache tensor in place: the JAX ``jit(..., donate_argnums=(1,))`` plus
 ``set_cache`` becomes an in-place write by the attention of each layer. The
 packed ``tok_meta``/``seq_meta`` arrays are copied to the device once per
-forward, and ``decode_loop`` keeps them there across steps. Per-layer
+forward, and ``decode_loop`` keeps them there across steps. Weight quantization
+(int8 / packed int4 at rest) happens once, at build time, and each weight is
+dequantized where its layer reads it. Per-layer
 compute comes from subclasses (``embed``, ``layer_forward``, ``unembed``).
 With a tracer set (``trace_enabled``), ``forward`` and ``empty_run`` run the
 same eager ops with a ``record`` around each phase (``embed``, per layer
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.inference.v2.modules.heuristics import attention_implementation
+from deepspeed_tpu_torch.inference.v2.quantization import DequantizingParams, is_quantized_leaf, quantize_tree
 from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import KVCacheConfig
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import RaggedBatchWrapper
 from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import DSSequenceDescriptor
@@ -50,11 +53,27 @@ class DSTransformerModelBase:
     """Subclasses define: num_layers, num_heads, num_kv_heads, head_dim,
     vocab_size, ``embed(ids)``, ``layer_forward(li, x, cache, attn_fn, batch)``
     and ``unembed(x)``. ``params`` is a dict of tensors, moved to ``device``
-    and cast to ``config.dtype`` (no copy where they already are)."""
+    and cast to ``config.dtype`` (no copy where they already are); a
+    quantized leaf (``inference/v2/quantization.py``) moves as it is.
+
+    With ``engine_config.quantization`` enabled the weights are quantized
+    here, once, and kept int8 / packed int4 at rest; ``self._params`` is a
+    :class:`DequantizingParams`, so each weight is dequantized where its
+    layer reads it (the reference dequantizes the tree inside each jitted
+    forward, where XLA fuses the dequantize into each consumer)."""
 
     def __init__(self, params, config, engine_config, device, state_manager=None):
         self._device = torch.device(device)
-        self._params = {k: v.to(device=self._device, dtype=config.dtype) for k, v in params.items()}
+        params = {k: ({n: t.to(self._device) for n, t in v.items()} if is_quantized_leaf(v) else
+                      v.to(device=self._device, dtype=config.dtype)) for k, v in params.items()}
+        wq = engine_config.quantization
+        if wq.enabled:
+            if engine_config.tensor_parallel.tp_size > 1:
+                raise NotImplementedError("weight_quantization with TP>1: tensor-parallel slicing cuts whole weights "
+                                          "by name, which quantized leaves change; quantizing each rank's shard "
+                                          "after placement is not wired (as in the reference)")
+            params = quantize_tree(params, min_size=wq.min_size, bits=wq.bits)
+        self._params = DequantizingParams(params)
         self._config = config
         self._engine_config = engine_config
         self._state_manager = None
@@ -64,6 +83,13 @@ class DSTransformerModelBase:
     # ------------------------------------------------------------ properties --
     @property
     def config(self):
+        return self._config
+
+    @property
+    def model_config(self):
+        """The model's own config, which ``serialize`` writes (a subclass
+        may build its base from another: a Mixtral's ``config`` is its
+        attention's Llama config)."""
         return self._config
 
     @property

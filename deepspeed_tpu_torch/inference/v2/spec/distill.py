@@ -136,14 +136,15 @@ def self_distill(engine, prompts: Optional[Sequence[Sequence[int]]] = None,
 
 # ------------------------------------------------------------------- CLI --
 def main(argv=None) -> int:
-    """Distill draft heads against the built-in tiny model (a self-contained
-    demo of the corpus→hidden→train loop). Loading a checkpoint
-    (``--checkpoint``) needs the HF containers, ROADMAP A9."""
+    """Distill draft heads against a checkpoint's model (``--checkpoint``: an
+    HF or serialize directory, through ``engine_factory.build_hf_engine``)
+    or the built-in tiny model (a self-contained demo of the
+    corpus→hidden→train loop)."""
     p = argparse.ArgumentParser(
         prog="python -m deepspeed_tpu_torch.inference.v2.spec.distill",
         description="Self-distill Medusa-style draft heads from a target model "
                     "(corpus generated in-process; no external data).")
-    p.add_argument("--checkpoint", help="HF or DS-serialized checkpoint dir (not ported: ROADMAP A9)")
+    p.add_argument("--checkpoint", help="HF or DS-serialized checkpoint dir (default: tiny built-in fixture model)")
     p.add_argument("--out", required=True, help="output .npz for the trained heads")
     p.add_argument("--heads", type=int, default=3)
     p.add_argument("--steps", type=int, default=150)
@@ -155,25 +156,25 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    if args.checkpoint:
-        raise NotImplementedError("loading a checkpoint (--checkpoint) is not ported to "
-                                  "deepspeed_tpu_torch yet (see ROADMAP.md A9)")
     import torch
 
     from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
-    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine, build_hf_engine
     from deepspeed_tpu_torch.inference.v2.ragged.manager_configs import (AllocationMode, DSStateManagerConfig,
                                                                          MemoryConfig)
     from deepspeed_tpu_torch.models.llama import LlamaConfig, init_params
     from deepspeed_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    cfg = LlamaConfig.tiny(dtype=torch.float32)
-    params = init_params(cfg, torch.Generator().manual_seed(args.seed), device="cpu")
-    mgr = DSStateManagerConfig(memory_config=MemoryConfig(mode=AllocationMode.ALLOCATE, size=64),
-                               max_context=512)
-    engine = build_engine(params, cfg, RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=16),
-                          device=device)
+    if args.checkpoint:
+        engine = build_hf_engine(args.checkpoint, device=device)
+    else:
+        cfg = LlamaConfig.tiny(dtype=torch.float32)
+        params = init_params(cfg, torch.Generator().manual_seed(args.seed), device="cpu")
+        mgr = DSStateManagerConfig(memory_config=MemoryConfig(mode=AllocationMode.ALLOCATE, size=64),
+                                   max_context=512)
+        engine = build_engine(params, cfg, RaggedInferenceEngineConfig(state_manager=mgr, kv_block_size=16),
+                              device=device)
 
     head, losses = self_distill(engine, num_heads=args.heads, steps=args.steps,
                                 lr=args.lr, max_new_tokens=args.max_new_tokens,

@@ -23,6 +23,13 @@ and ``pipeline_state_from_llama`` / ``llama_state_from_pipeline`` move a
 grid. ``mixtral_from_flax`` / ``_to_flax`` carry a Mixtral tree
 (``block_sparse_moe.{gate, ExpertFFN_0.{wi, wo}}``) bit for bit, and
 ``expert_slice`` keeps an expert-parallel rank's experts.
+``decoder_from_flax`` / ``_to_flax`` carry ``models/decoder.py``'s tree (a
+LayerNorm's ``scale`` is the port's ``weight``). For any of the three
+families, ``reference_path`` / ``port_name`` map one name to the other, and
+``reference_leaves`` / ``state_from_reference_leaves`` move a whole
+``state_dict`` to the reference's paths and back in its own dtypes, a
+quantized weight's keys (``inference/v2/quantization.py``) under its path:
+the serialize directory's layout.
 """
 
 from collections.abc import Mapping
@@ -356,3 +363,132 @@ def expert_slice(state_dict, rank: int, ep: int) -> dict:
             t = t[rank * per:(rank + 1) * per]
         out[name] = t
     return out
+
+
+# ------------------------------------------------- any model, any dtype --
+def _is_mixtral(cfg) -> bool:
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+    return isinstance(cfg, MixtralConfig)
+
+
+def _is_decoder(cfg) -> bool:
+    from deepspeed_tpu_torch.models.decoder import DecoderConfig
+    return isinstance(cfg, DecoderConfig)
+
+
+def reference_path(name: str, cfg) -> tuple:
+    """``(path, transposed)``: the reference's tree path of the ``state_dict``
+    entry ``name`` of a Llama-family model, a Mixtral or a decoder-family
+    model, and whether the port holds it transposed. ``layers.{i}`` is
+    ``layers_{i}``, ``experts`` is ``ExpertFFN_0``; an embedding's
+    ``weight`` is ``embedding``, a LayerNorm's ``scale`` (an RMSNorm keeps
+    ``weight``), a Linear's ``kernel`` (transposed). A Llama or a decoder
+    nests everything under ``model``, a Mixtral sits at the root."""
+    *owner, leaf = name.split(".")
+    path, i = [], 0
+    while i < len(owner):
+        if owner[i] == "layers":
+            path.append(f"layers_{owner[i + 1]}")
+            i += 2
+        else:
+            path.append(_FLAX_EXPERTS if owner[i] == "experts" else owner[i])
+            i += 1
+    transposed = False
+    if leaf == "weight":
+        if path[-1] in ("embed_tokens", "embed_positions"):
+            leaf = "embedding"
+        elif path[-1].endswith("norm"):
+            leaf = "scale" if _is_decoder(cfg) else "weight"
+        else:
+            leaf, transposed = "kernel", True
+    return (() if _is_mixtral(cfg) else ("model", )) + tuple(path) + (leaf, ), transposed
+
+
+def port_name(path) -> tuple:
+    """The inverse of :func:`reference_path`: ``(name, transposed)`` for a
+    reference path, with or without the leading ``model``."""
+    path = list(path[1:] if path[0] == "model" else path)
+    *owner, leaf = path
+    parts = []
+    for p in owner:
+        if p.startswith("layers_"):
+            parts += ["layers", p[len("layers_"):]]
+        else:
+            parts.append("experts" if p == _FLAX_EXPERTS else p)
+    transposed = leaf == "kernel"
+    if leaf in ("kernel", "embedding", "scale"):
+        leaf = "weight"
+    return ".".join(parts + [leaf]), transposed
+
+
+def _t(x, transposed):
+    """A transposed weight's component (int8 values, packed words, scales)
+    moves between layouts transposed; a 0-d dtype marker as it is."""
+    return x.t().contiguous() if transposed and x.dim() == 2 else x
+
+
+def reference_leaves(state, cfg) -> dict:
+    """``{reference path: tensor}`` of a ``state_dict`` (dtypes kept); a
+    quantized leaf (``inference/v2/quantization.py``) gives one path per
+    key under its weight's path, each in the reference's layout."""
+    out = {}
+    for name, value in state.items():
+        path, transposed = reference_path(name, cfg)
+        if isinstance(value, Mapping):
+            for key, t in value.items():
+                out[path + (key, )] = _t(t, transposed)
+        else:
+            out[path] = _t(value, transposed)
+    return out
+
+
+def state_from_reference_leaves(leaves) -> dict:
+    """The inverse of :func:`reference_leaves`: a ``state_dict`` with the
+    quantized leaves regrouped (dtypes kept)."""
+    from deepspeed_tpu_torch.inference.v2.quantization import DKEY, Q4KEY, QKEY, SKEY
+
+    out = {}
+    for path, t in leaves.items():
+        if path[-1] in (QKEY, Q4KEY, SKEY, DKEY):
+            name, transposed = port_name(path[:-1])
+            out.setdefault(name, {})[path[-1]] = _t(t, transposed)
+        else:
+            name, transposed = port_name(path)
+            out[name] = _t(t, transposed)
+    return out
+
+
+def _checked(state, cfg, shapes):
+    if set(state) != set(shapes):
+        raise ValueError(f"tree does not fit {type(cfg).__name__}: missing {sorted(set(shapes) - set(state))}, "
+                         f"unexpected {sorted(set(state) - set(shapes))}")
+    for name, shape in shapes.items():
+        if tuple(state[name].shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(state[name].shape)} != {tuple(shape)}")
+    return state
+
+
+def decoder_from_flax(tree, cfg) -> dict:
+    """The reference ``DecoderForCausalLM``'s param tree (``{"model": ...}``
+    of numpy arrays) as ``models/decoder.py``'s ``state_dict``: Dense
+    kernels transposed, LayerNorm ``scale`` as ``weight``. CPU tensors in
+    ``cfg.dtype``."""
+    from deepspeed_tpu_torch.models.decoder import param_shapes as decoder_shapes
+
+    leaves = {path: torch.tensor(np.asarray(v, np.float32), dtype=cfg.dtype) for path, v in _flatten(tree)}
+    return _checked(state_from_reference_leaves(leaves), cfg, decoder_shapes(cfg))
+
+
+def decoder_to_flax(state_dict, cfg) -> dict:
+    """The inverse of :func:`decoder_from_flax`: ``{"model": ...}`` of f32
+    numpy arrays."""
+    from deepspeed_tpu_torch.models.decoder import param_shapes as decoder_shapes
+
+    _checked(state_dict, cfg, decoder_shapes(cfg))
+    root = {}
+    for path, t in reference_leaves(state_dict, cfg).items():
+        node = root
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = t.detach().float().cpu().numpy()
+    return root

@@ -109,10 +109,38 @@ def test_paged_attention_split_contexts_match_plain_and_repeat(cuda_device, dtyp
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# the decoder family's decode shapes: Falcon-7B's 71 query heads over one KV
+# head of 64 (18 head groups of 4, the last holding 3), Phi-2's head_dim 80
+# (10 chunks a row over 16-lane groups) and GPT-J's 256 (2 chunks a lane)
+BREADTH_SHAPES = ((71, 1, 64), (4, 4, 80), (4, 4, 256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("H,KVH,D", BREADTH_SHAPES, ids=["falcon_mqa71_d64", "phi_d80", "gptj_d256"])
+def test_paged_attention_breadth_shapes_match_plain(cuda_device, dtype, H, KVH, D):
+    q, k_new, v_new, cache, li, table, seq, pos, valid = _context_case(H, KVH, 64, D, dtype, cuda_device,
+                                                                       SPLIT_CONTEXTS)
+    c_kernel, c_plain = cache.clone(), cache.clone()
+    # a freed block of NaNs of q's size, which the caching allocator hands to
+    # the kernel's output: a head or lane the kernel fails to write stays NaN
+    torch.full_like(q, float("nan"))
+    before = paged_attention_update.launches
+    got, _ = paged_attention_update(q, k_new, v_new, c_kernel, li, table, seq, pos, valid)
+    want, _ = paged_attention_update_plain(q, k_new, v_new, c_plain, li, table, seq, pos, valid)
+    again, _ = paged_attention_update(q, k_new, v_new, c_plain.clone(), li, table, seq, pos, valid)
+    torch.cuda.synchronize()
+    assert paged_attention_update.launches == before + 4
+    assert torch.equal(c_kernel, c_plain) and torch.equal(got, again)
+    assert not got[valid == 0].any() and torch.isfinite(got.float()).all()
+    tol = {torch.bfloat16: 2**-7, torch.float16: 2**-10, torch.float32: 1e-5}[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.cuda
 def test_paged_attention_geometry_mirrors_the_kernel(cuda_device):
     for D, rep, itemsize in ((128, 1, 2), (128, 4, 2), (64, 1, 2), (96, 8, 2), (128, 8, 4), (256, 2, 2),
-                             (1024, 1, 2), (8, 3, 2)):
+                             (1024, 1, 2), (8, 3, 2), (64, 71, 2), (80, 1, 2), (256, 1, 2), (256, 1, 4)):
         assert kernel_geometry(D, rep, itemsize) == paged_attention_geometry(D, rep, itemsize), (D, rep, itemsize)
 
 

@@ -231,9 +231,13 @@ def test_kv_cache_dtype_follows_model_dtype(setup):
 
 def test_unported_features_are_refused(setup):
     _, _, cfg, params, _, _ = setup
-    ec = dataclasses.replace(_port_config(), quantization={"enabled": True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_engine(params, cfg, ec, device="cpu")
+    # weight quantization is ported: the engine builds with int8 weights at rest
+    from deepspeed_tpu_torch.inference.v2.config_v2 import QuantizationConfig
+    from deepspeed_tpu_torch.inference.v2.quantization import is_quantized_leaf
+    ec = dataclasses.replace(_port_config(), quantization=QuantizationConfig(enabled=True, min_size=1024))
+    eng = build_engine(params, cfg, ec, device="cpu")
+    assert is_quantized_leaf(dict(eng.model._params.items())["layers.0.mlp.up_proj.weight"])
+    eng.close()
     # simulated gating is ported: it turns the process-wide simulated router
     # on (a Llama has no router to replace)
     from deepspeed_tpu_torch.inference.v2.modules import moe

@@ -207,12 +207,29 @@ def test_dstpu_replica_under_the_supervisor_serves_the_in_process_tokens():
     assert served == [list(map(int, w)) for w in want]
 
 
-def test_dstpu_replica_refuses_the_cpu_unasked_and_checkpoints(monkeypatch):
+def test_dstpu_replica_refuses_the_cpu_unasked_and_checkpoints(monkeypatch, tmp_path):
+    """Without a GPU the entry point raises unless ``--device cpu`` is given,
+    with ``--checkpoint`` too; a checkpoint of the ``--params-seed`` model's
+    weights (an HF directory) serves its tokens."""
+    from deepspeed_tpu_torch.inference.checkpoint import save_hf_checkpoint
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_params
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    parse = dstpu_replica.parser().parse_args
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        dstpu_replica.build_engine_from_args(dstpu_replica.parser().parse_args(REPLICA_ARGS))
-    with pytest.raises(NotImplementedError, match="A9"):
-        dstpu_replica.build_engine_from_args(dstpu_replica.parser().parse_args(["--checkpoint", "/nonexistent"]))
+        dstpu_replica.build_engine_from_args(parse(REPLICA_ARGS))
+    cfg = LlamaConfig.tiny(vocab_size=64, max_position_embeddings=64)
+    save_hf_checkpoint(str(tmp_path), init_params(cfg, torch.Generator().manual_seed(3), device="cpu"), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dstpu_replica.build_engine_from_args(parse(["--checkpoint", str(tmp_path)] + REPLICA_ARGS))
+    engines = [dstpu_replica.build_engine_from_args(parse(extra + ["--device", "cpu"] + REPLICA_ARGS))
+               for extra in (["--checkpoint", str(tmp_path)], [])]
+    try:
+        tokens = [generate(engine, [[1, 2, 3, 4, 5]], max_new_tokens=6) for engine in engines]
+    finally:
+        for engine in engines:
+            engine.close()
+    assert tokens[0] == tokens[1]
     with open(os.path.join(REPO, "bin", "dstpu_replica")) as f:
         ref = f.read()
     for action in dstpu_replica.parser()._actions[1:]:

@@ -82,6 +82,9 @@ def test_port_and_chip_smoke_import_no_jax_flax_pydantic_or_reference():
                  "runtime.comm.quantized_grads", "runtime.pipe.module", "runtime.pipe.schedule",
                  "runtime.pipe.executor", "runtime.pipe.engine"):
         assert f"deepspeed_tpu_torch.{name}" in result["imported"]
+    for name in ("models.decoder", "inference.v2.model_implementations.decoder_v2", "inference.v2.quantization",
+                 "inference.checkpoint", "inference.v2.spec.distill"):
+        assert f"deepspeed_tpu_torch.{name}" in result["imported"]
     assert result["banned"] == []
 
 
@@ -90,6 +93,7 @@ def test_entry_points_refuse_the_cpu_without_being_asked(monkeypatch):
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.bin import dstpu_replica, dstpu_train
     from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    from deepspeed_tpu_torch.models import decoder
     from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
     from deepspeed_tpu_torch.utils.device import resolve_device
 
@@ -102,7 +106,8 @@ def test_entry_points_refuse_the_cpu_without_being_asked(monkeypatch):
     supervise = lambda *argv: dstpu_train.main(list(argv) + ["--", sys.executable, "-c", "pass"])
     monkeypatch.setattr(comm.comm, "cdb", None)
     for call in (lambda: resolve_device(None), lambda: init_params(cfg), lambda: build_engine(params, cfg), train,
-                 replica, supervise, comm.init_distributed):
+                 replica, supervise, comm.init_distributed,
+                 lambda: decoder.init_params(decoder.DecoderConfig.tiny("falcon"))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert build_engine(params, cfg, device="cpu").device.type == "cpu"

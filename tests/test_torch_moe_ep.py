@@ -146,8 +146,9 @@ def test_top_k_ties_take_the_lower_index(setup):
 
 
 def test_engine_refuses_only_tensor_parallelism_and_quantization(setup):
-    """EP and simulated gating build; weight quantization still raises,
-    naming its item. Tensor parallelism of a MoE model is ported (its
+    """EP and simulated gating build, and so does weight quantization (the
+    model quantizes its weights when it is built: an engine over an
+    unquantized model takes the config as it is). Tensor parallelism of a MoE model is ported (its
     parity runs in ``tests/test_torch_tp.py``), so TP 2 in a world of one
     rank raises naming the world, as a Llama's does; a replica count that
     is not the world's raises. The name is kept so that the test's id
@@ -156,12 +157,16 @@ def test_engine_refuses_only_tensor_parallelism_and_quantization(setup):
     _engine(state, cfg, simulated_gating=True).close()
     eng = build_engine({k: torch.from_numpy(v) for k, v in state.items()}, cfg, sc.engine_config(1), device="cpu")
     assert eng.expert_parallel_group is None and eng.leave_expert_group() == 0
-    for key, value, error, match in (("tensor_parallel", {"tp_size": 2}, ValueError, "tp_size 2 != the comm world's 1"),
-                                     ("quantization", {"enabled": True}, NotImplementedError, "A9")):
-        config = sc.engine_config(0)
-        config = dataclasses.replace(config, **{key: type(getattr(config, key))(**value)})
-        with pytest.raises(error, match=match):
-            InferenceEngineV2(eng.model, config)
+    config = sc.engine_config(0)
+    config = dataclasses.replace(config, tensor_parallel=type(config.tensor_parallel)(tp_size=2))
+    with pytest.raises(ValueError, match="tp_size 2 != the comm world's 1"):
+        InferenceEngineV2(eng.model, config)
+    config = sc.engine_config(0)
+    config = dataclasses.replace(config, quantization=type(config.quantization)(enabled=True, min_size=1024))
+    InferenceEngineV2(eng.model, config).close()
+    quantized = build_engine({k: torch.from_numpy(v) for k, v in state.items()}, cfg, config, device="cpu")
+    assert isinstance(dict(quantized.model._params.items())["layers.0.block_sparse_moe.experts.wi"], dict)
+    quantized.close()
     with pytest.raises(ValueError, match="replica_num 2"):
         build_engine({k: torch.from_numpy(v) for k, v in state.items()}, cfg, sc.engine_config(2), device="cpu")
 

@@ -749,5 +749,12 @@ def test_distill_main_writes_heads_and_refuses_a_checkpoint(tmp_path, capsys):
                            "--num-prompts", "1", "--device", "cpu"]) == 0
     head = j_spec.MedusaDraftHead.load(str(out))  # the reference loads it
     assert head.num_heads == 1 and "saved" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_distill.main(["--out", str(out), "--checkpoint", str(tmp_path), "--device", "cpu"])
+    # a checkpoint directory goes through build_hf_engine (refused until the HF loader was ported)
+    from deepspeed_tpu_torch.inference.checkpoint import save_hf_checkpoint
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_params
+    cfg = LlamaConfig.tiny(dtype=torch.float32, max_position_embeddings=64)
+    save_hf_checkpoint(str(tmp_path / "ckpt"), init_params(cfg, torch.Generator().manual_seed(0), device="cpu"), cfg)
+    assert t_distill.main(["--out", str(tmp_path / "ckpt_heads.npz"), "--checkpoint", str(tmp_path / "ckpt"),
+                           "--heads", "1", "--steps", "3", "--max-new-tokens", "8", "--num-prompts", "1",
+                           "--device", "cpu"]) == 0
+    assert j_spec.MedusaDraftHead.load(str(tmp_path / "ckpt_heads.npz")).num_heads == 1

@@ -292,10 +292,11 @@ def test_tp_mixtral_serves_as_one_rank(gangs, mixtral):
 
 
 @pytest.mark.parametrize("key,value,item", [("expert_parallel", {"enabled": True, "replica_num": 2}, "A8 item 5"),
-                                            ("quantization", {"enabled": True}, "A9")],
+                                            ("quantization", {"enabled": True}, "TP>1")],
                          ids=["tp_x_ep", "tp_x_quantization"])
 def test_tp_engine_refusals_remain(gangs, llama, mixtral, key, value, item):
-    """TP with weight quantization still raises, naming its ROADMAP item.
+    """TP with weight quantization still raises, as the reference's does
+    (``weight_quantization with TP>1``).
     TP with expert parallelism is ported, and its case is now the
     reference's ``test_tp_plus_ep_mixtral``: a Mixtral at TP 2 x EP 2 over
     the 4 ranks (each expert rank's two model ranks hold its 2 experts

@@ -3,7 +3,7 @@
 # change, change, parent, so that the card's drift between runs shows as a
 # difference within one tree rather than between the trees.
 #
-#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|spec|observe|fleet|features|zero|zeroplus|MODE,MODE...]
+#   tools/chip_smoke_compare.sh PARENT_DIR CHANGE_DIR [flash|paged|sparse|kernels|main|prefix|spec|observe|fleet|breadth|features|zero|zeroplus|MODE,MODE...]
 #
 # Each run's output goes to chiprun_out/smoke_<i>_<tree>.log and its full
 # record to chiprun_out/smoke_<i>_<tree>.json, under the directory the script
@@ -31,7 +31,10 @@
 # disaggregated burst's TTFT, ITL, served tokens/s, frame bytes and export /
 # import GB/s, the router's host ms a request, the time from a decode
 # replica's death to the next token, the steals, the peer fetch, the process
-# replica's spawn and restart seconds); with "features", the train features phase (run_train_features_path:
+# replica's spawn and restart seconds); with "breadth", the main path and the
+# breadth phase (run_breadth_path: each leg's seconds and peak memory, the
+# decoder family's decode steps, the int8 and int4 at-rest bytes, decode
+# steps and dequantize share, the disk leg's write and load seconds); with "features", the train features phase (run_train_features_path:
 # tokens/s at each curriculum length, prefetch and telemetry step times, the
 # compression transforms' ulps, the eigenvalue leg); with "zero", the zero
 # phase (run_zero_path: each leg's seconds, the gloo ranks' step seconds,
@@ -60,7 +63,7 @@ if "flash" in modes:
     r = c.check_flash_attention(dev)
     print(json.dumps([dict(case=x["case"], err=x["max_abs_err"], **{k: x[k]["ms"] for k in ("fwd", "dkv", "dq")})
                       for x in r]))
-if modes & {"main", "prefix", "spec", "observe", "fleet"}:
+if modes & {"main", "prefix", "spec", "observe", "fleet", "breadth"}:
     params = c.main_params(dev)
     main = c.run_main_path(dev, params)
 if "main" in modes:
@@ -105,6 +108,18 @@ if "fleet" in modes:
                           steal=r["steal"]["router"], peer_fetch_ms=r["peer_fetch"]["fetch_ms"],
                           spawn_to_ready_s=e["spawn_to_ready_s"], kill_to_ready_s=e["kill_to_ready_s"],
                           seconds=r["seconds"])))
+if "breadth" in modes:
+    r = c.run_breadth_path(dev, params, main)
+    q = {b: {k: r["c"][b][k] for k in ("bytes_ratio_to_bf16", "dequantize_ms", "dequantize_share_of_decode_step")}
+         for b in ("int8", "int4")}
+    for b in ("int8", "int4"):
+        q[b].update(ms_per_decode_step=r["c"][b]["served"]["ms_per_decode_step"],
+                    bf16_ms_per_decode_step=r["c"][b]["dequantized_bf16_served"]["ms_per_decode_step"],
+                    peak_gib=r["c"][b]["served"]["peak_gib"])
+    print(json.dumps(dict(seconds=r["seconds"], legs={k: (r[k]["seconds"], r[k]["leg_peak_gib"]) for k in "abcd"},
+                          decode_ms={k: r[k]["ms_per_decode_step"] for k in "ab"}, quantized=q,
+                          disk={k: r["d"][k] for k in ("hf_write_s", "hf_load_s", "serialize_s", "ds_load_s",
+                                                       "replica_spawn_to_port_s")})))
 if "features" in modes:
     r = c.run_train_features_path(dev)
     p, t, e = r["loaders"]["prefetch"], r["loaders"]["telemetry"], r["eigenvalue"]
